@@ -1,0 +1,131 @@
+"""Batched radix-4/2 Stockham complex FFT along the last axis, and the same
+FFT fused with the spectral Green multiply: wrappers of the CUDA kernel in
+``csrc/fft_stockham.cu``.
+
+Counterparts of ``fft_stockham`` and ``fft_stockham_scale`` in
+``repro.kernels.fft_stockham``.  The TPU kernels take separate (re, im)
+planes; here complex data is torch's own interleaved complex tensor, and a
+real input stands for a zero imaginary plane (the kernel reads it
+directly, no zeros plane is materialized).
+
+On a CUDA tensor each wrapper launches its kernel on the current stream
+and counts the launch; on a CPU tensor it runs the plain version in
+``ref``.  Anything else (other devices, dtypes, shapes, strides) raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from ._build import LAUNCHES, check, library
+
+__all__ = ["fft_stockham", "fft_stockham_scale", "MAX_N"]
+
+# Largest transform length: a 4096-point complex128 row in ping-pong
+# buffers is 128 KB of shared memory (the reference's own VMEM budget
+# note sizes its blocks for N <= 4096 too).
+MAX_N = 4096
+
+_REAL = (torch.float32, torch.float64)
+_COMPLEX = (torch.complex64, torch.complex128)
+
+
+def _check_input(x, what):
+    if x.dtype not in _REAL + _COMPLEX:
+        raise TypeError(f"{what}: x must be float32/64 or complex64/128, "
+                        f"got {x.dtype}")
+    if x.ndim != 2:
+        raise ValueError(f"{what}: x must be (batch, N), got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _fft_len(n_in, pad_to, inverse, what):
+    n = n_in if pad_to is None else pad_to
+    if pad_to is not None:
+        if pad_to != 2 * n_in:
+            raise ValueError(f"{what}: pad_to must be 2N, got {pad_to} for "
+                             f"N={n_in}")
+        if inverse:
+            raise ValueError(f"{what}: the zero-tail pruned input is a "
+                             "forward-only shape")
+    if n < 2 or n & (n - 1) or n > MAX_N:
+        raise ValueError(f"{what}: transform length must be a power of two "
+                         f"in [2, {MAX_N}], got {n}")
+    return n
+
+
+def _launch(x, out, g, n, inverse, max_radix, start, k, grows):
+    rows, n_in = x.shape
+    lib = library()
+    fn = (lib.repro_fft_stockham_f64 if ref._rdt(x) == torch.float64
+          else lib.repro_fft_stockham_f32)
+    tw = ref.twiddles(n, out.dtype, x.device)
+    err = fn(x.data_ptr(), int(x.is_complex()), out.data_ptr(),
+             None if g is None else g.data_ptr(), tw.data_ptr(),
+             rows, n_in, n, int(inverse), max_radix, start, k, grows,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "fft_stockham kernel launch")
+
+
+def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
+    """Complex FFT of ``x`` (batch, N) along the last axis -> complex
+    (batch, keep or n_fft).
+
+    ``inverse`` flips the sign and scales by 1/N.  ``pad_to = 2N``
+    (forward only) is the pruned Hockney zero-tail shape: the length-2N
+    spectrum of ``x`` zero-extended, computed from the N live samples.
+    ``keep`` writes only bins ``[0, keep)``.  ``max_radix`` 4 (radix-4
+    stages, one radix-2 step) or 2 (radix-2 only).
+    """
+    _check_input(x, "fft_stockham")
+    if max_radix not in (2, 4):
+        raise ValueError(f"max_radix must be 2 or 4, got {max_radix}")
+    rows, n_in = x.shape
+    n = _fft_len(n_in, pad_to, inverse, "fft_stockham")
+    k = n if keep is None else keep
+    if not 1 <= k <= n:
+        raise ValueError(f"keep must be in [1, {n}], got {keep}")
+    if x.device.type == "cpu":
+        return ref.fft_stockham(x, inverse=inverse, pad_to=pad_to,
+                                max_radix=max_radix, keep=keep)
+    out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
+                      device=x.device)
+    if rows:
+        _launch(x, out, None, n, inverse, max_radix, 0, k, 1)
+        LAUNCHES["fft_stockham"] += 1
+    return out
+
+
+def fft_stockham_scale(x, g, start=0, pad_to=None, max_radix=4):
+    """Forward FFT of ``x`` (rows, N) fused with the Green multiply:
+    returns complex (rows, k), bins ``[start, start+k)`` of the spectrum
+    times ``g`` (grows, k), row ``r`` taking Green row ``r % grows``.
+    Composes with ``pad_to = 2N``."""
+    _check_input(x, "fft_stockham_scale")
+    if max_radix not in (2, 4):
+        raise ValueError(f"max_radix must be 2 or 4, got {max_radix}")
+    rows, n_in = x.shape
+    n = _fft_len(n_in, pad_to, False, "fft_stockham_scale")
+    if g.ndim != 2 or g.dtype != ref._rdt(x) or not g.is_contiguous():
+        raise ValueError(f"fft_stockham_scale: g must be a contiguous 2-D "
+                         f"{ref._rdt(x)} tensor, got {tuple(g.shape)} "
+                         f"{g.dtype}")
+    if g.device != x.device:
+        raise ValueError("fft_stockham_scale: g and x on different devices")
+    grows, k = g.shape
+    if grows < 1 or rows % grows or start < 0 or start + k > n or k < 1:
+        raise ValueError(f"fft_stockham_scale: rows={rows}, g={grows}x{k}, "
+                         f"start={start}, n_fft={n} do not fit")
+    if x.device.type == "cpu":
+        return ref.fft_stockham_scale(x, g, start=start, pad_to=pad_to,
+                                      max_radix=max_radix)
+    out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
+                      device=x.device)
+    if rows:
+        _launch(x, out, g, n, False, max_radix, start, k, grows)
+        LAUNCHES["fft_stockham_scale"] += 1
+    return out

@@ -1,0 +1,190 @@
+"""The port's kernels, through their wrappers on CPU tensors (which run the
+plain PyTorch versions, the kernels' algorithm step for step), against the
+reference's Pallas kernels in interpret mode on the same numpy inputs.
+
+Tolerances: float64 rtol 1e-10 (atol 1e-10 * sqrt(n) for FFTs); float32 as
+``tests/test_kernels.py`` holds the Pallas kernels: rtol 1e-4 and atol
+1e-3 * sqrt(n) for the FFT, rtol 2e-6 for the scale.  The port's twiddles
+are float64 values cast once, the reference's float32 angle arithmetic;
+both sit far inside these bounds.
+"""
+import math
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.kernels import fft_stockham as rk
+from repro.kernels.spectral_scale import spectral_scale as r_spectral_scale
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import fft_stockham as tk
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.spectral_scale import spectral_scale
+
+
+def _tol(dtype, n=None):
+    if dtype == np.float64:
+        return dict(rtol=1e-10, atol=1e-10 * math.sqrt(n or 1))
+    if n is None:
+        return dict(rtol=2e-6, atol=1e-6)
+    return dict(rtol=1e-4, atol=1e-3 * math.sqrt(n))
+
+
+def _planes(rng, shape, dtype):
+    return (rng.standard_normal(shape).astype(dtype),
+            rng.standard_normal(shape).astype(dtype))
+
+
+def _cplx(re, im):
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+
+
+def _assert_pair(got, want_re, want_im, **tol):
+    np.testing.assert_allclose(got.real.numpy(), np.asarray(want_re), **tol)
+    np.testing.assert_allclose(got.imag.numpy(), np.asarray(want_im), **tol)
+
+
+@pytest.mark.parametrize("mode", ["forward", "inverse", "pad_to"])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("n,batch", [(8, 1), (16, 13), (64, 8), (128, 13),
+                                     (256, 1), (1024, 8)])
+def test_fft_stockham_matches_pallas(n, batch, radix, mode):
+    rng = np.random.default_rng(n + batch)
+    n_in = n // 2 if mode == "pad_to" else n
+    re, im = _planes(rng, (batch, n_in), np.float32)
+    kw = dict(inverse=mode == "inverse",
+              pad_to=n if mode == "pad_to" else None, max_radix=radix)
+    want_re, want_im = rk.fft_stockham(jnp.asarray(re), jnp.asarray(im),
+                                       **kw)
+    got = tk.fft_stockham(_cplx(re, im), **kw)
+    assert got.dtype == torch.complex64 and got.shape == (batch, n)
+    _assert_pair(got, want_re, want_im, **_tol(np.float32, n))
+
+
+@pytest.mark.parametrize("mode", ["forward", "inverse", "pad_to"])
+@pytest.mark.parametrize("n", [8, 32, 512])
+def test_fft_stockham_float64_matches_numpy(n, mode):
+    """The plain version is exact to float64 roundoff on every mode (the
+    Pallas float32 comparisons above cannot see below 1e-4)."""
+    rng = np.random.default_rng(n)
+    n_in = n // 2 if mode == "pad_to" else n
+    re, im = _planes(rng, (5, n_in), np.float64)
+    x = re + 1j * im
+    if mode == "inverse":
+        want = np.fft.ifft(x, axis=-1)
+    else:
+        want = np.fft.fft(x, n=n, axis=-1)
+    for radix in (2, 4):
+        got = tk.fft_stockham(_cplx(re, im), inverse=mode == "inverse",
+                              pad_to=n if mode == "pad_to" else None,
+                              max_radix=radix)
+        assert got.dtype == torch.complex128
+        np.testing.assert_allclose(got.numpy(), want, **_tol(np.float64, n))
+
+
+def test_fft_stockham_real_input_and_keep():
+    """A real input stands for a zero imaginary plane; ``keep`` returns
+    the head of the spectrum."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((7, 32))
+    got = tk.fft_stockham(torch.from_numpy(x), pad_to=64, keep=33)
+    np.testing.assert_allclose(got.numpy(), np.fft.rfft(x, n=64, axis=-1),
+                               **_tol(np.float64, 64))
+    got = tk.fft_stockham(torch.from_numpy(x), inverse=True, keep=5)
+    np.testing.assert_allclose(got.numpy(), np.fft.ifft(x, axis=-1)[:, :5],
+                               **_tol(np.float64, 32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("rows,grows,n,start,k", [
+    (16, 16, 32, 0, 32),       # full spectrum, one Green row per row
+    (24, 8, 64, 0, 33),        # grows < rows: 3 batch rows share a plane
+    (12, 4, 16, 3, 10),        # an interior bin window
+])
+def test_fft_stockham_scale_matches_pallas(rows, grows, n, start, k, pad,
+                                           dtype):
+    rng = np.random.default_rng(rows + n)
+    n_in = n // 2 if pad else n
+    re, im = _planes(rng, (rows, n_in), dtype)
+    g = rng.standard_normal((grows, k)).astype(dtype)
+    pad_to = n if pad else None
+    want_re, want_im = rk.fft_stockham_scale(
+        jnp.asarray(re), jnp.asarray(im), jnp.asarray(g), start=start,
+        pad_to=pad_to)
+    got = tk.fft_stockham_scale(_cplx(re, im), torch.from_numpy(g),
+                                start=start, pad_to=pad_to)
+    assert got.shape == (rows, k)
+    _assert_pair(got, want_re, want_im, **_tol(dtype, n))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(8, 128), (32, 256), (129, 384),
+                                   (7, 130), (3, 16, 256)])
+def test_spectral_scale_matches_pallas(shape, dtype):
+    rng = np.random.default_rng(0)
+    re, im = _planes(rng, shape, dtype)
+    g = rng.standard_normal(shape[-2:]).astype(dtype)
+    want_re, want_im = r_spectral_scale(jnp.asarray(re), jnp.asarray(im),
+                                        jnp.asarray(g), 0.37)
+    got = spectral_scale(_cplx(re, im), torch.from_numpy(g), 0.37)
+    assert got.shape == shape
+    _assert_pair(got, want_re, want_im, **_tol(dtype))
+    got_real = spectral_scale(torch.from_numpy(re), torch.from_numpy(g),
+                              0.37)
+    np.testing.assert_allclose(got_real.numpy(), np.asarray(want_re),
+                               **_tol(dtype))
+
+
+def test_cpu_calls_count_no_launch():
+    reset_launches()
+    x = torch.zeros((2, 8), dtype=torch.complex64)
+    tk.fft_stockham(x)
+    tk.fft_stockham_scale(x, torch.ones((2, 8)))
+    spectral_scale(x, torch.ones((2, 8)))
+    assert LAUNCHES == {"fft_stockham": 0, "fft_stockham_scale": 0,
+                        "spectral_scale": 0}
+
+
+@pytest.mark.parametrize("bad", ["strided", "dtype", "too_long", "not_pow2",
+                                 "pad_inverse", "pad_len", "rank"])
+def test_fft_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x = torch.zeros((4, 16), dtype=torch.complex64)
+    kw = {}
+    if bad == "strided":
+        x = torch.zeros((4, 32), dtype=torch.complex64)[:, ::2]
+    elif bad == "dtype":
+        x = torch.zeros((4, 16), dtype=torch.float16)
+    elif bad == "too_long":
+        x = torch.zeros((1, 2 * tk.MAX_N), dtype=torch.complex64)
+    elif bad == "not_pow2":
+        x = torch.zeros((4, 12), dtype=torch.complex64)
+    elif bad == "pad_inverse":
+        kw = dict(pad_to=32, inverse=True)
+    elif bad == "pad_len":
+        kw = dict(pad_to=64)
+    elif bad == "rank":
+        x = torch.zeros((2, 4, 16), dtype=torch.complex64)
+    with pytest.raises((ValueError, TypeError)):
+        tk.fft_stockham(x, **kw)
+
+
+def test_scale_wrappers_reject_mismatched_green():
+    x = torch.zeros((6, 16), dtype=torch.complex64)
+    with pytest.raises(ValueError):      # rows % grows != 0
+        tk.fft_stockham_scale(x, torch.ones((4, 16)))
+    with pytest.raises(ValueError):      # float64 plane for complex64 data
+        tk.fft_stockham_scale(x, torch.ones((6, 16), dtype=torch.float64))
+    with pytest.raises(ValueError):      # plane shape differs
+        spectral_scale(x, torch.ones((6, 8)))
+    with pytest.raises(ValueError):      # strided field
+        spectral_scale(torch.zeros((6, 32), dtype=torch.complex64)[:, ::2],
+                       torch.ones((6, 16)))
+
+
+def test_twiddle_table_is_the_forward_root_of_unity():
+    w = tref.twiddles(16, torch.complex128, torch.device("cpu"))
+    np.testing.assert_allclose(w.numpy(),
+                               np.exp(-2j * np.pi * np.arange(16) / 16),
+                               rtol=0, atol=1e-15)

@@ -5,24 +5,31 @@
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
+  2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc
+     (one process per source, all started together);
   3. every kernel against its plain PyTorch version on the card: float32
      and float64, forward / inverse / pruned pad_to / kept bins, radix 2
-     and 4, N in {8, 64, 512, 4096}, ragged and batched scale shapes;
+     and 4, N in {8, 64, 512, 4096} (the twiddle epilogue also 1024, with
+     the DCT-I/DCT-II/DST-II bin windows, batch 1 and 13), ragged and
+     batched scale shapes, twiddle_pack on a strided half-spectrum window
+     at the (E,E),(O,O),(E,O) 384^3 path's shape;
   4. the main path: PoissonSolver.solve on the "cuda" engine, CELL, CHAT2,
-     float32, for (U,U,U), (U,P,U) and (P,P,P) at 256^3 and (U,U,U) at
-     128^3 with B=2, each against the "torch" (cuFFT) engine on the card,
-     with the launch counts of both FFT kernels read around each solve;
-     then every kernel call of the (U,U,U) solve replayed at its shape
-     against the plain version;
-  5. the analytic check: NODE (U,U,U) HEJ4 n=64 float64 Gaussian blob,
-     which runs spectral_scale;
-  6. times with CUDA events (medians after warm-up): each kernel's time per
-     solve at the main path's shapes beside its plain version, one
-     equivalent PyTorch call where there is one, and its bound; the whole
-     solve on both engines, the device memory a solve allocates above
-     what is resident, and a torch.profiler breakdown of its device time
-     by kernel with the idle share that leaves.
+     float32, for (U,U,U), (U,P,U) and (P,P,P) at 256^3, (U,U,U) at 128^3
+     with B=2, semi-unbounded (U,E),(U,U),(U,U) at 256^3 and
+     (U,U),(U,U),(O,U) at 128^3, and the wall-bounded (E,E),(O,O),(E,O)
+     at 384^3, each against the "torch" (cuFFT) engine on the card, with
+     the launch counts of all five kernels read around each solve;
+  5. the analytic checks: NODE (U,U,U) HEJ4 n=64 float64 Gaussian blob
+     (spectral_scale), and NODE (U,E),(U,U),(U,U) HEJ4 n=64 float64 blob
+     and its even image (the DCT-I on fft_stockham_twiddle);
+  6. every kernel call of the recorded solves replayed at its shape
+     against the plain version, and times with CUDA events (medians after
+     warm-up): each kernel's time per solve at its path's shapes beside
+     its plain version, one equivalent PyTorch call where there is one,
+     and its bound; the whole solve on both engines, the device memory a
+     solve allocates above what is resident, and a torch.profiler
+     breakdown of its device time by kernel with the idle share that
+     leaves.
 The last two lines are the kernels' JSON record and the device JSON.
 The script imports neither JAX nor the JAX package.
 """
@@ -48,17 +55,52 @@ REPLACES = {
     "fft_stockham": "src/repro/kernels/fft_stockham.py:202",
     "fft_stockham_scale": "src/repro/kernels/fft_stockham.py:260",
     "spectral_scale": "src/repro/kernels/spectral_scale.py:46",
+    "twiddle_pack": "src/repro/kernels/twiddle_pack.py:32",
+    "fft_stockham_twiddle": "src/repro/kernels/fft_stockham.py:231",
 }
 SOURCES = {
     "fft_stockham": "src/repro_torch/kernels/csrc/fft_stockham.cu",
     "fft_stockham_scale": "src/repro_torch/kernels/csrc/fft_stockham.cu",
     "spectral_scale": "src/repro_torch/kernels/csrc/spectral_scale.cu",
+    "twiddle_pack": "src/repro_torch/kernels/csrc/twiddle_pack.cu",
+    "fft_stockham_twiddle": "src/repro_torch/kernels/csrc/fft_stockham.cu",
 }
 # cells per direction of the lead cases, timed repetitions per measurement
 N = 256
 REPS = 15
-# expected (fft_stockham, fft_stockham_scale) launches per CELL solve
-EXPECTED = {"UUU": (8, 1), "UPU": (7, 1), "PPP": (5, 1)}
+# launches per solve of each run, worked out from its plan (kernels not
+# named launch 0 times).  DFT CELL directions: a pruned forward (1), the
+# last one fused with the Green multiply (fft_stockham_scale), a pruned
+# parity-split inverse (2).  A semi-unbounded CELL direction of n cells:
+# the fused DCT-II / DST-II of length 2n (extension 4n, a power of two)
+# and the Stockham irfft of its DCT-III / DST-III.  (E,E),(O,O),(E,O) at
+# 384: two twiddle_packs after the library rfft of length 768, DCT-IV on
+# the library FFT of length 192, the Green multiply on a real field.
+# NODE: unpruned n+1-point DFT directions (1 each way), the Green
+# multiply apart; the semi-even DCT-I (extension 4n) fused both ways.
+EXPECTED = {
+    "UUU": {"fft_stockham": 8, "fft_stockham_scale": 1},
+    "UPU": {"fft_stockham": 7, "fft_stockham_scale": 1},
+    "PPP": {"fft_stockham": 5, "fft_stockham_scale": 1},
+    "UUU_B2": {"fft_stockham": 8, "fft_stockham_scale": 1},
+    "SEMI_E": {"fft_stockham": 6, "fft_stockham_scale": 1,
+               "fft_stockham_twiddle": 1},
+    "SEMI_O": {"fft_stockham": 6, "fft_stockham_scale": 1,
+               "fft_stockham_twiddle": 1},
+    "SYM384": {"spectral_scale": 1, "twiddle_pack": 2},
+    "NODE_UUU": {"fft_stockham": 6, "spectral_scale": 1},
+    "NODE_SEMI_E": {"fft_stockham": 4, "spectral_scale": 1,
+                    "fft_stockham_twiddle": 2},
+}
+# the run whose launches, shapes and times each kernel's record reports
+TIMED_ON = {"fft_stockham": "UUU", "fft_stockham_scale": "UUU",
+            "spectral_scale": "NODE_UUU", "twiddle_pack": "SYM384",
+            "fft_stockham_twiddle": "SEMI_E"}
+# relative E_inf of the NODE semi-even HEJ4 n=64 float64 case on the
+# reference, repro.core.solver.PoissonSolver(engine="xla") on the CPU
+# (the validation case of tests/test_validation.py); the port is held to
+# 1.5 times it
+SEMI_E_REF_EINF = 2.7204477288238545e-3
 
 
 def _rate(table, name, default):
@@ -87,8 +129,15 @@ def main() -> int:
     from repro_torch.core.solver import PoissonSolver
     from repro_torch.kernels import LAUNCHES, _build, ops, ref, reset_launches
     from repro_torch.kernels.fft_stockham import (fft_stockham,
-                                                  fft_stockham_scale)
+                                                  fft_stockham_scale,
+                                                  fft_stockham_twiddle)
     from repro_torch.kernels.spectral_scale import spectral_scale
+    from repro_torch.kernels.twiddle_pack import twiddle_pack
+    wrappers = {"fft_stockham": fft_stockham,
+                "fft_stockham_scale": fft_stockham_scale,
+                "spectral_scale": spectral_scale,
+                "twiddle_pack": twiddle_pack,
+                "fft_stockham_twiddle": fft_stockham_twiddle}
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -194,6 +243,24 @@ def main() -> int:
                                                 max_radix=radix),
                          rtol, atol)
                     checks += 1
+        for n in (8, 64, 512, 1024, 4096):
+            rtol, atol = fft_tol(rdt, n)
+            # the DCT-II [0, N/2), DCT-I [0, N/2+1), DST-II [1, N/2+1)
+            # windows and one past the Nyquist bin
+            for start, k in ((0, n // 2), (0, n // 2 + 1), (1, n // 2),
+                             (1, n // 2 + 1)):
+                a, b = randn((k,), rdt), randn((k,), rdt)
+                for radix in (2, 4):
+                    for pad in (None, n):
+                        for batch in (1, 13):
+                            x = randn((batch, n // 2 if pad else n), rdt)
+                            kw = dict(start=start, pad_to=pad,
+                                      max_radix=radix)
+                            hold("fft_stockham_twiddle",
+                                 fft_stockham_twiddle(x, a, b, **kw),
+                                 ref.fft_stockham_twiddle(x, a, b, **kw),
+                                 rtol, atol)
+                            checks += 1
         for shape in ((8, 128), (7, 130), (129, 384), (3, 16, 256),
                       (2, 129, 384)):
             g = randn(shape[-2:], rdt)
@@ -202,6 +269,19 @@ def main() -> int:
                 hold("spectral_scale", spectral_scale(x, g, 0.37),
                      ref.spectral_scale(x, g, 0.37), *scale_tol(rdt))
                 checks += 1
+        # contiguous, then the DCT-II / DST-II windows [0, 384) and
+        # [1, 385) of the 385-bin half spectrum of the 384^3 path's
+        # length-768 rfft, read in place at row pitch 385
+        packs = [randn(shape, cdt) for shape in ((8, 128), (64, 257),
+                                                 (5, 96))]
+        half = randn((384 * 384, 385), cdt)
+        packs += [half[:, :384], half[:, 1:]]
+        for x in packs:
+            a, b = randn((x.shape[1],), rdt), randn((x.shape[1],), rdt)
+            hold("twiddle_pack", twiddle_pack(x, a, b),
+                 ref.twiddle_pack(x, a, b), *scale_tol(rdt))
+            checks += 1
+        del half, packs
     print(f"kernels vs plain versions: {checks} checks passed in "
           f"{time.perf_counter() - t0:.2f} s; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -209,55 +289,73 @@ def main() -> int:
     # -- 4. main path ---------------------------------------------------------
     U = (BCType.UNB, BCType.UNB)
     P = (BCType.PER, BCType.PER)
-    lead = {"UUU": (U, U, U), "UPU": (U, P, U), "PPP": (P, P, P)}
-    n = N
+    E, O = BCType.EVEN, BCType.ODD
+    # case: (bcs, cells per direction, batch)
+    runs = {
+        "UUU": ((U, U, U), N, None),
+        "UPU": ((U, P, U), N, None),
+        "PPP": ((P, P, P), N, None),
+        "UUU_B2": ((U, U, U), N // 2, 2),
+        "SEMI_E": (((BCType.UNB, E), U, U), N, None),
+        "SEMI_O": ((U, U, (O, BCType.UNB)), N // 2, None),
+        "SYM384": (((E, E), (O, O), (E, O)), 384, None),
+    }
     rng = np.random.default_rng(0)
     solvers = {}
     launches = {}
-    recorded = []
+    # (run, call descriptor) -> calls per solve; a descriptor holds the
+    # kernel, x's shape, strides, offset and dtype, the other tensor
+    # arguments' shapes and the scalar arguments: what a replay needs
+    calls = {}
 
-    def recording(fn, kname):
-        def call(x, *a, **kw):
-            recorded.append((kname, x, a, kw))
-            return fn(x, *a, **kw)
-        return call
+    def describe(kname, x, a, kw):
+        args = tuple(("t", tuple(v.shape)) if torch.is_tensor(v)
+                     else ("v", v) for v in a)
+        return (kname, (tuple(x.shape), x.stride(), x.storage_offset(),
+                        x.dtype), args, tuple(sorted(kw.items())))
 
-    runs = [(case, n, None) for case in lead] + [("UUU", n // 2, 2)]
-    for case, nn, batch in runs:
+    def run_counted(run, fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after, each kernel call recorded under ``run``; the counts
+        must be EXPECTED[run] exactly."""
+        saved = {k: getattr(ops, k) for k in wrappers}
+
+        def recording(kname):
+            def call(x, *a, **kw):
+                key = (run, describe(kname, x, a, kw))
+                calls[key] = calls.get(key, 0) + 1
+                return saved[kname](x, *a, **kw)
+            return call
+        for k in wrappers:
+            setattr(ops, k, recording(k))
+        try:
+            sync()
+            reset_launches()
+            out = fn()
+            sync()
+            counts = dict(LAUNCHES)
+        finally:
+            for k, v in saved.items():
+                setattr(ops, k, v)
+        got = {k: v for k, v in counts.items() if v}
+        if got != EXPECTED[run]:
+            raise AssertionError(f"{run}: launches {got}, expected "
+                                 f"{EXPECTED[run]}")
+        for k, r in TIMED_ON.items():
+            if r == run:
+                launches[k] = counts[k]
+        return out, counts
+
+    for case, (bcs, nn, batch) in runs.items():
         t0 = time.perf_counter()
-        sc = PoissonSolver((nn,) * 3, 1.0, lead[case], engine="cuda",
-                           device=dev)
-        st = PoissonSolver((nn,) * 3, 1.0, lead[case], engine="torch",
-                           device=dev, green=sc._green_nat)
+        sc = PoissonSolver((nn,) * 3, 1.0, bcs, engine="cuda", device=dev)
+        st = PoissonSolver((nn,) * 3, 1.0, bcs, engine="torch", device=dev,
+                           green=sc._green_nat)
         t_plan = time.perf_counter() - t0
         shape = ((batch,) if batch else ()) + sc.input_shape
         f = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev)
-        first = case == "UUU" and batch is None
-        if first:
-            saved = (ops.fft_stockham, ops.fft_stockham_scale,
-                     ops.spectral_scale)
-            ops.fft_stockham = recording(saved[0], "fft_stockham")
-            ops.fft_stockham_scale = recording(saved[1],
-                                               "fft_stockham_scale")
-            ops.spectral_scale = recording(saved[2], "spectral_scale")
-        sync()
-        reset_launches()
-        u = sc.solve(f)
-        sync()
-        counts = dict(LAUNCHES)
-        if first:
-            (ops.fft_stockham, ops.fft_stockham_scale,
-             ops.spectral_scale) = saved
-            launches["fft_stockham"] = counts["fft_stockham"]
-            launches["fft_stockham_scale"] = counts["fft_stockham_scale"]
-        want = EXPECTED[case]
-        if (counts["fft_stockham"], counts["fft_stockham_scale"]) != want:
-            raise AssertionError(f"{case}: launches {counts}, expected "
-                                 f"fft_stockham/_scale = {want}")
-        if counts["spectral_scale"]:
-            raise AssertionError(f"{case}: spectral_scale ran on a CELL "
-                                 "plan the FFT epilogue should fuse")
+        u, counts = run_counted(case, lambda: sc.solve(f))
         ut = st.solve(f)
         sync()
         if u.shape != f.shape or u.dtype != f.dtype:
@@ -271,60 +369,52 @@ def main() -> int:
                                  f"max |diff| {rel:.3e} > 1e-5")
         tag = f"{case} n={nn}" + (f" B={batch}" if batch else "")
         print(f"main path {tag}: plan+green {t_plan:.2f} s, launches "
-              f"{counts}, max|u| {ut.abs().max().item():.4e}, cuda vs "
-              f"torch engine relative max |diff| {rel:.3e}")
+              f"{ {k: v for k, v in counts.items() if v} }, max|u| "
+              f"{ut.abs().max().item():.4e}, cuda vs torch engine relative "
+              f"max |diff| {rel:.3e}")
         solvers[tag] = (sc, st, f)
 
-    # replay every kernel call of the (U,U,U) solve at its own shape
-    calls = {}
-    for kname, x, a, kw in recorded:
-        key = (kname, tuple(x.shape), x.dtype,
-               tuple((k, tuple(v.shape) if torch.is_tensor(v) else v)
-                     for k, v in sorted(kw.items())),
-               tuple(tuple(v.shape) for v in a if torch.is_tensor(v)))
-        ent = calls.setdefault(key, [kname, x, a, kw, 0])
-        ent[4] += 1
-    recorded.clear()
-
-    # -- 5. analytic check (NODE, HEJ4, spectral_scale) ----------------------
+    # -- 5. analytic checks (NODE, HEJ4, float64) -----------------------------
     from scipy.special import erf
-    na, L, a = 64, 1.0, 50.0
-    h = L / na
-    xs = np.meshgrid(*([np.arange(na + 1) * h] * 3), indexing="ij")
-    r = np.sqrt(sum((c - 0.5) ** 2 for c in xs))
-    rhs = np.exp(-a * r * r)
-    sq = PoissonSolver((na,) * 3, L, (U, U, U), layout=DataLayout.NODE,
-                       green_kind=GreenKind.HEJ4, engine="cuda", device=dev)
-    sync()
-    reset_launches()
-    uq = sq.solve(rhs)
-    sync()
-    counts = dict(LAUNCHES)
-    launches["spectral_scale"] = counts["spectral_scale"]
-    if counts["spectral_scale"] < 1:
-        raise AssertionError(f"NODE solve: spectral_scale never launched "
-                             f"({counts})")
-    Q = (np.pi / a) ** 1.5
-    rs = np.where(r > 1e-12, r, 1.0)
-    uref = -Q * erf(np.sqrt(a) * rs) / (4 * np.pi * rs)
-    uref = np.where(r > 1e-12, uref, -Q * np.sqrt(a) / (2 * np.pi ** 1.5))
-    e_inf = np.abs(uq.cpu().numpy() - uref).max() / np.abs(uref).max()
-    if not e_inf < 2e-2:
-        raise AssertionError(f"NODE HEJ4 Gaussian: relative E_inf "
-                             f"{e_inf:.3e} >= 2e-2")
-    print(f"analytic NODE (U,U,U) HEJ4 n={na} float64: relative E_inf "
-          f"{e_inf:.3e}, launches {counts}")
-    # the NODE solve's Green multiply, replayed at its shape
-    saved = ops.spectral_scale
-    ops.spectral_scale = recording(saved, "spectral_scale")
-    sq.solve(rhs)
-    ops.spectral_scale = saved
-    for kname, x, a_, kw in recorded:
-        key = (kname, tuple(x.shape), x.dtype)
-        ent = calls.setdefault(key, [kname, x, a_, kw, 0])
-        ent[4] += 1
+    na, L = 64, 1.0
+    xs = np.meshgrid(*([np.arange(na + 1) * (L / na)] * 3), indexing="ij")
 
-    # -- 6. times -----------------------------------------------------------
+    def blob_potential(c, s):
+        """lap(u) = exp(-|x-c|^2 / (2 s^2)) in free space:
+        u = -Q erf(r / (sqrt(2) s)) / (4 pi r), Q = (2 pi)^(3/2) s^3."""
+        r = np.sqrt(sum((x - ci) ** 2 for x, ci in zip(xs, c)))
+        q = (2.0 * np.pi) ** 1.5 * s ** 3
+        rs = np.where(r > 1e-12, r, 1.0)
+        u = -q * erf(rs / (np.sqrt(2.0) * s)) / (4.0 * np.pi * rs)
+        return np.where(r > 1e-12, u,
+                        -q * 2.0 / (np.sqrt(2.0 * np.pi) * s) / (4 * np.pi))
+
+    def analytic(run, bcs, c, s, images, bound):
+        rhs = np.exp(-sum((x - ci) ** 2 for x, ci in zip(xs, c))
+                     / (2.0 * s * s))
+        uref = blob_potential(c, s)
+        for ci, sign in images:
+            uref = uref + sign * blob_potential(ci, s)
+        sq = PoissonSolver((na,) * 3, L, bcs, layout=DataLayout.NODE,
+                           green_kind=GreenKind.HEJ4, engine="cuda",
+                           device=dev)
+        uq, counts = run_counted(run, lambda: sq.solve(rhs))
+        e_inf = np.abs(uq.cpu().numpy() - uref).max() / np.abs(uref).max()
+        if not e_inf <= bound:
+            raise AssertionError(f"{run} HEJ4 Gaussian: relative E_inf "
+                                 f"{e_inf:.4e} > {bound:.4e}")
+        print(f"analytic {run} HEJ4 n={na} float64: relative E_inf "
+              f"{e_inf:.4e} (bound {bound:.4e}), launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+
+    # the quickstart blob (s = 0.1, the reference's quickstart bound), and
+    # the paper's semi-unbounded case: blob s = L/10 at the centre, even
+    # end at x = L, exact solution with the image at 2L - 0.5
+    analytic("NODE_UUU", (U, U, U), (0.5, 0.5, 0.5), 0.1, (), 2e-2)
+    analytic("NODE_SEMI_E", ((BCType.UNB, E), U, U), (0.5, 0.5, 0.5), 0.1,
+             (((2.0 * L - 0.5, 0.5, 0.5), 1.0),), 1.5 * SEMI_E_REF_EINF)
+
+    # -- 6. replays and times -------------------------------------------------
     def time_ms(fn):
         for _ in range(3):
             fn()
@@ -342,52 +432,65 @@ def main() -> int:
     def nbytes(t):
         return t.numel() * t.element_size()
 
-    per = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                   by_bytes=0.0, by_ops=0.0) for k in LAUNCHES}
-    lib_none = {"fft_stockham_scale"}
-    for kname, x0, a, kw, count in calls.values():
-        x = randn(tuple(x0.shape), x0.dtype)
-        rdt = x.real.dtype if x.is_complex() else x.dtype
+    def fresh(shape, stride, offset, dtype):
+        """Seeded normals laid out as the recorded argument was (a window
+        of a wider tensor keeps its strides and offset)."""
+        span = offset + sum((n - 1) * st for n, st in zip(shape, stride)) + 1
+        return randn((span,), dtype).as_strided(shape, stride, offset)
+
+    def library_call(kname, x, targs, kw, nf):
+        """One PyTorch call computing the same function, or None."""
+        if kname == "fft_stockham":
+            fn = (torch.fft.ifft if kw.get("inverse")
+                  else torch.fft.rfft if not x.is_complex()
+                  else torch.fft.fft)
+            return lambda: fn(x, n=nf)
         if kname == "spectral_scale":
-            g = randn(tuple(a[0].shape), rdt)
-            sc_ = a[1] if len(a) > 1 else kw.get("scale", 1.0)
-            kern = lambda: spectral_scale(x, g, sc_)   # noqa: E731
-            plain = lambda: ref.spectral_scale(x, g, sc_)   # noqa: E731
-            library = lambda: torch.mul(x, g)   # noqa: E731
-            out = kern()
+            return lambda: torch.mul(x, targs[0])
+        if kname == "twiddle_pack":
+            ab = torch.stack(targs, dim=-1)
+            return lambda: torch.linalg.vecdot(torch.view_as_real(x), ab)
+        return None      # no single call computes FFT x Green or twiddle
+
+    per = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, by_bytes=0.0,
+                   by_ops=0.0) for k in LAUNCHES}
+    lib_none = set()
+    by_desc = {}
+    for (run, desc), count in calls.items():
+        by_desc.setdefault(desc, {})[run] = count
+    t0 = time.perf_counter()
+    for (kname, xd, args, kw), counts in by_desc.items():
+        kw = dict(kw)
+        x = fresh(*xd)
+        rdt = x.real.dtype if x.is_complex() else x.dtype
+        targs = [randn(v, rdt) if kind == "t" else v for kind, v in args]
+        kern = lambda: wrappers[kname](x, *targs, **kw)   # noqa: E731
+        plain = lambda: getattr(ref, kname)(x, *targs, **kw)  # noqa: E731
+        out = kern()
+        ins = nbytes(x) + sum(nbytes(v) for v in targs if torch.is_tensor(v))
+        byts = ins + nbytes(out)
+        if kname in ("spectral_scale", "twiddle_pack"):
             hold(kname, out, plain(), *scale_tol(rdt))
-            byts = nbytes(x) + nbytes(g) + nbytes(out)
-            flops = out.numel() * (2 if x.is_complex() else 1)
+            # a * re + b * im: 3 per value; the scale: 1 per component
+            flops = out.numel() * (3 if kname == "twiddle_pack" else
+                                   2 if out.is_complex() else 1)
+            nf = x.shape[-1]
         else:
-            n_in = x.shape[-1]
-            nf = kw.get("pad_to") or n_in
-            if kname == "fft_stockham":
-                kern = lambda: fft_stockham(x, **kw)   # noqa: E731
-                plain = lambda: ref.fft_stockham(x, **kw)   # noqa: E731
-                fn_lib = (torch.fft.ifft if kw.get("inverse")
-                          else torch.fft.rfft if not x.is_complex()
-                          else torch.fft.fft)
-                library = lambda: fn_lib(x, n=nf)   # noqa: E731
-                byts_extra = 0
-            else:
-                g = randn(tuple(a[0].shape), rdt)
-                kern = lambda: fft_stockham_scale(x, g, **kw)  # noqa: E731
-                plain = lambda: ref.fft_stockham_scale(  # noqa: E731
-                    x, g, **kw)
-                library = None
-                byts_extra = nbytes(g)
-            out = kern()
+            nf = kw.get("pad_to") or x.shape[-1]
             hold(kname, out, plain(), *fft_tol(rdt, nf))
-            byts = nbytes(x) + nbytes(out) + byts_extra
             flops = x.shape[0] * 5 * nf * math.log2(nf)
+        count = counts.get(TIMED_ON[kname])
+        if count is None:
+            continue
+        library = library_call(kname, x, targs, kw, nf)
         t_k = time_ms(kern)
         t_p = time_ms(plain)
         t_l = time_ms(library) if library is not None else None
         b_bytes = byts / hbm * 1e3
         b_ops = flops / peak[rdt] * 1e3
-        print(f"  {kname} x{count} per solve: x {tuple(x.shape)} {x.dtype} "
-              f"{ {k: v for k, v in kw.items()} } -> kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, library "
+        print(f"  {kname} x{count} per {TIMED_ON[kname]} solve: x "
+              f"{tuple(x.shape)} stride {x.stride()} {x.dtype} {kw} -> "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
               f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}, bound "
               f"{max(b_bytes, b_ops):.4f} ms ({byts / 1e6:.1f} MB)")
         p = per[kname]
@@ -399,6 +502,9 @@ def main() -> int:
             lib_none.add(kname)
         else:
             p["library_ms"] += count * t_l
+    print(f"replays: {len(by_desc)} kernel calls of the recorded solves "
+          f"held against their plain versions and timed in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     def where_the_time_goes(label, fn, solve_ms):
         """Device time by kernel over one profiled solve, and the idle

@@ -6,9 +6,13 @@ multiply -> inverse transforms; this module decides HOW each stage executes:
   engine="cuda"   (default) the hand-written CUDA kernels take over the hot
                   loops: ``fft_stockham`` for power-of-two (r)FFTs,
                   ``fft_stockham_scale`` for the last forward direction
-                  fused with the Green multiply, and ``spectral_scale`` for
-                  the Green multiply wherever fusion does not apply.
-                  Non-power-of-two FFT lengths take ``torch.fft``.
+                  fused with the Green multiply, ``spectral_scale`` for
+                  the Green multiply wherever fusion does not apply,
+                  ``fft_stockham_twiddle`` for the DCT/DST forward kinds
+                  on power-of-two extensions (rfft and post-twiddle in one
+                  kernel) and ``twiddle_pack`` for their post-twiddle on
+                  other lengths.  Non-power-of-two FFT lengths take
+                  ``torch.fft``.
   engine="torch"  ``torch.fft`` (cuFFT on the card) and plain elementwise
                   torch ops.
 
@@ -122,9 +126,9 @@ def _fwd_last(x, p, sched=None):
         x = torch.flip(x, (-1,))
     x = x[..., p.in_start:p.in_start + p.n_in]
     if p.category in ("sym", "semi"):
-        raise NotImplementedError(
-            "real-to-real (symmetric / semi-unbounded) directions come with "
-            "the next slice of the port")
+        if p.n_fft > p.n_in:      # semi: zero-extend to the doubled domain
+            x = tr._zpad(x, p.n_fft)
+        return tr.r2r_forward(x, p.kind, engine=engine)
     if p.dft == "r2c":
         # pruned forward: the length-n_fft spectrum from the n_in nonzero
         # inputs (the kernel skips the zero tail; torch.fft pads)
@@ -141,14 +145,13 @@ def _bwd_last(y, p, sched=None):
     from . import transforms as tr
     engine = sched.engine if sched is not None else None
     if p.category in ("sym", "semi"):
-        raise NotImplementedError(
-            "real-to-real (symmetric / semi-unbounded) directions come with "
-            "the next slice of the port")
-    if p.pre_padded:
+        x = tr.r2r_backward(y, p.kind, engine=engine)
+        x = x[..., :p.n_in]       # semi: crop the doubled domain
+    elif p.pre_padded:
         # dense mode keeps the doubled extent; cropped once at solve end
         return (tr._irfft(y, p.n_fft, engine) if p.dft == "r2c"
                 else tr._cfft(y, engine, inverse=True))
-    if p.dft == "r2c":
+    elif p.dft == "r2c":
         # pruned backward: reconstruct only the n_in retained samples
         x = tr._irfft_crop(y, p.n_fft, p.n_in, engine)
     else:
@@ -279,13 +282,12 @@ def crop_doubling(x, dirs):
 
 @dataclass(frozen=True)
 class TransformSchedule:
-    """Plan-time constants for one solve: per-direction twiddle tables, the
-    folded normalization (quadrature h weights stay in build_green) and the
-    layout schedule of the scheduled pipeline."""
+    """Plan-time constants for one solve: the folded normalization
+    (quadrature h weights stay in build_green) and the layout schedule of
+    the scheduled pipeline.  The r2r twiddle tables are cached per
+    (kind, length, dtype, device) by ``transforms.device_tables``."""
 
     engine: TransformEngine
-    fwd_tables: tuple    # per logical dim: twiddle dict for the forward kind
-    bwd_tables: tuple    # per logical dim: twiddle dict for the inverse kind
     norm: float          # prod of r2r normfacts, folded into the Green
     dirs: tuple = ()     # per logical dim: the plan's Plan1D
     order: tuple = ()    # the plan's forward execution order
@@ -368,18 +370,6 @@ def folded_normfact(plan) -> float:
 
 def build_schedule(plan, engine=None) -> TransformSchedule:
     """Compile a ``PoissonPlan`` into its per-direction transform schedule."""
-    from . import transforms as tr
-    from .bc import INVERSE_KIND
-
-    engine = as_engine(engine)
-    fwd, bwd = [], []
-    for p in plan.dirs:
-        if p.kind is None:       # DFT direction: no r2r twiddles
-            fwd.append(None)
-            bwd.append(None)
-        else:
-            fwd.append(tr.twiddle_tables(p.kind, p.n_fft))
-            bwd.append(tr.twiddle_tables(INVERSE_KIND[p.kind], p.n_fft))
-    return TransformSchedule(engine, tuple(fwd), tuple(bwd),
-                             folded_normfact(plan), plan.dirs, plan.order,
+    return TransformSchedule(as_engine(engine), folded_normfact(plan),
+                             plan.dirs, plan.order,
                              schedule_layouts(plan.order, len(plan.dirs)))

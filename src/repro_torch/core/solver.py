@@ -12,10 +12,9 @@ The solve is the paper's algorithm:
             convention-overwritten boundary values.
 
 The plan layer (``make_plan``, ``build_green``) is pure Python + numpy and
-reproduces ``repro.core.solver`` exactly, for every BC mix.  This slice of
-the port solves plans whose directions are all unbounded or periodic (pure
-DFT plans); ``PoissonSolver`` raises ``NotImplementedError`` for plans with
-symmetric or semi-unbounded directions.
+reproduces ``repro.core.solver`` exactly, for every BC mix; ``PoissonSolver``
+solves every BC mix the reference accepts (unbounded, periodic, even/odd
+symmetric and semi-unbounded directions, CELL and NODE).
 """
 from __future__ import annotations
 
@@ -382,12 +381,27 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _check_kernel_lengths(plan):
+    """Raise when a direction needs a power-of-two FFT longer than the
+    Stockham kernel takes: the cuda engine sends every power-of-two length
+    to that kernel, and never to ``torch.fft`` behind the caller's back."""
+    from repro_torch.kernels.fft_stockham import MAX_N
+    for p in plan.dirs:
+        n = p.n_fft if p.kind is None else tr.fft_length(p.kind, p.n_fft)
+        if tr._pow2(n) and n > MAX_N:
+            raise ValueError(
+                f"direction {p.dim} ({p.category}, {p.n} cells) needs a "
+                f"power-of-two FFT of length {n}; the cuda engine's Stockham "
+                f"kernel takes at most {MAX_N} points: use engine='torch'")
+
+
 class PoissonSolver:
-    """u = solve(f): FFT-based solution of lap(u) = f for plans whose
-    directions are all unbounded or periodic.
+    """u = solve(f): FFT-based solution of lap(u) = f with mixed BCs.
 
     ``engine``: "cuda" (default: the hand-written kernels) or "torch"
-    (``torch.fft``, cuFFT on the card).  ``device``: where the solve runs;
+    (``torch.fft``, cuFFT on the card).  The cuda engine raises here when
+    the plan needs a power-of-two FFT longer than the Stockham kernel's
+    ``MAX_N``.  ``device``: where the solve runs;
     None means ``torch.device("cuda")`` and raises when there is no card.
     ``green``: an optional precomputed Green's function in natural layout
     (the array ``build_green`` returns, e.g. carried from another solver);
@@ -410,16 +424,9 @@ class PoissonSolver:
         self.plan = make_plan(tuple(shape), L, bcs, layout, green_kind,
                               eps_factor, doubling=doubling,
                               order_policy=order_policy)
-        r2r = [p.dim for p in self.plan.dirs
-               if p.category in ("sym", "semi")]
-        if r2r:
-            raise NotImplementedError(
-                f"directions {r2r} are symmetric or semi-unbounded; their "
-                "real-to-real transforms (and the twiddle_pack / "
-                "fft_stockham_twiddle kernels) come with the next slice of "
-                "the port, which solves only unbounded and periodic "
-                "directions so far")
         self.engine = as_engine(engine)
+        if self.engine.use_cuda:
+            _check_kernel_lengths(self.plan)
         self.schedule = build_schedule(self.plan, self.engine)
         self.relayout = relayout
         want = tuple(p.n_out for p in self.plan.dirs)

@@ -1,16 +1,30 @@
 """1-D transforms used by the solver, all on the LAST axis.
 
-This slice ports the DFT part of ``repro.core.transforms``: the engine-aware
-FFT backends and the pruned Hockney-doubling variants, plus the plan-time
-numpy helpers (``twiddle_tables``, ``r2r_normfact``) that ``make_plan`` and
-``build_schedule`` need.  The eight real-to-real transforms come with the
-next slice, together with the kernels that carry them.
+Counterpart of ``repro.core.transforms``: the engine-aware FFT backends,
+the pruned Hockney-doubling variants, and the eight real-to-real
+transforms (DCT/DST types I-IV).  Every r2r transform runs a
+half-spectrum real FFT on the real (anti)symmetric extension: forward
+kinds post-twiddle the rfft half spectrum (``y = a * re + b * im``),
+inverse-family kinds pre-twiddle the real input into the half spectrum
+that ``irfft`` consumes.  Conventions match ``scipy.fft`` unnormalized
+("backward").
 
 Engine selection: ``engine=None`` or the ``"torch"`` engine runs
-``torch.fft`` (cuFFT on the card); the ``"cuda"`` engine routes every
-power-of-two length through the hand-written Stockham kernel
-(``repro_torch.kernels.ops``).  Other lengths take ``torch.fft`` on either
-engine, as the reference does on its Pallas engine.
+``torch.fft`` (cuFFT on the card) and plain elementwise torch; the
+``"cuda"`` engine routes every power-of-two length through the
+hand-written Stockham kernel (``repro_torch.kernels.ops``), and the
+post-twiddle through the ``twiddle_pack`` kernel.  On power-of-two
+extension lengths the forward post-twiddle kinds (dct1/dct2/dst2) run the
+fused ``fft_stockham_twiddle`` kernel instead: the twiddle is the FFT's
+epilogue and the complex spectrum never reaches memory.  Other lengths
+take ``torch.fft`` on either engine, as the reference does on its Pallas
+engine.
+
+Twiddle tables are float64 numpy constants per ``(kind, m)``
+(``twiddle_tables``); each transform takes them cast to its working dtype
+and device from a cache (``device_tables``), so they are cast once.  The
+O(M) prefix sums of dst1 and odd-M dct4 always run in float64, as the
+reference's do under x64.
 """
 from __future__ import annotations
 
@@ -21,7 +35,12 @@ import torch
 
 from .bc import TransformKind
 
-__all__ = ["r2r_normfact", "twiddle_tables"]
+__all__ = [
+    "dct1", "dct2", "dct3", "dct4",
+    "dst1", "dst2", "dst3", "dst4",
+    "r2r_forward", "r2r_backward", "r2r_normfact", "twiddle_tables",
+    "device_tables", "fft_length",
+]
 
 
 def _use_cuda(engine) -> bool:
@@ -35,6 +54,11 @@ def _pow2(n: int) -> bool:
 def _cdt(dtype):
     """Complex dtype of the same precision as the real ``dtype``."""
     return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+# the O(M) prefix sums of dst1 / odd-M dct4 accumulate roundoff linearly
+# along the axis: run them in float64 whatever the working precision
+_SCAN_DTYPE = torch.float64
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +207,227 @@ def twiddle_tables(kind: TransformKind, m: int):
     raise ValueError(kind)
 
 
+@lru_cache(maxsize=None)
+def device_tables(kind: TransformKind, m: int, dtype, device):
+    """``twiddle_tables(kind, m)`` as ``dtype`` tensors on ``device``, cast
+    once and reused (plus ``ones``/``zeros`` of length m, the DCT-I
+    post-twiddle, and the complex ``q4_pre``/``q4_post`` of even-M
+    type-IV)."""
+    t = {k: torch.from_numpy(v).to(device=device, dtype=dtype)
+         for k, v in twiddle_tables(kind, m).items()}
+    if kind == TransformKind.DCT1:
+        t["ones"] = torch.ones(m, dtype=dtype, device=device)
+        t["zeros"] = torch.zeros(m, dtype=dtype, device=device)
+    if "q4_pre_re" in t:
+        t["q4_pre"] = torch.complex(t["q4_pre_re"], t["q4_pre_im"])
+        t["q4_post"] = torch.complex(t["q4_post_re"], t["q4_post_im"])
+    return t
+
+
+def fft_length(kind: TransformKind, m: int) -> int:
+    """Length of the one FFT a size-``m`` transform of ``kind`` runs (the
+    same for its inverse kind): the real extension of dct1/dst1/types
+    II-III, the half-length complex FFT of even-M type IV, the DCT-II
+    extension of odd-M type IV."""
+    if kind == TransformKind.DCT1:
+        return 2 * (m - 1)
+    if kind == TransformKind.DST1:
+        return m + 1
+    if kind in (TransformKind.DCT4, TransformKind.DST4) and m % 2 == 0:
+        return m // 2
+    return 2 * m
+
+
+# ---------------------------------------------------------------------------
+# r2r post-twiddle (twiddle_pack kernel on the cuda engine)
+# ---------------------------------------------------------------------------
+
+def _post(f, a, b, engine):
+    """``y = a * Re(f) + b * Im(f)`` along the last axis (the r2r
+    post-twiddle) of the complex window ``f`` of an rfft half spectrum."""
+    if _use_cuda(engine):
+        from repro_torch.kernels import ops
+        return ops.post_twiddle(f, a, b)
+    return a * f.real + b * f.imag
+
+
+def _rfft_twiddle_fused(z, a, b, start, engine):
+    """Fused rfft + post-twiddle (``a*re + b*im`` over ``len(a)`` bins
+    from ``start``) when the cuda engine can run it as one kernel; None
+    when the caller must take the unfused rfft + ``_post`` path."""
+    if not (_use_cuda(engine) and _pow2(z.shape[-1])):
+        return None
+    from repro_torch.kernels import ops
+    return ops.rfft_twiddle(z, a, b, start=start, max_radix=engine.max_radix)
+
+
+# ---------------------------------------------------------------------------
+# DCT types
+# ---------------------------------------------------------------------------
+
+def dct1(x, engine=None):
+    """DCT-I: y_k = x_0 + (-1)^k x_{M-1} + 2 sum_{n=1}^{M-2} x_n cos(pi k n/(M-1)).
+
+    Even extension of length 2(M-1); the rfft of a real even signal is real,
+    and its M half-spectrum bins are exactly the DCT-I coefficients.
+    """
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DCT1, m, x.dtype, x.device)
+    z = torch.cat([x, torch.flip(x[..., 1:-1], (-1,))], dim=-1)
+    fused = _rfft_twiddle_fused(z, t["ones"], t["zeros"], 0, engine)
+    if fused is not None:
+        return fused
+    return _rfft(z, engine).real
+
+
+def dct2(x, engine=None):
+    """DCT-II: y_k = 2 sum_n x_n cos(pi k (2n+1) / (2M))."""
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DCT2, m, x.dtype, x.device)
+    z = torch.cat([x, torch.flip(x, (-1,))], dim=-1)     # even ext, len 2M
+    fused = _rfft_twiddle_fused(z, t["post_a"], t["post_b"], 0, engine)
+    if fused is not None:
+        return fused
+    f = _rfft(z, engine)[..., :m]
+    return _post(f, t["post_a"], t["post_b"], engine)
+
+
+def _pre_twiddled(x, t):
+    """The complex ``x * pre_re + i x * pre_im`` of the type-III kinds."""
+    return torch.complex(x * t["pre_re"], x * t["pre_im"])
+
+
+def dct3(x, engine=None):
+    """DCT-III: y_k = x_0 + 2 sum_{n=1}^{M-1} x_n cos(pi n (2k+1) / (2M)).
+
+    Pre-twiddle the real input into the hermitian half spectrum whose
+    length-2M irfft carries the DCT-III in its first M samples (the 2M
+    normalization of irfft is folded into the twiddle table).
+    """
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DCT3, m, x.dtype, x.device)
+    c = _pre_twiddled(x, t)
+    c = torch.cat([c, c.new_zeros(x.shape[:-1] + (1,))], dim=-1)
+    return _irfft(c, 2 * m, engine)[..., :m]
+
+
+def dct4(x, engine=None):
+    """DCT-IV: y_k = 2 sum_n x_n cos(pi (2k+1)(2n+1) / (4M)).
+
+    Even M: the half-length formulation.  Fold the input into the
+    length-M/2 complex sequence z_p = (x_{2p} + i x_{M-1-2p})
+    e^{-i pi (4p+1)/(4M)}; with t_q = FFT_{M/2}(z)_q e^{-i pi q/M} the
+    outputs are y_{2q} = 2 Re t_q and y_{M-1-2q} = -2 Im t_q.
+
+    Odd M: the product-to-sum identity.  With c_n = x_n cos(pi(2n+1)/(4M)),
+    y_k + y_{k-1} = 2 DCT2(c)_k (and y_0 = DCT2(c)_0), i.e. one DCT-II
+    plus an O(M) alternating prefix sum
+    y_k = (-1)^k [Y_0 + 2 sum_{j=1..k} (-1)^j Y_j].
+    """
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DCT4, m, x.dtype, x.device)
+    if m % 2 == 0:
+        a = x[..., 0::2]                                  # x_{2p}
+        b = torch.flip(x, (-1,))[..., 0::2]               # x_{M-1-2p}
+        z = torch.complex(a, b) * t["q4_pre"]
+        tq = _cfft(z, engine) * t["q4_post"]
+        even = 2.0 * tq.real                              # y_{2q}
+        odd = -2.0 * torch.flip(tq.imag, (-1,))           # y_{1+2r}
+        return torch.stack([even, odd], dim=-1).reshape(x.shape)
+    c = x * t["split_c"]
+    y2 = dct2(c, engine).to(_SCAN_DTYPE)
+    sgn = t["alt_sign"].to(_SCAN_DTYPE)
+    cs = torch.cumsum(sgn * y2, dim=-1)
+    return (sgn * (2.0 * cs - y2[..., :1])).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# DST types
+# ---------------------------------------------------------------------------
+
+def dst1(x, engine=None):
+    """DST-I: y_k = 2 sum_n x_n sin(pi (k+1)(n+1) / (M+1)).
+
+    Length-N formulation (N = M+1, the Numerical-Recipes auxiliary
+    sequence): with u = [0, x] and its reversal ur = [0, rev(x)], the rfft
+    Y of v_j = sin(pi j/N)(u_j + ur_j) + (u_j - ur_j)/2 carries the even
+    coefficients directly (y_{2k} = -2 Im Y_k) and the odd ones as a prefix
+    sum (y_{2k+1} = Re Y_0 + 2 sum_{j=1..k} Re Y_j).
+    """
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DST1, m, x.dtype, x.device)
+    dtype = x.dtype
+    zeros = x.new_zeros(x.shape[:-1] + (1,))
+    u = torch.cat([zeros, x], dim=-1)                          # u_j
+    ur = torch.cat([zeros, torch.flip(x, (-1,))], dim=-1)      # u_{N-j}
+    v = t["aux_sin"] * (u + ur) + 0.5 * (u - ur)
+    f = _rfft(v, engine)                                       # bins 0..N//2
+    n_odd = (m + 1) // 2                                       # y_1, y_3, ...
+    n_even = m // 2                                            # y_2, y_4, ...
+    re = f.real[..., :n_odd].to(_SCAN_DTYPE)
+    odd = (2.0 * torch.cumsum(re, dim=-1) - re[..., :1]).to(dtype)
+    even = -2.0 * f.imag[..., 1:n_even + 1]
+    if n_even < n_odd:                                         # odd M
+        even = torch.cat([even, zeros], dim=-1)
+    out = torch.stack([odd, even], dim=-1).reshape(
+        x.shape[:-1] + (2 * n_odd,))
+    return out[..., :m]
+
+
+def dst2(x, engine=None):
+    """DST-II: y_k = 2 sum_n x_n sin(pi (k+1)(2n+1) / (2M))."""
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DST2, m, x.dtype, x.device)
+    z = torch.cat([x, -torch.flip(x, (-1,))], dim=-1)    # odd ext, len 2M
+    fused = _rfft_twiddle_fused(z, t["post_a"], t["post_b"], 1, engine)
+    if fused is not None:
+        return fused
+    f = _rfft(z, engine)[..., 1:m + 1]
+    return _post(f, t["post_a"], t["post_b"], engine)
+
+
+def dst3(x, engine=None):
+    """DST-III: y_k = (-1)^k x_{M-1} + 2 sum_{n=0}^{M-2} x_n sin(pi (n+1)(2k+1)/(2M)).
+
+    Mirror of dct3: pre-twiddle into bins 1..M of the half spectrum (bin 0
+    stays zero), irfft, keep the first M samples.
+    """
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DST3, m, x.dtype, x.device)
+    c = _pre_twiddled(x, t)
+    c = torch.cat([c.new_zeros(x.shape[:-1] + (1,)), c], dim=-1)
+    return _irfft(c, 2 * m, engine)[..., :m]
+
+
+def dst4(x, engine=None):
+    """DST-IV: y_k = 2 sum_n x_n sin(pi (2k+1)(2n+1) / (4M)).
+
+    Reversal identity: DST4(x)_k = (-1)^k DCT4(rev(x))_k.
+    """
+    m = x.shape[-1]
+    t = device_tables(TransformKind.DST4, m, x.dtype, x.device)
+    return t["alt_sign"] * dct4(torch.flip(x, (-1,)), engine=engine)
+
+
+# ---------------------------------------------------------------------------
+# dispatch + normalization
+# ---------------------------------------------------------------------------
+
+_FWD = {
+    TransformKind.DCT1: dct1, TransformKind.DCT2: dct2,
+    TransformKind.DCT3: dct3, TransformKind.DCT4: dct4,
+    TransformKind.DST1: dst1, TransformKind.DST2: dst2,
+    TransformKind.DST3: dst3, TransformKind.DST4: dst4,
+}
+
+_INV = {
+    TransformKind.DCT1: dct1, TransformKind.DCT2: dct3,
+    TransformKind.DCT3: dct2, TransformKind.DCT4: dct4,
+    TransformKind.DST1: dst1, TransformKind.DST2: dst3,
+    TransformKind.DST3: dst2, TransformKind.DST4: dst4,
+}
+
+
 def r2r_normfact(kind: TransformKind, m: int) -> float:
     """1 / (forward o backward) amplification for size-m transforms."""
     if kind in (TransformKind.DCT1,):
@@ -190,3 +435,14 @@ def r2r_normfact(kind: TransformKind, m: int) -> float:
     if kind in (TransformKind.DST1,):
         return 1.0 / (2.0 * (m + 1))
     return 1.0 / (2.0 * m)
+
+
+def r2r_forward(x, kind: TransformKind, engine=None):
+    """Forward r2r transform of ``kind`` along the last axis of ``x``."""
+    return _FWD[kind](x, engine=engine)
+
+
+def r2r_backward(y, kind: TransformKind, engine=None):
+    """Unnormalized inverse; the solver folds ``r2r_normfact`` into the
+    Green's function (standalone callers multiply by it themselves)."""
+    return _INV[kind](y, engine=engine)

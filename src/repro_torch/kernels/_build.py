@@ -25,10 +25,11 @@ from pathlib import Path
 __all__ = ["LAUNCHES", "reset_launches", "build", "library", "check",
            "BUILD_LOG"]
 
-LAUNCHES = {"fft_stockham": 0, "fft_stockham_scale": 0, "spectral_scale": 0}
+LAUNCHES = {"fft_stockham": 0, "fft_stockham_scale": 0, "spectral_scale": 0,
+            "twiddle_pack": 0, "fft_stockham_twiddle": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fft_stockham.cu", "spectral_scale.cu")
+SOURCES = ("fft_stockham.cu", "spectral_scale.cu", "twiddle_pack.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,15 +40,18 @@ BUILD_LOG: list = []
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _SIGNATURES = {
-    # x, x_complex, out, g, twiddles, rows, n_in, n, inverse, max_radix,
-    # start, k, grows, stream
-    "repro_fft_stockham_f32": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P],
-    "repro_fft_stockham_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P],
+    # x, x_complex, out, g, a, b, twiddles, rows, n_in, n, inverse,
+    # max_radix, start, k, grows, stream
+    "repro_fft_stockham_f32": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
+    "repro_fft_stockham_f64": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
     # x, x_complex, g, out, batch, plane, scale, stream
     "repro_spectral_scale_f32": [_P, _I, _P, _P, _LL, _LL, _D, _P],
     "repro_spectral_scale_f64": [_P, _I, _P, _P, _LL, _LL, _D, _P],
+    # x, pitch, a, b, y, rows, k, stream
+    "repro_twiddle_pack_f32": [_P, _LL, _P, _P, _P, _LL, _I, _P],
+    "repro_twiddle_pack_f64": [_P, _LL, _P, _P, _P, _LL, _I, _P],
 }
 
 _lib = None

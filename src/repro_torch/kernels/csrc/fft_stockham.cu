@@ -1,9 +1,10 @@
 // Batched radix-4/2 Stockham complex FFT along the last axis, for sm_90a.
 //
-// Replaces the TPU kernels fft_stockham and fft_stockham_scale of
-// src/repro/kernels/fft_stockham.py (bodies _fft_body, _kernel and
-// _kernel_scale): one kernel computes both; the Green epilogue runs when
-// a Green plane is given.
+// Replaces the TPU kernels fft_stockham, fft_stockham_scale and
+// fft_stockham_twiddle of src/repro/kernels/fft_stockham.py (bodies
+// _fft_body, _kernel, _kernel_scale and _kernel_twiddle): one kernel
+// computes all three; the epilogue is chosen by which optional operand is
+// given (a Green plane g, or the twiddle tables a and b).
 //
 // What bounds it on this card: memory.  A length-N FFT does about
 // 5 N log2 N flops against 16 N bytes (complex64 read and written): under
@@ -21,10 +22,15 @@
 // is read as is, with no zeros plane.  The epilogue writes only the bins
 // [start, start+k) the caller keeps (the half spectrum of an rfft, the head
 // of a pruned inverse), scaled by 1/N for the inverse and multiplied by the
-// Green plane row r % grows when g is given.  Twiddles come from a
-// precomputed table W[t] = exp(-2 pi i t / N) (float64 host values, cast
-// once), conjugated for the inverse.  Simple first: no register blocking,
-// no vectorized global access; those are for a later change.
+// Green plane row r % grows when g is given.  With the tables a and b (k
+// values each) it writes instead the real a[j] Re + b[j] Im of the j-th
+// kept bin: the DCT/DST post-twiddle, so a real-to-real transform's complex
+// spectrum never reaches device memory and the kernel writes 4 or 8 bytes
+// per kept bin instead of 8 or 16 (M or M+1 bins of the length-2M
+// extension's spectrum).  Twiddles come from a precomputed table
+// W[t] = exp(-2 pi i t / N) (float64 host values, cast once), conjugated
+// for the inverse.  Simple first: no register blocking, no vectorized
+// global access; those are for a later change.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +85,7 @@ __global__ void __launch_bounds__(kThreads)
 stockham_kernel(const T* __restrict__ x, int x_complex,
                 typename Cplx<T>::type* __restrict__ out,
                 const T* __restrict__ g,
+                const T* __restrict__ ta, const T* __restrict__ tb,
                 const typename Cplx<T>::type* __restrict__ tw,
                 int rows, int n_in, int n, int inverse, int max_radix,
                 int start, int k, int grows, int rows_per_block) {
@@ -168,12 +175,19 @@ stockham_kernel(const T* __restrict__ x, int x_complex,
     dst = t;
   }
 
-  // epilogue: bins [start, start+k), 1/N for the inverse, Green multiply
+  // epilogue: bins [start, start+k), then the real post-twiddle
+  // (ta, tb given: a real (rows, k) output), or 1/N for the inverse and
+  // the Green multiply (a complex (rows, k) output)
   const int total_out = nrows * k;
   for (int i = threadIdx.x; i < total_out; i += blockDim.x) {
     const int r = i / k;
     const int b = i - r * k;
     C v = src[r * n + start + b];
+    if (ta != nullptr) {
+      reinterpret_cast<T*>(out)[(size_t)(row0 + r) * k + b] =
+          ta[b] * v.x + tb[b] * v.y;
+      continue;
+    }
     if (inv) {
       v.x = v.x / T(n);
       v.y = v.y / T(n);
@@ -189,12 +203,15 @@ stockham_kernel(const T* __restrict__ x, int x_complex,
 
 template <typename T>
 int launch(const void* x, int x_complex, void* out, const void* g,
-           const void* tw, int rows, int n_in, int n, int inverse,
-           int max_radix, int start, int k, int grows, void* stream) {
+           const void* ta, const void* tb, const void* tw, int rows,
+           int n_in, int n, int inverse, int max_radix, int start, int k,
+           int grows, void* stream) {
   using C = typename Cplx<T>::type;
   if (n < 2 || n > kMaxN || (n & (n - 1)) != 0 ||
       !(n_in == n || 2 * n_in == n) || rows < 1 || k < 1 ||
-      start < 0 || start + k > n || grows < 1 || rows % grows != 0) {
+      start < 0 || start + k > n || grows < 1 || rows % grows != 0 ||
+      (ta == nullptr) != (tb == nullptr) ||
+      (ta != nullptr && (g != nullptr || inverse))) {
     return (int)cudaErrorInvalidValue;
   }
   const int rows_per_block = n >= kMinPointsPerBlock ? 1
@@ -212,7 +229,8 @@ int launch(const void* x, int x_complex, void* out, const void* g,
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
   stockham_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(x), x_complex, static_cast<C*>(out),
-      static_cast<const T*>(g), static_cast<const C*>(tw), rows, n_in, n,
+      static_cast<const T*>(g), static_cast<const T*>(ta),
+      static_cast<const T*>(tb), static_cast<const C*>(tw), rows, n_in, n,
       inverse, max_radix, start, k, grows, rows_per_block);
   return (int)cudaGetLastError();
 }
@@ -221,20 +239,23 @@ int launch(const void* x, int x_complex, void* out, const void* g,
 
 extern "C" {
 
+// out is complex (rows, k), or real (rows, k) when ta and tb are given
 int repro_fft_stockham_f32(const void* x, int x_complex, void* out,
-                           const void* g, const void* tw, int rows, int n_in,
-                           int n, int inverse, int max_radix, int start,
-                           int k, int grows, void* stream) {
-  return launch<float>(x, x_complex, out, g, tw, rows, n_in, n, inverse,
-                       max_radix, start, k, grows, stream);
+                           const void* g, const void* ta, const void* tb,
+                           const void* tw, int rows, int n_in, int n,
+                           int inverse, int max_radix, int start, int k,
+                           int grows, void* stream) {
+  return launch<float>(x, x_complex, out, g, ta, tb, tw, rows, n_in, n,
+                       inverse, max_radix, start, k, grows, stream);
 }
 
 int repro_fft_stockham_f64(const void* x, int x_complex, void* out,
-                           const void* g, const void* tw, int rows, int n_in,
-                           int n, int inverse, int max_radix, int start,
-                           int k, int grows, void* stream) {
-  return launch<double>(x, x_complex, out, g, tw, rows, n_in, n, inverse,
-                        max_radix, start, k, grows, stream);
+                           const void* g, const void* ta, const void* tb,
+                           const void* tw, int rows, int n_in, int n,
+                           int inverse, int max_radix, int start, int k,
+                           int grows, void* stream) {
+  return launch<double>(x, x_complex, out, g, ta, tb, tw, rows, n_in, n,
+                        inverse, max_radix, start, k, grows, stream);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -1,12 +1,12 @@
 """Batched radix-4/2 Stockham complex FFT along the last axis, and the same
-FFT fused with the spectral Green multiply: wrappers of the CUDA kernel in
-``csrc/fft_stockham.cu``.
+FFT fused with the spectral Green multiply or with the DCT/DST
+post-twiddle: wrappers of the CUDA kernel in ``csrc/fft_stockham.cu``.
 
-Counterparts of ``fft_stockham`` and ``fft_stockham_scale`` in
-``repro.kernels.fft_stockham``.  The TPU kernels take separate (re, im)
-planes; here complex data is torch's own interleaved complex tensor, and a
-real input stands for a zero imaginary plane (the kernel reads it
-directly, no zeros plane is materialized).
+Counterparts of ``fft_stockham``, ``fft_stockham_scale`` and
+``fft_stockham_twiddle`` in ``repro.kernels.fft_stockham``.  The TPU
+kernels take separate (re, im) planes; here complex data is torch's own
+interleaved complex tensor, and a real input stands for a zero imaginary
+plane (the kernel reads it directly, no zeros plane is materialized).
 
 On a CUDA tensor each wrapper launches its kernel on the current stream
 and counts the launch; on a CPU tensor it runs the plain version in
@@ -19,7 +19,8 @@ import torch
 from . import ref
 from ._build import LAUNCHES, check, library
 
-__all__ = ["fft_stockham", "fft_stockham_scale", "MAX_N"]
+__all__ = ["fft_stockham", "fft_stockham_scale", "fft_stockham_twiddle",
+           "MAX_N"]
 
 # Largest transform length: a 4096-point complex128 row in ping-pong
 # buffers is 128 KB of shared memory (the reference's own VMEM budget
@@ -58,17 +59,38 @@ def _fft_len(n_in, pad_to, inverse, what):
     return n
 
 
-def _launch(x, out, g, n, inverse, max_radix, start, k, grows):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, out, n, inverse, max_radix, start, k, g=None, grows=1,
+            a=None, b=None):
     rows, n_in = x.shape
     lib = library()
     fn = (lib.repro_fft_stockham_f64 if ref._rdt(x) == torch.float64
           else lib.repro_fft_stockham_f32)
-    tw = ref.twiddles(n, out.dtype, x.device)
-    err = fn(x.data_ptr(), int(x.is_complex()), out.data_ptr(),
-             None if g is None else g.data_ptr(), tw.data_ptr(),
-             rows, n_in, n, int(inverse), max_radix, start, k, grows,
+    tw = ref.twiddles(n, ref._cdt(ref._rdt(x)), x.device)
+    err = fn(x.data_ptr(), int(x.is_complex()), out.data_ptr(), _ptr(g),
+             _ptr(a), _ptr(b), tw.data_ptr(), rows, n_in, n, int(inverse),
+             max_radix, start, k, grows,
              torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "fft_stockham kernel launch")
+
+
+def _check_radix(max_radix):
+    if max_radix not in (2, 4):
+        raise ValueError(f"max_radix must be 2 or 4, got {max_radix}")
+
+
+def _check_plane(t, x, what, name):
+    """``t`` must be a contiguous real tensor of ``x``'s precision on
+    ``x``'s device."""
+    if t.dtype != ref._rdt(x) or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be a contiguous "
+                         f"{ref._rdt(x)} tensor, got {tuple(t.shape)} "
+                         f"{t.dtype}")
+    if t.device != x.device:
+        raise ValueError(f"{what}: {name} and x on different devices")
 
 
 def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
@@ -82,8 +104,7 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
     stages, one radix-2 step) or 2 (radix-2 only).
     """
     _check_input(x, "fft_stockham")
-    if max_radix not in (2, 4):
-        raise ValueError(f"max_radix must be 2 or 4, got {max_radix}")
+    _check_radix(max_radix)
     rows, n_in = x.shape
     n = _fft_len(n_in, pad_to, inverse, "fft_stockham")
     k = n if keep is None else keep
@@ -95,7 +116,7 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
     out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
                       device=x.device)
     if rows:
-        _launch(x, out, None, n, inverse, max_radix, 0, k, 1)
+        _launch(x, out, n, inverse, max_radix, 0, k)
         LAUNCHES["fft_stockham"] += 1
     return out
 
@@ -106,16 +127,13 @@ def fft_stockham_scale(x, g, start=0, pad_to=None, max_radix=4):
     times ``g`` (grows, k), row ``r`` taking Green row ``r % grows``.
     Composes with ``pad_to = 2N``."""
     _check_input(x, "fft_stockham_scale")
-    if max_radix not in (2, 4):
-        raise ValueError(f"max_radix must be 2 or 4, got {max_radix}")
+    _check_radix(max_radix)
     rows, n_in = x.shape
     n = _fft_len(n_in, pad_to, False, "fft_stockham_scale")
-    if g.ndim != 2 or g.dtype != ref._rdt(x) or not g.is_contiguous():
-        raise ValueError(f"fft_stockham_scale: g must be a contiguous 2-D "
-                         f"{ref._rdt(x)} tensor, got {tuple(g.shape)} "
-                         f"{g.dtype}")
-    if g.device != x.device:
-        raise ValueError("fft_stockham_scale: g and x on different devices")
+    _check_plane(g, x, "fft_stockham_scale", "g")
+    if g.ndim != 2:
+        raise ValueError(f"fft_stockham_scale: g must be 2-D, got "
+                         f"{tuple(g.shape)}")
     grows, k = g.shape
     if grows < 1 or rows % grows or start < 0 or start + k > n or k < 1:
         raise ValueError(f"fft_stockham_scale: rows={rows}, g={grows}x{k}, "
@@ -126,6 +144,35 @@ def fft_stockham_scale(x, g, start=0, pad_to=None, max_radix=4):
     out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
                       device=x.device)
     if rows:
-        _launch(x, out, g, n, False, max_radix, start, k, grows)
+        _launch(x, out, n, False, max_radix, start, k, g=g, grows=grows)
         LAUNCHES["fft_stockham_scale"] += 1
+    return out
+
+
+def fft_stockham_twiddle(x, a, b, start=0, pad_to=None, max_radix=4):
+    """Forward FFT of ``x`` (rows, N) fused with the DCT/DST post-twiddle:
+    returns the real (rows, k) ``a * Re(F) + b * Im(F)`` over bins
+    ``[start, start+k)``, with ``a``/``b`` real (k,) tables of ``x``'s
+    precision.  The complex spectrum never reaches memory.  Composes with
+    ``pad_to = 2N``."""
+    _check_input(x, "fft_stockham_twiddle")
+    _check_radix(max_radix)
+    rows, n_in = x.shape
+    n = _fft_len(n_in, pad_to, False, "fft_stockham_twiddle")
+    for name, t in (("a", a), ("b", b)):
+        _check_plane(t, x, "fft_stockham_twiddle", name)
+    if a.ndim != 1 or a.shape != b.shape:
+        raise ValueError(f"fft_stockham_twiddle: a and b must be (k,), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    k = a.shape[0]
+    if k < 1 or start < 0 or start + k > n:
+        raise ValueError(f"fft_stockham_twiddle: bins [{start}, "
+                         f"{start + k}) do not fit n_fft={n}")
+    if x.device.type == "cpu":
+        return ref.fft_stockham_twiddle(x, a, b, start=start, pad_to=pad_to,
+                                        max_radix=max_radix)
+    out = torch.empty((rows, k), dtype=ref._rdt(x), device=x.device)
+    if rows:
+        _launch(x, out, n, False, max_radix, start, k, a=a, b=b)
+        LAUNCHES["fft_stockham_twiddle"] += 1
     return out

@@ -4,19 +4,25 @@ small torch glue of the pruned inverses.
 Counterparts of ``repro.kernels.ops``.  Every wrapper keeps the input's
 precision (float64 in gives complex128 / float64 out), flattens leading
 axes into kernel rows, and makes its input contiguous before the kernel:
-the kernels take no strides.
+the FFT kernels take no strides.  ``post_twiddle`` is the exception: the
+``twiddle_pack`` kernel reads a last-axis window of a half spectrum where
+it lies.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import ref
-from .fft_stockham import fft_stockham, fft_stockham_scale
+from .fft_stockham import (fft_stockham, fft_stockham_scale,
+                           fft_stockham_twiddle)
 from .spectral_scale import spectral_scale
+from .twiddle_pack import twiddle_pack
 
-__all__ = ["green_multiply", "fft1d", "rfft_kernel", "irfft_kernel",
+__all__ = ["green_multiply", "post_twiddle", "dct2_post_twiddle",
+           "rfft_twiddle", "fft1d", "rfft_kernel", "irfft_kernel",
            "ifft_pruned", "irfft_pruned", "fft1d_green", "rfft_green"]
 
 
@@ -37,6 +43,49 @@ def green_multiply(fhat, green, scale: float = 1.0):
     g2 = green.reshape(grows, lanes).to(ref._rdt(fhat)).contiguous()
     out = spectral_scale(fhat.contiguous().reshape(kshape), g2, scale)
     return out.reshape(shp)
+
+
+def post_twiddle(f, a, b):
+    """Generic r2r post-twiddle ``y = a * Re(f) + b * Im(f)`` over the last
+    axis of a complex ``f`` (..., k), one ``twiddle_pack`` kernel.  ``f``
+    may be a last-axis window of a contiguous half spectrum
+    (``rfft(z)[..., 1:m+1]``): the kernel reads it in place at its row
+    pitch.  ``a``/``b``: (k,) tables (cast to ``f``'s precision)."""
+    shp = f.shape
+    rows, k = _rows(shp), shp[-1]
+    rdt = ref._rdt(f)
+    # a view whenever the leading axes are uniformly pitched, as a window
+    # of a contiguous tensor is; anything else becomes contiguous here
+    f2 = f.reshape(rows, k)
+    if k > 1 and f2.stride(1) != 1:
+        f2 = f2.contiguous()
+    y = twiddle_pack(f2, a.to(rdt).contiguous(), b.to(rdt).contiguous())
+    return y.reshape(shp)
+
+
+def dct2_post_twiddle(fhat_half):
+    """DCT-II from the rfft of the symmetric extension (the inner step of
+    ``transforms.dct2``): ``y_k = cos_k Re_k + sin_k Im_k`` over the first
+    M modes of ``fhat_half`` (..., M)."""
+    m = fhat_half.shape[-1]
+    th = torch.from_numpy(np.pi * np.arange(m) / (2.0 * m)).to(
+        fhat_half.device)
+    return post_twiddle(fhat_half, torch.cos(th), torch.sin(th))
+
+
+def rfft_twiddle(x, a, b, start: int = 0, pad_to: int | None = None,
+                 max_radix: int = 4):
+    """Fused rfft + r2r post-twiddle: ``a * Re(F)[start:start+k] + b *
+    Im(F)[start:start+k]`` of the real (..., N) array ``x`` in one
+    ``fft_stockham_twiddle`` kernel; the complex spectrum never reaches
+    memory.  ``pad_to = 2N`` composes with the pruned zero tail.
+    ``a``/``b``: (k,) tables of ``x``'s precision."""
+    shp = x.shape
+    rdt = ref._rdt(x)
+    y = fft_stockham_twiddle(x.contiguous().reshape(_rows(shp), shp[-1]),
+                             a.to(rdt).contiguous(), b.to(rdt).contiguous(),
+                             start=start, pad_to=pad_to, max_radix=max_radix)
+    return y.reshape(shp[:-1] + (a.shape[-1],))
 
 
 def _fft_green(x, green, half: bool, pad_to, max_radix: int):

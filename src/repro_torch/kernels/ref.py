@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function computes what its kernel computes, step for step: the same
 radix-4/2 Stockham stages, the same pruned first stage, the same twiddle
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["twiddles", "fft_stockham", "fft_stockham_scale",
-           "spectral_scale"]
+           "fft_stockham_twiddle", "spectral_scale", "twiddle_pack"]
 
 
 def _cdt(rdt):
@@ -99,6 +99,19 @@ def fft_stockham_scale(x, g, start=0, pad_to=None, max_radix=4):
     y = y[:, start:start + k].reshape(-1, grows, k)
     out = torch.complex(y.real * g, y.imag * g)
     return out.reshape(-1, k)
+
+
+def fft_stockham_twiddle(x, a, b, start=0, pad_to=None, max_radix=4):
+    """Forward FFT of ``x`` (rows, N), then the real post-twiddle
+    ``a * Re + b * Im`` of bins ``[start, start+k)``, ``a``/``b`` (k,)."""
+    y = fft_stockham(x, pad_to=pad_to, max_radix=max_radix)
+    return twiddle_pack(y[:, start:start + a.shape[0]], a, b)
+
+
+def twiddle_pack(x, a, b):
+    """``a * Re(x) + b * Im(x)`` of a complex ``x`` (rows, k), with the
+    real (k,) tables ``a``/``b`` broadcast along rows."""
+    return a * x.real + b * x.imag
 
 
 def spectral_scale(x, green, scale: float):

@@ -4,7 +4,8 @@ reference's Pallas kernels in interpret mode on the same numpy inputs.
 
 Tolerances: float64 rtol 1e-10 (atol 1e-10 * sqrt(n) for FFTs); float32 as
 ``tests/test_kernels.py`` holds the Pallas kernels: rtol 1e-4 and atol
-1e-3 * sqrt(n) for the FFT, rtol 2e-6 for the scale.  The port's twiddles
+1e-3 * sqrt(n) for the FFT, rtol 2e-6 for the scale and the twiddle
+pack.  The port's twiddles
 are float64 values cast once, the reference's float32 angle arithmetic;
 both sit far inside these bounds.
 """
@@ -17,10 +18,12 @@ import torch
 
 from repro.kernels import fft_stockham as rk
 from repro.kernels.spectral_scale import spectral_scale as r_spectral_scale
+from repro.kernels.twiddle_pack import twiddle_pack as r_twiddle_pack
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import fft_stockham as tk
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.spectral_scale import spectral_scale
+from repro_torch.kernels.twiddle_pack import twiddle_pack
 
 
 def _tol(dtype, n=None):
@@ -143,8 +146,11 @@ def test_cpu_calls_count_no_launch():
     tk.fft_stockham(x)
     tk.fft_stockham_scale(x, torch.ones((2, 8)))
     spectral_scale(x, torch.ones((2, 8)))
+    tk.fft_stockham_twiddle(x, torch.ones(4), torch.ones(4))
+    twiddle_pack(x, torch.ones(8), torch.ones(8))
     assert LAUNCHES == {"fft_stockham": 0, "fft_stockham_scale": 0,
-                        "spectral_scale": 0}
+                        "spectral_scale": 0, "twiddle_pack": 0,
+                        "fft_stockham_twiddle": 0}
 
 
 @pytest.mark.parametrize("bad", ["strided", "dtype", "too_long", "not_pow2",
@@ -188,3 +194,99 @@ def test_twiddle_table_is_the_forward_root_of_unity():
     np.testing.assert_allclose(w.numpy(),
                                np.exp(-2j * np.pi * np.arange(16) / 16),
                                rtol=0, atol=1e-15)
+
+
+# -- fft_stockham_twiddle and twiddle_pack ----------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("window", ["dct2", "dct1", "dst2"])
+@pytest.mark.parametrize("n,batch", [(8, 1), (64, 13), (512, 13)])
+def test_fft_stockham_twiddle_matches_pallas(n, batch, window, radix, pad,
+                                             dtype):
+    """Bin windows of the three fused r2r kinds: DCT-II keeps [0, N/2),
+    DCT-I [0, N/2+1) (up to the Nyquist bin), DST-II [1, N/2+1)."""
+    start, k = {"dct2": (0, n // 2), "dct1": (0, n // 2 + 1),
+                "dst2": (1, n // 2)}[window]
+    rng = np.random.default_rng(n + k + start)
+    x = rng.standard_normal((batch, n // 2 if pad else n)).astype(dtype)
+    a, b = (rng.standard_normal(k).astype(dtype) for _ in range(2))
+    kw = dict(start=start, pad_to=n if pad else None, max_radix=radix)
+    want = rk.fft_stockham_twiddle(jnp.asarray(x), jnp.zeros_like(x),
+                                   jnp.asarray(a), jnp.asarray(b), **kw)
+    t = [torch.from_numpy(v) for v in (x, a, b)]
+    got = tk.fft_stockham_twiddle(*t, **kw)
+    assert got.dtype == t[0].dtype and got.shape == (batch, k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(dtype, n))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(8, 128), (64, 257), (5, 96)])
+def test_twiddle_pack_matches_pallas(shape, dtype):
+    rng = np.random.default_rng(shape[1])
+    re, im = _planes(rng, shape, dtype)
+    a, b = (rng.standard_normal(shape[1]).astype(dtype) for _ in range(2))
+    want = r_twiddle_pack(jnp.asarray(re), jnp.asarray(im), jnp.asarray(a),
+                          jnp.asarray(b))
+    got = twiddle_pack(_cplx(re, im), torch.from_numpy(a),
+                       torch.from_numpy(b))
+    assert got.shape == shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("start", [0, 1])
+def test_twiddle_pack_reads_a_strided_window(start):
+    """The unfused r2r path packs ``f[:, start:start+k]`` of a contiguous
+    half spectrum: the wrapper takes the window as it lies (row pitch
+    k+1), with no copy, and matches the Pallas kernel on the copied
+    window."""
+    rng = np.random.default_rng(start)
+    re, im = _planes(rng, (6, 13), np.float64)
+    f = _cplx(re, im)
+    win = f[:, start:start + 12]
+    assert not win.is_contiguous() and win.stride() == (13, 1)
+    a, b = (rng.standard_normal(12) for _ in range(2))
+    want = r_twiddle_pack(jnp.asarray(re[:, start:start + 12]),
+                          jnp.asarray(im[:, start:start + 12]),
+                          jnp.asarray(a), jnp.asarray(b))
+    got = twiddle_pack(win, torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(np.float64))
+
+
+@pytest.mark.parametrize("bad", ["real", "conj", "rank", "last_stride",
+                                 "table_len", "table_dtype"])
+def test_twiddle_pack_rejects_what_the_kernel_does_not_take(bad):
+    x = torch.zeros((4, 8), dtype=torch.complex64)
+    a = b = torch.ones(8)
+    if bad == "real":
+        x = torch.zeros((4, 8))
+    elif bad == "conj":
+        x = x.conj()
+    elif bad == "rank":
+        x = torch.zeros((2, 4, 8), dtype=torch.complex64)
+    elif bad == "last_stride":
+        x = torch.zeros((4, 16), dtype=torch.complex64)[:, ::2]
+    elif bad == "table_len":
+        a = torch.ones(7)
+    elif bad == "table_dtype":
+        a = torch.ones(8, dtype=torch.float64)
+    with pytest.raises((ValueError, TypeError)):
+        twiddle_pack(x, a, b)
+
+
+@pytest.mark.parametrize("bad", ["window", "table_shape", "table_dtype"])
+def test_fft_twiddle_wrapper_rejects_bad_tables(bad):
+    x = torch.zeros((4, 16))
+    a = b = torch.ones(9)
+    start = 0
+    if bad == "window":
+        start = 8
+    elif bad == "table_shape":
+        b = torch.ones(8)
+    elif bad == "table_dtype":
+        a = b = torch.ones(9, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tk.fft_stockham_twiddle(x, a, b, start=start)

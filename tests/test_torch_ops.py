@@ -128,6 +128,47 @@ def test_green_multiply_takes_strided_fields():
                                rtol=1e-15, atol=0)
 
 
+# -- the r2r post-twiddle wrappers (twiddle_pack, fft_stockham_twiddle) ----
+
+@pytest.mark.parametrize("start", [0, 1])
+def test_post_twiddle_on_a_half_spectrum_window(start):
+    """The unfused DCT-II / DST-II step: the window ``f[..., start:start+m]``
+    of an rfft half spectrum with leading batch axes, read in place."""
+    m = 12
+    rng = np.random.default_rng(start)
+    f = _t(_cplx(rng, m + 1))
+    a, b = (rng.standard_normal(m) for _ in range(2))
+    win = f[..., start:start + m]
+    want = rops.post_twiddle(jnp.asarray(win.real.numpy()),
+                             jnp.asarray(win.imag.numpy()), a, b)
+    got = tops.post_twiddle(win, _t(a), _t(b))
+    assert got.dtype == torch.float64 and tuple(got.shape) == LEAD + (m,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(m))
+
+
+def test_dct2_post_twiddle():
+    rng = np.random.default_rng(3)
+    f = _cplx(rng, 10)
+    want = rops.dct2_post_twiddle(jnp.asarray(f))
+    got = tops.dct2_post_twiddle(_t(f))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(10))
+
+
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("start,k", [(0, 8), (0, 9), (1, 8)])
+def test_rfft_twiddle(start, k, pad):
+    n = 16
+    rng = np.random.default_rng(k + start)
+    x = _real(rng, n // 2 if pad else n)
+    a, b = (rng.standard_normal(k) for _ in range(2))
+    pad_to = n if pad else None
+    want = rops.rfft_twiddle(jnp.asarray(x), a, b, start=start,
+                             pad_to=pad_to)
+    got = tops.rfft_twiddle(_t(x), _t(a), _t(b), start=start, pad_to=pad_to)
+    assert tuple(got.shape) == LEAD + (k,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(n))
+
+
 # -- core/transforms DFT part, both port engines against reference XLA ----
 
 @pytest.mark.parametrize("engine", ["torch", "cuda"])

@@ -23,12 +23,21 @@ from repro_torch.core import bc as tbc
 from repro_torch.core.solver import PoissonSolver
 from repro_torch.kernels import ops
 
+import test_validation as val
 from test_poisson import case_b
 
 E, O, P, U = BCType.EVEN, BCType.ODD, BCType.PER, BCType.UNB
 MIXES = {"UUU": ((U, U), (U, U), (U, U)),
          "UPU": ((U, U), (P, P), (U, U)),
          "PPP": ((P, P), (P, P), (P, P))}
+# mixes with symmetric (even/odd) and semi-unbounded directions: those of
+# tests/test_torch_plan.py and the paper's semi-unbounded validation cases
+R2R_MIXES = {"sym_per": ((E, E), (O, E), (P, P)),
+             "semi": ((U, E), (U, U), (O, U)),
+             "sym": ((E, O), (O, O), (E, E)),
+             "semi_even": ((U, E), (U, U), (U, U)),
+             "semi_odd": ((U, U), (U, U), (O, U))}
+MIXES.update(R2R_MIXES)
 N = 8
 
 
@@ -65,7 +74,7 @@ def _port(mix, layout, engine, doubling="deferred", relayout="scheduled",
 @pytest.mark.parametrize("relayout", ["scheduled", "baseline"])
 @pytest.mark.parametrize("doubling", ["deferred", "upfront"])
 @pytest.mark.parametrize("layout", ["CELL", "NODE"])
-@pytest.mark.parametrize("mix", list(MIXES))
+@pytest.mark.parametrize("mix", ["UUU", "UPU", "PPP"])
 def test_solve_matches_reference_xla(mix, layout, doubling, relayout, batch,
                                      engine):
     f, want, _ = _reference(mix, layout, doubling, relayout, batch)
@@ -75,8 +84,30 @@ def test_solve_matches_reference_xla(mix, layout, doubling, relayout, batch,
     assert np.abs(got.numpy() - want).max() < 1e-10
 
 
+@pytest.mark.parametrize("n", [8, 12])
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("relayout", ["scheduled", "baseline"])
+@pytest.mark.parametrize("doubling", ["deferred", "upfront"])
+@pytest.mark.parametrize("layout", ["CELL", "NODE"])
+@pytest.mark.parametrize("mix", list(R2R_MIXES))
+def test_r2r_solve_matches_reference_xla(mix, layout, doubling, relayout,
+                                         batch, engine, n):
+    """Symmetric and semi-unbounded directions: n=8 takes the fused
+    fft_stockham_twiddle and Stockham paths on the cuda engine, n=12 the
+    library FFT + twiddle_pack path."""
+    f, want, _ = _reference(mix, layout, doubling, relayout, batch, n=n)
+    s = _port(mix, layout, engine, doubling, relayout, n=n)
+    got = s.solve(f)
+    assert got.dtype == torch.float64 and tuple(got.shape) == f.shape
+    assert np.abs(got.numpy() - want).max() < 1e-10
+
+
 @pytest.mark.parametrize("mix,layout", [("UUU", "CELL"), ("UPU", "CELL"),
-                                        ("PPP", "NODE"), ("UUU", "NODE")])
+                                        ("PPP", "NODE"), ("UUU", "NODE"),
+                                        ("semi_even", "CELL"),
+                                        ("semi_odd", "NODE"),
+                                        ("sym", "CELL")])
 def test_cuda_engine_matches_reference_pallas(mix, layout):
     f, want, _ = _reference(mix, layout, "deferred", "scheduled", None,
                             engine="pallas")
@@ -87,9 +118,21 @@ def test_cuda_engine_matches_reference_pallas(mix, layout):
 @pytest.mark.parametrize("batch", [None, 2])
 @pytest.mark.parametrize("doubling", ["deferred", "upfront"])
 @pytest.mark.parametrize("layout", ["CELL", "NODE"])
-@pytest.mark.parametrize("mix", list(MIXES))
+@pytest.mark.parametrize("mix", ["UUU", "UPU", "PPP"])
 def test_scheduled_equals_baseline_bit_for_bit_on_torch(mix, layout,
                                                         doubling, batch):
+    a = _port(mix, layout, "torch", doubling, "scheduled", n=16)
+    b = _port(mix, layout, "torch", doubling, "baseline", n=16)
+    f = _rhs(a.input_shape, batch, seed=1)
+    assert torch.equal(a.solve(f), b.solve(f))
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("doubling", ["deferred", "upfront"])
+@pytest.mark.parametrize("layout", ["CELL", "NODE"])
+@pytest.mark.parametrize("mix", list(R2R_MIXES))
+def test_r2r_scheduled_equals_baseline_bit_for_bit_on_torch(mix, layout,
+                                                            doubling, batch):
     a = _port(mix, layout, "torch", doubling, "scheduled", n=16)
     b = _port(mix, layout, "torch", doubling, "baseline", n=16)
     f = _rhs(a.input_shape, batch, seed=1)
@@ -127,11 +170,50 @@ def test_green_with_wrong_shape_raises():
         _port("UUU", "CELL", "cuda", green=np.zeros((4, 4, 4)))
 
 
-@pytest.mark.parametrize("bcs", [((E, E), (O, E), (P, P)),
-                                 ((U, E), (U, U), (O, U))])
-def test_symmetric_or_semi_plan_raises_not_implemented(bcs):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        PoissonSolver((8, 8, 8), 1.0, _port_bcs(bcs), device="cpu")
+@pytest.mark.parametrize("layout", ["CELL", "NODE"])
+@pytest.mark.parametrize("case", ["semi-even", "semi-odd"])
+def test_semi_unbounded_chat2_order2(case, layout):
+    """The paper's semi-unbounded validation (Fig. 7,
+    tests/test_validation.py): a Gaussian blob and its mirror image
+    through the bounded end, CHAT2, on the cuda engine; n=24 takes the
+    twiddle_pack path.  Observed order over n = 16, 24, 32 above 1.55."""
+    fn, bcs = val.CASES[case]
+    lay = DataLayout[layout]
+    ns = (16, 24, 32)
+    errs = []
+    for n in ns:
+        rhs, sol = fn(n, lay)
+        s = PoissonSolver((n,) * 3, val.L, _port_bcs(bcs),
+                          layout=tbc.DataLayout[layout], device="cpu")
+        errs.append(float(np.abs(s.solve(rhs).numpy() - sol).max()))
+    p = -np.polyfit(np.log(ns), np.log(errs), 1)[0]
+    assert p > 1.55, (p, errs)
+    assert errs[0] > errs[1] > errs[2], errs
+
+
+@pytest.mark.parametrize("bcs,shape", [
+    (((P, P), (P, P), (P, P)), (4, 4, 8192)),          # DFT, length 8192
+    (((U, U), (U, U), (U, U)), (4, 4, 4096)),          # unbounded, 2n = 8192
+    (((P, P), (P, P), (U, E)), (4, 4, 2048)),          # semi DCT-II, 4n
+])
+def test_cuda_engine_refuses_a_fft_beyond_the_kernel_at_construction(bcs,
+                                                                     shape):
+    """The Stockham kernel takes at most MAX_N points: the cuda engine
+    raises when it is built, naming the direction and the length, instead
+    of in the middle of a solve (and never routes to torch.fft)."""
+    with pytest.raises(ValueError, match=r"direction 2 .* length 8192"):
+        PoissonSolver(shape, 1.0, _port_bcs(bcs), device="cpu")
+    # the torch engine has no such limit
+    PoissonSolver(shape, 1.0, _port_bcs(bcs), engine="torch", device="cpu")
+
+
+def test_cuda_engine_takes_long_non_power_of_two_lengths():
+    """Lengths that are not powers of two take torch.fft on the cuda
+    engine, however long."""
+    s = PoissonSolver((4, 4, 6000), 1.0, _port_bcs(MIXES["PPP"]),
+                      device="cpu")
+    u = s.solve(_rhs(s.input_shape, None))
+    assert bool(torch.isfinite(u).all())
 
 
 def test_float32_solve_keeps_precision_and_matches_float64():
@@ -170,6 +252,49 @@ def test_cuda_engine_kernel_calls_per_solve(monkeypatch, mix, layout, want):
     s = _port(mix, layout, "cuda")
     s.solve(_rhs(s.input_shape, None))
     assert tuple(calls.values()) == want
+
+
+# the five kernel wrappers' calls per solve on the r2r mixes: (fft_stockham,
+# fft_stockham_scale, spectral_scale, fft_stockham_twiddle, twiddle_pack).
+# semi CELL n=8: the fused DCT-II / DST-II forward, its DCT-III / DST-III
+# inverse on the Stockham kernel, then the (U,U,U) DFT pattern of two
+# directions; sym n=12 (no power-of-two length): two twiddle_packs after
+# the library rfft, DCT-IV on the library FFT, the Green multiply on a real
+# field; NODE semi-even: two fused DCT-Is and the unpruned NODE DFTs
+@pytest.mark.parametrize("bcs,layout,n,want", [
+    (R2R_MIXES["semi_even"], "CELL", 8, (6, 1, 0, 1, 0)),
+    (R2R_MIXES["semi_odd"], "CELL", 8, (6, 1, 0, 1, 0)),
+    (((E, E), (O, O), (E, O)), "CELL", 12, (0, 0, 1, 0, 2)),
+    (R2R_MIXES["semi_even"], "NODE", 8, (4, 0, 1, 2, 0)),
+])
+def test_cuda_engine_r2r_kernel_calls_per_solve(monkeypatch, bcs, layout, n,
+                                                want):
+    calls = dict.fromkeys(("fft_stockham", "fft_stockham_scale",
+                           "spectral_scale", "fft_stockham_twiddle",
+                           "twiddle_pack"), 0)
+    for name in calls:
+        fn = getattr(ops, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    s = PoissonSolver((n,) * 3, 1.0, _port_bcs(bcs),
+                      layout=tbc.DataLayout[layout], device="cpu")
+    s.solve(_rhs(s.input_shape, None))
+    assert tuple(calls.values()) == want
+
+
+@pytest.mark.parametrize("mix", list(R2R_MIXES))
+def test_torch_engine_calls_no_kernel_on_r2r_mixes(monkeypatch, mix):
+    def boom(*a, **kw):
+        raise AssertionError("the torch engine must not reach a kernel")
+    for name in ("fft_stockham", "fft_stockham_scale", "spectral_scale",
+                 "fft_stockham_twiddle", "twiddle_pack"):
+        monkeypatch.setattr(ops, name, boom)
+    for layout in ("CELL", "NODE"):
+        s = _port(mix, layout, "torch")
+        s.solve(_rhs(s.input_shape, None))
 
 
 def test_torch_engine_calls_no_kernel(monkeypatch):

@@ -383,8 +383,9 @@ def _resolve_device(device) -> torch.device:
 
 def _check_kernel_lengths(plan):
     """Raise when a direction needs a power-of-two FFT longer than the
-    Stockham kernel takes: the cuda engine sends every power-of-two length
-    to that kernel, and never to ``torch.fft`` behind the caller's back."""
+    Stockham kernel takes (``MAX_N`` = 2^24 points, in two passes above
+    4096): the cuda engine sends every power-of-two length to that kernel,
+    and never to ``torch.fft`` behind the caller's back."""
     from repro_torch.kernels.fft_stockham import MAX_N
     for p in plan.dirs:
         n = p.n_fft if p.kind is None else tr.fft_length(p.kind, p.n_fft)
@@ -399,9 +400,10 @@ class PoissonSolver:
     """u = solve(f): FFT-based solution of lap(u) = f with mixed BCs.
 
     ``engine``: "cuda" (default: the hand-written kernels) or "torch"
-    (``torch.fft``, cuFFT on the card).  The cuda engine raises here when
-    the plan needs a power-of-two FFT longer than the Stockham kernel's
-    ``MAX_N``.  ``device``: where the solve runs;
+    (``torch.fft``, cuFFT on the card).  The cuda engine runs every
+    power-of-two FFT on the Stockham kernel (lengths above 4096 in its
+    two-pass form) and raises here when the plan needs one longer than the
+    kernel's ``MAX_N`` = 2^24 points.  ``device``: where the solve runs;
     None means ``torch.device("cuda")`` and raises when there is no card.
     ``green``: an optional precomputed Green's function in natural layout
     (the array ``build_green`` returns, e.g. carried from another solver);

@@ -10,7 +10,8 @@ back: a missing ``nvcc`` or a failed build raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one
 where it launches its kernel and nowhere else (CPU calls run the plain
-version and count nothing).
+version and count nothing).  ``TWO_PASS`` counts, of those, the Stockham
+calls whose rows were too long for one pass and took two.
 """
 from __future__ import annotations
 
@@ -22,11 +23,13 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "library", "check",
-           "BUILD_LOG"]
+__all__ = ["LAUNCHES", "TWO_PASS", "reset_launches", "build", "library",
+           "check", "BUILD_LOG"]
 
 LAUNCHES = {"fft_stockham": 0, "fft_stockham_scale": 0, "spectral_scale": 0,
             "twiddle_pack": 0, "fft_stockham_twiddle": 0}
+TWO_PASS = {"fft_stockham": 0, "fft_stockham_scale": 0,
+            "fft_stockham_twiddle": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fft_stockham.cu", "spectral_scale.cu", "twiddle_pack.cu")
@@ -40,12 +43,12 @@ BUILD_LOG: list = []
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _SIGNATURES = {
-    # x, x_complex, out, g, a, b, twiddles, rows, n_in, n, inverse,
-    # max_radix, start, k, grows, stream
-    "repro_fft_stockham_f32": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P],
-    "repro_fft_stockham_f64": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P],
+    # x, x_complex, out, g, a, b, twiddles, scratch, rows, n_in, n,
+    # inverse, max_radix, start, k, grows, stream
+    "repro_fft_stockham_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _P],
+    "repro_fft_stockham_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _P],
     # x, x_complex, g, out, batch, plane, scale, stream
     "repro_spectral_scale_f32": [_P, _I, _P, _P, _LL, _LL, _D, _P],
     "repro_spectral_scale_f64": [_P, _I, _P, _P, _LL, _LL, _D, _P],
@@ -59,9 +62,10 @@ _lock = threading.Lock()
 
 
 def reset_launches():
-    """Set every launch count to 0."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set every launch count (and two-pass count) to 0."""
+    for counts in (LAUNCHES, TWO_PASS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -31,6 +31,23 @@
 // W[t] = exp(-2 pi i t / N) (float64 host values, cast once), conjugated
 // for the inverse.  Simple first: no register blocking, no vectorized
 // global access; those are for a later change.
+//
+// Rows longer than kMaxN (= N2 = 4096) points do not fit in shared memory
+// and take two passes (the four-step FFT), N = N1 N2 with N1 = N / 4096,
+// input n = N2 n1 + n2, output f = k1 + N1 k2:
+//   X[k1 + N1 k2] = sum_n2 W_N2^(n2 k2) W_N^(n2 k1) sum_n1 x[N2 n1 + n2] W_N1^(n1 k1)
+// Pass 1 (column_kernel) runs the N1-point FFTs down the stride-N2 columns
+// of a row, a tile of adjacent columns per block so that each warp reads
+// whole 128-byte lines, multiplies by the inter-pass twiddle W_N^(n2 k1)
+// (n2 k1 < N: no overflow) and stores Z[r, k1, n2] to a scratch buffer.
+// The pruned input (n < N/2, so n1 < N1/2) is the pruned first stage of
+// the column FFTs.  Pass 2 is stockham_kernel over the rows * N1
+// contiguous rows Z[r, k1, :], with the twiddle table read at stride N1;
+// its epilogue maps kernel row (r, k1) and bin k2 to f = k1 + N1 k2 and
+// keeps the same bin windows, so all three epilogues stay fused.  Its
+// stores are strided (N1 apart).  One table of length N serves both
+// passes (pass 1 reads it at stride N2); only pass 2 scales the inverse,
+// by 1/N.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +56,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxN = 4096;
 constexpr int kMinPointsPerBlock = 2048;
+// dynamic shared memory of the largest block: two 4096-point complex128
+// buffers (or two 8192-point complex64 column tiles)
+constexpr int kMaxSmem = 2 * kMaxN * 16;
 
 template <typename T> struct Cplx;
 template <> struct Cplx<float> { using type = float2; };
@@ -81,46 +101,42 @@ __device__ __forceinline__ typename Cplx<T>::type twiddle(
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stockham_kernel(const T* __restrict__ x, int x_complex,
-                typename Cplx<T>::type* __restrict__ out,
-                const T* __restrict__ g,
-                const T* __restrict__ ta, const T* __restrict__ tb,
-                const typename Cplx<T>::type* __restrict__ tw,
-                int rows, int n_in, int n, int inverse, int max_radix,
-                int start, int k, int grows, int rows_per_block) {
-  using C = typename Cplx<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  C* src = reinterpret_cast<C*>(smem_raw);
-  C* dst = src + (size_t)rows_per_block * n;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int nrows = min(rows_per_block, rows - row0);
-  const bool inv = inverse != 0;
+__device__ __forceinline__ typename Cplx<T>::type load(const T* x,
+                                                       int x_complex,
+                                                       size_t i) {
+  return x_complex ? reinterpret_cast<const typename Cplx<T>::type*>(x)[i]
+                   : mk<T>(x[i], T(0));
+}
 
-  // load, with the pruned first stage folded in: x1 == 0, so the DIF
-  // butterfly of index j gives e = x0 and d = x0 * W^j, stored at 2j, 2j+1
-  const bool pruned = n_in < n;
-  const int total_in = nrows * n_in;
-  const int lg_in = __ffs(n_in) - 1;  // every extent here is a power of 2
-  for (int i = threadIdx.x; i < total_in; i += blockDim.x) {
-    const int r = i >> lg_in;
-    const int j = i & (n_in - 1);
-    const size_t gi = (size_t)(row0 + r) * n_in + j;
-    const C v = x_complex ? reinterpret_cast<const C*>(x)[gi]
-                          : mk<T>(x[gi], T(0));
-    if (pruned) {
-      src[r * n + 2 * j] = v;
-      src[r * n + 2 * j + 1] = mul<T>(v, twiddle<T>(tw, j, inv));
-    } else {
-      src[r * n + j] = v;
-    }
+// sample j of a row, the pruned first stage folded in when pruned: x1 ==
+// 0, so the DIF butterfly of index j gives e = x0 and d = x0 * W^j, stored
+// at 2j, 2j+1 (W^j of the row's own length: table index j * tw_stride)
+template <typename T>
+__device__ __forceinline__ void put_first(
+    typename Cplx<T>::type* row, int j, typename Cplx<T>::type v,
+    bool pruned, const typename Cplx<T>::type* __restrict__ tw,
+    int tw_stride, bool inv) {
+  if (pruned) {
+    row[2 * j] = v;
+    row[2 * j + 1] = mul<T>(v, twiddle<T>(tw, j * tw_stride, inv));
+  } else {
+    row[j] = v;
   }
-  int m = pruned ? n / 2 : n;
-  int l = pruned ? 2 : 1;
-  __syncthreads();
+}
 
+// The Stockham DIF stages of nrows rows of length n held in shared memory
+// (ping-pong src/dst, swapped after each stage), from sub-transform length
+// m and span l (m = n, l = 1 unpruned; n/2, 2 after the pruned first
+// stage).  The twiddle W_n^t is table entry t * tw_stride.  Returns with
+// the natural-order spectrum in src.
+template <typename T>
+__device__ __forceinline__ void stages(
+    typename Cplx<T>::type*& src, typename Cplx<T>::type*& dst, int nrows,
+    int n, int m, int l, int max_radix,
+    const typename Cplx<T>::type* __restrict__ tw, int tw_stride, bool inv) {
+  using C = typename Cplx<T>::type;
   while (m > 1) {
-    const int stride = n / m;  // twiddle index step of this stage
+    const int stride = n / m * tw_stride;  // twiddle index step of the stage
     const int lg_l = __ffs(l) - 1;
     if (max_radix >= 4 && (m & 3) == 0) {
       // radix-4 DIF stage: quarters (A, B, C, D) of each length-m
@@ -174,64 +190,210 @@ stockham_kernel(const T* __restrict__ x, int x_complex,
     src = dst;
     dst = t;
   }
+}
 
-  // epilogue: bins [start, start+k), then the real post-twiddle
-  // (ta, tb given: a real (rows, k) output), or 1/N for the inverse and
-  // the Green multiply (a complex (rows, k) output)
-  const int total_out = nrows * k;
-  for (int i = threadIdx.x; i < total_out; i += blockDim.x) {
-    const int r = i / k;
-    const int b = i - r * k;
-    C v = src[r * n + start + b];
-    if (ta != nullptr) {
-      reinterpret_cast<T*>(out)[(size_t)(row0 + r) * k + b] =
-          ta[b] * v.x + tb[b] * v.y;
-      continue;
-    }
-    if (inv) {
-      v.x = v.x / T(n);
-      v.y = v.y / T(n);
-    }
-    if (g != nullptr) {
-      const T gv = g[(size_t)((row0 + r) % grows) * k + b];
-      v.x = v.x * gv;
-      v.y = v.y * gv;
-    }
-    out[(size_t)(row0 + r) * k + b] = v;
+// One kept bin v of caller row r, place b in the window [start, start+k):
+// the real post-twiddle (ta, tb given: a real output), or 1/N for the
+// inverse and the Green multiply (a complex output), stored at out[at]
+template <typename T>
+__device__ __forceinline__ void emit(
+    typename Cplx<T>::type* __restrict__ out, size_t at,
+    typename Cplx<T>::type v, int r, int b, const T* __restrict__ g,
+    int grows, int k, const T* __restrict__ ta, const T* __restrict__ tb,
+    bool inv, T n_total) {
+  if (ta != nullptr) {
+    reinterpret_cast<T*>(out)[at] = ta[b] * v.x + tb[b] * v.y;
+    return;
   }
+  if (inv) {
+    v.x = v.x / n_total;
+    v.y = v.y / n_total;
+  }
+  if (g != nullptr) {
+    const T gv = g[(size_t)(r % grows) * k + b];
+    v.x = v.x * gv;
+    v.y = v.y * gv;
+  }
+  out[at] = v;
+}
+
+// kRowPass false: the whole FFT of rows of length n, in one pass.
+// kRowPass true: pass 2 of the two-pass FFT (n = N2, kernel row R =
+// (r, k1) with n1 = N1, rows = the caller's rows times N1, table of length
+// n * n1 read at stride n1).  A template parameter, so the one-pass kernel
+// carries none of the row pass's index arithmetic.
+template <typename T, bool kRowPass>
+__global__ void __launch_bounds__(kThreads)
+stockham_kernel(const T* __restrict__ x, int x_complex,
+                typename Cplx<T>::type* __restrict__ out,
+                const T* __restrict__ g,
+                const T* __restrict__ ta, const T* __restrict__ tb,
+                const typename Cplx<T>::type* __restrict__ tw,
+                int rows, int n_in, int n, int n1_arg, int inverse,
+                int max_radix, int start, int k, int grows,
+                int rows_per_block) {
+  using C = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* src = reinterpret_cast<C*>(smem_raw);
+  C* dst = src + (size_t)rows_per_block * n;
+  const int row0 = blockIdx.x * rows_per_block;
+  const int nrows = min(rows_per_block, rows - row0);
+  const bool inv = inverse != 0;
+  const int n1 = kRowPass ? n1_arg : 1;
+
+  const bool pruned = n_in < n;
+  const int total_in = nrows * n_in;
+  const int lg_in = __ffs(n_in) - 1;  // every extent here is a power of 2
+  for (int i = threadIdx.x; i < total_in; i += blockDim.x) {
+    const int r = i >> lg_in;
+    const int j = i & (n_in - 1);
+    put_first<T>(src + r * n, j,
+                 load<T>(x, x_complex, (size_t)(row0 + r) * n_in + j),
+                 pruned, tw, n1, inv);
+  }
+  __syncthreads();
+  stages<T>(src, dst, nrows, n, pruned ? n / 2 : n, pruned ? 2 : 1,
+            max_radix, tw, n1, inv);
+
+  // epilogue: the bins [start, start+k) of each row
+  if constexpr (!kRowPass) {
+    const int total_out = nrows * k;
+    for (int i = threadIdx.x; i < total_out; i += blockDim.x) {
+      const int r = i / k;
+      const int b = i - r * k;
+      emit<T>(out, (size_t)(row0 + r) * k + b, src[r * n + start + b],
+              row0 + r, b, g, grows, k, ta, tb, inv, T(n));
+    }
+  } else {
+    // kernel row (r, k1) holds the bins f = k1 + n1 k2: at most
+    // ceil(k / n1) of them in the window, from k2 = lo on
+    const int lg_n1 = __ffs(n1) - 1;
+    const int span = (k + n1 - 1) >> lg_n1;
+    const int total_out = nrows * span;
+    for (int i = threadIdx.x; i < total_out; i += blockDim.x) {
+      const int rr = i / span;
+      const int row = row0 + rr;
+      const int r = row >> lg_n1;
+      const int k1 = row & (n1 - 1);
+      const int lo = start > k1 ? (start - k1 + n1 - 1) >> lg_n1 : 0;
+      const int k2 = lo + (i - rr * span);
+      const int f = k1 + (k2 << lg_n1);
+      if (k2 >= n || f >= start + k) continue;
+      const int b = f - start;
+      emit<T>(out, (size_t)r * k + b, src[rr * n + k2], r, b, g, grows, k,
+              ta, tb, inv, T(n) * T(n1));
+    }
+  }
+}
+
+// Pass 1 of the two-pass FFT: block (r, tile) runs the n1-point FFTs of
+// the columns [c0, c0 + cols) of row r (column c is x[r, n2 n1' + c0 + c]
+// over n1' < n_in / n2), multiplies bin k1 of column n2 by W_N^(n2 k1) and
+// writes z[(r n1 + k1) n2 + n2'].  Shared memory holds the tile as cols
+// rows of n1 points; neighbouring threads load and store neighbouring
+// columns, so device memory is read and written in whole lines.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+column_kernel(const T* __restrict__ x, int x_complex,
+              typename Cplx<T>::type* __restrict__ z,
+              const typename Cplx<T>::type* __restrict__ tw, int n_in,
+              int n1, int n2, int cols, int inverse, int max_radix) {
+  using C = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* src = reinterpret_cast<C*>(smem_raw);
+  C* dst = src + (size_t)cols * n1;
+  const int tiles = n2 / cols;
+  const int r = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - r * tiles) * cols;
+  const bool inv = inverse != 0;
+  const int lg_cols = __ffs(cols) - 1;
+
+  const int n1_in = n_in / n2;  // n1, or n1 / 2 pruned
+  const bool pruned = n1_in < n1;
+  const int total_in = cols * n1_in;
+  for (int i = threadIdx.x; i < total_in; i += blockDim.x) {
+    const int c = i & (cols - 1);
+    const int j = i >> lg_cols;
+    const size_t gi = (size_t)r * n_in + (size_t)j * n2 + c0 + c;
+    put_first<T>(src + c * n1, j, load<T>(x, x_complex, gi), pruned, tw, n2,
+                 inv);
+  }
+  __syncthreads();
+  stages<T>(src, dst, cols, n1, pruned ? n1 / 2 : n1, pruned ? 2 : 1,
+            max_radix, tw, n2, inv);
+
+  const int total = cols * n1;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & (cols - 1);
+    const int k1 = i >> lg_cols;
+    const C v = src[c * n1 + k1];
+    z[((size_t)r * n1 + k1) * n2 + c0 + c] =
+        mul<T>(v, twiddle<T>(tw, (c0 + c) * k1, inv));
+  }
+}
+
+template <typename KernelPtr>
+cudaError_t allow_smem(KernelPtr kernel, size_t smem) {
+  // the opt-in above 48 KB is a per-device attribute: set it (always to the
+  // largest size, so concurrent launches never lower it for each other) on
+  // every launch that needs it, whichever device is current
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
 }
 
 template <typename T>
 int launch(const void* x, int x_complex, void* out, const void* g,
-           const void* ta, const void* tb, const void* tw, int rows,
-           int n_in, int n, int inverse, int max_radix, int start, int k,
-           int grows, void* stream) {
+           const void* ta, const void* tb, const void* tw, void* scratch,
+           int rows, int n_in, int n, int inverse, int max_radix, int start,
+           int k, int grows, void* stream) {
   using C = typename Cplx<T>::type;
-  if (n < 2 || n > kMaxN || (n & (n - 1)) != 0 ||
+  if (n < 2 || (n & (n - 1)) != 0 || n > kMaxN * kMaxN ||
       !(n_in == n || 2 * n_in == n) || rows < 1 || k < 1 ||
       start < 0 || start + k > n || grows < 1 || rows % grows != 0 ||
       (ta == nullptr) != (tb == nullptr) ||
-      (ta != nullptr && (g != nullptr || inverse))) {
+      (ta != nullptr && (g != nullptr || inverse)) ||
+      (n > kMaxN && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const C* twc = static_cast<const C*>(tw);
+  int n1 = 1;
+  if (n > kMaxN) {
+    // pass 1 into the scratch; pass 2 reads it as rows * n1 full rows
+    n1 = n / kMaxN;
+    const int n2 = kMaxN;
+    int cols = kMinPointsPerBlock / n1 > 16 ? kMinPointsPerBlock / n1 : 16;
+    if (cols > n2) cols = n2;
+    while (cols > 1 && 2 * (size_t)cols * n1 * sizeof(C) > kMaxSmem) {
+      cols /= 2;
+    }
+    const size_t smem = 2 * (size_t)cols * n1 * sizeof(C);
+    cudaError_t e = allow_smem(column_kernel<T>, smem);
+    if (e != cudaSuccess) return (int)e;
+    column_kernel<T><<<(unsigned)rows * (n2 / cols), kThreads, smem, s>>>(
+        static_cast<const T*>(x), x_complex, static_cast<C*>(scratch), twc,
+        n_in, n1, n2, cols, inverse, max_radix);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    x = scratch;
+    x_complex = 1;
+    rows *= n1;
+    n = n_in = n2;
   }
   const int rows_per_block = n >= kMinPointsPerBlock ? 1
                                                       : kMinPointsPerBlock / n;
   const size_t smem = 2 * (size_t)rows_per_block * n * sizeof(C);
-  // the opt-in above 48 KB is a per-device attribute: set it (always to the
-  // largest size, so concurrent launches never lower it for each other) on
-  // every launch that needs it, whichever device is current
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        stockham_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(2 * kMaxN * sizeof(C)));
-    if (e != cudaSuccess) return (int)e;
-  }
+  const auto kernel =
+      n1 > 1 ? stockham_kernel<T, true> : stockham_kernel<T, false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  stockham_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, kThreads, smem, s>>>(
       static_cast<const T*>(x), x_complex, static_cast<C*>(out),
       static_cast<const T*>(g), static_cast<const T*>(ta),
-      static_cast<const T*>(tb), static_cast<const C*>(tw), rows, n_in, n,
-      inverse, max_radix, start, k, grows, rows_per_block);
+      static_cast<const T*>(tb), twc, rows, n_in, n, n1, inverse, max_radix,
+      start, k, grows, rows_per_block);
   return (int)cudaGetLastError();
 }
 
@@ -239,23 +401,25 @@ int launch(const void* x, int x_complex, void* out, const void* g,
 
 extern "C" {
 
-// out is complex (rows, k), or real (rows, k) when ta and tb are given
+// out is complex (rows, k), or real (rows, k) when ta and tb are given;
+// tw is the length-n table; scratch (rows * n complex) is needed, and
+// used, only when n > 4096
 int repro_fft_stockham_f32(const void* x, int x_complex, void* out,
                            const void* g, const void* ta, const void* tb,
-                           const void* tw, int rows, int n_in, int n,
-                           int inverse, int max_radix, int start, int k,
-                           int grows, void* stream) {
-  return launch<float>(x, x_complex, out, g, ta, tb, tw, rows, n_in, n,
-                       inverse, max_radix, start, k, grows, stream);
+                           const void* tw, void* scratch, int rows, int n_in,
+                           int n, int inverse, int max_radix, int start,
+                           int k, int grows, void* stream) {
+  return launch<float>(x, x_complex, out, g, ta, tb, tw, scratch, rows, n_in,
+                       n, inverse, max_radix, start, k, grows, stream);
 }
 
 int repro_fft_stockham_f64(const void* x, int x_complex, void* out,
                            const void* g, const void* ta, const void* tb,
-                           const void* tw, int rows, int n_in, int n,
-                           int inverse, int max_radix, int start, int k,
-                           int grows, void* stream) {
-  return launch<double>(x, x_complex, out, g, ta, tb, tw, rows, n_in, n,
-                        inverse, max_radix, start, k, grows, stream);
+                           const void* tw, void* scratch, int rows, int n_in,
+                           int n, int inverse, int max_radix, int start,
+                           int k, int grows, void* stream) {
+  return launch<double>(x, x_complex, out, g, ta, tb, tw, scratch, rows,
+                        n_in, n, inverse, max_radix, start, k, grows, stream);
 }
 
 const char* repro_cuda_error_string(int err) {

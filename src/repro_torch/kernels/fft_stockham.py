@@ -11,21 +11,26 @@ plane (the kernel reads it directly, no zeros plane is materialized).
 On a CUDA tensor each wrapper launches its kernel on the current stream
 and counts the launch; on a CPU tensor it runs the plain version in
 ``ref``.  Anything else (other devices, dtypes, shapes, strides) raises.
+Rows longer than ``ONE_PASS_N`` points take the kernel's two passes (a
+column pass into a scratch buffer the wrapper allocates, then the row
+pass with the epilogue); such a call still counts once in ``LAUNCHES``,
+and once more in ``TWO_PASS``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from ._build import LAUNCHES, check, library
+from ._build import LAUNCHES, TWO_PASS, check, library
 
 __all__ = ["fft_stockham", "fft_stockham_scale", "fft_stockham_twiddle",
-           "MAX_N"]
+           "MAX_N", "ONE_PASS_N"]
 
-# Largest transform length: a 4096-point complex128 row in ping-pong
-# buffers is 128 KB of shared memory (the reference's own VMEM budget
-# note sizes its blocks for N <= 4096 too).
-MAX_N = 4096
+# Longest row transformed in one pass: a 4096-point complex128 row in
+# ping-pong buffers is 128 KB of shared memory.  Longer rows take two
+# passes of at most 4096 points each, so the kernel takes up to 4096^2.
+ONE_PASS_N = ref.ONE_PASS_N
+MAX_N = ONE_PASS_N ** 2
 
 _REAL = (torch.float32, torch.float64)
 _COMPLEX = (torch.complex64, torch.complex128)
@@ -63,18 +68,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(x, out, n, inverse, max_radix, start, k, g=None, grows=1,
-            a=None, b=None):
+def _launch(kname, x, out, n, inverse, max_radix, start, k, g=None,
+            grows=1, a=None, b=None):
     rows, n_in = x.shape
     lib = library()
     fn = (lib.repro_fft_stockham_f64 if ref._rdt(x) == torch.float64
           else lib.repro_fft_stockham_f32)
-    tw = ref.twiddles(n, ref._cdt(ref._rdt(x)), x.device)
+    cdt = ref._cdt(ref._rdt(x))
+    tw = ref.twiddles(n, cdt, x.device)
+    # the column pass's output, (rows, N1, N2): read by the row pass on the
+    # same stream, so the caching allocator may reuse it once this returns
+    scratch = (torch.empty(rows * n, dtype=cdt, device=x.device)
+               if n > ONE_PASS_N else None)
     err = fn(x.data_ptr(), int(x.is_complex()), out.data_ptr(), _ptr(g),
-             _ptr(a), _ptr(b), tw.data_ptr(), rows, n_in, n, int(inverse),
-             max_radix, start, k, grows,
+             _ptr(a), _ptr(b), tw.data_ptr(), _ptr(scratch), rows, n_in, n,
+             int(inverse), max_radix, start, k, grows,
              torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "fft_stockham kernel launch")
+    LAUNCHES[kname] += 1
+    if scratch is not None:
+        TWO_PASS[kname] += 1
 
 
 def _check_radix(max_radix):
@@ -116,8 +129,7 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
     out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
                       device=x.device)
     if rows:
-        _launch(x, out, n, inverse, max_radix, 0, k)
-        LAUNCHES["fft_stockham"] += 1
+        _launch("fft_stockham", x, out, n, inverse, max_radix, 0, k)
     return out
 
 
@@ -144,8 +156,8 @@ def fft_stockham_scale(x, g, start=0, pad_to=None, max_radix=4):
     out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
                       device=x.device)
     if rows:
-        _launch(x, out, n, False, max_radix, start, k, g=g, grows=grows)
-        LAUNCHES["fft_stockham_scale"] += 1
+        _launch("fft_stockham_scale", x, out, n, False, max_radix, start, k,
+                g=g, grows=grows)
     return out
 
 
@@ -173,6 +185,6 @@ def fft_stockham_twiddle(x, a, b, start=0, pad_to=None, max_radix=4):
                                         max_radix=max_radix)
     out = torch.empty((rows, k), dtype=ref._rdt(x), device=x.device)
     if rows:
-        _launch(x, out, n, False, max_radix, start, k, a=a, b=b)
-        LAUNCHES["fft_stockham_twiddle"] += 1
+        _launch("fft_stockham_twiddle", x, out, n, False, max_radix, start,
+                k, a=a, b=b)
     return out

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the CUDA kernels.
 
 Each function computes what its kernel computes, step for step: the same
-radix-4/2 Stockham stages, the same pruned first stage, the same twiddle
-table and the same epilogues.  The wrappers run these on CPU tensors (the
-tests), and ``chip_smoke.py`` holds each kernel against its plain version
-on the card.  None of them calls ``torch.fft``.
+radix-4/2 Stockham stages, the same two-pass split of long rows, the same
+pruned first stage, the same twiddle table and the same epilogues.  The
+wrappers run these on CPU tensors (the tests), and ``chip_smoke.py`` holds
+each kernel against its plain version on the card.  None of them calls
+``torch.fft``.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["twiddles", "fft_stockham", "fft_stockham_scale",
+__all__ = ["ONE_PASS_N", "twiddles", "fft_stockham", "fft_stockham_scale",
            "fft_stockham_twiddle", "spectral_scale", "twiddle_pack"]
 
 
@@ -44,25 +45,24 @@ def _minus_i(z, inverse):
     return torch.complex(z.imag, -z.real)
 
 
-def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
-    """Batched complex FFT along the last axis of ``x`` (batch, N): the
-    radix-4 DIF Stockham stages with one radix-2 step for the odd log2
-    factor (``max_radix=2``: radix-2 only).  A real ``x`` stands for a zero
-    imaginary part.  ``inverse`` flips the sign and scales by 1/N.
-    ``pad_to = 2N`` (forward only) transforms ``x`` zero-extended to 2N:
-    the first stage, whose upper operand is zero, becomes a copy and a
-    twiddle.  ``keep`` returns only bins ``[0, keep)``."""
-    b, n_in = x.shape
-    n = n_in if pad_to is None else pad_to
-    cdt = _cdt(_rdt(x))
-    w = twiddles(n, cdt, x.device)
-    if inverse:
-        w = w.conj()
-    X = x.to(cdt)
+# longest row the kernel transforms in one pass (in shared memory); longer
+# rows take two passes, N = N1 * ONE_PASS_N
+ONE_PASS_N = 4096
+
+
+def _rows_fft(X, n, inverse, max_radix, w, stride):
+    """Unnormalized length-``n`` FFTs of the complex rows of ``X``
+    (b, n_in), ``n_in`` = n or n/2 (the pruned zero tail): the radix-4 DIF
+    Stockham stages with one radix-2 step for the odd log2 factor.  ``w``
+    is the (conjugated for the inverse) table of a length ``n * stride``
+    transform, read at ``stride`` for ``W_n``."""
+    b, n_in = X.shape
+    dev = X.device
     m, l = n, 1
     if n_in < n:
         # pruned first stage: x1 == 0, so e = x0 and d = x0 * w^j
-        X = torch.stack([X, X * w[:n_in]], dim=-1).reshape(b, n)
+        wj = w[torch.arange(n_in, device=dev) * stride]
+        X = torch.stack([X, X * wj], dim=-1).reshape(b, n)
         m, l = n // 2, 2
     while m > 1:
         if m % 4 == 0 and max_radix >= 4:
@@ -73,7 +73,7 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
             A, B, C, D = X.reshape(b, 4, q, l).unbind(1)
             t0, t1, t2 = A + C, A - C, B + D
             u3 = _minus_i(B - D, inverse)
-            j = torch.arange(q, device=x.device) * (n // m)
+            j = torch.arange(q, device=dev) * (n // m * stride)
             w1, w2, w3 = (w[s * j][:, None] for s in (1, 2, 3))
             ys = [t0 + t2, (t1 + u3) * w1, (t0 - t2) * w2, (t1 - u3) * w3]
             X = torch.stack(ys, dim=2).reshape(b, n)
@@ -81,10 +81,47 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
         else:
             half = m // 2
             x0, x1 = X.reshape(b, 2, half, l).unbind(1)
-            j = torch.arange(half, device=x.device) * (n // m)
+            j = torch.arange(half, device=dev) * (n // m * stride)
             X = torch.stack([x0 + x1, (x0 - x1) * w[j][:, None]],
                             dim=2).reshape(b, n)
             m, l = half, 2 * l
+    return X
+
+
+def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
+    """Batched complex FFT along the last axis of ``x`` (batch, N): the
+    radix-4 DIF Stockham stages with one radix-2 step for the odd log2
+    factor (``max_radix=2``: radix-2 only).  A real ``x`` stands for a zero
+    imaginary part.  ``inverse`` flips the sign and scales by 1/N.
+    ``pad_to = 2N`` (forward only) transforms ``x`` zero-extended to 2N:
+    the first stage, whose upper operand is zero, becomes a copy and a
+    twiddle.  ``keep`` returns only bins ``[0, keep)``.
+
+    Lengths above ``ONE_PASS_N`` take the kernel's two passes, N = N1 N2
+    with N2 = ONE_PASS_N: the N1-point FFTs of the stride-N2 columns (the
+    pruned first stage on the columns for ``pad_to``), the inter-pass
+    twiddle ``W_N^(n2 k1)``, the N2-point FFTs of the rows ``(r, k1)``, and
+    bin ``k1 + N1 k2`` read from row ``(r, k1)``, position ``k2``."""
+    b, n_in = x.shape
+    n = n_in if pad_to is None else pad_to
+    dev = x.device
+    w = twiddles(n, _cdt(_rdt(x)), dev)
+    if inverse:
+        w = w.conj()
+    X = x.to(w.dtype)
+    if n <= ONE_PASS_N:
+        X = _rows_fft(X, n, inverse, max_radix, w, 1)
+    else:
+        n2 = ONE_PASS_N
+        n1 = n // n2
+        cols = X.reshape(b, n_in // n2, n2).transpose(1, 2)
+        Y = _rows_fft(cols.reshape(b * n2, n_in // n2), n1, inverse,
+                      max_radix, w, n2)
+        t = (torch.arange(n2, device=dev)[:, None]
+             * torch.arange(n1, device=dev)[None, :])
+        Z = (Y.reshape(b, n2, n1) * w[t]).transpose(1, 2)
+        V = _rows_fft(Z.reshape(b * n1, n2), n2, inverse, max_radix, w, n1)
+        X = V.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
     if inverse:
         X = X / n
     return X if keep is None else X[:, :keep].contiguous()

@@ -19,7 +19,7 @@ import torch
 from repro.kernels import fft_stockham as rk
 from repro.kernels.spectral_scale import spectral_scale as r_spectral_scale
 from repro.kernels.twiddle_pack import twiddle_pack as r_twiddle_pack
-from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import LAUNCHES, TWO_PASS, reset_launches
 from repro_torch.kernels import fft_stockham as tk
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.spectral_scale import spectral_scale
@@ -140,6 +140,125 @@ def test_spectral_scale_matches_pallas(shape, dtype):
                                **_tol(dtype))
 
 
+# -- the two-pass path (rows longer than ONE_PASS_N) --------------------------
+
+def test_two_pass_limits():
+    assert tk.ONE_PASS_N == tref.ONE_PASS_N == 4096
+    assert tk.MAX_N == 2 ** 24
+
+
+@pytest.mark.parametrize("dtype,n,mode", [
+    *((np.float64, n, mode) for n in (8192, 16384)
+      for mode in ("forward", "inverse", "pad_to", "real_keep")),
+    (np.float32, 8192, "forward"), (np.float32, 8192, "pad_to")])
+def test_fft_stockham_two_pass_matches_pallas(dtype, n, mode):
+    """Lengths above 4096 take two passes (N1 = N / 4096 point column
+    FFTs, the inter-pass twiddle, 4096-point row FFTs); the Pallas kernel
+    runs them in one.  ``real_keep`` is the pruned rfft of the (U,U,U)
+    forward: a real input, ``pad_to = 2N``, bins ``[0, N/2+1)``."""
+    rng = np.random.default_rng(n + len(mode))
+    n_in = n // 2 if mode in ("pad_to", "real_keep") else n
+    re, im = _planes(rng, (3, n_in), dtype)
+    kw = dict(inverse=mode == "inverse",
+              pad_to=n if mode in ("pad_to", "real_keep") else None)
+    if mode == "real_keep":
+        im = np.zeros_like(re)
+    want_re, want_im = rk.fft_stockham(jnp.asarray(re), jnp.asarray(im),
+                                       **kw)
+    if mode == "real_keep":
+        got = tk.fft_stockham(torch.from_numpy(re), keep=n // 2 + 1, **kw)
+        want_re, want_im = (np.asarray(w)[:, :n // 2 + 1]
+                            for w in (want_re, want_im))
+    else:
+        got = tk.fft_stockham(_cplx(re, im), **kw)
+    _assert_pair(got, want_re, want_im, **_tol(dtype, n))
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+@pytest.mark.parametrize("start", [0, 1])
+def test_fft_stockham_scale_two_pass_matches_pallas(n, start):
+    """The Green epilogue on the row pass: bin ``f = k1 + N1 k2`` of kernel
+    row ``(r, k1)`` takes ``g[r % grows, f - start]``.  ``start`` 0 is the
+    pruned half spectrum of a fused rfft x Green; ``start`` 1 an interior
+    window of a full spectrum."""
+    rng = np.random.default_rng(n + start)
+    pad = start == 0
+    n_in = n // 2 if pad else n
+    k = n // 2 + 1 if pad else n - 1
+    re, im = _planes(rng, (4, n_in), np.float64)
+    g = rng.standard_normal((2, k))
+    pad_to = n if pad else None
+    want_re, want_im = rk.fft_stockham_scale(
+        jnp.asarray(re), jnp.asarray(im), jnp.asarray(g), start=start,
+        pad_to=pad_to)
+    got = tk.fft_stockham_scale(_cplx(re, im), torch.from_numpy(g),
+                                start=start, pad_to=pad_to)
+    assert got.shape == (4, k)
+    _assert_pair(got, want_re, want_im, **_tol(np.float64, n))
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+@pytest.mark.parametrize("window", ["dct2", "dct1", "dst2"])
+def test_fft_stockham_twiddle_two_pass_matches_pallas(n, window):
+    """The r2r windows on the row pass: DCT-I and DST-II read the Nyquist
+    bin f = N/2, which lies in kernel row k1 = 0 (N1 even)."""
+    start, k = {"dct2": (0, n // 2), "dct1": (0, n // 2 + 1),
+                "dst2": (1, n // 2)}[window]
+    rng = np.random.default_rng(n + k + start)
+    pad = window == "dct2"
+    x = rng.standard_normal((3, n // 2 if pad else n))
+    a, b = (rng.standard_normal(k) for _ in range(2))
+    kw = dict(start=start, pad_to=n if pad else None)
+    want = rk.fft_stockham_twiddle(jnp.asarray(x), jnp.zeros_like(x),
+                                   jnp.asarray(a), jnp.asarray(b), **kw)
+    got = tk.fft_stockham_twiddle(*(torch.from_numpy(v) for v in (x, a, b)),
+                                  **kw)
+    assert got.shape == (3, k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **_tol(np.float64, n))
+
+
+@pytest.mark.parametrize("n", [2 ** 13, 2 ** 15, 2 ** 18])
+@pytest.mark.parametrize("radix", [2, 4])
+def test_fft_stockham_two_pass_float64_matches_numpy(n, radix):
+    """Forward, inverse and pruned two-pass FFTs exact to float64 roundoff,
+    up to N1 = 64 point column FFTs."""
+    rng = np.random.default_rng(n + radix)
+    re, im = _planes(rng, (2, n), np.float64)
+    x = re + 1j * im
+    tol = _tol(np.float64, n)
+    got = tk.fft_stockham(_cplx(re, im), max_radix=radix)
+    np.testing.assert_allclose(got.numpy(), np.fft.fft(x), **tol)
+    got = tk.fft_stockham(_cplx(re, im), inverse=True, max_radix=radix)
+    np.testing.assert_allclose(got.numpy(), np.fft.ifft(x), **tol)
+    h = _cplx(re[:, :n // 2].copy(), im[:, :n // 2].copy())
+    got = tk.fft_stockham(h, pad_to=n, max_radix=radix)
+    np.testing.assert_allclose(got.numpy(), np.fft.fft(x[:, :n // 2], n=n),
+                               **tol)
+
+
+# -- spectral_scale: the batched contract the kernel's batch loop keeps -------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("plane", [(8, 128), (7, 130), (129, 384)])
+def test_spectral_scale_batched_matches_pallas(plane, batch, dtype):
+    """(B, rows, lanes) fields over one shared (rows, lanes) plane, complex
+    and real, on aligned and ragged planes (a ragged real float32 plane
+    leaves each batch entry at another 16-byte phase)."""
+    rng = np.random.default_rng(batch * 1000 + plane[1])
+    re, im = _planes(rng, (batch,) + plane, dtype)
+    g = rng.standard_normal(plane).astype(dtype)
+    want_re, want_im = r_spectral_scale(jnp.asarray(re), jnp.asarray(im),
+                                        jnp.asarray(g), 1.7)
+    got = spectral_scale(_cplx(re, im), torch.from_numpy(g), 1.7)
+    assert got.shape == (batch,) + plane
+    _assert_pair(got, want_re, want_im, **_tol(dtype))
+    got_real = spectral_scale(torch.from_numpy(re), torch.from_numpy(g), 1.7)
+    np.testing.assert_allclose(got_real.numpy(), np.asarray(want_re),
+                               **_tol(dtype))
+
+
 def test_cpu_calls_count_no_launch():
     reset_launches()
     x = torch.zeros((2, 8), dtype=torch.complex64)
@@ -148,9 +267,11 @@ def test_cpu_calls_count_no_launch():
     spectral_scale(x, torch.ones((2, 8)))
     tk.fft_stockham_twiddle(x, torch.ones(4), torch.ones(4))
     twiddle_pack(x, torch.ones(8), torch.ones(8))
+    tk.fft_stockham(torch.zeros((1, 8192), dtype=torch.complex64))
     assert LAUNCHES == {"fft_stockham": 0, "fft_stockham_scale": 0,
                         "spectral_scale": 0, "twiddle_pack": 0,
                         "fft_stockham_twiddle": 0}
+    assert not any(TWO_PASS.values())
 
 
 @pytest.mark.parametrize("bad", ["strided", "dtype", "too_long", "not_pow2",
@@ -163,7 +284,8 @@ def test_fft_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "dtype":
         x = torch.zeros((4, 16), dtype=torch.float16)
     elif bad == "too_long":
-        x = torch.zeros((1, 2 * tk.MAX_N), dtype=torch.complex64)
+        # 2^25 points: refused before a byte is read, so left uninitialized
+        x = torch.empty((1, 2 * tk.MAX_N), dtype=torch.complex64)
     elif bad == "not_pow2":
         x = torch.zeros((4, 12), dtype=torch.complex64)
     elif bad == "pad_inverse":

@@ -20,7 +20,9 @@ from repro.core import solver as rsolver
 from repro.core.bc import BCType, DataLayout
 from repro.core.green import GreenKind
 from repro_torch.core import bc as tbc
-from repro_torch.core.solver import PoissonSolver
+from repro_torch.core import transforms as tr
+from repro_torch.core.solver import (PoissonSolver, _check_kernel_lengths,
+                                     make_plan)
 from repro_torch.kernels import ops
 
 import test_validation as val
@@ -198,13 +200,52 @@ def test_semi_unbounded_chat2_order2(case, layout):
 ])
 def test_cuda_engine_refuses_a_fft_beyond_the_kernel_at_construction(bcs,
                                                                      shape):
-    """The Stockham kernel takes at most MAX_N points: the cuda engine
-    raises when it is built, naming the direction and the length, instead
-    of in the middle of a solve (and never routes to torch.fft)."""
-    with pytest.raises(ValueError, match=r"direction 2 .* length 8192"):
-        PoissonSolver(shape, 1.0, _port_bcs(bcs), device="cpu")
-    # the torch engine has no such limit
-    PoissonSolver(shape, 1.0, _port_bcs(bcs), engine="torch", device="cpu")
+    """Direction 2 needs an 8192-point FFT, beyond one pass of the Stockham
+    kernel: the cuda engine solves it in two passes (on the CPU their plain
+    version) and matches the reference within 1e-10 in float64.  The same
+    BCs at 4096 times the length need 2^25 points, beyond the kernel's
+    MAX_N = 2^24: the cuda engine raises when it is built, naming the
+    direction and the length, instead of in the middle of a solve (and
+    never routes to torch.fft)."""
+    ref = rsolver.PoissonSolver(shape, 1.0, bcs, engine="xla")
+    f = _rhs(ref.input_shape, None)
+    want = np.asarray(ref.solve(f))
+    s = PoissonSolver(shape, 1.0, _port_bcs(bcs), device="cpu")
+    assert max(_fft_lengths(s.plan)) == 8192
+    got = s.solve(f).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < 1e-10
+    # the torch engine takes the same plan
+    t = PoissonSolver(shape, 1.0, _port_bcs(bcs), engine="torch",
+                      device="cpu", green=s._green_nat)
+    assert np.abs(t.solve(f).numpy() - want).max() < 1e-10
+    long = shape[:2] + (shape[2] * 4096,)
+    with pytest.raises(ValueError,
+                       match=rf"direction 2 .* length {2 ** 25}\b"):
+        PoissonSolver(long, 1.0, _port_bcs(bcs), device="cpu")
+
+
+def _fft_lengths(plan):
+    return [p.n_fft if p.kind is None else tr.fft_length(p.kind, p.n_fft)
+            for p in plan.dirs]
+
+
+@pytest.mark.parametrize("n,accepted", [(2 ** 22, True), (2 ** 23, False)])
+def test_cuda_engine_takes_ffts_up_to_max_n(n, accepted):
+    """A semi-unbounded direction of n cells FFTs 4n points: n = 2^22 is
+    the kernel's MAX_N = 2^24 exactly and passes the construction check;
+    n = 2^23 needs 2^25 points and is refused, the message naming the
+    direction and the length.  (The check reads the plan only; no Green's
+    function is built.)"""
+    plan = make_plan((2, 2, n), 1.0, _port_bcs(((P, P), (P, P), (U, E))))
+    assert max(_fft_lengths(plan)) == 4 * n
+    if accepted:
+        _check_kernel_lengths(plan)
+    else:
+        with pytest.raises(ValueError,
+                           match=rf"direction 2 .* length {4 * n}\b.*"
+                                 rf"at most {2 ** 24}"):
+            _check_kernel_lengths(plan)
 
 
 def test_cuda_engine_takes_long_non_power_of_two_lengths():

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""The Stockham kernel of this checkout against another checkout's, in
+turns, on one NVIDIA GPU.
+
+    git archive <commit> | tar -x -C build/other
+    python3 tools/compare_stockham.py build/other
+
+Builds ``src/repro_torch/kernels/csrc/fft_stockham.cu`` of both trees,
+binds each with the C signature its source declares (with the two-pass
+scratch pointer or without it), and times, float32, the one-pass calls
+of chip_smoke.py's (U,U,U) 256^3 solve (the pruned real forward, the
+pruned complex forward, the pruned forward fused with the Green
+multiply, the two inverse shapes) and SEMI_E's fused DCT-II, in the order
+other, this, this, other, three times over.  Each time is the device
+time of 20 back-to-back calls between one event pair after a device
+sleep; the script prints every time and the ratio of the medians.  Both
+builds' outputs are compared before timing.  Exits 2 without a CUDA
+device.
+"""
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+REPS = 20
+ROUNDS = 3
+
+
+def main() -> int:
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(sys.argv[1]).resolve()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_stockham.py: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build, ref
+
+    out_dir = ROOT / "build" / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trees = {"other": other, "this": ROOT}
+    procs, libs = {}, {}
+    for label, tree in trees.items():
+        src = tree / "src/repro_torch/kernels/csrc/fft_stockham.cu"
+        so = out_dir / f"libstockham_{label}.so"
+        procs[label] = (src, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for label, (src, so, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+        scratch = "void* scratch" in src.read_text()
+        fn = ctypes.CDLL(str(so)).repro_fft_stockham_f32
+        fn.argtypes = ([P, I, P, P, P, P, P] + ([P] if scratch else [])
+                       + [I] * 8 + [P])
+        fn.restype = ctypes.c_int
+        libs[label] = (fn, scratch)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card: {smi}; other: {other}")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    f32, c64 = torch.float32, torch.complex64
+    # label, x shape and dtype, n_fft, inverse, kept bins, Green rows,
+    # twiddle-table bins (the r2r epilogue)
+    cases = [
+        ("(U,U,U) real pruned forward", (65536, 256), f32, 512, 0, 257, 0, 0),
+        ("(U,U,U) pruned forward", (65792, 256), c64, 512, 0, 512, 0, 0),
+        ("(U,U,U) pruned forward x Green", (131584, 256), c64, 512, 0, 512,
+         131584, 0),
+        ("(U,U,U) inverse, 131584 rows", (131584, 256), c64, 256, 1, 256, 0,
+         0),
+        ("(U,U,U) inverse, 65792 rows", (65792, 256), c64, 256, 1, 256, 0, 0),
+        ("SEMI_E fused DCT-II", (65536, 1024), f32, 1024, 0, 512, 0, 512),
+    ]
+
+    def loop_ms(fn):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(REPS):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / REPS
+
+    for label, shape, dt, nf, inverse, k, grows, r2r in cases:
+        rows, n_in = shape
+        x = torch.randn(shape, dtype=dt, device=dev)
+        g = (torch.randn((grows, k), dtype=f32, device=dev) if grows
+             else None)
+        ab = torch.randn((2, r2r), dtype=f32, device=dev) if r2r else None
+        tw = ref.twiddles(nf, c64, dev)
+        outs = {}
+
+        def call(tag):
+            fn, scratch = libs[tag]
+            out = outs.setdefault(tag, torch.empty(
+                (rows, k), dtype=f32 if r2r else c64, device=dev))
+            ptrs = [x.data_ptr(), int(x.is_complex()), out.data_ptr(),
+                    None if g is None else g.data_ptr(),
+                    None if ab is None else ab[0].data_ptr(),
+                    None if ab is None else ab[1].data_ptr(), tw.data_ptr()]
+            ptrs += [None] if scratch else []
+            args = ptrs + [rows, n_in, nf, inverse, 4, 0, k, grows or 1,
+                           stream]
+
+            def run():
+                err = fn(*args)
+                if err:
+                    raise RuntimeError(f"{tag}: CUDA error {err}")
+            return run
+        runs = {tag: call(tag) for tag in ("other", "this")}
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+        if not torch.equal(outs["other"], outs["this"]):
+            d = (outs["other"] - outs["this"]).abs().max().item()
+            print(f"  {label}: outputs differ by up to {d:.3e}")
+        times = {"other": [], "this": []}
+        for _ in range(ROUNDS):
+            for tag in ("other", "this", "this", "other"):
+                times[tag].append(loop_ms(runs[tag]))
+        med = {t: statistics.median(v) for t, v in times.items()}
+        print(f"{label}: x {shape} {dt}, {nf} points -> other "
+              f"{med['other']:.4f} ms, this {med['this']:.4f} ms, this / "
+              f"other {med['this'] / med['other']:.3f}")
+        for tag, v in times.items():
+            print(f"    {tag:5s} " + " ".join(f"{t:.4f}" for t in v))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,8 +9,12 @@ Phases (each raises on failure; nothing is caught):
      (one process per source, all started together);
   3. every kernel against its plain PyTorch version on the card: float32
      and float64, forward / inverse / pruned pad_to / kept bins, radix 2
-     and 4, N in {8, 64, 512, 4096} (the twiddle epilogue also 1024, with
-     the DCT-I/DCT-II/DST-II bin windows, batch 1 and 13), ragged and
+     and 4, batch 1 and 13, every N = 2, 4, ..., 4096 (each pass radix of
+     the register core) with all three epilogues (the Green plane on
+     every bin, the rfft half spectrum and start 1 with an odd k; the
+     twiddle tables on every bin and the DCT-I/DCT-II/DST-II windows),
+     inputs at an address that is not 16-byte aligned (read in place, the
+     kernel launched), ragged and
      batched scale shapes (B in {1, 3} on aligned and ragged planes),
      twiddle_pack on a strided half-spectrum window at the
      (E,E),(O,O),(E,O) 384^3 path's shape; the two-pass Stockham path at
@@ -52,6 +56,8 @@ from __future__ import annotations
 import collections
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -146,6 +152,7 @@ def _rate(table, name, default):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -199,8 +206,19 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    # ptxas's registers and spills of each kernel instantiation, under
+    # its demangled name where c++filt is there to demangle it
+    cxxfilt = shutil.which("c++filt")
     for line in "\n".join(_build.BUILD_LOG).splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            if cxxfilt:
+                fn = subprocess.run([cxxfilt, fn], capture_output=True,
+                                    text=True).stdout.strip()
+                m = re.search(r"(\w+<[^()]*>)\(", fn)
+                fn = m.group(1) if m else fn
+            print(f"  {fn}:")
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  {line.strip()}")
 
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -248,49 +266,56 @@ def main() -> int:
     checks = 0
     for rdt, cdt in ((torch.float32, torch.complex64),
                      (torch.float64, torch.complex128)):
-        for n in (8, 64, 512, 4096):
+        # every one-pass length, each pass radix the register core takes
+        for n in [2 ** e for e in range(1, 13)]:
             rtol, atol = fft_tol(rdt, n)
             for radix in (2, 4):
-                cases = [
-                    dict(x=randn((13, n), cdt)),
-                    dict(x=randn((13, n), cdt), inverse=True),
-                    dict(x=randn((13, n // 2), cdt), pad_to=n),
-                    dict(x=randn((13, n // 2), rdt), pad_to=n,
-                         keep=n // 2 + 1),
-                    dict(x=randn((13, n), rdt), keep=n // 2 + 1),
-                    dict(x=randn((13, n), cdt), inverse=True,
-                         keep=max(1, n // 2)),
-                ]
-                for kw in cases:
-                    x = kw.pop("x")
-                    hold("fft_stockham",
-                         fft_stockham(x, max_radix=radix, **kw),
-                         ref.fft_stockham(x, max_radix=radix, **kw),
-                         rtol, atol)
-                    checks += 1
-                for pad, grows, start, k in ((None, 13, 0, n),
-                                             (n, 13, 0, n // 2 + 1),
-                                             (None, 1, 1, n - 1)):
-                    x = randn((26, n // 2 if pad else n), cdt)
-                    g = randn((grows, k), rdt)
-                    hold("fft_stockham_scale",
-                         fft_stockham_scale(x, g, start=start, pad_to=pad,
-                                            max_radix=radix),
-                         ref.fft_stockham_scale(x, g, start=start,
-                                                pad_to=pad,
-                                                max_radix=radix),
-                         rtol, atol)
-                    checks += 1
-        for n in (8, 64, 512, 1024, 4096):
-            rtol, atol = fft_tol(rdt, n)
-            # the DCT-II [0, N/2), DCT-I [0, N/2+1), DST-II [1, N/2+1)
-            # windows and one past the Nyquist bin
-            for start, k in ((0, n // 2), (0, n // 2 + 1), (1, n // 2),
-                             (1, n // 2 + 1)):
-                a, b = randn((k,), rdt), randn((k,), rdt)
-                for radix in (2, 4):
-                    for pad in (None, n):
-                        for batch in (1, 13):
+                for batch in (1, 13):
+                    cases = [
+                        dict(x=randn((batch, n), cdt)),
+                        dict(x=randn((batch, n), cdt), inverse=True),
+                        dict(x=randn((batch, n // 2), cdt), pad_to=n),
+                        dict(x=randn((batch, n // 2), rdt), pad_to=n,
+                             keep=n // 2 + 1),
+                        dict(x=randn((batch, n), rdt), keep=n // 2 + 1),
+                        dict(x=randn((batch, n), cdt), inverse=True,
+                             keep=max(1, n // 2)),
+                    ]
+                    for kw in cases:
+                        x = kw.pop("x")
+                        hold("fft_stockham",
+                             fft_stockham(x, max_radix=radix, **kw),
+                             ref.fft_stockham(x, max_radix=radix, **kw),
+                             rtol, atol)
+                        checks += 1
+                    # the Green epilogue: every bin, the rfft half
+                    # spectrum, and start 1 with an odd k
+                    for pad, rows, grows, start, k in (
+                            (None, 2 * batch, batch, 0, n),
+                            (n, 2 * batch, batch, 0, n // 2 + 1),
+                            (None, batch, 1, 1, n - 1),
+                            (n, batch, batch, 1, n // 2 + 1)):
+                        if start + k > n:
+                            continue
+                        x = randn((rows, n // 2 if pad else n), cdt)
+                        g = randn((grows, k), rdt)
+                        hold("fft_stockham_scale",
+                             fft_stockham_scale(x, g, start=start,
+                                                pad_to=pad, max_radix=radix),
+                             ref.fft_stockham_scale(x, g, start=start,
+                                                    pad_to=pad,
+                                                    max_radix=radix),
+                             rtol, atol)
+                        checks += 1
+                    # the twiddle epilogue: every bin, the DCT-II [0, N/2),
+                    # DCT-I [0, N/2+1), DST-II [1, N/2+1) windows and one
+                    # past the Nyquist bin (start 1, odd k)
+                    for start, k in ((0, n), (0, n // 2), (0, n // 2 + 1),
+                                     (1, n // 2), (1, n // 2 + 1)):
+                        if start + k > n:
+                            continue
+                        a, b = randn((k,), rdt), randn((k,), rdt)
+                        for pad in (None, n):
                             x = randn((batch, n // 2 if pad else n), rdt)
                             kw = dict(start=start, pad_to=pad,
                                       max_radix=radix)
@@ -299,6 +324,30 @@ def main() -> int:
                                  ref.fft_stockham_twiddle(x, a, b, **kw),
                                  rtol, atol)
                             checks += 1
+        # inputs whose base address is not 16-byte aligned (contiguous
+        # views one element into a buffer; a complex128 element is 16
+        # bytes, so only its float64 view can be): the kernel reads them
+        # in place, and the call launches it
+        for dt, n, kw in ((cdt, 4096, {}), (cdt, 512, dict(pad_to=1024)),
+                          (rdt, 4096, dict(keep=2049)),
+                          (rdt, 512, dict(pad_to=1024, keep=513))):
+            x = randn((13 * n + 1,), dt)[1:].view(13, n)
+            before = LAUNCHES["fft_stockham"]
+            got = fft_stockham(x, **kw)
+            launched = LAUNCHES["fft_stockham"] - before
+            if (x.element_size() < 16 and x.data_ptr() % 16 == 0
+                    or launched != 1):
+                raise AssertionError(f"misaligned {dt} N={n}: address "
+                                     f"{x.data_ptr() % 16} mod 16, "
+                                     f"launches {launched}")
+            hold("fft_stockham", got, ref.fft_stockham(x, **kw),
+                 *fft_tol(rdt, kw.get("pad_to", n)))
+            checks += 1
+        x = randn((13 * 1024 + 1,), rdt)[1:].view(13, 1024)
+        a, b = randn((513,), rdt), randn((513,), rdt)
+        hold("fft_stockham_twiddle", fft_stockham_twiddle(x, a, b),
+             ref.fft_stockham_twiddle(x, a, b), *fft_tol(rdt, 1024))
+        checks += 1
         # the two-pass path (rows above ONE_PASS_N points); its largest
         # error per length, against the spectrum's largest value
         for n in (8192, 16384, 65536):
@@ -722,8 +771,13 @@ def main() -> int:
             return
         top = "; ".join(f"{ms:.3f} ms x{c} {k[:60]}"
                         for ms, c, k in rows[:6] if ms > 0)
+        # the Stockham kernels' instantiations (one per row length) summed
+        fft = [(ms, c) for ms, c, k in rows
+               if "stockham_kernel" in k or "column_kernel" in k]
         print(f"  {label}: device busy {busy:.3f} ms of {solve_ms:.3f} ms "
-              f"(idle share {max(0.0, 1 - busy / solve_ms):.1%}); {top}")
+              f"(idle share {max(0.0, 1 - busy / solve_ms):.1%}); Stockham "
+              f"kernels {sum(ms for ms, _ in fft):.3f} ms "
+              f"x{sum(c for _, c in fft)}; {top}")
 
     for tag, (sc, st, f) in solvers.items():
         t_c = time_ms(lambda: sc.solve(f))
@@ -754,6 +808,8 @@ def main() -> int:
             "bound_by": ("bytes" if p["by_bytes"] >= p["by_ops"]
                          else "operations"),
             "library_ms": None if kname in lib_none else p["library_ms"]})
+    print(f"chip_smoke.py: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,11 @@ TWO_PASS = {"fft_stockham": 0, "fft_stockham_scale": 0,
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fft_stockham.cu", "spectral_scale.cu", "twiddle_pack.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -split-compile=0: nvcc optimizes a source's kernels in parallel, one
+# worker per CPU (the Stockham source holds one kernel per row length)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 # the compiler's output of the last build (ptxas register / spill report)
 BUILD_LOG: list = []

@@ -26,9 +26,9 @@ from ._build import LAUNCHES, TWO_PASS, check, library
 __all__ = ["fft_stockham", "fft_stockham_scale", "fft_stockham_twiddle",
            "MAX_N", "ONE_PASS_N"]
 
-# Longest row transformed in one pass: a 4096-point complex128 row in
-# ping-pong buffers is 128 KB of shared memory.  Longer rows take two
-# passes of at most 4096 points each, so the kernel takes up to 4096^2.
+# Longest row transformed in one pass: one block of 256 threads holding 16
+# points each.  Longer rows take two passes of at most 4096 points each,
+# so the kernel takes up to 4096^2.
 ONE_PASS_N = ref.ONE_PASS_N
 MAX_N = ONE_PASS_N ** 2
 

@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the CUDA kernels.
 
-Each function computes what its kernel computes, step for step: the same
-radix-4/2 Stockham stages, the same two-pass split of long rows, the same
-pruned first stage, the same twiddle table and the same epilogues.  The
-wrappers run these on CPU tensors (the tests), and ``chip_smoke.py`` holds
-each kernel against its plain version on the card.  None of them calls
-``torch.fft``.
+Each function computes what its kernel computes, with the same
+arithmetic: the same radix-4/2 Stockham stages in the same order, the same
+two-pass split of long rows, the same pruned first stage, the same twiddle
+table and the same epilogues.  The plain version runs the stages one at a
+time over whole rows; the CUDA kernel groups the same stages into passes
+held in registers (two radix-4 stages per pass), which changes where the
+values live between stages, not the values.  The wrappers run these on
+CPU tensors (the tests), and ``chip_smoke.py`` holds each kernel against
+its plain version on the card.  None of them calls ``torch.fft``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """The port's kernels, through their wrappers on CPU tensors (which run the
-plain PyTorch versions, the kernels' algorithm step for step), against the
+plain PyTorch versions, the kernels' arithmetic stage for stage), against the
 reference's Pallas kernels in interpret mode on the same numpy inputs.
 
 Tolerances: float64 rtol 1e-10 (atol 1e-10 * sqrt(n) for FFTs); float32 as
@@ -84,6 +84,57 @@ def test_fft_stockham_float64_matches_numpy(n, mode):
                               max_radix=radix)
         assert got.dtype == torch.complex128
         np.testing.assert_allclose(got.numpy(), want, **_tol(np.float64, n))
+
+
+# every one-pass length: the CUDA core's pass plan (radix-16 passes, then
+# a radix-8, -4 or -2 pass; every pass radix 2 at max_radix 2) differs
+# from one length to the next, and the plain version runs its stages
+ONE_PASS_LENGTHS = [2 ** e for e in range(1, 13)]
+
+
+@pytest.mark.parametrize("n", ONE_PASS_LENGTHS)
+def test_fft_stockham_every_length_float64_matches_numpy(n):
+    """Forward, inverse, pruned ``pad_to`` and a kept-bin window, radix 4
+    and 2, exact to float64 roundoff at every power-of-two length the
+    kernel takes in one pass."""
+    rng = np.random.default_rng(7 * n)
+    re, im = _planes(rng, (3, n), np.float64)
+    x = re + 1j * im
+    tol = _tol(np.float64, n)
+    h = np.ascontiguousarray(x[:, :n // 2])
+    for radix in (2, 4):
+        got = tk.fft_stockham(_cplx(re, im), max_radix=radix)
+        np.testing.assert_allclose(got.numpy(), np.fft.fft(x), **tol)
+        got = tk.fft_stockham(_cplx(re, im), inverse=True, max_radix=radix,
+                              keep=n // 2 + 1)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.fft.ifft(x)[:, :n // 2 + 1], **tol)
+        got = tk.fft_stockham(torch.from_numpy(h), pad_to=n,
+                              max_radix=radix)
+        np.testing.assert_allclose(got.numpy(), np.fft.fft(h, n=n), **tol)
+        got = tk.fft_stockham(torch.from_numpy(re), max_radix=radix,
+                              keep=n // 2 + 1)
+        np.testing.assert_allclose(got.numpy(), np.fft.rfft(re), **tol)
+
+
+@pytest.mark.parametrize("n", [n for n in ONE_PASS_LENGTHS if n <= 1024])
+def test_fft_stockham_every_length_matches_pallas(n):
+    """The plain version against the Pallas kernel in interpret mode at
+    every length up to 1024 (float32 tolerances): forward, inverse and
+    pruned ``pad_to``, radix 4 and 2."""
+    rng = np.random.default_rng(11 * n)
+    for mode in ("forward", "inverse", "pad_to"):
+        n_in = n // 2 if mode == "pad_to" else n
+        re, im = _planes(rng, (5, n_in), np.float32)
+        for radix in (2, 4):
+            kw = dict(inverse=mode == "inverse",
+                      pad_to=n if mode == "pad_to" else None,
+                      max_radix=radix)
+            want_re, want_im = rk.fft_stockham(jnp.asarray(re),
+                                               jnp.asarray(im), **kw)
+            got = tk.fft_stockham(_cplx(re, im), **kw)
+            assert got.shape == (5, n)
+            _assert_pair(got, want_re, want_im, **_tol(np.float32, n))
 
 
 def test_fft_stockham_real_input_and_keep():

@@ -7,15 +7,21 @@ turns, on one NVIDIA GPU.
 
 Builds ``src/repro_torch/kernels/csrc/fft_stockham.cu`` of both trees,
 binds each with the C signature its source declares (with the two-pass
-scratch pointer or without it), and times, float32, the one-pass calls
-of chip_smoke.py's (U,U,U) 256^3 solve (the pruned real forward, the
-pruned complex forward, the pruned forward fused with the Green
-multiply, the two inverse shapes) and SEMI_E's fused DCT-II, in the order
-other, this, this, other, three times over.  Each time is the device
-time of 20 back-to-back calls between one event pair after a device
-sleep; the script prints every time and the ratio of the medians.  Both
-builds' outputs are compared before timing.  Exits 2 without a CUDA
-device.
+scratch pointer or without it), and times the calls of chip_smoke.py's
+solves, in the order other, this, this, other, three times over:
+float32, the one-pass calls of (U,U,U) 256^3 (the pruned real forward,
+the pruned complex forward, the pruned forward fused with the Green
+multiply, the two inverse shapes) and SEMI_E's fused DCT-II; the
+two-pass calls of LONG_UUU (the pruned 8192-point forward, and the same
+call fused with a Green plane, which no solve runs) and LONG_SEMI (the
+fused DCT-II and the inverse on 8192 points); float64, the NODE HEJ4
+n=64 calls (the real and complex 128-point forwards, the inverse, and
+the semi-even case's fused DCT-I on 256 points).  Each time is the
+device time of 20 back-to-back calls between one event pair after a
+device sleep; the script prints every time and the ratio of the medians.
+Both builds' outputs are compared before timing (two-pass calls only
+with a tree whose source takes a scratch pointer).  Exits 2 without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 REPS = 20
 ROUNDS = 3
+# device-memory rate of an H100 SXM (bytes/s), NVIDIA's data sheet
+HBM = 3.35e12
 
 
 def main() -> int:
@@ -59,11 +67,16 @@ def main() -> int:
         if p.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{out}")
         scratch = "void* scratch" in src.read_text()
-        fn = ctypes.CDLL(str(so)).repro_fft_stockham_f32
-        fn.argtypes = ([P, I, P, P, P, P, P] + ([P] if scratch else [])
-                       + [I] * 8 + [P])
-        fn.restype = ctypes.c_int
-        libs[label] = (fn, scratch)
+        lib = ctypes.CDLL(str(so))
+        fns = {}
+        for dt, name in ((torch.float32, "repro_fft_stockham_f32"),
+                         (torch.float64, "repro_fft_stockham_f64")):
+            fn = getattr(lib, name)
+            fn.argtypes = ([P, I, P, P, P, P, P] + ([P] if scratch else [])
+                           + [I] * 8 + [P])
+            fn.restype = ctypes.c_int
+            fns[dt] = fn
+        libs[label] = (fns, scratch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -72,6 +85,7 @@ def main() -> int:
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     f32, c64 = torch.float32, torch.complex64
+    f64, c128 = torch.float64, torch.complex128
     # label, x shape and dtype, n_fft, inverse, kept bins, Green rows,
     # twiddle-table bins (the r2r epilogue)
     cases = [
@@ -83,6 +97,18 @@ def main() -> int:
          0),
         ("(U,U,U) inverse, 65792 rows", (65792, 256), c64, 256, 1, 256, 0, 0),
         ("SEMI_E fused DCT-II", (65536, 1024), f32, 1024, 0, 512, 0, 512),
+        ("LONG_UUU pruned forward, two passes", (4160, 4096), c64, 8192, 0,
+         8192, 0, 0),
+        ("LONG_UUU pruned forward x Green, two passes", (4160, 4096), c64,
+         8192, 0, 8192, 4160, 0),
+        ("LONG_SEMI fused DCT-II, two passes", (4096, 8192), f32, 8192, 0,
+         4096, 0, 4096),
+        ("LONG_SEMI inverse, two passes", (4096, 8192), c64, 8192, 1, 8192,
+         0, 0),
+        ("NODE real forward", (4225, 128), f64, 128, 0, 65, 0, 0),
+        ("NODE forward", (8320, 128), c128, 128, 0, 128, 0, 0),
+        ("NODE inverse", (8320, 128), c128, 128, 1, 128, 0, 0),
+        ("NODE_SEMI_E fused DCT-I", (4225, 256), f64, 256, 0, 129, 0, 129),
     ]
 
     def loop_ms(fn):
@@ -98,22 +124,31 @@ def main() -> int:
 
     for label, shape, dt, nf, inverse, k, grows, r2r in cases:
         rows, n_in = shape
+        rdt = ref._rdt(torch.empty(0, dtype=dt))
+        cdt = ref._cdt(rdt)
         x = torch.randn(shape, dtype=dt, device=dev)
-        g = (torch.randn((grows, k), dtype=f32, device=dev) if grows
+        g = (torch.randn((grows, k), dtype=rdt, device=dev) if grows
              else None)
-        ab = torch.randn((2, r2r), dtype=f32, device=dev) if r2r else None
-        tw = ref.twiddles(nf, c64, dev)
+        ab = torch.randn((2, r2r), dtype=rdt, device=dev) if r2r else None
+        tw = ref.twiddles(nf, cdt, dev)
+        scratch = (torch.empty(rows * nf, dtype=cdt, device=dev)
+                   if nf > ref.ONE_PASS_N else None)
+        if scratch is not None and not all(s for _, s in libs.values()):
+            print(f"{label}: skipped, a tree has no two-pass path")
+            continue
         outs = {}
 
         def call(tag):
-            fn, scratch = libs[tag]
+            fns, takes_scratch = libs[tag]
+            fn = fns[rdt]
             out = outs.setdefault(tag, torch.empty(
-                (rows, k), dtype=f32 if r2r else c64, device=dev))
+                (rows, k), dtype=rdt if r2r else cdt, device=dev))
             ptrs = [x.data_ptr(), int(x.is_complex()), out.data_ptr(),
                     None if g is None else g.data_ptr(),
                     None if ab is None else ab[0].data_ptr(),
                     None if ab is None else ab[1].data_ptr(), tw.data_ptr()]
-            ptrs += [None] if scratch else []
+            if takes_scratch:
+                ptrs.append(None if scratch is None else scratch.data_ptr())
             args = ptrs + [rows, n_in, nf, inverse, 4, 0, k, grows or 1,
                            stream]
 
@@ -134,9 +169,15 @@ def main() -> int:
             for tag in ("other", "this", "this", "other"):
                 times[tag].append(loop_ms(runs[tag]))
         med = {t: statistics.median(v) for t, v in times.items()}
+        # the least time: each input and output once at the HBM rate
+        byts = sum(t.numel() * t.element_size()
+                   for t in (x, outs["this"], g, ab) if t is not None)
+        bound = byts / HBM * 1e3
         print(f"{label}: x {shape} {dt}, {nf} points -> other "
               f"{med['other']:.4f} ms, this {med['this']:.4f} ms, this / "
-              f"other {med['this'] / med['other']:.3f}")
+              f"other {med['this'] / med['other']:.3f}; bound {bound:.4f} "
+              f"ms ({byts / 1e6:.1f} MB): other {bound / med['other']:.0%}, "
+              f"this {bound / med['this']:.0%} of it")
         for tag, v in times.items():
             print(f"    {tag:5s} " + " ".join(f"{t:.4f}" for t in v))
     return 0

@@ -6,7 +6,9 @@
 Builds ``src/repro_torch/kernels/csrc/fft_stockham.cu`` three times: as it
 is; with the row pass's epilogue storing each kernel row's kept bins
 contiguously (the same bytes in the same buffer, at the wrong places:
-what the strided stores would cost if they were not strided); and
+what the strided stores would cost if they were not strided; exact for
+the windows timed here, which start at bin 0 and hold a multiple of N1
+bins); and
 returning after the column pass (pass 1 alone).  Times each, float32, at
 the two-pass calls of chip_smoke.py's LONG_UUU and LONG_SEMI solves: the
 pruned 8192-point forward of 4160 complex rows, the fused DCT-II window
@@ -33,11 +35,11 @@ ROUNDS = 5
 # (label, variant source edits) applied to the kernel's source text
 VARIANTS = {
     "as built": [],
-    "contiguous stores": [("emit<T>(out, (size_t)r * k + b,",
-                           "emit<T>(out, (size_t)row * span + (k2 - lo),",
-                           1)],
-    "pass 1 only": [("    x = scratch;\n",
-                     "    if (rows > 0) return 0;\n    x = scratch;\n", 1)],
+    "contiguous stores": [("if ((unsigned)b < k) out[b] =",
+                           "if ((unsigned)b < k) out[(b >> e.lg_n1) + (b & "
+                           "((1 << e.lg_n1) - 1)) * (e.k >> e.lg_n1)] =", 3)],
+    "pass 1 only": [("  x = scratch;\n",
+                     "  if (rows > 0) return 0;\n  x = scratch;\n", 1)],
 }
 
 

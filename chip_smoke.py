@@ -35,7 +35,24 @@ Phases (each raises on failure; nothing is caught):
   5. the analytic checks: NODE (U,U,U) HEJ4 n=64 float64 Gaussian blob
      (spectral_scale), and NODE (U,E),(U,U),(U,U) HEJ4 n=64 float64 blob
      and its even image (the DCT-I on fft_stockham_twiddle);
-  6. every kernel call of the recorded solves replayed at its shape
+  6. Biot-Savart (lap(u) = curl(w), the vortex-method path), CELL, CHAT2,
+     float32 at 256^3, "cuda" against "torch" within 1e-5 relative with
+     exact launch counts: BS_TUBE (the paper's vortex tube BCs, the
+     sequential per-component pipeline on fft_stockham and
+     fft_stockham_twiddle) and BS_UUU (all nine BC pairs unbounded, the
+     batched 3-wide pipeline with spectral_scale for the Green multiply);
+     BS_TUBE_NODE_HEJ4, the tube at NODE n=64 HEJ4 float64 against its
+     analytic velocity;
+  7. the runtime on the card: a get_solver hit (same instance, same bits),
+     verify="residual" on (P,P,P) 256^3 float32 with a smooth analytic
+     field, an armed inf fault at the Green stage tripping the guard and
+     walking one rung (engine:cuda->torch), an armed cuda.* build
+     fault degrading to "torch", and a real (not injected) launch
+     failure raising SolveError with no rung taken.  These are the only
+     phases where a
+     degradation is expected: every other solve asserts no degradation
+     and no retry;
+  8. every kernel call of the recorded solves replayed at its shape
      against the plain version, and times with CUDA events (medians after
      warm-up; a kernel call is timed from a start event the device reaches
      only after the host has queued the call, and a kernel under 0.1 ms
@@ -45,9 +62,10 @@ Phases (each raises on failure; nothing is caught):
      path's shapes beside its plain version, one equivalent PyTorch call
      where there is one, and its bound, also spectral_scale at the SYM384
      shape and the two-pass calls of LONG_UUU and LONG_SEMI; the whole
-     solve on both engines, the device memory a solve allocates above
-     what is resident, and a torch.profiler breakdown of its device time
-     by kernel with the idle share that leaves.
+     solve (Biot-Savart included) on both engines, the device memory a
+     solve allocates above what is resident, and a torch.profiler
+     breakdown of its device time by kernel with the idle share that
+     leaves.
 The last two lines are the kernels' JSON record and the device JSON.
 The script imports neither JAX nor the JAX package.
 """
@@ -115,6 +133,24 @@ EXPECTED = {
     "NODE_UUU": {"fft_stockham": 6, "spectral_scale": 1},
     "NODE_SEMI_E": {"fft_stockham": 4, "spectral_scale": 1,
                     "fft_stockham_twiddle": 2},
+    # Biot-Savart runs the natural-layout stages (no FFT x Green fusion:
+    # the curl sits between the last forward FFT and the Green multiply).
+    # BS_TUBE, three sequential components: each forward is its z
+    # DCT-II / DST-II (fused, 2n-point extension) and two pruned DFTs (1
+    # each); each velocity backward is two pruned parity-split DFT
+    # inverses (2 each) and the z DCT-III / DST-III (1 Stockham irfft):
+    # 3 x 2 + 3 x 5 = 21 and 3.  Its Green multiply is a plain torch
+    # multiply, as the reference's.  BS_UUU, one 3-wide pipeline: 3
+    # pruned forwards, one Green multiply, 3 x 2 inverses
+    "BS_TUBE": {"fft_stockham": 21, "fft_stockham_twiddle": 3},
+    "BS_UUU": {"fft_stockham": 9, "spectral_scale": 1},
+    # the tube at NODE: unpruned DFTs (1 each way), DST-I on its 64-point
+    # rfft, DCT-I fused: forwards 3 x 2 DFTs + 2 DST-I, backwards 3 x 2
+    # DFTs + 1 DST-I = 15; DCT-I 1 forward + 2 backward = 3
+    "BS_TUBE_NODE_HEJ4": {"fft_stockham": 15, "fft_stockham_twiddle": 3},
+    # the runtime phase's clean (P,P,P) 256^3 solves: the PPP pattern
+    "GET_SOLVER": {"fft_stockham": 5, "fft_stockham_scale": 1},
+    "VERIFY_PPP": {"fft_stockham": 5, "fft_stockham_scale": 1},
 }
 # of those, the calls whose rows are longer than one pass takes: the
 # pruned 8192-point forward of LONG_UUU's x direction; LONG_SEMI's fused
@@ -128,8 +164,8 @@ TIMED_ON = {"fft_stockham": "UUU", "fft_stockham_scale": "UUU",
             "spectral_scale": "NODE_UUU", "twiddle_pack": "SYM384",
             "fft_stockham_twiddle": "SEMI_E"}
 # further runs whose calls are timed and printed (not in the record): the
-# second spectral_scale shape, and the two-pass calls
-ALSO_TIMED = {"spectral_scale": ("SYM384",),
+# other spectral_scale shapes, and the two-pass calls
+ALSO_TIMED = {"spectral_scale": ("SYM384", "BS_UUU"),
               "fft_stockham": ("LONG_UUU", "LONG_SEMI"),
               "fft_stockham_twiddle": ("LONG_SEMI",)}
 # a kernel under SHORT_MS per call is timed as LOOP back-to-back calls
@@ -142,6 +178,12 @@ AHEAD_CYCLES = 2_000_000
 # (the validation case of tests/test_validation.py); the port is held to
 # 1.5 times it
 SEMI_E_REF_EINF = 2.7204477288238545e-3
+# absolute L_inf velocity error of the vortex tube at NODE n=64, HEJ4,
+# spectral derivatives, float64 on the reference,
+# repro.core.biot_savart.BiotSavartSolver (engine="xla") on the CPU
+# (``linf(64, HEJ4, 0, NODE)`` of tests/test_biot_savart.py); the port is
+# held to 1.5 times it
+BS_TUBE_REF_LINF = 3.2254603631041157e-3
 
 
 def _rate(table, name, default):
@@ -514,6 +556,30 @@ def main() -> int:
                 launches[k] = counts[k]
         return out, counts
 
+    def clean(run, *solvers):
+        """No retry and no degradation behind a main-path solve: the
+        ladder's torch.fft rung must never hide a kernel."""
+        for s in solvers:
+            if s.stats["degradations"] or s.stats["retries"]:
+                raise AssertionError(f"{run}: degradations "
+                                     f"{s.stats['degradations']}, retries "
+                                     f"{s.stats['retries']}")
+
+    def engines_agree(case, u, ut, f):
+        """The cuda engine's float32 output against the torch engine's:
+        shape, dtype, finite, within 1e-5 of max |u| relative."""
+        sync()
+        if u.shape != f.shape or u.dtype != f.dtype:
+            raise AssertionError(f"{case}: output {tuple(u.shape)} "
+                                 f"{u.dtype}")
+        if not torch.isfinite(u).all():
+            raise AssertionError(f"{case}: non-finite solution")
+        rel = ((u - ut).abs().max() / ut.abs().max()).item()
+        if rel > 1e-5:
+            raise AssertionError(f"{case}: cuda vs torch engine relative "
+                                 f"max |diff| {rel:.3e} > 1e-5")
+        return rel
+
     for case, (bcs, nn, batch) in runs.items():
         t0 = time.perf_counter()
         grid = nn if isinstance(nn, tuple) else (nn,) * 3
@@ -526,16 +592,8 @@ def main() -> int:
             np.float32)).to(dev)
         u, counts = run_counted(case, lambda: sc.solve(f))
         ut = st.solve(f)
-        sync()
-        if u.shape != f.shape or u.dtype != f.dtype:
-            raise AssertionError(f"{case}: output {tuple(u.shape)} "
-                                 f"{u.dtype}")
-        if not torch.isfinite(u).all():
-            raise AssertionError(f"{case}: non-finite solution")
-        rel = ((u - ut).abs().max() / ut.abs().max()).item()
-        if rel > 1e-5:
-            raise AssertionError(f"{case}: cuda vs torch engine relative "
-                                 f"max |diff| {rel:.3e} > 1e-5")
+        clean(case, sc, st)
+        rel = engines_agree(case, u, ut, f)
         tag = (f"{case} " + ("x".join(map(str, nn)) if isinstance(nn, tuple)
                              else f"n={nn}")
                + (f" B={batch}" if batch else ""))
@@ -580,6 +638,7 @@ def main() -> int:
                            green_kind=GreenKind.HEJ4, engine="cuda",
                            device=dev)
         uq, counts = run_counted(run, lambda: sq.solve(rhs))
+        clean(run, sq)
         e_inf = np.abs(uq.cpu().numpy() - uref).max() / np.abs(uref).max()
         if not e_inf <= bound:
             raise AssertionError(f"{run} HEJ4 Gaussian: relative E_inf "
@@ -595,7 +654,169 @@ def main() -> int:
     analytic("NODE_SEMI_E", ((BCType.UNB, E), U, U), (0.5, 0.5, 0.5), 0.1,
              (((2.0 * L - 0.5, 0.5, 0.5), 1.0),), 1.5 * SEMI_E_REF_EINF)
 
-    # -- 6. replays and times -------------------------------------------------
+    # -- 6. Biot-Savart -------------------------------------------------------
+    from scipy.special import expn
+    from repro_torch.core.biot_savart import BiotSavartSolver
+    # vorticity BCs bcs[c][d]: the paper's vortex tube (x, y unbounded; z
+    # odd for w_x, w_y and even for w_z), and all nine pairs unbounded
+    tube = [[U, U, (O, O)], [U, U, (O, O)], [U, U, (E, E)]]
+    bs_runs = {"BS_TUBE": (tube, False), "BS_UUU": ([[U, U, U]] * 3, True)}
+    for case, (bcs, batched) in bs_runs.items():
+        t0 = time.perf_counter()
+        bc = BiotSavartSolver((N,) * 3, 1.0, bcs, engine="cuda", device=dev)
+        bt = BiotSavartSolver((N,) * 3, 1.0, bcs, engine="torch",
+                              device=dev, greens=bc.greens)
+        t_plan = time.perf_counter() - t0
+        if bc.batched != batched:
+            raise AssertionError(f"{case}: batched {bc.batched}")
+        f = torch.from_numpy(rng.standard_normal(bc.input_shape).astype(
+            np.float32)).to(dev)
+        u, counts = run_counted(case, lambda: bc.solve(f))
+        rel = engines_agree(case, u, bt.solve(f), f)
+        n_green = len({id(g) for g in bc.greens})
+        tag = f"{case} n={N}"
+        print(f"biot-savart {tag} ({'batched' if batched else 'sequential'}"
+              f"): plan+green {t_plan:.2f} s ({n_green} Green's function"
+              f"{'s' if n_green > 1 else ''} assembled), launches "
+              f"{ {k: v for k, v in counts.items() if v} }, cuda vs torch "
+              f"engine relative max |diff| {rel:.3e}")
+        solvers[tag] = (bc, bt, f)
+
+    def tube_fields(n, length=1.0):
+        """The vortex tube at NODE (tests/test_biot_savart.py): radius
+        0.3 L about the z axis through the centre, compact vorticity -w_z
+        and its exact azimuthal velocity."""
+        rad, e21 = 0.3 * length, expn(2, 1.0)
+        x1 = np.arange(n + 1) * (length / n)
+        x, y, _ = np.meshgrid(x1, x1, x1, indexing="ij")
+        dx, dy = x - 0.5 * length, y - 0.5 * length
+        r = np.hypot(dx, dy)
+        s2 = (r / rad) ** 2
+        inside = s2 < 0.999999
+        s2c = np.where(inside, s2, 0.0)
+        wz = np.where(inside, (1.0 / (2.0 * np.pi)) * (2.0 / rad ** 2) / e21
+                      * np.exp(-1.0 / (1.0 - s2c)), 0.0)
+        rs = np.where(r > 1e-12, r, 1.0)
+        with np.errstate(over="ignore"):
+            arg = 1.0 / np.where(inside, 1.0 - s2c, 1.0)
+        bracket = np.where(inside, 1.0 - (1.0 - s2c) * expn(2, arg) / e21,
+                           1.0)
+        ut = np.where(r > 1e-12, bracket / (2.0 * np.pi * rs), 0.0)
+        ux = np.where(r > 1e-12, -dy / rs * ut, 0.0)
+        uy = np.where(r > 1e-12, dx / rs * ut, 0.0)
+        zero = np.zeros_like(wz)
+        return np.stack([zero, zero, -wz]), np.stack([ux, uy, zero])
+
+    f_t, u_exact = tube_fields(na, L)
+    sq = BiotSavartSolver((na,) * 3, L, tube, layout=DataLayout.NODE,
+                          green_kind=GreenKind.HEJ4, engine="cuda",
+                          device=dev)
+    uq, counts = run_counted("BS_TUBE_NODE_HEJ4", lambda: sq.solve(f_t))
+    linf = np.abs(uq.cpu().numpy() - u_exact).max()
+    if not linf <= 1.5 * BS_TUBE_REF_LINF:
+        raise AssertionError(f"BS_TUBE_NODE_HEJ4: L_inf {linf:.4e} > "
+                             f"{1.5 * BS_TUBE_REF_LINF:.4e}")
+    print(f"analytic BS_TUBE_NODE_HEJ4 n={na} float64: velocity L_inf "
+          f"{linf:.4e} (reference {BS_TUBE_REF_LINF:.4e}, bound "
+          f"{1.5 * BS_TUBE_REF_LINF:.4e}), launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    del sq, uq
+
+    # -- 7. the runtime: plan cache, health guard, degradation ladder --------
+    from repro_torch.core.solver import (clear_solver_cache, get_solver,
+                                         solver_cache_info)
+    from repro_torch.runtime import faults
+    clear_solver_cache()
+    ppp = (P, P, P)
+    g1 = get_solver((N,) * 3, 1.0, ppp, device=dev)
+    g2 = get_solver((N,) * 3, 1.0, ppp, device=dev)
+    info = solver_cache_info()
+    if g2 is not g1 or info["hits"] != 1 or info["misses"] != 1:
+        raise AssertionError(f"get_solver: same instance {g2 is g1}, "
+                             f"cache {info}")
+    # a smooth periodic field: u = sin(2 pi x) sin(4 pi y) cos(2 pi z)
+    xc = (np.arange(N) + 0.5) / N
+    xg, yg, zg = np.meshgrid(xc, xc, xc, indexing="ij", sparse=True)
+    sol = np.sin(2 * np.pi * xg) * np.sin(4 * np.pi * yg) * \
+        np.cos(2 * np.pi * zg)
+    rhs = torch.from_numpy((-24.0 * np.pi ** 2 * sol).astype(
+        np.float32)).to(dev)
+    u1, _ = run_counted("GET_SOLVER", lambda: g1.solve(rhs))
+    u2 = g2.solve(rhs)
+    clean("GET_SOLVER", g1)
+    if not torch.equal(u1, u2):
+        raise AssertionError("get_solver: a second solve changed the bits")
+    e_sol = np.abs(u1.cpu().numpy() - sol).max() / np.abs(sol).max()
+    if not e_sol < 1e-5:
+        raise AssertionError(f"(P,P,P) sine field: relative E_inf {e_sol}")
+    gv = get_solver((N,) * 3, 1.0, ppp, device=dev, verify="residual")
+    uv, _ = run_counted("VERIFY_PPP", lambda: gv.solve(rhs))
+    clean("VERIFY_PPP", gv)
+    if not torch.equal(uv, u1):
+        raise AssertionError("verify='residual' changed the solution")
+    res = gv.stats["last_residual"]
+    print(f"runtime: get_solver hit (cache {solver_cache_info()}), the same "
+          f"bits on a second solve; (P,P,P) n={N} sine field relative "
+          f"E_inf {e_sol:.3e}; verify='residual' passed, last_residual "
+          f"{res:.4e}")
+    # an inf written into the Green stage's input on the cuda engine: the
+    # guard trips and the ladder walks one rung, to the torch engine
+    sf = PoissonSolver((N,) * 3, 1.0, ppp, engine="cuda", device=dev,
+                       verify="residual")
+    with faults.FaultPlan([dict(kind="inf", stage="green")]) as plan:
+        uf = sf.solve(rhs)
+    trail = [d["action"] for d in sf.stats["degradations"]]
+    rel = ((uf - u1).abs().max() / u1.abs().max()).item()
+    if (not plan.log or trail != ["engine:cuda->torch"]
+            or sf.stats["verify_failures"] != 1 or rel > 1e-5):
+        raise AssertionError(f"inf at green: fired {plan.log}, trail "
+                             f"{trail}, stats {sf.stats}, rel {rel:.3e}")
+    print(f"runtime: inf at 'green' fired {len(plan.log)}x, tripped at "
+          f"{sf.stats['degradations'][0]['stage']}, trail {trail}, "
+          f"within {rel:.3e} of the clean cuda solve")
+    # every hand-kernel fail point armed for good (a kernel that cannot
+    # be built): the solve degrades to torch.fft and equals its solve
+    sl = PoissonSolver((N,) * 3, 1.0, ppp, engine="cuda", device=dev)
+    with faults.FaultPlan([dict(kind="pallas_lowering", stage="cuda.*",
+                                count=-1)]) as plan:
+        ul = sl.solve(rhs)
+    trail = [d["action"] for d in sl.stats["degradations"]]
+    want = PoissonSolver((N,) * 3, 1.0, ppp, engine="torch", device=dev,
+                         green=sl._green_nat).solve(rhs)
+    if (trail != ["engine:cuda->torch"] or sl._cfg["engine"] != "torch"
+            or not torch.equal(ul, want)):
+        raise AssertionError(f"cuda.* fault: trail {trail}, config "
+                             f"{sl._cfg}, equal {torch.equal(ul, want)}")
+    print(f"runtime: cuda.* build fault fired at {plan.log[0]['stage']}, "
+          f"trail {trail}, equal to the torch engine's solve")
+    # a kernel that really fails to launch, with no fault armed: the solve
+    # raises SolveError and never gives way to torch.fft
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import SolveError
+    sr = PoissonSolver((32,) * 3, 1.0, ppp, engine="cuda", device=dev)
+    real_scale = ops.fft_stockham_scale
+
+    def failing_scale(*a, **kw):
+        raise RuntimeError("fft_stockham_scale: launch failed")
+
+    ops.fft_stockham_scale = failing_scale
+    try:
+        sr.solve(torch.ones(sr.input_shape, device=dev))
+        raised = None
+    except SolveError as e:
+        raised = e
+    finally:
+        ops.fft_stockham_scale = real_scale
+    if (raised is None or raised.degradations or sr.stats["degradations"]
+            or sr._cfg["engine"] != "cuda"):
+        raise AssertionError(f"real launch failure: raised {raised!r}, "
+                             f"stats {sr.stats}, config {sr._cfg}")
+    print(f"runtime: a real launch failure raised SolveError at stage "
+          f"{raised.stage!r}, no rung taken")
+    del g1, g2, gv, sf, sl, sr, u1, u2, uv, uf, ul, want, rhs
+    clear_solver_cache()
+
+    # -- 8. replays and times -------------------------------------------------
     def time_ms(fn, ahead=False):
         """Median of REPS event-timed calls after 3 warm-up calls.  With
         ``ahead`` the device sleeps about a millisecond before each start

@@ -1,12 +1,24 @@
 """PyTorch + CUDA port of the FLUPS Poisson solver (``repro``).
 
-The single-process solve for plans with unbounded and periodic directions
-runs end to end on one NVIDIA GPU: ``torch.fft`` (cuFFT on the card) on
-the ``"torch"`` engine, hand-written CUDA kernels for the Stockham FFT,
-the fused FFT x Green pass and the spectral scale on the ``"cuda"``
-engine (the default).  The package imports no JAX and nothing of
-``repro``; its tests hold it against ``repro`` on the same inputs.
+The single-process solve runs end to end on one NVIDIA GPU for every BC
+mix (unbounded, periodic, even/odd symmetric, semi-unbounded): ``torch.fft``
+(cuFFT on the card) on the ``"torch"`` engine, hand-written CUDA kernels
+for the Stockham FFT, the fused FFT x Green and FFT x twiddle passes, the
+spectral scale and the r2r twiddle on the ``"cuda"`` engine (the default).
+``BiotSavartSolver`` solves ``lap(u) = curl(w)`` for a vortex method;
+``get_solver`` is the construct-or-fetch plan cache a time-stepper calls
+every step.  ``PoissonSolver.solve`` runs under the resilient runtime
+(``repro_torch.runtime``): the ``verify=`` health guards, retries and the
+degradation ladder (``cuda -> torch`` for injected faults only,
+``scheduled -> baseline``, ``deferred -> upfront``), ending in
+``SolveError``; ``BiotSavartSolver.solve`` does not yet, as in
+``repro``.  The package imports
+no JAX and nothing of ``repro``; its tests hold it against ``repro`` on
+the same inputs.
 """
-from .core.solver import PoissonSolver, make_plan  # noqa: F401
+from .core.biot_savart import BiotSavartSolver  # noqa: F401
+from .core.solver import PoissonSolver, get_solver, make_plan  # noqa: F401
+from .runtime import SolveError  # noqa: F401
 
-__all__ = ["PoissonSolver", "make_plan"]
+__all__ = ["BiotSavartSolver", "PoissonSolver", "SolveError", "get_solver",
+           "make_plan"]

@@ -31,12 +31,21 @@ the natural-layout API of the baseline pipeline.
 
 Every op is rank-polymorphic: leading axes beyond the plan's grid rank are
 batch axes (``B`` right-hand sides sharing one plan).
+
+Fault hooks (``repro_torch.runtime.faults``) sit at the reference's
+places: ``taint("fwd.<d>")`` / ``taint("bwd.<d>")`` on each direction's
+input, ``taint("green")`` on the Green multiply's, and on the cuda engine
+the fail points ``cuda.fwd.<d>``, ``cuda.bwd.<d>`` and ``cuda.green`` --
+the port's names for the reference's ``pallas.*``.  With no plan armed
+each stage pays one check (``faults.armed()``) and builds no stage name.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.runtime import faults as _faults
 
 __all__ = ["TransformEngine", "TransformSchedule", "LayoutSchedule",
            "as_engine", "build_schedule", "schedule_layouts", "relayout",
@@ -116,6 +125,10 @@ def _fwd_last(x, p, sched=None):
     """
     from . import transforms as tr
     engine = sched.engine if sched is not None else None
+    if _faults.armed():
+        x = _faults.taint(f"fwd.{p.dim}", x)
+        if engine is not None and engine.use_cuda:
+            _faults.fail_point(f"cuda.fwd.{p.dim}")
     if p.pre_padded:
         # dense up-front doubling: the zero extension is already in the
         # array, the transform is a plain full-length one
@@ -144,6 +157,10 @@ def _bwd_last(y, p, sched=None):
     # into the Green's function at plan time (build_green)
     from . import transforms as tr
     engine = sched.engine if sched is not None else None
+    if _faults.armed():
+        y = _faults.taint(f"bwd.{p.dim}", y)
+        if engine is not None and engine.use_cuda:
+            _faults.fail_point(f"cuda.bwd.{p.dim}")
     if p.category in ("sym", "semi"):
         x = tr.r2r_backward(y, p.kind, engine=engine)
         x = x[..., :p.n_in]       # semi: crop the doubled domain
@@ -315,6 +332,10 @@ class TransformSchedule:
         """The fused pointwise pass (Green x normalization in one multiply).
         ``green`` is real, of the field's precision, in the field's layout
         without its batch axes."""
+        if _faults.armed():
+            yhat = _faults.taint("green", yhat)
+            if self.engine.use_cuda:
+                _faults.fail_point("cuda.green")
         if self.engine.use_cuda:
             from repro_torch.kernels import ops
             return ops.green_multiply(yhat, green)
@@ -346,6 +367,11 @@ class TransformSchedule:
         want_cplx = p.dft == "c2c"
         if not self.can_fuse_green(d) or x.is_complex() != want_cplx:
             return self.green_multiply(self.fwd_last(x, d), green)
+        if _faults.armed():
+            x = _faults.taint(f"fwd.{p.dim}", x)
+            x = _faults.taint("green", x)
+            _faults.fail_point(f"cuda.fwd.{p.dim}")
+            _faults.fail_point("cuda.green")
         from repro_torch.kernels import ops
         n_live = p.n_fft if p.pre_padded else p.n_in
         x = x[..., :n_live]

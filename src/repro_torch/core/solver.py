@@ -14,15 +14,21 @@ The solve is the paper's algorithm:
 The plan layer (``make_plan``, ``build_green``) is pure Python + numpy and
 reproduces ``repro.core.solver`` exactly, for every BC mix; ``PoissonSolver``
 solves every BC mix the reference accepts (unbounded, periodic, even/odd
-symmetric and semi-unbounded directions, CELL and NODE).
+symmetric and semi-unbounded directions, CELL and NODE) under the
+resilient runtime's degradation ladder and health guards; ``get_solver``
+is the reference's construct-or-fetch plan cache.
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import scipy.fft as sfft
 import torch
+
+from repro_torch.runtime import faults, health, resilience
 
 from .bc import BCType, DataLayout, DirBC, TransformKind, r2r_kind
 from . import transforms as tr
@@ -32,7 +38,9 @@ from .engine import (RELAYOUT_MODES, as_engine, build_schedule,
                      relayout as _relayout, schedule_layouts)
 
 __all__ = ["Plan1D", "PoissonPlan", "PoissonSolver", "make_plan",
-           "build_green"]
+           "build_green", "get_solver", "clear_solver_cache",
+           "solver_cache_info", "set_solver_cache_capacity",
+           "evict_solver_instance"]
 
 
 @dataclass(frozen=True)
@@ -396,6 +404,21 @@ def _check_kernel_lengths(plan):
                 f"kernel takes at most {MAX_N} points: use engine='torch'")
 
 
+VERIFY_MODES = (None, "nan", "residual")
+
+
+def _check_verify(verify):
+    """Accept the ported health-guard modes; the reference's ABFT modes
+    raise (they must never run unchecked)."""
+    if verify in ("abft", "abft-stages"):
+        raise NotImplementedError(
+            f"verify={verify!r} needs runtime/abft.py, not ported yet "
+            "(ROADMAP queue 1 item 6)")
+    if verify not in VERIFY_MODES:
+        raise ValueError(f"verify must be one of {VERIFY_MODES}, "
+                         f"got {verify!r}")
+
+
 class PoissonSolver:
     """u = solve(f): FFT-based solution of lap(u) = f with mixed BCs.
 
@@ -414,37 +437,79 @@ class PoissonSolver:
     same transform count with bigger row batches).  The plan, schedule and
     Green's function are shared by every call; the Green's function is
     moved to the device once and cast once per working dtype.
+
+    Resilience (DESIGN.md #10): every ``solve`` runs under the graceful-
+    degradation ladder -- on failure the solver retries transient errors
+    with bounded backoff, then steps its config down one rung at a time
+    (``cuda -> torch``, ``scheduled -> baseline``, ``deferred ->
+    upfront``), rebuilding the pipeline each rung; the trail lands in
+    ``self.stats["degradations"]`` and a terminal failure raises
+    ``repro_torch.runtime.SolveError`` with stage provenance.  The
+    ``cuda -> torch`` rung is taken only for a failure an armed fault plan
+    injected: a kernel that really fails to build or launch, or returns
+    non-finite values, raises ``SolveError`` and never hides behind
+    cuFFT.  ``verify`` ("nan" | "residual", default off) arms the
+    numerical health guards on every solve; a tripped guard walks the
+    same ladder.  The reference's ABFT modes ("abft", "abft-stages") and
+    its ``abft_rtol`` are not ported yet and raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, shape, L, bcs, layout=DataLayout.CELL,
                  green_kind=gr.GreenKind.CHAT2, eps_factor=2.0,
                  engine="cuda", doubling="deferred", relayout="scheduled",
-                 order_policy="layout", device=None, green=None):
+                 order_policy="layout", device=None, green=None,
+                 verify=None, verify_rtol=0.5, abft_rtol=None):
         if relayout not in RELAYOUT_MODES:
             raise ValueError(f"relayout must be one of {RELAYOUT_MODES}")
+        _check_verify(verify)
+        if abft_rtol is not None:
+            raise NotImplementedError(
+                "abft_rtol needs runtime/abft.py, not ported yet (ROADMAP "
+                "queue 1 item 6)")
         self.device = _resolve_device(device)
-        self.plan = make_plan(tuple(shape), L, bcs, layout, green_kind,
-                              eps_factor, doubling=doubling,
-                              order_policy=order_policy)
-        self.engine = as_engine(engine)
-        if self.engine.use_cuda:
-            _check_kernel_lengths(self.plan)
-        self.schedule = build_schedule(self.plan, self.engine)
-        self.relayout = relayout
-        want = tuple(p.n_out for p in self.plan.dirs)
-        if green is None:
-            g = build_green(self.plan)
-        else:
-            g = np.asarray(green, dtype=np.float64)
-            if g.shape != want:
-                raise ValueError(f"green has shape {g.shape}, the plan's "
-                                 f"spectral storage is {want}")
-        self._green_nat = g          # natural layout, float64, host
+        self._base = dict(shape=tuple(shape), L=L, bcs=bcs, layout=layout,
+                          green_kind=green_kind, eps_factor=eps_factor,
+                          order_policy=order_policy)
+        self.verify = verify
+        self.verify_rtol = float(verify_rtol)
+        self.stats = {"solves": 0, "retries": 0, "verify_failures": 0,
+                      "degradations": []}
+        self._green_nat = None if green is None else np.asarray(
+            green, dtype=np.float64)
+        self._configure({"engine": as_engine(engine).name,
+                         "doubling": doubling, "relayout": relayout})
+
+    def _configure(self, cfg: dict):
+        """(Re)build the pipeline for one runtime config -- the degradation
+        ladder's rebuild hook (the constructor builds through it too): the plan,
+        the schedule and the device Green's function.  The host Green's
+        function (natural layout, float64) depends on no knob of the
+        config, so it is assembled (or checked, when carried) once."""
+        b = self._base
+        plan = make_plan(b["shape"], b["L"], b["bcs"], b["layout"],
+                         b["green_kind"], b["eps_factor"],
+                         doubling=cfg["doubling"],
+                         order_policy=b["order_policy"])
+        engine = as_engine(cfg["engine"])
+        if engine.use_cuda:
+            _check_kernel_lengths(plan)
+        want = tuple(p.n_out for p in plan.dirs)
+        if self._green_nat is None:
+            self._green_nat = build_green(plan)
+        elif self._green_nat.shape != want:
+            raise ValueError(f"green has shape {self._green_nat.shape}, the "
+                             f"plan's spectral storage is {want}")
+        self._cfg = dict(cfg)
+        self.plan = plan
+        self.engine = engine
+        self.schedule = build_schedule(plan, engine)
+        self.relayout = cfg["relayout"]
         # ONE device copy, in the layout the selected pipeline multiplies
         # in: natural for baseline, the spectral layout for scheduled
-        if relayout == "scheduled":
-            g = np.ascontiguousarray(
-                np.transpose(g, self.schedule.layouts.spectral))
+        g = self._green_nat
+        if self.relayout == "scheduled":
+            g = np.transpose(g, self.schedule.layouts.spectral)
         self._green = {torch.float64: torch.from_numpy(
             np.ascontiguousarray(g)).to(self.device)}
 
@@ -507,11 +572,13 @@ class PoissonSolver:
             y = y.real
         return crop_doubling(y, plan.dirs)
 
-    def solve(self, f):
+    def solve(self, f, verify=None):
         """Solve lap(u) = f.  ``f``: a numpy array or a tensor of shape
         ``(*grid)`` or ``(B, *grid)``, float32 or float64; it is moved to
         the solver's device.  Returns a contiguous tensor of ``f``'s shape
-        and dtype on the solver's device."""
+        and dtype on the solver's device.  ``verify`` overrides the
+        constructor's health-guard mode for this call ("nan" | "residual"
+        | None)."""
         if isinstance(f, np.ndarray):
             f = torch.from_numpy(np.ascontiguousarray(f))
         f = torch.as_tensor(f).to(self.device)
@@ -522,8 +589,205 @@ class PoissonSolver:
                 or tuple(f.shape[f.ndim - len(grid):]) != grid):
             raise ValueError(f"f has shape {tuple(f.shape)}; the plan takes "
                              f"{grid} or (B, *{grid})")
-        if self.relayout == "scheduled":
-            u = self._solve_scheduled(f)
+        verify = self.verify if verify is None else verify
+        _check_verify(verify)
+        self.stats["solves"] += 1
+        fired = 0
+
+        def attempt():
+            nonlocal fired
+            fired = faults.firings()
+            faults.fail_point("solve.dispatch")
+            if self.relayout == "scheduled":
+                u = self._solve_scheduled(f)
+            else:
+                u = self._solve_impl(f)
+            u = u.to(f.dtype).contiguous()
+            if verify:
+                health.check_solution(
+                    u, f, self.plan, mode=verify, rtol=self.verify_rtol,
+                    stats=self.stats,
+                    locate=lambda: health.locate_nonfinite_stage(
+                        self.plan, self.schedule, f, self._green_nat))
+            return u
+
+        def may_degrade(e, action):
+            # the kernels give way to torch.fft only for a fault an armed
+            # plan injected into this attempt
+            return (not action.startswith("engine:")
+                    or isinstance(e, faults.InjectedFault)
+                    or faults.firings() > fired)
+
+        return resilience.run_with_ladder(
+            attempt, config=self._cfg, reconfigure=self._configure,
+            stats=self.stats, may_degrade=may_degrade)
+
+
+# ---------------------------------------------------------------------------
+# global plan/solver cache
+# ---------------------------------------------------------------------------
+#
+# A CFD-style code (e.g. a vortex-method time-stepper) constructs the SAME
+# solver over and over: identical shape/L/bcs/layout/green/engine/device.
+# Planning is not free -- Green's function assembly is O(N^3) numpy work
+# (seconds at 256^3) and the device copy is an O(N^3) upload.  ``get_solver``
+# memoizes fully-constructed solvers in a module-level LRU keyed by the
+# complete plan identity, so repeated construction costs a dict lookup.
+
+_SOLVER_CACHE: OrderedDict = OrderedDict()
+_SOLVER_CACHE_LOCK = threading.Lock()
+# key -> in-flight construction (single-flight): N concurrent misses for
+# the same key build the solver ONCE; the other N-1 callers park on the
+# building thread's event and are handed the same instance ("coalesced")
+_SOLVER_BUILDS: dict = {}
+_SOLVER_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0,
+                       "coalesced": 0, "build_failures": 0}
+_SOLVER_CACHE_CAPACITY = 16
+
+
+class _SolverBuild:
+    """One in-flight get_solver construction: the building thread fills
+    ``result``/``exc`` and sets ``done``; coalesced waiters block on it."""
+
+    __slots__ = ("done", "result", "exc")
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.result = None
+        self.exc = None
+
+
+def _freeze(v):
+    """Canonical hashable form of one get_solver argument."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    try:
+        hash(v)
+        return v
+    except TypeError:
+        return repr(v)
+
+
+def get_solver(shape, L, bcs, layout=DataLayout.CELL,
+               green_kind=gr.GreenKind.CHAT2, eps_factor=2.0,
+               engine="cuda", doubling="deferred", relayout="scheduled",
+               order_policy="layout", *, device=None, mesh=None, **kw):
+    """Construct-or-fetch a ``PoissonSolver`` from the global plan cache.
+
+    The key is every constructor argument, the device (None resolves to
+    the card, and raises without one), and the armed fault plan's token.
+    ``kw`` takes the health-guard arguments (``verify``, ``verify_rtol``;
+    ``abft_rtol`` raises until ABFT is ported).  Entries are evicted least-recently-used beyond
+    ``set_solver_cache_capacity`` (default 16 solvers).
+
+    Construction is SINGLE-FLIGHT per key: when N threads miss the same
+    key concurrently, exactly one of them builds -- the rest park on the
+    building thread and receive the same instance (``coalesced`` in
+    ``solver_cache_info``).  A failed build re-raises in every parked
+    caller and leaves no cache entry behind, so the next request retries
+    cleanly.  ``mesh`` (the distributed solver) is not ported yet; its
+    ``evict_solver_entries(mesh)`` comes with it.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "get_solver(mesh=...) needs the distributed solver, not ported "
+            "yet (ROADMAP queue 1 item 5)")
+    unknown = set(kw) - {"verify", "verify_rtol", "abft_rtol"}
+    if unknown:
+        raise TypeError(f"unexpected single-process solver kwargs: "
+                        f"{sorted(unknown)}")
+    dev = _resolve_device(device)
+    key = ("single", _freeze(shape), _freeze(L), _freeze(bcs),
+           _freeze(layout), _freeze(green_kind), float(eps_factor),
+           as_engine(engine), str(doubling), str(relayout),
+           str(order_policy), str(dev), _freeze(kw),
+           # solvers built under an armed fault plan must never be served
+           # to fault-free callers (their config may have degraded)
+           ("faults", faults.plan_token()))
+    owner = False
+    with _SOLVER_CACHE_LOCK:
+        s = _SOLVER_CACHE.get(key)
+        if s is not None:
+            _SOLVER_CACHE.move_to_end(key)
+            _SOLVER_CACHE_STATS["hits"] += 1
+            return s
+        build = _SOLVER_BUILDS.get(key)
+        if build is None:
+            build = _SOLVER_BUILDS[key] = _SolverBuild()
+            _SOLVER_CACHE_STATS["misses"] += 1
+            owner = True
         else:
-            u = self._solve_impl(f)
-        return u.to(f.dtype).contiguous()
+            # another thread is already constructing this key: park on its
+            # build instead of duplicating the plan and Green work
+            _SOLVER_CACHE_STATS["coalesced"] += 1
+    if not owner:
+        build.done.wait()
+        if build.exc is not None:
+            raise build.exc
+        return build.result
+    try:
+        s = PoissonSolver(shape, L, bcs, layout, green_kind, eps_factor,
+                          engine=engine, doubling=doubling,
+                          relayout=relayout, order_policy=order_policy,
+                          device=dev, **kw)
+    except BaseException as e:
+        with _SOLVER_CACHE_LOCK:
+            _SOLVER_BUILDS.pop(key, None)
+            _SOLVER_CACHE_STATS["build_failures"] += 1
+        build.exc = e
+        build.done.set()
+        raise
+    with _SOLVER_CACHE_LOCK:
+        _SOLVER_CACHE[key] = s
+        _SOLVER_CACHE.move_to_end(key)
+        while len(_SOLVER_CACHE) > _SOLVER_CACHE_CAPACITY:
+            _SOLVER_CACHE.popitem(last=False)
+            _SOLVER_CACHE_STATS["evictions"] += 1
+        _SOLVER_BUILDS.pop(key, None)
+    build.result = s
+    build.done.set()
+    return s
+
+
+def clear_solver_cache():
+    """Drop every cached solver and reset cache stats.  Also resets the
+    process-wide warn-once state of ``repro_torch.runtime.resilience``: a
+    fresh cache means fresh plans, and their one-shot warnings must be
+    able to fire again -- long-lived processes and test fixtures both call
+    this as THE runtime reset hook."""
+    with _SOLVER_CACHE_LOCK:
+        _SOLVER_CACHE.clear()
+        for k in _SOLVER_CACHE_STATS:
+            _SOLVER_CACHE_STATS[k] = 0
+    resilience.reset_warn_once()
+
+
+def evict_solver_instance(solver) -> int:
+    """Drop the cache entries holding exactly ``solver`` (identity, not
+    equality), so the cache cannot keep its Green's function alive behind
+    the caller's back.  Returns the eviction count."""
+    with _SOLVER_CACHE_LOCK:
+        stale = [k for k, v in _SOLVER_CACHE.items() if v is solver]
+        for k in stale:
+            del _SOLVER_CACHE[k]
+            _SOLVER_CACHE_STATS["evictions"] += 1
+    return len(stale)
+
+
+def solver_cache_info() -> dict:
+    with _SOLVER_CACHE_LOCK:
+        return dict(_SOLVER_CACHE_STATS, size=len(_SOLVER_CACHE),
+                    capacity=_SOLVER_CACHE_CAPACITY)
+
+
+def set_solver_cache_capacity(n: int):
+    global _SOLVER_CACHE_CAPACITY
+    if n < 1:
+        raise ValueError(f"solver cache capacity must be >= 1, got {n}")
+    with _SOLVER_CACHE_LOCK:
+        _SOLVER_CACHE_CAPACITY = int(n)
+        while len(_SOLVER_CACHE) > _SOLVER_CACHE_CAPACITY:
+            _SOLVER_CACHE.popitem(last=False)
+            _SOLVER_CACHE_STATS["evictions"] += 1

@@ -52,23 +52,103 @@ def _rhs(shape, batch, seed=0):
     return rng.standard_normal(((batch,) if batch else ()) + shape)
 
 
+# 2-D grids: the mixes whose Green's function the reference assembles in
+# two dimensions (at most one unbounded-like direction)
+MIXES_2D = {"PP": ((P, P), (P, P)), "UP": ((U, U), (P, P)),
+            "EO_P": ((E, O), (P, P)), "semi_P": ((U, E), (P, P))}
+ALL_MIXES = {**MIXES, **MIXES_2D}
+
+
+def _grid(mix, n, shape):
+    """The grid of ``mix``: ``shape`` when given, else n cells per axis
+    (two axes for the 2-D mixes)."""
+    if shape is not None:
+        return tuple(shape)
+    return (n,) * len(ALL_MIXES[mix])
+
+
 @lru_cache(maxsize=None)
 def _reference(mix, layout, doubling, relayout, batch, engine="xla",
-               n=N, kind=GreenKind.CHAT2):
-    s = rsolver.PoissonSolver((n,) * 3, 1.0, MIXES[mix],
+               n=N, kind=GreenKind.CHAT2, shape=None, L=1.0, eps=2.0,
+               order_policy="layout"):
+    s = rsolver.PoissonSolver(_grid(mix, n, shape), L,
+                              ALL_MIXES[mix],
                               layout=DataLayout[layout], green_kind=kind,
-                              engine=engine, doubling=doubling,
-                              relayout=relayout)
+                              eps_factor=eps, engine=engine,
+                              doubling=doubling, relayout=relayout,
+                              order_policy=order_policy)
     f = _rhs(s.input_shape, batch)
     return f, np.asarray(s.solve(f)), s._green_nat
 
 
 def _port(mix, layout, engine, doubling="deferred", relayout="scheduled",
-          n=N, kind=GreenKind.CHAT2, **kw):
-    return PoissonSolver((n,) * 3, 1.0, _port_bcs(MIXES[mix]),
+          n=N, kind=GreenKind.CHAT2, shape=None, L=1.0, eps=2.0,
+          order_policy="layout", **kw):
+    return PoissonSolver(_grid(mix, n, shape), L,
+                         _port_bcs(ALL_MIXES[mix]),
                          layout=tbc.DataLayout[layout], green_kind=kind,
-                         engine=engine, doubling=doubling,
-                         relayout=relayout, device="cpu", **kw)
+                         eps_factor=eps, engine=engine, doubling=doubling,
+                         relayout=relayout, order_policy=order_policy,
+                         device="cpu", **kw)
+
+
+def _matches(mix, layout, batch=None, **kw):
+    """The port's solve on both engines within 1e-10 of the reference's
+    (float64); the cuda-engine solver assembles its Green's function
+    (bit-equal to the reference's), the torch-engine one carries it."""
+    f, want, green = _reference(mix, layout, "deferred", "scheduled", batch,
+                                **kw)
+    sc = _port(mix, layout, "cuda", **kw)
+    np.testing.assert_array_equal(sc._green_nat, green)
+    st = _port(mix, layout, "torch", green=sc._green_nat, **kw)
+    for s in (sc, st):
+        got = s.solve(f)
+        assert got.dtype == torch.float64 and tuple(got.shape) == f.shape
+        assert np.abs(got.numpy() - want).max() < 1e-10
+
+
+OTHER_KINDS = [k for k in GreenKind.ALL if k != GreenKind.CHAT2]
+
+
+@pytest.mark.parametrize("layout", ["CELL", "NODE"])
+@pytest.mark.parametrize("mix", ["UUU", "UPU", "PPP", "sym_per", "semi"])
+@pytest.mark.parametrize("kind", OTHER_KINDS)
+def test_green_kinds_match_reference(kind, mix, layout):
+    """The seven Green kinds besides CHAT2 (LGF2, HEJ0-HEJ10)."""
+    _matches(mix, layout, kind=kind)
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("layout", ["CELL", "NODE"])
+@pytest.mark.parametrize("mix", list(MIXES))
+def test_order_policy_natural_matches_reference(mix, layout, batch):
+    _matches(mix, layout, batch, order_policy="natural")
+
+
+@pytest.mark.parametrize("layout", ["CELL", "NODE"])
+@pytest.mark.parametrize("mix", list(MIXES))
+@pytest.mark.parametrize("shape,L", [
+    ((8, 12, 16), 1.0),                  # anisotropic, one L
+    ((16, 8, 4), (1.0, 0.5, 0.25)),      # per-direction L, equal h
+    ((8, 8, 12), (1.0, 2.0, 0.75)),      # per-direction L, unequal h
+])
+def test_anisotropic_grids_match_reference(shape, L, mix, layout):
+    _matches(mix, layout, shape=shape, L=L)
+
+
+@pytest.mark.parametrize("kind", [GreenKind.HEJ2, GreenKind.HEJ6])
+@pytest.mark.parametrize("mix", ["UUU", "PPP", "semi"])
+def test_eps_factor_matches_reference(mix, kind):
+    """A non-default regularization width (eps = 3 h): the HEJ kernels'
+    only free parameter."""
+    _matches(mix, "CELL", kind=kind, eps=3.0)
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("layout", ["CELL", "NODE"])
+@pytest.mark.parametrize("mix", list(MIXES_2D))
+def test_2d_grids_match_reference(mix, layout, batch):
+    _matches(mix, layout, batch, shape=(8, 12), L=(1.0, 1.5))
 
 
 @pytest.mark.parametrize("engine", ["torch", "cuda"])

@@ -6,7 +6,9 @@ extensions, ``twiddle_pack`` after ``torch.fft`` elsewhere).
 
 Bounds: float64 |got - want| <= 1e-12 max|want|; float32 the FFT bound of
 ``tests/test_kernels.py``, rtol 1e-4 and atol 1e-3 sqrt(n) with n the
-length of the FFT the transform runs.
+length of the FFT the transform runs.  The full-complex oracle
+(``core/transforms_ref``) is held to ``repro.core.transforms_ref`` and to
+the port's half-spectrum kinds in float64 within 1e-12.
 """
 import math
 
@@ -17,9 +19,11 @@ import jax.numpy as jnp
 import torch
 
 from repro.core import transforms as rtr
+from repro.core import transforms_ref as rtr_ref
 from repro.core.bc import TransformKind as RK
 from repro.core.engine import TransformEngine as REngine
 from repro_torch.core import transforms as ttr
+from repro_torch.core import transforms_ref as ttr_ref
 from repro_torch.core.bc import INVERSE_KIND, TransformKind as TK
 from repro_torch.core.engine import TransformEngine
 
@@ -129,3 +133,34 @@ def test_prefix_sums_run_in_float64():
 ])
 def test_fft_length(kind, m, want):
     assert ttr.fft_length(kind, m) == want
+
+
+@pytest.mark.parametrize("m", [2, 3, 5, 8, 9, 16, 33])
+@pytest.mark.parametrize("kind", KINDS, ids=lambda k: k.name)
+def test_transforms_ref_matches_reference_and_half_spectrum(kind, m):
+    """The full-complex oracle: forward and backward of every kind against
+    ``repro.core.transforms_ref`` and against the port's half-spectrum
+    transform (both engines), float64, |d| <= 1e-12 max|want|."""
+    x = np.random.default_rng(m + 7).standard_normal(LEAD + (m,))
+    for name in ("r2r_forward", "r2r_backward"):
+        want = np.asarray(getattr(rtr_ref, name)(jnp.asarray(x),
+                                                 RK(kind.value)))
+        got = getattr(ttr_ref, name)(torch.from_numpy(x), kind)
+        _assert_close(got, want, np.float64, kind, m)
+        for engine in PORT_ENGINES:
+            half = getattr(ttr, name)(torch.from_numpy(x), kind,
+                                      engine=engine)
+            _assert_close(got, half.numpy(), np.float64, kind, m)
+    assert ttr_ref.r2r_normfact(kind, m) == rtr_ref.r2r_normfact(
+        RK(kind.value), m) == ttr.r2r_normfact(kind, m)
+
+
+def test_transforms_ref_keeps_float32():
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 16)).astype(np.float32))
+    for kind in KINDS:
+        y = ttr_ref.r2r_forward(x, kind)
+        assert y.dtype == torch.float32
+        np.testing.assert_allclose(
+            y.numpy(), _scipy(kind, x.numpy().astype(np.float64)),
+            rtol=1e-4, atol=1e-3 * math.sqrt(2 * 16))

@@ -52,7 +52,28 @@ Phases (each raises on failure; nothing is caught):
      phases where a
      degradation is expected: every other solve asserts no degradation
      and no retry;
-  8. every kernel call of the recorded solves replayed at its shape
+  8. the pencil-distributed solve (DistributedPoissonSolver over a
+     DeviceMesh, CELL, CHAT2, float32 unless marked): DIST1_UUU, (U,U,U)
+     at 256^3 on a one-rank NCCL mesh (1, 1) -- pack, collective, unpack
+     and the kernels on the pencil at full size -- under a2a, pipelined:2,
+     fused and overlap:2, and DIST1_SEMI, (U,E),(U,U),(U,U) at 128^3 under
+     a2a and overlap:2, each within 1e-5 relative of the single-process
+     "cuda" solve, and DIST1_NODE, NODE (U,U,U) n=64 float64 (the Green
+     multiply on spectral_scale) under a2a and overlap:2 within 1e-10,
+     with exact launch counts and no degradation; each
+     strategy's median solve_local beside the single-process solve, the
+     memory a solve_local allocates above what is resident, its
+     aten::copy_ count (and one switch's alone) and a profiled solve_local
+     with its idle share; then DIST4_GLOO, four gloo ranks on the one card
+     (NCCL refuses two ranks on one device; gloo stages CUDA tensors
+     through the host, so its times are no communication figure), mesh
+     (2, 2): (U,U,U) 128^3 under the four strategies and comm="auto"
+     (brute; every rank must choose the same winner), NODE
+     (E,E),(O,E),(P,P) n=64 float64 (the uneven 65-point split, within
+     1e-10) under a2a and overlap:2, and a pod batch of two fields on mesh
+     (2, 1, 2), launch counts summed over the ranks;
+  9. every kernel call of the recorded solves (the distributed ones
+     included) replayed at its shape
      against the plain version, and times with CUDA events (medians after
      warm-up; a kernel call is timed from a start event the device reaches
      only after the host has queued the call, and a kernel under 0.1 ms
@@ -66,14 +87,18 @@ Phases (each raises on failure; nothing is caught):
      solve allocates above what is resident, and a torch.profiler
      breakdown of its device time by kernel with the idle share that
      leaves.
-The last two lines are the kernels' JSON record and the device JSON.
+The last two lines are the kernels' JSON record (with each kernel's
+launches in every distributed run, ``dist_launches``) and the device JSON.
 The script imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import datetime
 import json
 import math
+import pickle
 import re
 import shutil
 import statistics
@@ -151,6 +176,41 @@ EXPECTED = {
     # the runtime phase's clean (P,P,P) 256^3 solves: the PPP pattern
     "GET_SOLVER": {"fft_stockham": 5, "fft_stockham_scale": 1},
     "VERIFY_PPP": {"fft_stockham": 5, "fft_stockham_scale": 1},
+    # the distributed phase runs the same kernels on each rank's pencil:
+    # the single-process counts per rank, except that overlap:2 runs the
+    # transform after each switch once per chunk (the last forward one
+    # excepted: it is fused with the Green multiply on the whole block).
+    # (U,U,U): forwards 1 + 2, backwards 2 + 2 x 2 + 2 x 2 = 13
+    "DIST1_UUU/a2a:1": {"fft_stockham": 8, "fft_stockham_scale": 1},
+    "DIST1_UUU/pipelined:2": {"fft_stockham": 8, "fft_stockham_scale": 1},
+    "DIST1_UUU/fused:1": {"fft_stockham": 8, "fft_stockham_scale": 1},
+    "DIST1_UUU/overlap:2": {"fft_stockham": 13, "fft_stockham_scale": 1},
+    "DIST1_SEMI/a2a:1": {"fft_stockham": 6, "fft_stockham_scale": 1,
+                         "fft_stockham_twiddle": 1},
+    "DIST1_SEMI/overlap:2": {"fft_stockham": 10, "fft_stockham_scale": 1,
+                             "fft_stockham_twiddle": 1},
+    # NODE: the NODE_UUU counts; under overlap:2 the last forward FFT is
+    # not fused (the Green multiply runs apart), so four of the six
+    # transforms run once per chunk
+    "DIST1_NODE/a2a:1": {"fft_stockham": 6, "spectral_scale": 1},
+    "DIST1_NODE/overlap:2": {"fft_stockham": 10, "spectral_scale": 1},
+    # four gloo ranks: summed over the ranks, each the one-rank count
+    "DIST4_GLOO_UUU/a2a:1": {"fft_stockham": 32, "fft_stockham_scale": 4},
+    "DIST4_GLOO_UUU/pipelined:2": {"fft_stockham": 32,
+                                   "fft_stockham_scale": 4},
+    "DIST4_GLOO_UUU/fused:1": {"fft_stockham": 32, "fft_stockham_scale": 4},
+    "DIST4_GLOO_UUU/overlap:2": {"fft_stockham": 52, "fft_stockham_scale": 4},
+    "DIST4_GLOO_POD/a2a:1": {"fft_stockham": 32, "fft_stockham_scale": 4},
+    # NODE (E,E),(O,E),(P,P) n=64, per rank the single-process plan's 2
+    # Stockham, 1 FFT x Green (the periodic r2c) and 3 twiddle launches
+    # (the r2r kinds on power-of-two extensions); overlap:2 runs the three
+    # transforms its chunked stages carry (forward d1, backward d1 and d0)
+    # once per chunk
+    "DIST4_GLOO_NODE/a2a:1": {"fft_stockham": 8, "fft_stockham_scale": 4,
+                              "fft_stockham_twiddle": 12},
+    "DIST4_GLOO_NODE/overlap:2": {"fft_stockham": 12,
+                                  "fft_stockham_scale": 4,
+                                  "fft_stockham_twiddle": 20},
 }
 # of those, the calls whose rows are longer than one pass takes: the
 # pruned 8192-point forward of LONG_UUU's x direction; LONG_SEMI's fused
@@ -184,6 +244,163 @@ SEMI_E_REF_EINF = 2.7204477288238545e-3
 # (``linf(64, HEJ4, 0, NODE)`` of tests/test_biot_savart.py); the port is
 # held to 1.5 times it
 BS_TUBE_REF_LINF = 3.2254603631041157e-3
+
+
+KERNELS = ("fft_stockham", "fft_stockham_scale", "spectral_scale",
+           "twiddle_pack", "fft_stockham_twiddle")
+
+
+def _describe(kname, x, a, kw):
+    """A kernel call's descriptor: the kernel, x's shape, strides, offset
+    and dtype, the other tensor arguments' shapes and the scalar
+    arguments -- what a replay needs."""
+    import torch
+    args = tuple(("t", tuple(v.shape)) if torch.is_tensor(v)
+                 else ("v", v) for v in a)
+    return (kname, (tuple(x.shape), x.stride(), x.storage_offset(),
+                    x.dtype), args, tuple(sorted(kw.items())))
+
+
+@contextlib.contextmanager
+def _recorded(run, calls):
+    """Every kernel call through ``repro_torch.kernels.ops`` inside the
+    block is recorded as ``calls[(run, descriptor)] += 1``."""
+    from repro_torch.kernels import ops
+    saved = {k: getattr(ops, k) for k in KERNELS}
+
+    def recording(kname):
+        def call(x, *a, **kw):
+            key = (run, _describe(kname, x, a, kw))
+            calls[key] = calls.get(key, 0) + 1
+            return saved[kname](x, *a, **kw)
+        return call
+    for k in KERNELS:
+        setattr(ops, k, recording(k))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(ops, k, v)
+
+
+# the distributed phase: the one-rank mesh's backend, how the four gloo
+# ranks start, the process groups' timeout, and the comm strategies run
+DIST_BACKEND = "nccl"
+DIST_START = "spawn"
+GROUP_TIMEOUT_S = 300
+DIST_STRATEGIES = ("a2a:1", "pipelined:2", "fused:1", "overlap:2")
+
+
+def _dist4_rank(rank, world, d):
+    """One of the four gloo ranks of DIST4_GLOO on the one card: (U,U,U)
+    under every strategy and comm="auto", the NODE uneven split in
+    float64 and the pod batch, each against the parent's single-process
+    solve.  Writes its launch counts, kernel calls, errors and times to
+    ``<d>/rank<rank>.pkl``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.bc import BCType, DataLayout
+    from repro_torch.core.comm import cfg_label, label_to_cfg
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    d = Path(d)
+    with open(d / "params.json") as fh:
+        prm = json.load(fh)
+    dev = torch.device(prm["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        # every rank on the one card
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{d}/gloo", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+
+    def load(key, dtype=None):
+        t = torch.from_numpy(np.load(d / f"{key}.npy"))
+        return t.to(dev) if dtype is None else t.to(dev, dtype)
+
+    out = {"runs": {}, "calls": {}}
+
+    def counted(run, fn, want):
+        with _recorded(run, out["calls"]):
+            sync()
+            reset_launches()
+            u = fn()
+            sync()
+        rel = ((u - want).abs().max() / want.abs().max()).item()
+        if not torch.isfinite(u).all() or u.shape != want.shape:
+            raise AssertionError(f"{run}: rank {rank} output {u.shape}")
+        out["runs"][run] = {"counts": {k: v for k, v in LAUNCHES.items()
+                                       if v}, "rel": rel}
+        return u
+
+    def median_ms(fn):
+        fn()
+        ts = []
+        for _ in range(prm["reps"]):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    U = (BCType.UNB, BCType.UNB)
+    E, O, P = BCType.EVEN, BCType.ODD, (BCType.PER, BCType.PER)
+    n4 = prm["n4"]
+    f4, u4, g4 = load("f4"), load("u4"), np.load(d / "g4.npy")
+    mesh = init_device_mesh(dev.type, (2, 2), mesh_dim_names=("data", "model"))
+    kw = dict(mesh=mesh, device=dev)
+    for lbl in prm["strategies"]:
+        run = f"DIST4_GLOO_UUU/{lbl}"
+        ds = DistributedPoissonSolver((n4,) * 3, 1.0, (U, U, U),
+                                      comm=label_to_cfg(lbl),
+                                      _green_cache=g4, **kw)
+        counted(run, lambda: ds.solve(f4), u4)
+        if ds.stats["degradations"] or ds.stats["retries"]:
+            raise AssertionError(f"{run}: {ds.stats}")
+        x = ds.shard_input(f4)
+        out["runs"][run]["ms"] = median_ms(lambda: ds.solve_local(x))
+    ds = DistributedPoissonSolver((n4,) * 3, 1.0, (U, U, U), comm="auto",
+                                  autotune_search="brute", _green_cache=g4,
+                                  **kw)
+    u = ds.solve(f4)
+    out["winner"] = cfg_label(ds.comm)
+    out["timed"] = dict(ds.autotune_results)
+    out["auto_rel"] = ((u - u4).abs().max() / u4.abs().max()).item()
+    # the node-centered uneven split: 65 points over 2 ranks a direction
+    fn, un, gn = load("fn"), load("un"), np.load(d / "gn.npy")
+    for lbl in ("a2a:1", "overlap:2"):
+        run = f"DIST4_GLOO_NODE/{lbl}"
+        ds = DistributedPoissonSolver(
+            (64,) * 3, 1.0, ((E, E), (O, E), P), DataLayout.NODE,
+            comm=label_to_cfg(lbl), dtype=torch.float64, _green_cache=gn,
+            **kw)
+        counted(run, lambda: ds.solve(fn), un)
+        if out["runs"][run]["rel"] > 1e-10:
+            raise AssertionError(f"{run}: {out['runs'][run]['rel']:.3e}")
+    # the pod batch: two fields over the "pod" axis of a (2, 1, 2) mesh
+    mesh3 = init_device_mesh(dev.type, (2, 1, 2),
+                             mesh_dim_names=("pod", "data", "model"))
+    ds = DistributedPoissonSolver((n4,) * 3, 1.0, (U, U, U), mesh=mesh3,
+                                  batch_axis="pod", device=dev,
+                                  _green_cache=g4)
+    counted("DIST4_GLOO_POD/a2a:1", lambda: ds.solve(torch.stack(
+        [f4, 2.0 * f4])), torch.stack([u4, 2.0 * u4]))
+    for run, res in out["runs"].items():
+        if res["rel"] > 1e-5:
+            raise AssertionError(f"{run}: rank {rank} relative max |diff| "
+                                 f"{res['rel']:.3e} > 1e-5")
+    with open(d / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def _rate(table, name, default):
@@ -513,37 +730,18 @@ def main() -> int:
     # arguments' shapes and the scalar arguments: what a replay needs
     calls = {}
 
-    def describe(kname, x, a, kw):
-        args = tuple(("t", tuple(v.shape)) if torch.is_tensor(v)
-                     else ("v", v) for v in a)
-        return (kname, (tuple(x.shape), x.stride(), x.storage_offset(),
-                        x.dtype), args, tuple(sorted(kw.items())))
-
     def run_counted(run, fn):
         """``fn()`` with the launch counts set to 0 just before and read
         just after, each kernel call recorded under ``run``; the counts
         must be EXPECTED[run] exactly, and the two-pass calls among them
         EXPECTED_TWO_PASS[run] (none where the run has no entry)."""
-        saved = {k: getattr(ops, k) for k in wrappers}
-
-        def recording(kname):
-            def call(x, *a, **kw):
-                key = (run, describe(kname, x, a, kw))
-                calls[key] = calls.get(key, 0) + 1
-                return saved[kname](x, *a, **kw)
-            return call
-        for k in wrappers:
-            setattr(ops, k, recording(k))
-        try:
+        with _recorded(run, calls):
             sync()
             reset_launches()
             out = fn()
             sync()
             counts = dict(LAUNCHES)
             two = {k: v for k, v in TWO_PASS.items() if v}
-        finally:
-            for k, v in saved.items():
-                setattr(ops, k, v)
         got = {k: v for k, v in counts.items() if v}
         if got != EXPECTED[run]:
             raise AssertionError(f"{run}: launches {got}, expected "
@@ -565,19 +763,22 @@ def main() -> int:
                                      f"{s.stats['degradations']}, retries "
                                      f"{s.stats['retries']}")
 
-    def engines_agree(case, u, ut, f):
-        """The cuda engine's float32 output against the torch engine's:
-        shape, dtype, finite, within 1e-5 of max |u| relative."""
+    def close(what, u, want, rtol=1e-5):
+        """``u`` against ``want``: shape, dtype, finite, within ``rtol`` of
+        max |want| relative (the cuda engine's float32 output against the
+        torch engine's, a distributed solve against the single-process
+        one)."""
         sync()
-        if u.shape != f.shape or u.dtype != f.dtype:
-            raise AssertionError(f"{case}: output {tuple(u.shape)} "
-                                 f"{u.dtype}")
+        if u.shape != want.shape or u.dtype != want.dtype:
+            raise AssertionError(f"{what}: output {tuple(u.shape)} {u.dtype}"
+                                 f", expected {tuple(want.shape)} "
+                                 f"{want.dtype}")
         if not torch.isfinite(u).all():
-            raise AssertionError(f"{case}: non-finite solution")
-        rel = ((u - ut).abs().max() / ut.abs().max()).item()
-        if rel > 1e-5:
-            raise AssertionError(f"{case}: cuda vs torch engine relative "
-                                 f"max |diff| {rel:.3e} > 1e-5")
+            raise AssertionError(f"{what}: non-finite solution")
+        rel = ((u - want).abs().max() / want.abs().max()).item()
+        if rel > rtol:
+            raise AssertionError(f"{what}: relative max |diff| {rel:.3e} > "
+                                 f"{rtol}")
         return rel
 
     for case, (bcs, nn, batch) in runs.items():
@@ -593,7 +794,7 @@ def main() -> int:
         u, counts = run_counted(case, lambda: sc.solve(f))
         ut = st.solve(f)
         clean(case, sc, st)
-        rel = engines_agree(case, u, ut, f)
+        rel = close(f"{case} cuda vs torch engine", u, ut)
         tag = (f"{case} " + ("x".join(map(str, nn)) if isinstance(nn, tuple)
                              else f"n={nn}")
                + (f" B={batch}" if batch else ""))
@@ -672,7 +873,7 @@ def main() -> int:
         f = torch.from_numpy(rng.standard_normal(bc.input_shape).astype(
             np.float32)).to(dev)
         u, counts = run_counted(case, lambda: bc.solve(f))
-        rel = engines_agree(case, u, bt.solve(f), f)
+        rel = close(f"{case} cuda vs torch engine", u, bt.solve(f))
         n_green = len({id(g) for g in bc.greens})
         tag = f"{case} n={N}"
         print(f"biot-savart {tag} ({'batched' if batched else 'sequential'}"
@@ -816,7 +1017,7 @@ def main() -> int:
     del g1, g2, gv, sf, sl, sr, u1, u2, uv, uf, ul, want, rhs
     clear_solver_cache()
 
-    # -- 8. replays and times -------------------------------------------------
+    # -- timing helpers (phases 8 and 9) -------------------------------------
     def time_ms(fn, ahead=False):
         """Median of REPS event-timed calls after 3 warm-up calls.  With
         ``ahead`` the device sleeps about a millisecond before each start
@@ -863,6 +1064,204 @@ def main() -> int:
                 return s.elapsed_time(e) / LOOP
             cycles *= 2
 
+    def where_the_time_goes(label, fn, solve_ms):
+        """Device time by kernel over one profiled solve, and the idle
+        share of the (unprofiled, event-timed) solve it leaves."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        # device-side events only (kernels, copies): the CPU ops that
+        # launched them carry the same device time again
+        agg = {}
+        n_copy = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                a = agg.setdefault(e.name, [0.0, 0])
+                a[0] += e.time_range.elapsed_us() / 1e3
+                a[1] += 1
+            elif e.name == "aten::copy_":
+                n_copy += 1
+        rows = sorted(((ms, c, k) for k, (ms, c) in agg.items()),
+                      reverse=True)
+        busy = sum(r[0] for r in rows)
+        if busy <= 0:
+            print(f"  {label}: device time not measured (the profiler saw "
+                  "no device activity)")
+            return
+        top = "; ".join(f"{ms:.3f} ms x{c} {k[:60]}"
+                        for ms, c, k in rows[:6] if ms > 0)
+        # the Stockham kernels' instantiations (one per row length) summed
+        fft = [(ms, c) for ms, c, k in rows
+               if "stockham_kernel" in k or "column_kernel" in k]
+        print(f"  {label}: device busy {busy:.3f} ms of {solve_ms:.3f} ms "
+              f"(idle share {max(0.0, 1 - busy / solve_ms):.1%}); Stockham "
+              f"kernels {sum(ms for ms, _ in fft):.3f} ms "
+              f"x{sum(c for _, c in fft)}; aten::copy_ x{n_copy}; {top}")
+
+    # -- 8. the distributed solve --------------------------------------------
+    # DIST1: a one-rank NCCL mesh, the whole distributed pipeline (pack,
+    # collective, unpack, the kernels on every pencil) at full size
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.comm import label_to_cfg
+    from repro_torch.core.engine import relayout
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        DIST_BACKEND, init_method=f"file://{tmp.name}/one_rank", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    mesh1 = init_device_mesh(dev.type, (1, 1),
+                             mesh_dim_names=("data", "model"))
+    dist_launches = {}
+
+    def copies(fn):
+        """aten::copy_ calls the host issues in ``fn()``."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            sync()
+        return sum(e.name == "aten::copy_" for e in prof.events())
+
+    semi = ((BCType.UNB, E), U, U)
+    sp_semi = PoissonSolver((N // 2,) * 3, 1.0, semi, engine="cuda",
+                            device=dev)
+    f_semi = torch.from_numpy(rng.standard_normal(
+        sp_semi.input_shape).astype(np.float32)).to(dev)
+    # NODE (U,U,U) float64: the Green multiply apart (spectral_scale)
+    sp_node = PoissonSolver((64,) * 3, 1.0, (U, U, U),
+                            layout=DataLayout.NODE, engine="cuda",
+                            device=dev)
+    f_node = torch.from_numpy(rng.standard_normal(sp_node.input_shape)).to(
+        dev)
+    sp_uuu, _, f_uuu = solvers[f"UUU n={N}"]
+    # case: (bcs, cells, layout, single-process solver, field, strategies,
+    # relative tolerance)
+    dist1 = {"DIST1_UUU": ((U, U, U), N, DataLayout.CELL, sp_uuu, f_uuu,
+                           DIST_STRATEGIES, 1e-5),
+             "DIST1_SEMI": (semi, N // 2, DataLayout.CELL, sp_semi, f_semi,
+                            ("a2a:1", "overlap:2"), 1e-5),
+             "DIST1_NODE": ((U, U, U), 64, DataLayout.NODE, sp_node, f_node,
+                            ("a2a:1", "overlap:2"), 1e-10)}
+    nat = (0, 1, 2)
+    for case, (bcs, nn, layout, sp, f, labels, rtol) in dist1.items():
+        u_sp = sp.solve(f)
+        t_sp = time_ms(lambda: sp.solve(f))
+        print(f"{case} {layout.name} n={nn} {f.dtype}, one-rank "
+              f"{DIST_BACKEND} mesh (1, 1); "
+              f"single-process cuda solve {t_sp:.3f} ms, aten::copy_ "
+              f"x{copies(lambda: sp.solve(f))} per solve; card: {smi}")
+        where_the_time_goes(f"{case} single-process", lambda: sp.solve(f),
+                            t_sp)
+        for lbl in labels:
+            run = f"{case}/{lbl}"
+            ds = DistributedPoissonSolver(
+                (nn,) * 3, 1.0, bcs, layout, mesh=mesh1,
+                comm=label_to_cfg(lbl), dtype=f.dtype, device=dev,
+                _green_cache=sp._green_nat)
+            u, counts = run_counted(run, lambda: ds.solve(f))
+            clean(run, ds)
+            rel = close(f"{run} against the single-process solve", u, u_sp,
+                        rtol)
+            dist_launches[run] = {k: v for k, v in counts.items() if v}
+            x = ds.shard_input(f)
+            t_loc = time_ms(lambda: ds.solve_local(x))
+            sync()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ds.solve_local(x)
+            sync()
+            mem = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+            # the first forward switch alone, at its shape: the copies the
+            # strategy itself makes
+            d0 = ds.plan.order[0]
+            lay = ds.schedule.layouts.fwd
+            y0 = ds.schedule.fwd_last(relayout(x, nat, lay[0]), d0)
+            strat = ds._strategy(ds.comm)
+            n_sw = copies(lambda: strat.switch(
+                y0, "data", 0, 2, valid_extent=ds._S[d0],
+                permute=tuple(lay[0].index(d) for d in lay[1])))
+            print(f"  {run}: launches {dist_launches[run]}, relative max "
+                  f"|diff| {rel:.3e} from the single-process solve; "
+                  f"solve_local {t_loc:.3f} ms against {t_sp:.3f} ms "
+                  f"single-process ({t_loc - t_sp:+.3f} ms for the "
+                  f"switches); memory {mem:.3f} GiB above "
+                  f"{resident / 2 ** 30:.3f} GiB resident; aten::copy_ "
+                  f"x{copies(lambda: ds.solve_local(x))} per solve_local, "
+                  f"x{n_sw} in one switch alone")
+            where_the_time_goes(f"{run} solve_local",
+                                lambda: ds.solve_local(x), t_loc)
+            del ds, x, y0, u
+    dist.destroy_process_group()
+    del sp_semi, f_semi, sp_node, f_node, u_sp
+
+    # DIST4: four gloo ranks on the one card (NCCL refuses two ranks on one
+    # device); gloo stages CUDA tensors through the host, so these runs
+    # prove the exchange on the card and are not a communication figure
+    n4 = N // 2
+    s4 = PoissonSolver((n4,) * 3, 1.0, (U, U, U), engine="cuda", device=dev)
+    f4 = rng.standard_normal(s4.input_shape).astype(np.float32)
+    node_bcs = ((E, E), (O, E), P)
+    sn = PoissonSolver((64,) * 3, 1.0, node_bcs, layout=DataLayout.NODE,
+                       engine="cuda", device=dev)
+    fn = rng.standard_normal(sn.input_shape)
+    d4 = Path(tmp.name)
+    for key, arr in (("f4", f4), ("g4", s4._green_nat), ("fn", fn),
+                     ("gn", sn._green_nat),
+                     ("u4", s4.solve(torch.from_numpy(f4).to(dev)).cpu()),
+                     ("un", sn.solve(torch.from_numpy(fn).to(dev)).cpu())):
+        np.save(d4 / f"{key}.npy", np.asarray(arr))
+    with open(d4 / "params.json", "w") as fh:
+        json.dump({"device": str(dev), "n4": n4, "reps": REPS,
+                   "strategies": DIST_STRATEGIES}, fh)
+    del s4, sn
+    print(f"DIST4_GLOO: 4 gloo ranks on one card, spawning "
+          f"({time.perf_counter() - t0:.1f} s into the phase)")
+    mp.start_processes(_dist4_rank, args=(4, str(d4)), nprocs=4,
+                       start_method=DIST_START)
+    ranks = []
+    for r in range(4):
+        # written by this script's own ranks just above
+        with open(d4 / f"rank{r}.pkl", "rb") as fh:
+            ranks.append(pickle.load(fh))
+    tmp.cleanup()
+    for run in ranks[0]["runs"]:
+        total = collections.Counter()
+        for res in ranks:
+            total.update(res["runs"][run]["counts"])
+        got = {k: v for k, v in total.items() if v}
+        if got != EXPECTED[run]:
+            raise AssertionError(f"{run}: launches summed over the ranks "
+                                 f"{got}, expected {EXPECTED[run]}")
+        dist_launches[run] = got
+        rel = max(res["runs"][run]["rel"] for res in ranks)
+        ms = max(res["runs"][run].get("ms", 0.0) for res in ranks)
+        print(f"  {run}: launches over the 4 ranks {got}, relative max "
+              f"|diff| {rel:.3e} from the single-process solve"
+              + (f"; solve_local {ms:.3f} ms (host-staged by gloo, not a "
+                 "communication figure)" if ms else ""))
+    winners = {res["winner"] for res in ranks}
+    if len(winners) != 1:
+        raise AssertionError(f"DIST4 comm='auto': ranks chose {winners}")
+    print(f"  DIST4_GLOO_UUU comm='auto' (brute, {len(ranks[0]['timed'])} "
+          f"candidates): every rank chose {winners.pop()}, relative max "
+          f"|diff| {max(res['auto_rel'] for res in ranks):.3e}; agreed "
+          f"times (host-staged) "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms"
+                      for k, v in sorted(ranks[0]["timed"].items(),
+                                         key=lambda kv: kv[1])))
+    for res in ranks:
+        for key, c in res["calls"].items():
+            calls[key] = calls.get(key, 0) + c
+    print(f"distributed phase: {len(dist_launches)} runs in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 9. replays and times -------------------------------------------------
     def nbytes(t):
         return t.numel() * t.element_size()
 
@@ -966,40 +1365,6 @@ def main() -> int:
           f"held against their plain versions and timed in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    def where_the_time_goes(label, fn, solve_ms):
-        """Device time by kernel over one profiled solve, and the idle
-        share of the (unprofiled, event-timed) solve it leaves."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            sync()
-        # device-side events only (kernels, copies): the CPU ops that
-        # launched them carry the same device time again
-        agg = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                a = agg.setdefault(e.name, [0.0, 0])
-                a[0] += e.time_range.elapsed_us() / 1e3
-                a[1] += 1
-        rows = sorted(((ms, c, k) for k, (ms, c) in agg.items()),
-                      reverse=True)
-        busy = sum(r[0] for r in rows)
-        if busy <= 0:
-            print(f"  {label}: device time not measured (the profiler saw "
-                  "no device activity)")
-            return
-        top = "; ".join(f"{ms:.3f} ms x{c} {k[:60]}"
-                        for ms, c, k in rows[:6] if ms > 0)
-        # the Stockham kernels' instantiations (one per row length) summed
-        fft = [(ms, c) for ms, c, k in rows
-               if "stockham_kernel" in k or "column_kernel" in k]
-        print(f"  {label}: device busy {busy:.3f} ms of {solve_ms:.3f} ms "
-              f"(idle share {max(0.0, 1 - busy / solve_ms):.1%}); Stockham "
-              f"kernels {sum(ms for ms, _ in fft):.3f} ms "
-              f"x{sum(c for _, c in fft)}; {top}")
-
     for tag, (sc, st, f) in solvers.items():
         t_c = time_ms(lambda: sc.solve(f))
         t_t = time_ms(lambda: st.solve(f))
@@ -1028,7 +1393,9 @@ def main() -> int:
             "plain_ms": p["plain_ms"], "bound_ms": bound,
             "bound_by": ("bytes" if p["by_bytes"] >= p["by_ops"]
                          else "operations"),
-            "library_ms": None if kname in lib_none else p["library_ms"]})
+            "library_ms": None if kname in lib_none else p["library_ms"],
+            "dist_launches": {r: c[kname] for r, c in dist_launches.items()
+                              if kname in c}})
     print(f"chip_smoke.py: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")

@@ -12,13 +12,20 @@ every step.  ``PoissonSolver.solve`` runs under the resilient runtime
 degradation ladder (``cuda -> torch`` for injected faults only,
 ``scheduled -> baseline``, ``deferred -> upfront``), ending in
 ``SolveError``; ``BiotSavartSolver.solve`` does not yet, as in
-``repro``.  The package imports
+``repro``.  ``DistributedPoissonSolver`` is the pencil-distributed solve
+over a ``torch.distributed`` ``DeviceMesh`` (the four comm strategies of
+``core.comm`` on each mesh axis's process group); ``get_solver(mesh=...)``
+builds and caches it.  The package imports
 no JAX and nothing of ``repro``; its tests hold it against ``repro`` on
 the same inputs.
 """
 from .core.biot_savart import BiotSavartSolver  # noqa: F401
-from .core.solver import PoissonSolver, get_solver, make_plan  # noqa: F401
+from .core.comm import CommConfig  # noqa: F401
+from .core.solver import (PoissonSolver, evict_solver_entries,  # noqa: F401
+                          get_solver, make_plan)
+from .distributed.pencil import DistributedPoissonSolver  # noqa: F401
 from .runtime import SolveError  # noqa: F401
 
-__all__ = ["BiotSavartSolver", "PoissonSolver", "SolveError", "get_solver",
-           "make_plan"]
+__all__ = ["BiotSavartSolver", "CommConfig", "DistributedPoissonSolver",
+           "PoissonSolver", "SolveError", "evict_solver_entries",
+           "get_solver", "make_plan"]

@@ -40,7 +40,7 @@ from .engine import (RELAYOUT_MODES, as_engine, build_schedule,
 __all__ = ["Plan1D", "PoissonPlan", "PoissonSolver", "make_plan",
            "build_green", "get_solver", "clear_solver_cache",
            "solver_cache_info", "set_solver_cache_capacity",
-           "evict_solver_instance"]
+           "evict_solver_instance", "evict_solver_entries"]
 
 
 @dataclass(frozen=True)
@@ -674,12 +674,18 @@ def get_solver(shape, L, bcs, layout=DataLayout.CELL,
                green_kind=gr.GreenKind.CHAT2, eps_factor=2.0,
                engine="cuda", doubling="deferred", relayout="scheduled",
                order_policy="layout", *, device=None, mesh=None, **kw):
-    """Construct-or-fetch a ``PoissonSolver`` from the global plan cache.
+    """Construct-or-fetch a solver from the global plan cache.
 
-    The key is every constructor argument, the device (None resolves to
-    the card, and raises without one), and the armed fault plan's token.
-    ``kw`` takes the health-guard arguments (``verify``, ``verify_rtol``;
-    ``abft_rtol`` raises until ABFT is ported).  Entries are evicted least-recently-used beyond
+    Returns a ``PoissonSolver``, or a ``DistributedPoissonSolver`` when
+    ``mesh`` (a ``DeviceMesh``) is given: the distributed keywords
+    (``comm``, ``axes``, ``batch_axis``, ``dtype``, the autotune knobs,
+    ...) pass through ``kw`` and are part of the key, as is the mesh,
+    which hashes by its ranks, layout, device type and axis names.  The
+    key is every constructor argument, the device (None resolves to the
+    card, and raises without one), and the armed fault plan's token.
+    For the single-process solver ``kw`` takes the health-guard arguments
+    (``verify``, ``verify_rtol``; ``abft_rtol`` raises until ABFT is
+    ported).  Entries are evicted least-recently-used beyond
     ``set_solver_cache_capacity`` (default 16 solvers).
 
     Construction is SINGLE-FLIGHT per key: when N threads miss the same
@@ -687,22 +693,24 @@ def get_solver(shape, L, bcs, layout=DataLayout.CELL,
     building thread and receive the same instance (``coalesced`` in
     ``solver_cache_info``).  A failed build re-raises in every parked
     caller and leaves no cache entry behind, so the next request retries
-    cleanly.  ``mesh`` (the distributed solver) is not ported yet; its
-    ``evict_solver_entries(mesh)`` comes with it.
+    cleanly.  Every rank of a mesh calls ``get_solver`` alike: a miss
+    constructs the distributed solver, which is collective.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "get_solver(mesh=...) needs the distributed solver, not ported "
-            "yet (ROADMAP queue 1 item 5)")
-    unknown = set(kw) - {"verify", "verify_rtol", "abft_rtol"}
-    if unknown:
-        raise TypeError(f"unexpected single-process solver kwargs: "
-                        f"{sorted(unknown)}")
-    dev = _resolve_device(device)
-    key = ("single", _freeze(shape), _freeze(L), _freeze(bcs),
+    if mesh is None:
+        unknown = set(kw) - {"verify", "verify_rtol", "abft_rtol"}
+        if unknown:
+            raise TypeError(f"unexpected single-process solver kwargs: "
+                            f"{sorted(unknown)}")
+        dev = _resolve_device(device)
+    else:
+        from repro_torch.distributed.pencil import \
+            _resolve_device as _mesh_device
+        dev = _mesh_device(device)
+    key = ("dist" if mesh is not None else "single", _freeze(shape),
+           _freeze(L), _freeze(bcs),
            _freeze(layout), _freeze(green_kind), float(eps_factor),
            as_engine(engine), str(doubling), str(relayout),
-           str(order_policy), str(dev), _freeze(kw),
+           str(order_policy), str(dev), _freeze(mesh), _freeze(kw),
            # solvers built under an armed fault plan must never be served
            # to fault-free callers (their config may have degraded)
            ("faults", faults.plan_token()))
@@ -728,10 +736,19 @@ def get_solver(shape, L, bcs, layout=DataLayout.CELL,
             raise build.exc
         return build.result
     try:
-        s = PoissonSolver(shape, L, bcs, layout, green_kind, eps_factor,
-                          engine=engine, doubling=doubling,
-                          relayout=relayout, order_policy=order_policy,
-                          device=dev, **kw)
+        if mesh is not None:
+            from repro_torch.distributed.pencil import \
+                DistributedPoissonSolver
+            s = DistributedPoissonSolver(
+                shape, L, bcs, layout, green_kind, mesh=mesh,
+                eps_factor=eps_factor, engine=engine, doubling=doubling,
+                relayout=relayout, order_policy=order_policy, device=dev,
+                **kw)
+        else:
+            s = PoissonSolver(shape, L, bcs, layout, green_kind, eps_factor,
+                              engine=engine, doubling=doubling,
+                              relayout=relayout, order_policy=order_policy,
+                              device=dev, **kw)
     except BaseException as e:
         with _SOLVER_CACHE_LOCK:
             _SOLVER_BUILDS.pop(key, None)
@@ -753,14 +770,16 @@ def get_solver(shape, L, bcs, layout=DataLayout.CELL,
 
 def clear_solver_cache():
     """Drop every cached solver and reset cache stats.  Also resets the
-    process-wide warn-once state of ``repro_torch.runtime.resilience``: a
-    fresh cache means fresh plans, and their one-shot warnings must be
-    able to fire again -- long-lived processes and test fixtures both call
-    this as THE runtime reset hook."""
+    process-wide warn-once state (``comm`` + ``resilience``): a fresh
+    cache means fresh plans, and their one-shot warnings must be able to
+    fire again -- long-lived processes and test fixtures both call this
+    as THE runtime reset hook."""
+    from . import comm as _comm
     with _SOLVER_CACHE_LOCK:
         _SOLVER_CACHE.clear()
         for k in _SOLVER_CACHE_STATS:
             _SOLVER_CACHE_STATS[k] = 0
+    _comm.reset_warn_once()
     resilience.reset_warn_once()
 
 
@@ -770,6 +789,20 @@ def evict_solver_instance(solver) -> int:
     the caller's back.  Returns the eviction count."""
     with _SOLVER_CACHE_LOCK:
         stale = [k for k, v in _SOLVER_CACHE.items() if v is solver]
+        for k in stale:
+            del _SOLVER_CACHE[k]
+            _SOLVER_CACHE_STATS["evictions"] += 1
+    return len(stale)
+
+
+def evict_solver_entries(mesh) -> int:
+    """Drop every cached solver planned against ``mesh`` (elastic
+    recovery: after a rank loss the old mesh's solvers hold dead process
+    groups and must never be served again).  Returns the eviction
+    count."""
+    frozen = _freeze(mesh)
+    with _SOLVER_CACHE_LOCK:
+        stale = [k for k in _SOLVER_CACHE if k[0] == "dist" and frozen in k]
         for k in stale:
             del _SOLVER_CACHE[k]
             _SOLVER_CACHE_STATS["evictions"] += 1

@@ -1,10 +1,14 @@
 """Deterministic fault injection: the substrate of the chaos test suite.
 
 Counterpart of ``repro.runtime.faults``, on tensors.  The stage names are
-the reference's (``solve.dispatch``, ``fwd.<d>``, ``bwd.<d>``, ``green``),
+the reference's (``solve.dispatch``, ``fwd.<d>``, ``bwd.<d>``, ``green``;
+in the distributed solve ``dist.dispatch``, ``comm.<strategy>`` before a
+topology switch and the ``comm.wire.<strategy>`` taint on its payload),
 except that the hand-kernel fail points of the ``"cuda"`` engine are
 ``cuda.fwd.<d>``, ``cuda.bwd.<d>`` and ``cuda.green``: the port's names
-for the reference's ``pallas.*``.
+for the reference's ``pallas.*``.  Each rank of a distributed solve
+polls its own plan, so a fault meant for the whole mesh is armed on
+every rank.
 
 A ``FaultPlan`` is a list of ``FaultSpec`` entries armed either by entering
 the plan as a context manager or via the ``$REPRO_FAULTS`` environment

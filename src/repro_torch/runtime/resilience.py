@@ -9,12 +9,13 @@ runtime walks them one knob at a time:
                                             only; torch.fft is cuFFT on
                                             the card, never the kernels'
                                             plain versions)
+      -> comm      overlap   -> pipelined -> a2a   (collective faults)
+                   fused     -> pipelined
       -> relayout  scheduled -> baseline   (fused-transpose faults)
       -> doubling  deferred  -> upfront    (pruned-extent faults)
 
-The reference's ``comm`` rungs come with the distributed solver (ROADMAP
-queue 1 item 5): no single-process config has a ``comm`` knob.  Each
-downgrade is recorded as a structured dict in the solver's
+Only the distributed solver's config has a ``comm`` knob; single-process
+configs skip those rungs.  Each downgrade is recorded as a structured dict in the solver's
 ``stats["degradations"]`` (and warned once); when the ladder is exhausted,
 or the caller's ``may_degrade`` refuses the next rung, a ``SolveError``
 carrying the stage provenance and the full degradation trail is raised.
@@ -38,6 +39,8 @@ __all__ = ["SolveError", "LADDER", "next_rung", "is_transient",
 # per failed attempt (the "step down one rung" contract)
 LADDER = (
     ("engine",   (("cuda", "torch"),)),
+    ("comm",     (("overlap", "pipelined"), ("fused", "pipelined"),
+                  ("pipelined", "a2a"))),
     ("relayout", (("scheduled", "baseline"),)),
     ("doubling", (("deferred", "upfront"),)),
 )

@@ -164,18 +164,28 @@ def test_ladder_rung_order():
         trail.append(action)
     assert trail == ["engine:cuda->torch", "relayout:scheduled->baseline",
                      "doubling:deferred->upfront"]
-    # the reference's single-process trail; its comm rungs come with the
-    # port's distributed solver
-    ref = {"engine": "pallas", "relayout": "scheduled",
-           "doubling": "deferred"}
-    ref_trail = []
-    while (step := rresilience.next_rung(ref)) is not None:
-        ref, action = step
-        ref_trail.append(action)
-    assert _renamed(ref_trail) == trail
+    # the reference's single-process trail, and its distributed one: the
+    # comm rungs sit between the engine and the relayout, and a config
+    # without a comm knob skips them
+    for comm in (None, "overlap", "fused"):
+        ref = {"engine": "pallas", "relayout": "scheduled",
+               "doubling": "deferred"}
+        cfg = {"engine": "cuda", "relayout": "scheduled",
+               "doubling": "deferred"}
+        if comm:
+            ref["comm"] = cfg["comm"] = comm
+        ref_trail, port_trail = [], []
+        while (step := rresilience.next_rung(ref)) is not None:
+            ref, action = step
+            ref_trail.append(action)
+        while (step := resilience.next_rung(cfg)) is not None:
+            cfg, action = step
+            port_trail.append(action)
+        assert _renamed(ref_trail) == port_trail
+        assert (port_trail == trail) == (comm is None)
     cfg = {"engine": "torch", "relayout": "baseline", "doubling": "upfront"}
     assert resilience.next_rung(cfg) is None
-    assert resilience.next_rung({"comm": "overlap"}) is None
+    assert resilience.next_rung({"comm": "a2a"}) is None
 
 
 def test_transient_retry_then_exhaust():
@@ -663,12 +673,14 @@ def test_evict_instance_and_entries():
     assert solver_cache_info()["size"] == 2
     assert evict_solver_instance(t) == 1
     assert solver_cache_info()["size"] == 1
-    # mesh eviction comes with the distributed solver
-    assert not hasattr(sv, "evict_solver_entries")
+    # mesh eviction drops only distributed entries planned on that mesh
+    assert sv.evict_solver_entries(object()) == 0
+    assert solver_cache_info()["size"] == 1
 
 
 def test_get_solver_refuses_a_mesh_and_unknown_kwargs():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # a mesh builds the distributed solver, which takes only a DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         get_solver((8, 8, 8), 1.0, _pb(BCS), device="cpu", mesh=object())
     with pytest.raises(TypeError):
         get_solver((8, 8, 8), 1.0, _pb(BCS), device="cpu", comm="a2a")

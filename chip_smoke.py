@@ -54,26 +54,38 @@ Phases (each raises on failure; nothing is caught):
      and no retry;
   8. the pencil-distributed solve (DistributedPoissonSolver over a
      DeviceMesh, CELL, CHAT2, float32 unless marked): DIST1_UUU, (U,U,U)
-     at 256^3 on a one-rank NCCL mesh (1, 1) -- pack, collective, unpack
-     and the kernels on the pencil at full size -- under a2a, pipelined:2,
-     fused and overlap:2, and DIST1_SEMI, (U,E),(U,U),(U,U) at 128^3 under
-     a2a and overlap:2, each within 1e-5 relative of the single-process
-     "cuda" solve, and DIST1_NODE, NODE (U,U,U) n=64 float64 (the Green
-     multiply on spectral_scale) under a2a and overlap:2 within 1e-10,
-     with exact launch counts and no degradation; each
-     strategy's median solve_local beside the single-process solve, the
-     memory a solve_local allocates above what is resident, its
+     at 256^3 on a one-rank NCCL mesh (1, 1) -- the switches' relayouts
+     and the kernels on the pencil at full size; a one-rank axis issues
+     no collective, which the collective census and the profiler (no NCCL
+     kernel) check -- under a2a, pipelined:2, fused and overlap:2, and
+     comm="auto" with the default guided search (2 of the 12 candidates
+     timed, the CPU's shortlist), and DIST1_SEMI, (U,E),(U,U),(U,U) at
+     128^3 under a2a and overlap:2, each within 1e-5 relative of the
+     single-process "cuda" solve, and DIST1_NODE, NODE (U,U,U) n=64
+     float64 (the Green multiply on spectral_scale) under a2a and
+     overlap:2 within 1e-10, with exact launch counts and no degradation;
+     each strategy's median solve_local beside the single-process solve,
+     the memory a solve_local allocates above what is resident, its
      aten::copy_ count (and one switch's alone) and a profiled solve_local
      with its idle share; then DIST4_GLOO, four gloo ranks on the one card
      (NCCL refuses two ranks on one device; gloo stages CUDA tensors
      through the host, so its times are no communication figure), mesh
-     (2, 2): (U,U,U) 128^3 under the four strategies and comm="auto"
-     (brute; every rank must choose the same winner), NODE
-     (E,E),(O,E),(P,P) n=64 float64 (the uneven 65-point split, within
-     1e-10) under a2a and overlap:2, and a pod batch of two fields on mesh
-     (2, 1, 2), launch counts summed over the ranks;
-  9. every kernel call of the recorded solves (the distributed ones
-     included) replayed at its shape
+     (2, 2): (U,U,U) 128^3 under the four strategies and comm="auto" both
+     ways, brute (12 candidates) and guided (at most a fifth of them, the
+     CPU's shortlist), every rank choosing the same winner, each search's
+     wall time and the guided winner's regret after a head-to-head
+     re-timing (printed, not held: gloo's times are closer than their
+     spread), NODE (E,E),(O,E),(P,P) n=64 float64 (the uneven 65-point
+     split, within 1e-10) under a2a and overlap:2, a pod batch of two
+     fields on mesh (2, 1, 2), launch counts summed over the ranks;
+     search_plan on (U,U,U) at PLAN_N^3 over the meshes (2, 2), (1, 4)
+     and (4, 1), both order policies and radix 4 and 2 (144 points, the
+     shortlist timed, the radix-2 kernels inside solves): one winner on
+     every rank, every timed point's launches exact, a second call
+     replayed from the cache; and the slab meshes' collective census,
+     only the non-unit axis's two switches, with the predicted bytes;
+  9. every kernel call of the recorded solves (the distributed ones,
+     search_plan's radix-2 calls among them) replayed at its shape
      against the plain version, and times with CUDA events (medians after
      warm-up; a kernel call is timed from a start event the device reaches
      only after the host has queued the call, and a kernel under 0.1 ms
@@ -219,6 +231,19 @@ EXPECTED_TWO_PASS = {
     "LONG_UUU": {"fft_stockham": 1},
     "LONG_SEMI": {"fft_stockham": 1, "fft_stockham_twiddle": 1},
 }
+
+
+def uuu_launches(label: str, ranks: int = 1) -> dict:
+    """Launches per distributed (U,U,U) CELL solve under one comm or plan
+    label (``strategy:n_chunks...``), summed over ``ranks``: the
+    DIST1_UUU counts above, whatever the fold, order policy, radix and
+    mesh; ``overlap:nc`` runs the transform after each switch once per
+    chunk, 3 + 5 nc."""
+    strategy, nc = label.split("|")[0].split(":")[:2]
+    fft = 3 + 5 * int(nc) if strategy == "overlap" else 8
+    return {"fft_stockham": fft * ranks, "fft_stockham_scale": ranks}
+
+
 # the run whose launches, shapes and times each kernel's record reports
 TIMED_ON = {"fft_stockham": "UUU", "fft_stockham_scale": "UUU",
             "spectral_scale": "NODE_UUU", "twiddle_pack": "SYM384",
@@ -284,18 +309,27 @@ def _recorded(run, calls):
 
 
 # the distributed phase: the one-rank mesh's backend, how the four gloo
-# ranks start, the process groups' timeout, and the comm strategies run
+# ranks start, the process groups' timeout, the comm strategies run, and
+# search_plan's grid, timed points and solves per timed point.  Of the
+# 144 points at 128^3 the cost model prunes 64 and ranks every radix-2
+# point behind the 40 live radix-4 ones (the default shortlist, 14, times
+# none), so k = 48 also times the first 8 radix-2 points
 DIST_BACKEND = "nccl"
 DIST_START = "spawn"
 GROUP_TIMEOUT_S = 300
 DIST_STRATEGIES = ("a2a:1", "pipelined:2", "fused:1", "overlap:2")
+PLAN_N = 128
+PLAN_K = 48
+PLAN_REPS = 3
 
 
 def _dist4_rank(rank, world, d):
     """One of the four gloo ranks of DIST4_GLOO on the one card: (U,U,U)
-    under every strategy and comm="auto", the NODE uneven split in
-    float64 and the pod batch, each against the parent's single-process
-    solve.  Writes its launch counts, kernel calls, errors and times to
+    under every strategy and comm="auto" (brute and guided, re-timed head
+    to head), the NODE uneven split in float64 and the pod batch, each
+    against the parent's single-process solve; then search_plan over the
+    three meshes of four ranks and the slab meshes' collective census.
+    Writes its launch counts, kernel calls, errors, searches and times to
     ``<d>/rank<rank>.pkl``."""
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -303,9 +337,12 @@ def _dist4_rank(rank, world, d):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.core.bc import BCType, DataLayout
-    from repro_torch.core.comm import cfg_label, label_to_cfg
+    from repro_torch.core.comm import (cfg_label, collective_census,
+                                       label_to_cfg)
+    from repro_torch.distributed import pencil
     from repro_torch.distributed.pencil import DistributedPoissonSolver
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.plan import PlanPoint, predict_bytes, search_plan
 
     d = Path(d)
     with open(d / "params.json") as fh:
@@ -367,13 +404,40 @@ def _dist4_rank(rank, world, d):
             raise AssertionError(f"{run}: {ds.stats}")
         x = ds.shard_input(f4)
         out["runs"][run]["ms"] = median_ms(lambda: ds.solve_local(x))
-    ds = DistributedPoissonSolver((n4,) * 3, 1.0, (U, U, U), comm="auto",
-                                  autotune_search="brute", _green_cache=g4,
-                                  **kw)
-    u = ds.solve(f4)
-    out["winner"] = cfg_label(ds.comm)
-    out["timed"] = dict(ds.autotune_results)
-    out["auto_rel"] = ((u - u4).abs().max() / u4.abs().max()).item()
+    # comm="auto" both ways: the whole candidate grid ("brute") and the
+    # cost model's shortlist ("guided", the default); the expected
+    # launches follow the winner
+    out["expected"] = {}
+    searches = {}
+    for how in ("brute", "guided"):
+        sync()
+        t0 = time.perf_counter()
+        ds = DistributedPoissonSolver((n4,) * 3, 1.0, (U, U, U), comm="auto",
+                                      autotune_search=how, _green_cache=g4,
+                                      **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        run = f"DIST4_GLOO_UUU/auto:{how}"
+        out["expected"][run] = cfg_label(ds.comm)
+        counted(run, lambda: ds.solve(f4), u4)
+        searches[how] = ds
+        out[how] = {"wall_s": wall, "winner": cfg_label(ds.comm),
+                    "timed": dict(ds.autotune_results),
+                    "shortlist": ds.autotune_census.get("shortlist"),
+                    "rel": out["runs"][run]["rel"]}
+    # the guided winner against the brute one, re-timed head to head in
+    # turns (the reference oracle's protocol); each sample agreed (MAX)
+    bw, gw = out["brute"]["winner"], out["guided"]["winner"]
+    best = {bw: math.inf, gw: math.inf}
+    if bw != gw:
+        dg = searches["guided"]
+        time_cfg = dg.comm_time_fn(reps=3)
+        for r in range(8):
+            for lbl in ((bw, gw) if r % 2 == 0 else (gw, bw)):
+                t = dg._agree([time_cfg(label_to_cfg(lbl))])[0]
+                best[lbl] = min(best[lbl], t)
+    out["head_to_head"] = best
+    del searches
     # the node-centered uneven split: 65 points over 2 ranks a direction
     fn, un, gn = load("fn"), load("un"), np.load(d / "gn.npy")
     for lbl in ("a2a:1", "overlap:2"):
@@ -393,6 +457,74 @@ def _dist4_rank(rank, world, d):
                                   _green_cache=g4)
     counted("DIST4_GLOO_POD/a2a:1", lambda: ds.solve(torch.stack(
         [f4, 2.0 * f4])), torch.stack([u4, 2.0 * u4]))
+    # search_plan over mesh_shapes_for(4) = (2, 2), (1, 4), (4, 1), both
+    # order policies and radix 4 and 2 on the "cuda" engine; each timed
+    # solve's launches read around it, by plan point
+    points = {}
+    real_solve = pencil.DistributedPoissonSolver.solve
+
+    def solve_counted(self, f, verify=None):
+        sync()
+        reset_launches()
+        u = real_solve(self, f, verify)
+        sync()
+        a1, a2 = self.axes
+        lbl = PlanPoint(self.comm.strategy, self.comm.n_chunks,
+                        self.comm.fold, self.comm.chunk_axis,
+                        self._ctor["order_policy"], self.plan.doubling,
+                        self.relayout, self.engine.max_radix,
+                        (self._size[a1], self._size[a2])).label()
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        if points.setdefault(lbl, got) != got:
+            raise AssertionError(f"search_plan {lbl}: launches {got}, then "
+                                 f"{points[lbl]}")
+        return u
+
+    plan_kw = dict(device=dev, cache_path=str(d / "plans.json"),
+                   k=prm["plan_k"], reps=prm["plan_reps"])
+    n_sp = prm["n_plan"]
+    census = {}
+    pencil.DistributedPoissonSolver.solve = solve_counted
+    try:
+        with _recorded("DIST4_GLOO_PLAN", out["calls"]):
+            sync()
+            t0 = time.perf_counter()
+            dec = search_plan((n_sp,) * 3, 1.0, (U, U, U), census=census,
+                              **plan_kw)
+            sync()
+            wall = time.perf_counter() - t0
+    finally:
+        pencil.DistributedPoissonSolver.solve = real_solve
+    t0 = time.perf_counter()
+    dec2 = search_plan((n_sp,) * 3, 1.0, (U, U, U), **plan_kw)
+    if census["failed"] or set(points) != set(census["timed"]):
+        raise AssertionError(f"search_plan: failed {census['failed']}, "
+                             f"timed {sorted(census['timed'])}, counted "
+                             f"{sorted(points)}")
+    out["plan"] = {"wall_s": wall, "again_s": time.perf_counter() - t0,
+                   "space": census["space"],
+                   "pruned": len(census["pruned_padding"]),
+                   "shortlist": census["shortlist"],
+                   "timed": census["timed"], "winner": dec.point.label(),
+                   "seconds": dec.seconds, "points": points,
+                   "again": [dec.cached, dec2.cached, dec2.point == dec.point]}
+    # the slab meshes: only the non-unit axis's two switches are issued,
+    # with the bytes the predictor names
+    out["slabs"] = {}
+    for ms in ((1, 4), (4, 1)):
+        slab = init_device_mesh(dev.type, ms, mesh_dim_names=("data",
+                                                             "model"))
+        ds = DistributedPoissonSolver((n4,) * 3, 1.0, (U, U, U), mesh=slab,
+                                      device=dev, _green_cache=g4)
+        x = ds.shard_input(f4)
+        with collective_census() as c:
+            ds.solve_local(x)
+        got = [e["bytes"] for e in c.per_collective]
+        want = predict_bytes(ds.plan, ms[0], ms[1], ds.dtype, ds.comm)
+        if got != want or len(got) != 2:
+            raise AssertionError(f"slab mesh {ms}: census {got}, predicted "
+                                 f"{want}")
+        out["slabs"][f"{ms[0]}x{ms[1]}"] = got
     for run, res in out["runs"].items():
         if res["rel"] > 1e-5:
             raise AssertionError(f"{run}: rank {rank} relative max |diff| "
@@ -1066,7 +1198,9 @@ def main() -> int:
 
     def where_the_time_goes(label, fn, solve_ms):
         """Device time by kernel over one profiled solve, and the idle
-        share of the (unprofiled, event-timed) solve it leaves."""
+        share of the (unprofiled, event-timed) solve it leaves; returns
+        {device event name: [ms, count]}, None when the profiler saw no
+        device activity."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -1090,7 +1224,7 @@ def main() -> int:
         if busy <= 0:
             print(f"  {label}: device time not measured (the profiler saw "
                   "no device activity)")
-            return
+            return None
         top = "; ".join(f"{ms:.3f} ms x{c} {k[:60]}"
                         for ms, c, k in rows[:6] if ms > 0)
         # the Stockham kernels' instantiations (one per row length) summed
@@ -1100,6 +1234,7 @@ def main() -> int:
               f"(idle share {max(0.0, 1 - busy / solve_ms):.1%}); Stockham "
               f"kernels {sum(ms for ms, _ in fft):.3f} ms "
               f"x{sum(c for _, c in fft)}; aten::copy_ x{n_copy}; {top}")
+        return agg
 
     # -- 8. the distributed solve --------------------------------------------
     # DIST1: a one-rank NCCL mesh, the whole distributed pipeline (pack,
@@ -1108,9 +1243,12 @@ def main() -> int:
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.core.comm import label_to_cfg
+    from repro_torch.core.comm import (cfg_label, collective_census,
+                                       label_to_cfg)
     from repro_torch.core.engine import relayout
+    from repro_torch.core.solver import make_plan
     from repro_torch.distributed.pencil import DistributedPoissonSolver
+    from repro_torch.plan import guided_comm_candidates, mesh_shapes_for
     t0 = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
     dist.init_process_group(
@@ -1194,9 +1332,56 @@ def main() -> int:
                   f"{resident / 2 ** 30:.3f} GiB resident; aten::copy_ "
                   f"x{copies(lambda: ds.solve_local(x))} per solve_local, "
                   f"x{n_sw} in one switch alone")
-            where_the_time_goes(f"{run} solve_local",
-                                lambda: ds.solve_local(x), t_loc)
+            agg = where_the_time_goes(f"{run} solve_local",
+                                      lambda: ds.solve_local(x), t_loc)
+            # a one-rank mesh issues no collective: none in the census and
+            # no NCCL kernel in the profile
+            with collective_census() as cc:
+                ds.solve_local(x)
+            nccl = sorted(k for k in (agg or {}) if "nccl" in k.lower())
+            if cc.per_collective or nccl:
+                raise AssertionError(f"{run}: the one-rank mesh issued "
+                                     f"{len(cc.per_collective)} collectives"
+                                     f"; profiled {nccl}")
+            print(f"  {run}: collectives issued 0 (census); NCCL kernels "
+                  + ("0 (profiler)" if agg is not None
+                     else "not measured (no device events)"))
             del ds, x, y0, u
+        if case == "DIST1_UUU":
+            # comm="auto" with the default search: the cost model's
+            # shortlist of the 12 candidates, timed; the same labels as
+            # the CPU computes for the plan
+            sync()
+            t0a = time.perf_counter()
+            ds = DistributedPoissonSolver(
+                (nn,) * 3, 1.0, bcs, layout, mesh=mesh1, comm="auto",
+                dtype=f.dtype, device=dev, _green_cache=sp._green_nat)
+            sync()
+            t_auto = time.perf_counter() - t0a
+            run = f"{case}/auto:guided"
+            EXPECTED[run] = uuu_launches(cfg_label(ds.comm))
+            u, counts = run_counted(run, lambda: ds.solve(f))
+            clean(run, ds)
+            rel = close(f"{run} against the single-process solve", u, u_sp,
+                        rtol)
+            dist_launches[run] = {k: v for k, v in counts.items() if v}
+            want = [cfg_label(c) for c in guided_comm_candidates(
+                make_plan((nn,) * 3, 1.0, bcs, layout, GreenKind.CHAT2),
+                1, 1, f.dtype, folds=("pack", "unpack"))]
+            cen = ds.autotune_census
+            if (cen["space"] != 12 or cen["shortlist"] != want
+                    or sorted(ds.autotune_results) != sorted(want)):
+                raise AssertionError(f"{run}: census {cen}, on the CPU "
+                                     f"{want}")
+            print(f"  {run}: the guided search timed "
+                  f"{len(ds.autotune_results)} of {cen['space']} candidates "
+                  f"(the CPU's shortlist {want}: "
+                  + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                              sorted(ds.autotune_results.items()))
+                  + f") in {t_auto:.2f} s and chose {cfg_label(ds.comm)}; "
+                  f"launches {dist_launches[run]}, relative max |diff| "
+                  f"{rel:.3e} from the single-process solve")
+            del ds, u
     dist.destroy_process_group()
     del sp_semi, f_semi, sp_node, f_node, u_sp
 
@@ -1218,7 +1403,8 @@ def main() -> int:
         np.save(d4 / f"{key}.npy", np.asarray(arr))
     with open(d4 / "params.json", "w") as fh:
         json.dump({"device": str(dev), "n4": n4, "reps": REPS,
-                   "strategies": DIST_STRATEGIES}, fh)
+                   "strategies": DIST_STRATEGIES, "n_plan": PLAN_N,
+                   "plan_k": PLAN_K, "plan_reps": PLAN_REPS}, fh)
     del s4, sn
     print(f"DIST4_GLOO: 4 gloo ranks on one card, spawning "
           f"({time.perf_counter() - t0:.1f} s into the phase)")
@@ -1230,6 +1416,8 @@ def main() -> int:
         with open(d4 / f"rank{r}.pkl", "rb") as fh:
             ranks.append(pickle.load(fh))
     tmp.cleanup()
+    for run, lbl in ranks[0]["expected"].items():
+        EXPECTED[run] = uuu_launches(lbl, 4)
     for run in ranks[0]["runs"]:
         total = collections.Counter()
         for res in ranks:
@@ -1245,16 +1433,72 @@ def main() -> int:
               f"|diff| {rel:.3e} from the single-process solve"
               + (f"; solve_local {ms:.3f} ms (host-staged by gloo, not a "
                  "communication figure)" if ms else ""))
-    winners = {res["winner"] for res in ranks}
-    if len(winners) != 1:
-        raise AssertionError(f"DIST4 comm='auto': ranks chose {winners}")
-    print(f"  DIST4_GLOO_UUU comm='auto' (brute, {len(ranks[0]['timed'])} "
-          f"candidates): every rank chose {winners.pop()}, relative max "
-          f"|diff| {max(res['auto_rel'] for res in ranks):.3e}; agreed "
-          f"times (host-staged) "
-          + ", ".join(f"{k} {v * 1e3:.2f} ms"
-                      for k, v in sorted(ranks[0]["timed"].items(),
-                                         key=lambda kv: kv[1])))
+    for how in ("brute", "guided"):
+        winners = {res[how]["winner"] for res in ranks}
+        if len(winners) != 1:
+            raise AssertionError(f"DIST4 comm='auto' ({how}): ranks chose "
+                                 f"{winners}")
+        res = ranks[0][how]
+        print(f"  DIST4_GLOO_UUU comm='auto' ({how}, {len(res['timed'])} "
+              f"candidates timed in {max(r[how]['wall_s'] for r in ranks):.2f}"
+              f" s): every rank chose {res['winner']}, relative max |diff| "
+              f"{max(r[how]['rel'] for r in ranks):.3e}; agreed times "
+              "(host-staged) "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms"
+                          for k, v in sorted(res["timed"].items(),
+                                             key=lambda kv: kv[1])))
+    n_b, n_g = (len(ranks[0][h]["timed"]) for h in ("brute", "guided"))
+    want = [cfg_label(c) for c in guided_comm_candidates(
+        make_plan((n4,) * 3, 1.0, (U, U, U), DataLayout.CELL,
+                  GreenKind.CHAT2), 2, 2, torch.float32,
+        folds=("pack", "unpack"))]
+    if 5 * n_g > n_b or any(r["guided"]["shortlist"] != want
+                            for r in ranks):
+        raise AssertionError(f"DIST4 guided: timed {n_g} of {n_b}, "
+                             f"shortlist {ranks[0]['guided']['shortlist']}, "
+                             f"on the CPU {want}")
+    best = ranks[0]["head_to_head"]
+    bw, gw = ranks[0]["brute"]["winner"], ranks[0]["guided"]["winner"]
+    print(f"  DIST4_GLOO_UUU guided shortlist {want} (the CPU's, on every "
+          f"rank), timed {n_g} of {n_b}; "
+          + (f"head to head (8 turns, best of 3, agreed): guided {gw} "
+             f"{best[gw] * 1e3:.3f} ms, brute {bw} {best[bw] * 1e3:.3f} ms, "
+             f"regret {best[gw] / best[bw]:.3f} (host-staged: printed, not "
+             "held)" if bw != gw else "the same winner, regret 1"))
+    plans = [res["plan"] for res in ranks]
+    pl = plans[0]
+    n_r2 = sum("|r=2" in lbl for lbl in pl["timed"])
+    if (len({p["winner"] for p in plans}) != 1 or not n_r2
+            or any(p["again"] != [False, True, True] for p in plans)):
+        raise AssertionError(f"search_plan: winners "
+                             f"{[p['winner'] for p in plans]}, replays "
+                             f"{[p['again'] for p in plans]}, radix-2 "
+                             f"points timed {n_r2}")
+    for lbl in pl["timed"]:
+        total = collections.Counter()
+        for p in plans:
+            total.update(p["points"][lbl])
+        got = {k: v for k, v in total.items() if v}
+        if got != uuu_launches(lbl, 4):
+            raise AssertionError(f"search_plan {lbl}: launches summed over "
+                                 f"the ranks {got}, expected "
+                                 f"{uuu_launches(lbl, 4)}")
+        dist_launches[f"DIST4_GLOO_PLAN/{lbl}"] = got
+    print(f"  DIST4_GLOO_PLAN search_plan (U,U,U) n={PLAN_N} float32, "
+          f"engine cuda, meshes {mesh_shapes_for(4)}, both order policies, "
+          f"radix 4 and 2: space {pl['space']}, {pl['pruned']} pruned for "
+          f"padding, k={PLAN_K}: {len(pl['timed'])} timed ({n_r2} of them "
+          f"radix 2; best of {PLAN_REPS} solves each) in "
+          f"{max(p['wall_s'] for p in plans):.2f} s; every rank chose "
+          f"{pl['winner']} "
+          f"({pl['seconds'] * 1e3:.3f} ms); a second call replayed it from "
+          f"the cache in {max(p['again_s'] for p in plans):.3f} s; every "
+          "timed point's launches exact")
+    print("    timed (agreed, host-staged): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in sorted(pl["timed"].items(),
+                                                   key=lambda kv: kv[1])))
+    print("  slab meshes' census (send bytes per collective, as predicted): "
+          + "; ".join(f"{k}: {v}" for k, v in ranks[0]["slabs"].items()))
     for res in ranks:
         for key, c in res["calls"].items():
             calls[key] = calls.get(key, 0) + c
@@ -1361,8 +1605,10 @@ def main() -> int:
             lib_none.add(kname)
         else:
             p["library_ms"] += count * t_l
+    n_r2 = sum(dict(kw).get("max_radix") == 2 for _, _, _, kw in by_desc)
     print(f"replays: {len(by_desc)} kernel calls of the recorded solves "
-          f"held against their plain versions and timed in "
+          f"({n_r2} of them radix 2, from search_plan's solves) held "
+          f"against their plain versions and timed in "
           f"{time.perf_counter() - t0:.2f} s")
 
     for tag, (sc, st, f) in solvers.items():

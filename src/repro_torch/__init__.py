@@ -15,7 +15,10 @@ degradation ladder (``cuda -> torch`` for injected faults only,
 ``repro``.  ``DistributedPoissonSolver`` is the pencil-distributed solve
 over a ``torch.distributed`` ``DeviceMesh`` (the four comm strategies of
 ``core.comm`` on each mesh axis's process group); ``get_solver(mesh=...)``
-builds and caches it.  The package imports
+builds and caches it.  ``repro_torch.plan`` is the plan space, the cost
+model and the guided search: ``comm="auto"`` times only the cost model's
+shortlist by default, and ``plan.search_plan`` searches mesh shape,
+order, relayout and radix on top of it.  The package imports
 no JAX and nothing of ``repro``; its tests hold it against ``repro`` on
 the same inputs.
 """

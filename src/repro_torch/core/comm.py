@@ -14,7 +14,14 @@ the axis's rank k, and the chunk received from rank k lands at block k of
 the concat axis.  ``all_to_all_single`` only splits and concatenates dim
 0, so the pack moves the split axis's P rank blocks to the front of a
 contiguous send buffer, and the unpack merges the received blocks into
-the concat axis (``_a2a``).
+the concat axis (``_a2a``).  Over a one-rank axis the exchange is the
+identity and none of that happens: the fold's permute stays, and no
+buffer is packed and no collective issued, as in the reference, where a
+switch over a 1-sized mesh axis lowers to a local reshape.
+``collective_census()`` records the collectives issued inside it, with
+their send buffers' bytes: the counterpart of the reference's HLO census
+(``launch.hlo_stats.comm_bytes_stats``), which ``repro_torch.plan``'s
+byte predictor is held to.
 
 The four strategies are numerically identical and differ in the copies
 and the overlap they make:
@@ -22,9 +29,9 @@ and the overlap they make:
 * ``a2a``       -- packs into a dedicated contiguous send buffer (the
                    split axis's rank blocks leading), one collective, and
                    unpacks the received blocks into a contiguous output
-                   in the incoming axis order (flups' a2a buffers; on one
-                   rank, or with a major concat axis, the receive buffer
-                   already is that output).
+                   in the incoming axis order (flups' a2a buffers; with a
+                   major concat axis the receive buffer already is that
+                   output).
 * ``pipelined`` -- the paper's ``nb``: the block is cut into ``n_chunks``
                    along an uninvolved axis; every chunk's collective is
                    issued (``async_op=True``), then all are waited on, and
@@ -57,6 +64,7 @@ item 6), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -78,6 +86,7 @@ __all__ = [
     "autotune_comm", "autotune_candidates",
     "cache_load_entries", "cache_store_entry",
     "clear_autotune_cache", "all_reduce_mean", "reset_warn_once",
+    "CollectiveCensus", "collective_census",
 ]
 
 
@@ -196,18 +205,63 @@ def crop_axis(x, ax: int, ln: int):
     return x.narrow(ax, 0, ln)
 
 
+class CollectiveCensus:
+    """The collectives the comm layer issued on this rank while the census
+    was open, in program order: one ``{"op", "bytes"}`` entry per
+    ``all_to_all_single``, its bytes those of the send buffer (the operand
+    the reference's HLO census bills)."""
+
+    def __init__(self):
+        self.per_collective = []
+
+    def stats(self) -> dict:
+        """``per_collective``, ``first_bytes`` / ``last_bytes`` (0 when
+        none) and ``total_bytes``: the reference's ``comm_bytes_stats``
+        summary."""
+        per = [dict(c) for c in self.per_collective]
+        return {"per_collective": per,
+                "first_bytes": per[0]["bytes"] if per else 0,
+                "last_bytes": per[-1]["bytes"] if per else 0,
+                "total_bytes": sum(c["bytes"] for c in per)}
+
+
+# the open censuses; empty (and so never touched) outside a census
+_CENSUSES: list = []
+
+
+@contextlib.contextmanager
+def collective_census():
+    """Record every collective the comm layer issues inside the block (see
+    ``CollectiveCensus``).  Censuses nest; each sees the whole block."""
+    census = CollectiveCensus()
+    _CENSUSES.append(census)
+    try:
+        yield census
+    finally:
+        _CENSUSES.remove(census)
+
+
+def _wait(work):
+    """Wait on a collective's handle (None: nothing is in flight)."""
+    if work is not None:
+        work.wait()
+
+
 def _a2a(x, group, p: int, split_axis: int, concat_axis: int,
          async_op: bool = False, view: bool = False):
     """Tiled all-to-all of ``x`` over ``group`` (``p`` ranks, group rank
     == mesh coordinate): returns ``(y, work)``, ``y`` valid once ``work``
-    (None when synchronous) is waited on.  The pack is one copy.
+    (None when synchronous or when nothing was issued) is waited on.  The
+    pack is one copy.  Over one rank the tiled exchange is the identity,
+    as the reference's switch over a 1-sized mesh axis is a local
+    reshape: no buffer is packed and no collective is issued.
 
     By default the send buffer is ``x`` with the split axis cut into
     ``(p, split / p)`` and ``p`` moved first, the other axes in order;
     ``y`` is the receive buffer with its leading ``p`` moved in front of
     the concat axis: the BLOCKED switched block, which
-    ``y.flatten(c, c + 1)`` merges (a view when ``p == 1`` or the concat
-    axis is major, one blocked copy otherwise).  With ``view`` the send
+    ``y.flatten(c, c + 1)`` merges (a view when the concat axis is
+    major, one blocked copy otherwise).  With ``view`` the send
     buffer is ``(p, concat, split / p, rest...)`` and ``y`` is the merged
     switched block itself, a transposed view of the receive buffer that
     the consumer's ``.contiguous()`` materializes."""
@@ -217,6 +271,17 @@ def _a2a(x, group, p: int, split_axis: int, concat_axis: int,
     if q * p != x.shape[s]:
         raise ValueError(f"split axis {s} of length {x.shape[s]} does not "
                          f"divide over {p} ranks")
+    # the merged block's axis order under ``view``: concat, split, rest
+    order = [c, s] + [a for a in range(nd) if a not in (s, c)]
+    back = [order.index(a) for a in range(nd)]
+    if p == 1:
+        # the identity exchange, laid out as the receive buffer would have
+        # been (so the next transform sees the same strides and rounds the
+        # same): a copy only where ``x`` is a view, the fold's permute or a
+        # chunk of the block
+        if view:
+            return x.permute(order).contiguous().permute(back), None
+        return x.contiguous().unsqueeze(c), None
     xs = x.unflatten(s, (p, q))        # p at s, q at s + 1
     if view:
         cc = c if c < s else c + 1
@@ -225,15 +290,16 @@ def _a2a(x, group, p: int, split_axis: int, concat_axis: int,
     else:
         send = xs.movedim(s, 0).contiguous()
     recv = torch.empty_like(send)
+    for census in _CENSUSES:
+        census.per_collective.append(
+            {"op": "all-to-all", "bytes": send.numel() * send.element_size()})
     work = dist.all_to_all_single(recv, send, group=group,
                                   async_op=async_op)
     if not view:
         return recv.movedim(0, c), work
     # (p, C, q, rest) -> (p * C, q, rest): the received blocks stacked
     # along the concat axis, then back to the incoming axis order
-    merged = recv.flatten(0, 1)
-    order = [c, s] + [a for a in range(nd) if a not in (s, c)]
-    return merged.permute([order.index(a) for a in range(nd)]), work
+    return recv.flatten(0, 1).permute(back), work
 
 
 # ---------------------------------------------------------------------------
@@ -336,8 +402,8 @@ class CommStrategy:
 
     def _plain(self, x, axis_name, split_axis, concat_axis):
         """One collective; the received blocks merged into a contiguous
-        output (in place in the receive buffer on one rank or with a
-        major concat axis)."""
+        output (in place in the receive buffer with a major concat
+        axis)."""
         y, _ = self._collective(x, axis_name, split_axis, concat_axis)
         c = concat_axis % x.ndim
         return y.flatten(c, c + 1).contiguous()
@@ -350,7 +416,7 @@ class CommStrategy:
         sent = [self._collective(c, axis_name, split_axis, concat_axis,
                                  async_op=True) for c in chunks]
         for _, work in sent:
-            work.wait()
+            _wait(work)
         c = concat_axis % x.ndim
         y = torch.cat([b for b, _ in sent], dim=ax if ax < c else ax + 1)
         return crop_axis(y.flatten(c, c + 1), ax, ln)
@@ -441,7 +507,7 @@ class OverlapStrategy(PipelinedStrategy):
 
         def land(sent):
             blocks, work = sent
-            work.wait()
+            _wait(work)
             return post(self._permute(blocks.flatten(c, c + 1), unpack))
 
         outs = []

@@ -33,10 +33,14 @@ every ladder step reduces the ranks' failure flags first.  A rank that
 fails alone inside a collective cannot be told apart from a slow one;
 that case is left to the process groups' ``timeout=``.
 
+``comm="auto"`` runs the guided search by default
+(``repro_torch.plan.search.guided_comm_candidates``: the cost model ranks
+the candidate grid and only its shortlist is timed);
+``autotune_search="brute"`` times the whole grid.
+
 Not ported (``NotImplementedError`` naming the ROADMAP item): the ABFT
-modes (``verify="abft"|"abft-stages"``, ``abft_rtol``; queue 1 item 6),
-the guided autotune search (``autotune_search="guided"`` with
-``comm="auto"``; item 7) and ``lower`` (HLO only; item 10).
+modes (``verify="abft"|"abft-stages"``, ``abft_rtol``; queue 1 item 6)
+and ``lower`` (HLO only; item 10).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from repro_torch.core.engine import (RELAYOUT_MODES, as_engine,
                                      materialize_doubling, relayout)
 from repro_torch.core.solver import (_check_kernel_lengths, _check_verify,
                                      build_green, make_plan)
+from repro_torch.plan.search import guided_comm_candidates
 from repro_torch.runtime import faults, health, resilience
 
 __all__ = ["DistributedPoissonSolver"]
@@ -105,8 +110,10 @@ class DistributedPoissonSolver:
     rank order of each axis's group must be the mesh coordinate.
     ``batch_axis``: optional extra mesh axis (e.g. "pod"): the solver then
     takes a leading batch dimension split over that axis.  ``comm``: a
-    ``CommConfig``, a strategy name, or ``"auto"`` (plan-time autotuned;
-    ``autotune_search="brute"`` times the full candidate grid).
+    ``CommConfig``, a strategy name, or ``"auto"`` (plan-time autotuned:
+    by default the cost model's shortlist is timed, and
+    ``autotune_search="brute"`` times the full candidate grid; the
+    search's account is in ``autotune_census``).
     ``relayout``: ``"scheduled"`` (relayouts folded into the switches) or
     ``"baseline"``.  ``engine``: ``"cuda"`` (the hand kernels; their plain
     versions on CPU tensors) or ``"torch"``.  ``device``: this rank's
@@ -468,12 +475,23 @@ class DistributedPoissonSolver:
         self.autotune_results = {}
         self.autotune_census = {}
         if candidates is None:
-            if self._ctor["autotune_search"] == "guided":
-                raise _not_ported("autotune_search='guided'", 7,
-                                  "plan/search.py")
             folds = (("pack", "unpack") if self.relayout == "scheduled"
                      else ("pack",))
-            candidates = _default_candidates(folds=folds)
+            if self._ctor["autotune_search"] == "guided":
+                # rank the comm sub-space with the analytic cost model and
+                # time only the shortlisted frontier; the shortlist is a
+                # pure function of the plan (the same on every rank), and
+                # its labels are cache-key material, so a guided pick
+                # never shadows (or replays) a brute one
+                a1, a2 = self.axes
+                candidates = guided_comm_candidates(
+                    self.plan, self._size[a1], self._size[a2], self.dtype,
+                    batch=batch if self.batch_axis is None else None,
+                    folds=folds, relayout=self.relayout,
+                    max_radix=self.engine.max_radix,
+                    census=self.autotune_census)
+            else:
+                candidates = _default_candidates(folds=folds)
         key = self.autotune_key() + (("tuned_batch", batch),)
         return autotune_comm(key, self.comm_time_fn(batch, reps=reps),
                              candidates=candidates, cache_path=cache_path,

@@ -12,7 +12,8 @@ run is bounded by its group timeout and a subprocess timeout.
 Covered: the reference's five ``CASES`` x the four strategies
 (``n_chunks=2``) x engines "torch" and "cuda" (the kernels' plain
 versions on the CPU) within 1e-10, the local batch (B=4, 1e-9) and the
-pod batch, ``comm="auto"`` (brute) with the cache and agreed winners,
+pod batch, ``comm="auto"`` (brute, and the default guided search) with
+the cache and agreed winners,
 the ladder on every rank (an armed ``comm.overlap`` fault walks
 ``overlap -> pipelined``), ``rebuild`` from (2, 4) onto the 4-rank (2, 2)
 mesh of the survivors (``tests/test_elastic.py``'s counterpart), and
@@ -25,7 +26,11 @@ import torch
 
 import test_torch_ranks as ranks
 from repro.core.bc import BCType, DataLayout
+from repro.core import comm as rcm
+from repro.core.green import GreenKind
 from repro.core.solver import PoissonSolver as RefSolver
+from repro.core.solver import make_plan as ref_make_plan
+from repro.plan.search import guided_comm_candidates as ref_guided
 from repro_torch.core import comm as cm
 from repro_torch.core.solver import clear_solver_cache, get_solver
 from repro_torch.distributed.pencil import DistributedPoissonSolver
@@ -115,7 +120,28 @@ def test_comm_auto_agrees_on_one_winner(misc_runs):
         assert res["n_timed"] == 12
         assert res["err"] < 1e-10
         assert res["second"] == [res["winner"], 0], "must hit the cache"
-        assert "item 7" in res["guided"]
+
+
+def test_comm_auto_guided_by_default_matches_reference(misc_runs):
+    """The default search (guided): the cost model's shortlist, the
+    reference's label for label, timed on every rank; one winner, and the
+    solve within 1e-10 of the reference in float64."""
+    runs = misc_runs["auto"]
+    assert len({res["guided"]["winner"] for res in runs}) == 1
+    names, n = ranks._SPEC          # the misc runs' case, CASES[1]
+    bcs = [tuple(getattr(BCType, b) for b in pair) for pair in names]
+    plan = ref_make_plan((n,) * 3, 1.0, bcs, DataLayout.CELL,
+                         GreenKind.CHAT2)
+    want = [rcm.cfg_label(c) for c in ref_guided(
+        plan, 2, 4, jnp.float64, folds=("pack", "unpack"),
+        relayout="scheduled")]
+    for res in runs:
+        g = res["guided"]
+        assert g["shortlist"] == want
+        assert g["space"] == 12 and 5 * len(want) <= g["space"]
+        assert g["timed"] == sorted(want)
+        assert g["winner"] in want
+        assert g["err"] < 1e-10, g["err"]
 
 
 def test_comm_auto_agrees_despite_rank_dependent_timings(misc_runs):

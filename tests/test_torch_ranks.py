@@ -133,9 +133,10 @@ def _solver(mesh, **kw):
 
 def scenario_auto(rank, d, params):
     """comm="auto" (brute) on mesh (2, 4): one winner on every rank, a
-    second construction served by the cache, rank-dependent timings still
-    agreed, the JSON cache written by rank 0 and read by all, and a
-    mangled cache entry falling through to a live sweep."""
+    second construction served by the cache, the default guided search,
+    rank-dependent timings still agreed, the JSON cache written by rank 0
+    and read by all, and a mangled cache entry falling through to a live
+    sweep."""
     from repro_torch.core import comm as cm
     from repro_torch.runtime import faults
     f, want = _ref_case(d)
@@ -148,11 +149,13 @@ def scenario_auto(rank, d, params):
            "err": _maxerr(ds.solve(f), want)}
     ds2 = _solver(mesh, _green_cache=ds._green_raw, **kw)
     out["second"] = [cm.cfg_label(ds2.comm), len(ds2.autotune_results)]
-    try:
-        _solver(mesh, comm="auto", _green_cache=ds._green_raw)
-        out["guided"] = "no error"
-    except NotImplementedError as e:
-        out["guided"] = str(e)
+    # the default search: the cost model's shortlist, timed and agreed
+    dg = _solver(mesh, comm="auto", _green_cache=ds._green_raw)
+    out["guided"] = {"winner": cm.cfg_label(dg.comm),
+                     "timed": sorted(dg.autotune_results),
+                     "space": dg.autotune_census["space"],
+                     "shortlist": dg.autotune_census["shortlist"],
+                     "err": _maxerr(dg.solve(f), want)}
 
     # rank-dependent timings: alone each rank would pick its own winner
     cands = cm.autotune_candidates()
@@ -389,6 +392,206 @@ def scenario_rebuild(rank, d, params):
     out["evicted_again"] = evict_solver_entries(mesh_a)
     s2 = get_solver((n,) * 3, 1.0, _bcs(names), **kw)
     out["fresh"] = [s2 is not s, solver_cache_info()["misses"] - before]
+    return out
+
+
+def _a2a_collective(x, group, p, split_axis, concat_axis, async_op=False,
+                    view=False):
+    """``core.comm._a2a`` as it ran before one-rank axes were skipped: the
+    block packed and the collective issued whatever the group size.  The
+    oracle the skip is held to, bit for bit."""
+    import torch
+    import torch.distributed as dist
+    nd = x.ndim
+    s, c = split_axis % nd, concat_axis % nd
+    q = x.shape[s] // p
+    xs = x.unflatten(s, (p, q))
+    if view:
+        cc = c if c < s else c + 1
+        rest = [a for a in range(nd + 1) if a not in (s, s + 1, cc)]
+        send = xs.permute([s, cc, s + 1] + rest).contiguous()
+    else:
+        send = xs.movedim(s, 0).contiguous()
+    recv = torch.empty_like(send)
+    work = dist.all_to_all_single(recv, send, group=group,
+                                  async_op=async_op)
+    if not view:
+        return recv.movedim(0, c), work
+    order = [c, s] + [a for a in range(nd) if a not in (s, c)]
+    return (recv.flatten(0, 1).permute([order.index(a) for a in range(nd)]),
+            work)
+
+
+class _CountedA2A:
+    """``torch.distributed.all_to_all_single`` counted while armed."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.calls = 0
+        self._real = dist.all_to_all_single
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self._real(*a, **kw)
+        dist.all_to_all_single = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_to_all_single = self._real
+
+
+def scenario_plan_one(rank, d, params):
+    """One rank: the (1, 1) mesh's switches under every strategy, fold,
+    relayout and engine issue no collective and give the bits of the
+    collective path; ``search_plan`` at 8^3 on the one-rank group (the
+    frontier timed, the cache round trip, the dtype split)."""
+    import torch
+    from repro_torch.core import comm as cm
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.core.bc import BCType
+    from repro_torch.plan import search_plan
+    f, want = _ref_case(d)
+    mesh = _mesh((1, 1), ("data", "model"))
+    out = {"one_rank": {}}
+    green = None
+    with _CountedA2A() as counter:
+        for engine in ("torch", "cuda"):
+            for relayout in ("scheduled", "baseline"):
+                folds = ("pack", "unpack") if relayout == "scheduled" \
+                    else ("pack",)
+                for lbl in ("a2a:1", "fused:1", "pipelined:2", "overlap:2"):
+                    for fold in folds:
+                        c = cm.label_to_cfg(lbl)
+                        ds = _solver(mesh, engine=engine, relayout=relayout,
+                                     comm=CommConfig(c.strategy, c.n_chunks,
+                                                     fold),
+                                     _green_cache=green)
+                        green = ds._green_raw
+                        x = ds.shard_input(torch.from_numpy(f))
+                        n0 = counter.calls
+                        with cm.collective_census() as census:
+                            u = ds.solve_local(x)
+                        skipped = [len(census.per_collective),
+                                   counter.calls - n0]
+                        real = cm._a2a
+                        cm._a2a = _a2a_collective
+                        try:
+                            n0 = counter.calls
+                            u_old = ds.solve_local(x)
+                        finally:
+                            cm._a2a = real
+                        tag = f"{engine}/{relayout}/{lbl}/{fold}"
+                        out["one_rank"][tag] = skipped + [
+                            counter.calls - n0, bool(torch.equal(u, u_old)),
+                            _maxerr(ds.gather_output(u), want)]
+    P = (BCType.PER, BCType.PER)
+    path = os.path.join(d, "plans.json")
+    kw = dict(mesh_shapes=((1, 1),), device="cpu", cache_path=path, reps=1)
+    census = {}
+    dec = search_plan((8,) * 3, 1.0, (P, P, P), census=census, **kw)
+    with open(path) as fh:
+        data = json.load(fh)
+    dec2 = search_plan((8,) * 3, 1.0, (P, P, P), **kw)
+    dec3 = search_plan((8,) * 3, 1.0, (P, P, P), dtype=torch.float64, **kw)
+    out["search"] = {
+        "point": dec.point.label(), "cached": dec.cached,
+        "census": {k: census[k] for k in ("space", "predicted",
+                                          "pruned_padding", "shortlist")},
+        "timed": sorted(census["timed"]), "failed": census["failed"],
+        "schema": data["schema"], "entries": len(data["entries"]),
+        "again": [dec2.cached, dec2.point == dec.point,
+                  dec2.census.get("cached")],
+        "f64_cached": dec3.cached}
+    return out
+
+
+def scenario_plan_four(rank, d, params):
+    """Four ranks: ``search_plan`` at (U,U,U) 8^3 over the meshes (2, 2),
+    (1, 4) and (4, 1) on the "cuda" engine's plain path (radix 4 and 2),
+    rank 0 alone writing the cache and a second call replaying it; the
+    slab meshes' census against the predictor."""
+    import torch
+    from repro_torch.core import comm as cm
+    from repro_torch.core.bc import BCType
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    from repro_torch.plan import predict_bytes
+    from repro_torch.plan import search as ps
+    U = (BCType.UNB, BCType.UNB)
+    path = os.path.join(d, "plans.json")
+    stores = []
+    real_store = ps.cache_store_entry
+
+    def store(*a, **kw):
+        stores.append(a[1])
+        return real_store(*a, **kw)
+
+    ps.cache_store_entry = store
+    try:
+        census = {}
+        dec = ps.search_plan((8,) * 3, 1.0, (U, U, U), device="cpu",
+                             cache_path=path, census=census, reps=1)
+        census2 = {}
+        dec2 = ps.search_plan((8,) * 3, 1.0, (U, U, U), device="cpu",
+                              cache_path=path, census=census2, reps=1)
+    finally:
+        ps.cache_store_entry = real_store
+    out = {"point": dec.point.label(), "seconds": dec.seconds,
+           "census": {k: census[k] for k in ("space", "predicted",
+                                             "pruned_padding", "shortlist")},
+           "timed": sorted(census["timed"]), "failed": census["failed"],
+           "stores": len(stores),
+           "again": [dec.cached, dec2.cached, dec2.point == dec.point]}
+    out["slabs"] = {}
+    for ms in ((1, 4), (4, 1)):
+        mesh = _mesh(ms, ("data", "model"))
+        ds = DistributedPoissonSolver((8,) * 3, 1.0, (U, U, U), mesh=mesh,
+                                      device="cpu")
+        with cm.collective_census() as c:
+            ds.solve_local(torch.zeros(ds.local_input_shape()))
+        out["slabs"][f"{ms[0]}x{ms[1]}"] = [
+            [e["bytes"] for e in c.per_collective],
+            predict_bytes(ds.plan, ms[0], ms[1], ds.dtype, ds.comm)]
+    return out
+
+
+def scenario_census(rank, d, params):
+    """Eight ranks: each predictor case of ``params["cases"]`` solved once
+    (``solve_local`` on a zero pencil) under ``collective_census()``,
+    with ``all_to_all_single`` counted."""
+    import torch
+    from repro_torch.core import comm as cm
+    from repro_torch.core.bc import DataLayout
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    meshes = {}
+    for case in params["cases"]:
+        ms = tuple(case["mesh"])
+        if ms not in meshes:
+            meshes[ms] = _mesh(ms, ("data", "model"))
+    out = {}
+    with _CountedA2A() as counter:
+        for case in params["cases"]:
+            n = case["n"]
+            ds = DistributedPoissonSolver(
+                (n,) * 3, 1.0, _bcs(case["bcs"]), DataLayout[case["layout"]],
+                mesh=meshes[tuple(case["mesh"])],
+                comm=CommConfig(*case["comm"]),
+                dtype=getattr(torch, case["dtype"]),
+                doubling=case["doubling"], relayout=case["relayout"],
+                order_policy=case["order"], device="cpu")
+            x = torch.zeros(ds.local_input_shape(case["batch"]),
+                            dtype=ds.dtype)
+            n0 = counter.calls
+            with cm.collective_census() as c:
+                ds.solve_local(x)
+            out[case["id"]] = {"bytes": [e["bytes"]
+                                         for e in c.per_collective],
+                               "issued": counter.calls - n0,
+                               "stats": c.stats()}
     return out
 
 

@@ -52,6 +52,18 @@ Phases (each raises on failure; nothing is caught):
      phases where a
      degradation is expected: every other solve asserts no degradation
      and no retry;
+  7b. ABFT on the card ("cuda" engine, float32, 256^3): (U,U,U) and
+     (E,E),(O,E),(P,P) clean under verify="abft" (the bits of
+     verify=None) and "abft-stages" (within 1e-5), no integrity record,
+     exact launches of both modes (the checked stages' one-row reference
+     rows, the Green multiply on spectral_scale), each mode's median
+     solve time beside verify=None and a profile; green_checksum at the
+     spectral block's shape; a count=1 flip at each of fwd.0-2, green
+     and bwd.0-2 under "abft-stages", each detected, attributed and
+     recomputed to within 1e-5 of the clean checked run; the two-phase
+     guard (count=2 at fwd.1 under "abft": two firings, solve.linearity,
+     then the recompute); a persistent flip at green raising SolveError
+     at verify.abft@green after the rungs engine, relayout, doubling;
   8. the pencil-distributed solve (DistributedPoissonSolver over a
      DeviceMesh, CELL, CHAT2, float32 unless marked): DIST1_UUU, (U,U,U)
      at 256^3 on a one-rank NCCL mesh (1, 1) -- the switches' relayouts
@@ -64,6 +76,10 @@ Phases (each raises on failure; nothing is caught):
      single-process "cuda" solve, and DIST1_NODE, NODE (U,U,U) n=64
      float64 (the Green multiply on spectral_scale) under a2a and
      overlap:2 within 1e-10, with exact launch counts and no degradation;
+     DIST1_UUU under verify="abft-stages" (a2a and overlap:2: clean,
+     the wire checks of both axes recorded, no collective issued) and
+     verify="abft" on "cuda" (the checked branch) and on "torch" (the
+     sandwich), with exact launches;
      each strategy's median solve_local beside the single-process solve,
      the memory a solve_local allocates above what is resident, its
      aten::copy_ count (and one switch's alone) and a profiled solve_local
@@ -84,6 +100,12 @@ Phases (each raises on failure; nothing is caught):
      every rank, every timed point's launches exact, a second call
      replayed from the cache; and the slab meshes' collective census,
      only the non-unit axis's two switches, with the predicted bytes;
+     DIST4_GLOO_ABFT, the assertions of the reference's distributed SDC
+     script on the four ranks, engine "torch", 128^3: (P,P,P) under a2a
+     and (U,P,U) under pipelined:2 with verify="abft" (clean bits, a
+     fwd.0 flip localized and repaired bit-exact, a wire flip caught by
+     the sandwich), a wire flip attributed to the wire under
+     "abft-stages", a persistent green flip raising SolveError;
   9. every kernel call of the recorded solves (the distributed ones,
      search_plan's radix-2 calls among them) replayed at its shape
      against the plain version, and times with CUDA events (medians after
@@ -188,6 +210,20 @@ EXPECTED = {
     # the runtime phase's clean (P,P,P) 256^3 solves: the PPP pattern
     "GET_SOLVER": {"fft_stockham": 5, "fft_stockham_scale": 1},
     "VERIFY_PPP": {"fft_stockham": 5, "fft_stockham_scale": 1},
+    # ABFT, clean solves at 256^3.  verify="abft" runs the verify-off
+    # kernels (the sandwich is three dot products).  verify="abft-stages"
+    # checks every stage: each transform's one-row reference row is one
+    # more call of its kernel (a parity-split pruned inverse: 2), and the
+    # last forward FFT is not fused, so the Green multiply moves from
+    # fft_stockham_scale to spectral_scale.  (U,U,U): 3 x (1 + 1)
+    # forwards + 3 x (2 + 2) inverses = 18.  (E,E),(O,E),(P,P): the
+    # DCT-II twiddle and the DCT-IV / periodic FFTs twice each
+    "ABFT_UUU/abft": {"fft_stockham": 8, "fft_stockham_scale": 1},
+    "ABFT_UUU/abft-stages": {"fft_stockham": 18, "spectral_scale": 1},
+    "ABFT_EOP/abft": {"fft_stockham": 4, "fft_stockham_scale": 1,
+                      "fft_stockham_twiddle": 1},
+    "ABFT_EOP/abft-stages": {"fft_stockham": 10, "spectral_scale": 1,
+                             "fft_stockham_twiddle": 2},
     # the distributed phase runs the same kernels on each rank's pencil:
     # the single-process counts per rank, except that overlap:2 runs the
     # transform after each switch once per chunk (the last forward one
@@ -206,6 +242,17 @@ EXPECTED = {
     # transforms run once per chunk
     "DIST1_NODE/a2a:1": {"fft_stockham": 6, "spectral_scale": 1},
     "DIST1_NODE/overlap:2": {"fft_stockham": 10, "spectral_scale": 1},
+    # the checked distributed solve: ABFT_UUU/abft-stages on the pencil;
+    # under overlap:2 the four chunked stages' transforms and their
+    # reference rows once per chunk, 3 + 5 x 2 = 13 calls doubled, 4 more
+    # for the unfused last forward and its row.  verify="abft" on the
+    # "cuda" engine runs the checked pipeline (no sandwich weight); on
+    # "torch" the sandwich, with no hand kernel
+    "DIST1_UUU/abft-stages/a2a:1": {"fft_stockham": 18, "spectral_scale": 1},
+    "DIST1_UUU/abft-stages/overlap:2": {"fft_stockham": 30,
+                                        "spectral_scale": 1},
+    "DIST1_UUU/abft/cuda": {"fft_stockham": 18, "spectral_scale": 1},
+    "DIST1_UUU/abft/torch": {},
     # four gloo ranks: summed over the ranks, each the one-rank count
     "DIST4_GLOO_UUU/a2a:1": {"fft_stockham": 32, "fft_stockham_scale": 4},
     "DIST4_GLOO_UUU/pipelined:2": {"fft_stockham": 32,
@@ -249,10 +296,12 @@ TIMED_ON = {"fft_stockham": "UUU", "fft_stockham_scale": "UUU",
             "spectral_scale": "NODE_UUU", "twiddle_pack": "SYM384",
             "fft_stockham_twiddle": "SEMI_E"}
 # further runs whose calls are timed and printed (not in the record): the
-# other spectral_scale shapes, and the two-pass calls
-ALSO_TIMED = {"spectral_scale": ("SYM384", "BS_UUU"),
-              "fft_stockham": ("LONG_UUU", "LONG_SEMI"),
-              "fft_stockham_twiddle": ("LONG_SEMI",)}
+# other spectral_scale shapes (the checked (U,U,U) solve's among them),
+# the two-pass calls, and the checked stages' one-row reference rows
+ALSO_TIMED = {"spectral_scale": ("SYM384", "BS_UUU", "ABFT_UUU/abft-stages"),
+              "fft_stockham": ("LONG_UUU", "LONG_SEMI",
+                               "ABFT_UUU/abft-stages"),
+              "fft_stockham_twiddle": ("LONG_SEMI", "ABFT_EOP/abft-stages")}
 # a kernel under SHORT_MS per call is timed as LOOP back-to-back calls
 SHORT_MS = 0.1
 LOOP = 50
@@ -525,6 +574,7 @@ def _dist4_rank(rank, world, d):
             raise AssertionError(f"slab mesh {ms}: census {got}, predicted "
                                  f"{want}")
         out["slabs"][f"{ms[0]}x{ms[1]}"] = got
+    out["abft"] = _dist4_abft(rank, dev, f4, n4)
     for run, res in out["runs"].items():
         if res["rel"] > 1e-5:
             raise AssertionError(f"{run}: rank {rank} relative max |diff| "
@@ -533,6 +583,99 @@ def _dist4_rank(rank, world, d):
         pickle.dump(out, fh)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _dist4_abft(rank, dev, f, n):
+    """The assertions of the reference's distributed SDC script
+    (``tests/test_abft.py``) on the four gloo ranks, mesh (2, 2), float32,
+    engine "torch" (the script's "xla"): (P,P,P) under a2a and (U,P,U)
+    under pipelined:2 with verify="abft" -- the clean guard gives the
+    verify-off bits, a count=2 flip at fwd.0 is localized and repaired to
+    those bits, a wire flip trips the sandwich and the re-dispatch comes
+    back clean -- then under "abft-stages" a wire flip attributed to the
+    wire, and a persistent flip at green raising SolveError.  Raises on
+    the first failed assertion; returns what it saw."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.bc import BCType
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    from repro_torch.runtime import SolveError, faults
+    t0 = time.perf_counter()
+    mesh = init_device_mesh(dev.type, (2, 2),
+                            mesh_dim_names=("data", "model"))
+    P, U = (BCType.PER, BCType.PER), (BCType.UNB, BCType.UNB)
+    kw = dict(mesh=mesh, engine="torch", device=dev)
+    seen = {}
+
+    def check(what, ok, detail):
+        if not ok:
+            raise AssertionError(f"DIST4_GLOO_ABFT {what}: rank {rank}: "
+                                 f"{detail}")
+
+    for tag, bcs, comm in (("PPP/a2a:1", (P, P, P), CommConfig("a2a")),
+                           ("UPU/pipelined:2", (U, P, U),
+                            CommConfig("pipelined", 2))):
+        s = DistributedPoissonSolver((n,) * 3, 1.0, bcs, comm=comm,
+                                     verify="abft", **kw)
+        want = s.solve(f)
+        off = DistributedPoissonSolver((n,) * 3, 1.0, bcs, comm=comm,
+                                       _green_cache=s._green_raw, **kw)
+        check(f"{tag} clean", torch.equal(want, off.solve(f))
+              and not s.stats.get("integrity"), s.stats)
+        with faults.FaultPlan([dict(kind="flip", stage="fwd.0",
+                                    count=2)]) as plan:
+            got = s.solve(f)
+        recs = s.stats["integrity"]
+        check(f"{tag} fwd.0", len(plan.log) == 2
+              and recs[0]["stage"] == "solve.linearity"
+              and recs[0]["action"] == "localize"
+              and any(r["stage"].split("#")[0] == "fwd.0"
+                      and r["action"] == "recompute" for r in recs[1:])
+              and torch.equal(got, want) and not s.stats["degradations"],
+              (plan.log, recs, s.stats["degradations"]))
+        stages = [(r["stage"], r["action"]) for r in recs]
+        s.stats["integrity"] = []
+        with faults.FaultPlan([dict(kind="flip", stage="comm.wire.*",
+                                    count=1)]) as plan:
+            got = s.solve(f)
+        check(f"{tag} wire", plan.log and any(
+            r["stage"] == "solve.linearity" for r in s.stats["integrity"])
+            and torch.equal(got, want), (plan.log, s.stats["integrity"]))
+        seen[tag] = {"fwd.0": stages, "wire": [
+            (r["stage"], r["action"]) for r in s.stats["integrity"]]}
+    s = DistributedPoissonSolver((n,) * 3, 1.0, (P, P, P),
+                                 comm=CommConfig("a2a"),
+                                 verify="abft-stages", **kw)
+    want = s.solve(f)
+    scale = want.abs().max().item()
+    with faults.FaultPlan([dict(kind="flip", stage="comm.wire.*",
+                                count=1)]) as plan:
+        got = s.solve(f)
+    wire = [r for r in s.stats["integrity"] if r["kind"] == "wire"]
+    err = (got - want).abs().max().item()
+    check("abft-stages wire", plan.log and wire
+          and all(r["stage"].startswith("wire.") for r in wire)
+          and err <= 1e-5 * scale, (plan.log, s.stats["integrity"], err))
+    seen["stages/wire"] = [(r["stage"], r["kind"], r["action"])
+                           for r in s.stats["integrity"]]
+    s = DistributedPoissonSolver((n,) * 3, 1.0, (P, P, P),
+                                 comm=CommConfig("a2a"),
+                                 verify="abft-stages",
+                                 _green_cache=s._green_raw, **kw)
+    try:
+        with faults.FaultPlan([dict(kind="flip", stage="green",
+                                    count=-1)]):
+            s.solve(f)
+        raised = None
+    except SolveError as e:
+        raised = e
+    check("persistent green", raised is not None
+          and raised.stage == "verify.abft@green", repr(raised))
+    seen["persistent"] = [raised.stage,
+                          [r["action"] for r in raised.degradations]]
+    seen["wall_s"] = time.perf_counter() - t0
+    return seen
 
 
 def _rate(table, name, default):
@@ -1236,6 +1379,140 @@ def main() -> int:
               f"x{sum(c for _, c in fft)}; aten::copy_ x{n_copy}; {top}")
         return agg
 
+    # -- 7b. ABFT: checked stages and the Freivalds sandwich ---------------
+    t0 = time.perf_counter()
+    sp_uuu, _, f_uuu = solvers[f"UUU n={N}"]
+    s_eop = PoissonSolver((N,) * 3, 1.0, ((E, E), (O, E), P),
+                          engine="cuda", device=dev)
+    f_eop = torch.from_numpy(rng.standard_normal(s_eop.input_shape).astype(
+        np.float32)).to(dev)
+    abft_ms = {}
+    for case, s, f in (("UUU", sp_uuu, f_uuu), ("EOP", s_eop, f_eop)):
+        u_off = s.solve(f)
+        t1 = time.perf_counter()
+        s._lite_pair(f.shape, f.dtype)       # the plan-time weight w
+        sync()
+        t_w = time.perf_counter() - t1
+        u_ab, c_ab = run_counted(f"ABFT_{case}/abft",
+                                 lambda: s.solve(f, verify="abft"))
+        if not torch.equal(u_ab, u_off):
+            raise AssertionError(f"ABFT_{case}: verify='abft' changed the "
+                                 "bits of verify=None")
+        u_st, c_st = run_counted(f"ABFT_{case}/abft-stages",
+                                 lambda: s.solve(f, verify="abft-stages"))
+        rel = close(f"ABFT_{case} abft-stages against verify=None", u_st,
+                    u_off)
+        clean(f"ABFT_{case}", s)
+        if s.stats.get("integrity") or s.stats["verify_failures"]:
+            raise AssertionError(f"ABFT_{case} clean: {s.stats}")
+        t_off = time_ms(lambda: s.solve(f))
+        t_ab = time_ms(lambda: s.solve(f, verify="abft"))
+        t_st = time_ms(lambda: s.solve(f, verify="abft-stages"))
+        abft_ms[case] = (t_off, t_ab, t_st)
+        if s.stats.get("integrity") or s.stats["verify_failures"]:
+            raise AssertionError(f"ABFT_{case} timed solves: {s.stats}")
+        print(f"ABFT_{case} n={N} float32 cuda: w = S^T r built in "
+              f"{t_w:.2f} s; verify='abft' the bits of verify=None, "
+              f"launches { {k: v for k, v in c_ab.items() if v} }; "
+              f"'abft-stages' within {rel:.3e}, launches "
+              f"{ {k: v for k, v in c_st.items() if v} }; no integrity "
+              f"record; median of {REPS} solves: off {t_off:.3f} ms, abft "
+              f"{t_ab:.3f} ms ({t_ab - t_off:+.3f} ms, "
+              f"{(t_ab / t_off - 1):+.1%}), abft-stages {t_st:.3f} ms "
+              f"({t_st - t_off:+.3f} ms, {(t_st / t_off - 1):+.1%}); card: "
+              f"{smi}")
+    where_the_time_goes("ABFT_UUU abft-stages",
+                        lambda: sp_uuu.solve(f_uuu, verify="abft-stages"),
+                        abft_ms["UUU"][2])
+    where_the_time_goes("ABFT_UUU abft",
+                        lambda: sp_uuu.solve(f_uuu, verify="abft"),
+                        abft_ms["UUU"][1])
+    # the Green invariant's reference side at the spectral block's shape,
+    # against the product block summed
+    g_sp = sp_uuu._green_as(torch.float32)
+    fh = randn(tuple(g_sp.shape), torch.complex64)
+    got, want = ops.green_checksum(fh, g_sp), (fh * g_sp).sum()
+    gc_rel = (abs(got - want) / (fh.abs() * g_sp).sum()).item()
+    t_gc = time_ms(lambda: ops.green_checksum(fh, g_sp), ahead=True)
+    t_gp = time_ms(lambda: (fh * g_sp).sum(), ahead=True)
+    nb = fh.numel() * fh.element_size() + g_sp.numel() * 4
+    print(f"green_checksum at {tuple(fh.shape)} complex64: {t_gc:.4f} ms "
+          f"(product-then-sum {t_gp:.4f} ms; bytes bound "
+          f"{1e3 * nb / hbm:.4f} ms for {nb / 2 ** 20:.1f} MiB), "
+          f"relative difference {gc_rel:.2e}")
+    if gc_rel > 1e-5:
+        raise AssertionError(f"green_checksum: {gc_rel:.3e}")
+    del fh, g_sp
+    # the detection matrix: one flip (count=1) per stage under
+    # "abft-stages", each detected, attributed to its stage and repaired
+    # to the clean checked run, with no degradation
+    want = sp_uuu.solve(f_uuu, verify="abft-stages")
+    scale = want.abs().max().item()
+    found = []
+    for st in ("fwd.0", "fwd.1", "fwd.2", "green", "bwd.0", "bwd.1",
+               "bwd.2"):
+        n0 = len(sp_uuu.stats.get("integrity", []))
+        with faults.FaultPlan([dict(kind="flip", stage=st,
+                                    count=1)]) as plan:
+            got = sp_uuu.solve(f_uuu, verify="abft-stages")
+        recs = sp_uuu.stats["integrity"][n0:]
+        err = (got - want).abs().max().item()
+        if (len(plan.log) != 1 or not recs
+                or any(r["stage"].split("#")[0] != st
+                       or r["action"] != "recompute" for r in recs)
+                or err > 1e-5 * scale):
+            raise AssertionError(f"ABFT flip at {st}: fired {plan.log}, "
+                                 f"records {recs}, err {err:.3e}")
+        found.append(f"{st} {recs[0]['mismatch']:.2e}")
+    clean("ABFT detection matrix", sp_uuu)
+    print(f"ABFT_UUU detection matrix (count=1 flips, abft-stages): each "
+          f"detected, attributed and recomputed, within 1e-5 of the clean "
+          f"checked run; mismatch at the flip: {', '.join(found)}")
+    # the two-phase guard: count=2 at fwd.1 under "abft" trips the
+    # sandwich (hit 1); the checked re-dispatch localizes it (hit 2)
+    n0 = len(sp_uuu.stats["integrity"])
+    vf = sp_uuu.stats["verify_failures"]
+    with faults.FaultPlan([dict(kind="flip", stage="fwd.1",
+                                count=2)]) as plan:
+        got = sp_uuu.solve(f_uuu, verify="abft")
+    recs = sp_uuu.stats["integrity"][n0:]
+    err = (got - want).abs().max().item()
+    if (len(plan.log) != 2 or recs[0]["stage"] != "solve.linearity"
+            or recs[0]["action"] != "localize"
+            or not any(r["stage"].split("#")[0] == "fwd.1"
+                       and r["action"] == "recompute" for r in recs[1:])
+            or sp_uuu.stats["verify_failures"] != vf + 1
+            or err > 1e-5 * scale):
+        raise AssertionError(f"ABFT two-phase: fired {plan.log}, records "
+                             f"{recs}, err {err:.3e}")
+    clean("ABFT two-phase", sp_uuu)
+    print(f"ABFT_UUU two-phase guard: plan.log {len(plan.log)}, records "
+          f"{[(r['stage'], r['action']) for r in recs]}, sandwich mismatch "
+          f"{recs[0]['mismatch']:.3e} (tol {recs[0]['tol']:.1e})")
+    # persistent corruption: count=-1 at green survives every recompute
+    # and every rung
+    sp = PoissonSolver((N,) * 3, 1.0, (U, U, U), engine="cuda", device=dev,
+                       green=sp_uuu._green_nat, verify="abft-stages")
+    with faults.FaultPlan([dict(kind="flip", stage="green", count=-1)]):
+        try:
+            sp.solve(f_uuu)
+            raised = None
+        except SolveError as e:
+            raised = e
+    trail = [] if raised is None else [d["action"]
+                                       for d in raised.degradations]
+    if (raised is None or raised.stage != "verify.abft@green"
+            or trail != ["engine:cuda->torch",
+                         "relayout:scheduled->baseline",
+                         "doubling:deferred->upfront"]):
+        raise AssertionError(f"ABFT persistent: raised {raised!r}, trail "
+                             f"{trail}")
+    print(f"ABFT_UUU persistent flip at green: SolveError at "
+          f"{raised.stage!r}, trail {trail}")
+    del sp, s_eop, f_eop, want, got, u_off, u_ab, u_st
+    clear_solver_cache()
+    print(f"ABFT phase: {time.perf_counter() - t0:.1f} s")
+
     # -- 8. the distributed solve --------------------------------------------
     # DIST1: a one-rank NCCL mesh, the whole distributed pipeline (pack,
     # collective, unpack, the kernels on every pencil) at full size
@@ -1382,8 +1659,57 @@ def main() -> int:
                   f"launches {dist_launches[run]}, relative max |diff| "
                   f"{rel:.3e} from the single-process solve")
             del ds, u
+    # ABFT on the one-rank mesh: the checked pipeline (every switch with
+    # its wire check, over one-rank axes no collective), and
+    # verify="abft" on both engines
+    u_ref = sp_uuu.solve(f_uuu)
+    for lbl in ("a2a:1", "overlap:2"):
+        run = f"DIST1_UUU/abft-stages/{lbl}"
+        ds = DistributedPoissonSolver(
+            (N,) * 3, 1.0, (U, U, U), mesh=mesh1, comm=label_to_cfg(lbl),
+            device=dev, verify="abft-stages",
+            _green_cache=sp_uuu._green_nat)
+        with collective_census() as cc:
+            u, counts = run_counted(run, lambda: ds.solve(f_uuu))
+        clean(run, ds)
+        rel = close(f"{run} against the single-process solve", u, u_ref)
+        names = ds.abft_jit_for()[1]
+        wires = sorted({n.split("#")[0] for n in names
+                        if n.startswith("wire.")})
+        if (wires != ["wire.data", "wire.model"] or cc.per_collective
+                or ds.stats.get("integrity")):
+            raise AssertionError(f"{run}: wire checks {wires}, census "
+                                 f"{cc.per_collective}, records "
+                                 f"{ds.stats.get('integrity')}")
+        dist_launches[run] = {k: v for k, v in counts.items() if v}
+        t_st = time_ms(lambda: ds.solve(f_uuu))
+        print(f"  {run}: launches {dist_launches[run]}, relative max "
+              f"|diff| {rel:.3e}; {len(names)} checks, "
+              f"{sum(n.startswith('wire.') for n in names)} of them wire "
+              f"({', '.join(wires)}), collectives issued 0 (census); solve "
+              f"{t_st:.3f} ms")
+        del ds, u
+    for eng in ("cuda", "torch"):
+        run = f"DIST1_UUU/abft/{eng}"
+        ds = DistributedPoissonSolver(
+            (N,) * 3, 1.0, (U, U, U), mesh=mesh1, engine=eng, device=dev,
+            verify="abft", _green_cache=sp_uuu._green_nat)
+        branch = "checked" if ds._lite_pair() is None else "sandwich"
+        if branch != {"cuda": "checked", "torch": "sandwich"}[eng]:
+            raise AssertionError(f"{run}: the {branch} branch")
+        u, counts = run_counted(run, lambda: ds.solve(f_uuu))
+        clean(run, ds)
+        rel = close(f"{run} against the single-process solve", u, u_ref)
+        if ds.stats.get("integrity") or ds.stats["verify_failures"]:
+            raise AssertionError(f"{run}: {ds.stats}")
+        dist_launches[run] = {k: v for k, v in counts.items() if v}
+        t_ab = time_ms(lambda: ds.solve(f_uuu))
+        print(f"  {run}: the {branch} branch ran; launches "
+              f"{dist_launches[run]}, relative max |diff| {rel:.3e}; solve "
+              f"{t_ab:.3f} ms")
+        del ds, u
     dist.destroy_process_group()
-    del sp_semi, f_semi, sp_node, f_node, u_sp
+    del sp_semi, f_semi, sp_node, f_node, u_sp, u_ref
 
     # DIST4: four gloo ranks on the one card (NCCL refuses two ranks on one
     # device); gloo stages CUDA tensors through the host, so these runs
@@ -1499,6 +1825,14 @@ def main() -> int:
                                                    key=lambda kv: kv[1])))
     print("  slab meshes' census (send bytes per collective, as predicted): "
           + "; ".join(f"{k}: {v}" for k, v in ranks[0]["slabs"].items()))
+    ab = ranks[0]["abft"]
+    if any(res["abft"]["persistent"] != ab["persistent"] for res in ranks):
+        raise AssertionError("DIST4_GLOO_ABFT: the ranks' escalations "
+                             "differ")
+    print(f"  DIST4_GLOO_ABFT (reference SDC script, mesh (2, 2), n={n4} "
+          f"float32, engine torch) passed on every rank in "
+          f"{max(r['abft']['wall_s'] for r in ranks):.1f} s: "
+          + "; ".join(f"{k}: {v}" for k, v in ab.items() if k != "wall_s"))
     for res in ranks:
         for key, c in res["calls"].items():
             calls[key] = calls.get(key, 0) + c
@@ -1558,7 +1892,8 @@ def main() -> int:
             flops = x.shape[0] * 5 * nf * math.log2(nf)
         count = counts.get(TIMED_ON[kname])
         also = [r for r in ALSO_TIMED.get(kname, ()) if r in counts
-                and (kname == "spectral_scale" or nf > ONE_PASS_N)]
+                and (kname == "spectral_scale" or nf > ONE_PASS_N
+                     or x.shape[0] == 1)]
         if count is None and not also:
             continue
         library = library_call(kname, x, targs, kw, nf)

@@ -50,6 +50,15 @@ and the overlap they make:
                    orders the current stream after it, so the kernels of
                    chunk k overlap chunk k+1's wire time.
 
+With ``abft=(collector, tol)`` (DESIGN.md #13) every collective ships a
+checksum sidecar: one reduction per destination rank over the prepared
+payload, computed before the ``comm.wire.<strategy>`` fault hook (the
+window a link flip occupies), a second ``all_to_all_single`` of the
+length-P checksum row over the same group, and the receive side's
+re-reduction of each source rank's block, recorded as ``wire.<axis>``
+once the payload has landed.  Over a one-rank axis the row is its own
+receipt (no collective), and the check still runs.
+
 ``autotune_comm`` times candidate (strategy, n_chunks, fold) triples and
 caches the winner in memory and in the reference's schema-2 JSON file
 (``$REPRO_COMM_CACHE``).  Ranks decide alone in torch, and ranks that
@@ -58,9 +67,6 @@ max-reduction over the mesh) every candidate's time and failure flag is
 reduced across ranks before the choice, and the budget is applied after
 each timed candidate by the same agreement: a collective in flight is
 never abandoned.  Only the rank told to ``persist`` writes the JSON file.
-
-Not ported here: the ABFT checksum sidecar (``abft=``, ROADMAP queue 1
-item 6), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from repro_torch.runtime import abft as _abft
 from repro_torch.runtime import faults as _faults
 
 STRATEGIES = ("a2a", "pipelined", "fused", "overlap")
@@ -209,7 +216,8 @@ class CollectiveCensus:
     """The collectives the comm layer issued on this rank while the census
     was open, in program order: one ``{"op", "bytes"}`` entry per
     ``all_to_all_single``, its bytes those of the send buffer (the operand
-    the reference's HLO census bills)."""
+    the reference's HLO census bills).  An ABFT checksum sidecar is an
+    entry of its own, marked ``"sidecar": True``."""
 
     def __init__(self):
         self.per_collective = []
@@ -245,6 +253,47 @@ def _wait(work):
     """Wait on a collective's handle (None: nothing is in flight)."""
     if work is not None:
         work.wait()
+
+
+def _record(send, **extra):
+    for census in _CENSUSES:
+        census.per_collective.append(
+            {"op": "all-to-all", "bytes": send.numel() * send.element_size(),
+             **extra})
+
+
+class _Sidecar:
+    """The ABFT checksum sidecar of one collective: issues the length-P
+    checksum row ``cs`` over the payload's group, and on ``wait()`` waits
+    for the payload (``work``) and the row, then checks each received
+    block of ``blocked`` (the source rank's axis at ``axis``) against the
+    row received, into the collector slot reserved at issue time."""
+
+    def __init__(self, abft, name, blocked, axis, cs, group, p, work,
+                 async_op):
+        col, self.tol = abft
+        self.col = col
+        self.slot = col.slot(col.unique(name))
+        self.blocked, self.axis, self.p = blocked, axis, p
+        self.work = work
+        if p == 1:
+            # the identity exchange: the row is its own receipt
+            self.cs_recv, self.cs_work = cs, None
+            return
+        send = (torch.view_as_real(cs) if cs.is_complex() else cs)
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        _record(send, sidecar=True)
+        self.cs_work = dist.all_to_all_single(recv, send, group=group,
+                                              async_op=async_op)
+        self.cs_recv = torch.view_as_complex(recv) if cs.is_complex() \
+            else recv
+
+    def wait(self):
+        _wait(self.work)
+        _wait(self.cs_work)
+        self.col.fill(self.slot, _abft._wire_mismatch(
+            self.blocked, self.cs_recv, self.axis, self.p))
 
 
 def _a2a(x, group, p: int, split_axis: int, concat_axis: int,
@@ -290,9 +339,7 @@ def _a2a(x, group, p: int, split_axis: int, concat_axis: int,
     else:
         send = xs.movedim(s, 0).contiguous()
     recv = torch.empty_like(send)
-    for census in _CENSUSES:
-        census.per_collective.append(
-            {"op": "all-to-all", "bytes": send.numel() * send.element_size()})
+    _record(send)
     work = dist.all_to_all_single(recv, send, group=group,
                                   async_op=async_op)
     if not view:
@@ -320,6 +367,8 @@ class CommStrategy:
     solver passes ``mesh.get_group(name)`` for every axis); the rank
     order inside a group must be the mesh coordinate along that axis.
     ``axis_sizes`` ({axis name: size}) enables the ``valid_extent`` re-pad.
+    ``abft``: ``(collector, tol)`` of a checked solve, or None: every
+    collective then carries its checksum sidecar (module docstring).
 
     ``chunk_axis`` (stage/switch keyword) is a PREFERRED chunk axis for the
     chunked strategies -- the batched multi-RHS solve passes its leading
@@ -341,27 +390,39 @@ class CommStrategy:
 
     def __init__(self, n_chunks: int = 1, axis_sizes=None,
                  fold: str = "pack", abft=None, groups=None):
-        if abft is not None:
-            raise NotImplementedError(
-                "the ABFT checksum sidecar needs runtime/abft.py, not "
-                "ported yet (ROADMAP queue 1 item 6)")
         self.n_chunks = max(int(n_chunks), 1)
         self.axis_sizes = dict(axis_sizes or {})
         assert fold in FOLDS, fold
         self.fold = fold
-        self.abft = None
+        self.abft = abft
         self.groups = dict(groups or {})
 
     def _collective(self, x, axis_name, split_axis, concat_axis,
                     async_op: bool = False, view: bool = False):
         """One tiled all-to-all over ``axis_name``'s group (see ``_a2a``
-        for what it returns).  The wire fault hook sits just before the
-        exchange."""
+        for what it returns), with its checksum sidecar under ``abft``
+        (then the handle returned waits for both and checks the blocks;
+        a synchronous call is checked before it returns).  The wire fault
+        hook sits between the sender's checksums and the exchange."""
         group = self.groups[axis_name]
+        p = dist.get_world_size(group)
+        cs = None
+        if self.abft is not None:
+            cs = _abft.wire_checksums(x, split_axis, p)
         if _faults.armed():
             x = _faults.taint(f"comm.wire.{self.name}", x)
-        return _a2a(x, group, dist.get_world_size(group), split_axis,
-                    concat_axis, async_op=async_op, view=view)
+        y, work = _a2a(x, group, p, split_axis, concat_axis,
+                       async_op=async_op, view=view)
+        if cs is None:
+            return y, work
+        c = concat_axis % x.ndim
+        blocked = y.unflatten(c, (p, y.shape[c] // p)) if view else y
+        side = _Sidecar(self.abft, f"wire.{axis_name}", blocked, c, cs,
+                        group, p, work, async_op)
+        if async_op:
+            return y, side
+        side.wait()
+        return y, None
 
     @staticmethod
     def _permute(x, permute):

@@ -45,6 +45,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.runtime import abft as _abft
 from repro_torch.runtime import faults as _faults
 
 __all__ = ["TransformEngine", "TransformSchedule", "LayoutSchedule",
@@ -310,28 +311,44 @@ class TransformSchedule:
     order: tuple = ()    # the plan's forward execution order
     layouts: LayoutSchedule = None   # per-stage axis permutations
 
-    def fwd_chunk(self, x, d: int):
+    # Every stage takes an optional ABFT collector (DESIGN.md #13): with
+    # ``col=None`` (the default everywhere) the plain stage runs and no
+    # checksum is computed, so the verify-off pipelines are unchanged.
+    # With a collector the stage runs under its linearity / Parseval
+    # sandwich with selective recompute (``repro_torch.runtime.abft``).
+
+    def fwd_chunk(self, x, d: int, col=None, tol=None):
         """Forward 1-D transform of logical direction ``d`` in NATURAL
         layout (moveaxis round trip -- the baseline pipeline)."""
+        if col is not None:
+            return _abft.checked_fwd_chunk(x, d, self, col, tol)
         return fwd_1d(x, self.dirs[d], self)
 
-    def bwd_chunk(self, x, d: int):
+    def bwd_chunk(self, x, d: int, col=None, tol=None):
         """Inverse 1-D transform of logical direction ``d``."""
+        if col is not None:
+            return _abft.checked_bwd_chunk(x, d, self, col, tol)
         return bwd_1d(x, self.dirs[d], self)
 
-    def fwd_last(self, x, d: int):
+    def fwd_last(self, x, d: int, col=None, tol=None):
         """Forward 1-D transform of direction ``d`` on the LAST axis (the
         scheduled pipeline guarantees the active axis is minor-most)."""
+        if col is not None:
+            return _abft.checked_fwd_last(x, d, self, col, tol)
         return _fwd_last(x, self.dirs[d], self)
 
-    def bwd_last(self, x, d: int):
+    def bwd_last(self, x, d: int, col=None, tol=None):
         """Inverse 1-D transform of direction ``d`` on the LAST axis."""
+        if col is not None:
+            return _abft.checked_bwd_last(x, d, self, col, tol)
         return _bwd_last(x, self.dirs[d], self)
 
-    def green_multiply(self, yhat, green):
+    def green_multiply(self, yhat, green, col=None, tol=None):
         """The fused pointwise pass (Green x normalization in one multiply).
         ``green`` is real, of the field's precision, in the field's layout
         without its batch axes."""
+        if col is not None:
+            return _abft.checked_green(yhat, green, self, col, tol)
         if _faults.armed():
             yhat = _faults.taint("green", yhat)
             if self.engine.use_cuda:
@@ -356,13 +373,18 @@ class TransformSchedule:
                 and not p.flip and p.in_start == 0
                 and (p.n_in == n or n == 2 * p.n_in))
 
-    def fwd_last_green(self, x, d: int, green):
+    def fwd_last_green(self, x, d: int, green, col=None, tol=None):
         """Forward transform of the LAST forward direction fused with the
         Green multiply: on the cuda engine the multiply runs in the FFT
         kernel's epilogue (one HBM round trip for transform + pointwise);
         anywhere else it is the plain transform followed by
         ``green_multiply``.  ``green`` must be in the same layout as ``x``
         with the spectral ``d`` axis minor-most."""
+        if col is not None:
+            # the checksum sandwich needs the spectral field BEFORE the
+            # Green multiply, so checking bypasses the fused epilogue
+            return self.green_multiply(self.fwd_last(x, d, col, tol), green,
+                                       col, tol)
         p = self.dirs[d]
         want_cplx = p.dft == "c2c"
         if not self.can_fuse_green(d) or x.is_complex() != want_cplx:

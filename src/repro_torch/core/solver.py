@@ -28,7 +28,7 @@ import numpy as np
 import scipy.fft as sfft
 import torch
 
-from repro_torch.runtime import faults, health, resilience
+from repro_torch.runtime import abft, faults, health, resilience
 
 from .bc import BCType, DataLayout, DirBC, TransformKind, r2r_kind
 from . import transforms as tr
@@ -377,6 +377,41 @@ def build_green(plan: PoissonPlan) -> np.ndarray:
 # solver
 # ---------------------------------------------------------------------------
 
+def lite_reference_impl(plan, green_nat, device):
+    """``f -> u``: the baseline pipeline of ``plan`` on the ``"torch"``
+    engine with the natural-layout float64 Green's function ``green_nat``
+    (numpy) on ``device``: the differentiable linear operator the ABFT
+    sandwich weight is built through."""
+    sched = build_schedule(plan, as_engine("torch"))
+    green = torch.from_numpy(np.ascontiguousarray(green_nat)).to(device)
+
+    def impl(f):
+        g = green.to(f.dtype)
+        y = materialize_doubling(f, plan.dirs)
+        for d in plan.order:
+            y = sched.fwd_chunk(y, d)
+        y = sched.green_multiply(y, g)
+        for d in reversed(plan.order):
+            y = sched.bwd_chunk(y, d)
+        if y.is_complex():
+            y = y.real
+        return crop_doubling(y, plan.dirs).to(f.dtype)
+
+    return impl
+
+
+def lite_weight(impl, r):
+    """``w = S^T r`` for the linear solve ``impl`` and the cotangent ``r``
+    (a tensor of the input's shape, dtype and device): one
+    vector-Jacobian product by autograd, under fault suppression so an
+    armed plan cannot poison the reference side."""
+    with faults.suppressed(), torch.enable_grad():
+        x0 = torch.zeros(r.shape, dtype=r.dtype, device=r.device,
+                         requires_grad=True)
+        (w,) = torch.autograd.grad(impl(x0), x0, grad_outputs=r)
+    return w.detach().contiguous()
+
+
 def _resolve_device(device) -> torch.device:
     """The solver's device: the card unless the caller names another.
     With no card present and no device named, raise -- never run on the
@@ -404,16 +439,12 @@ def _check_kernel_lengths(plan):
                 f"kernel takes at most {MAX_N} points: use engine='torch'")
 
 
-VERIFY_MODES = (None, "nan", "residual")
+VERIFY_MODES = (None, "nan", "residual", "abft", "abft-stages")
 
 
 def _check_verify(verify):
-    """Accept the ported health-guard modes; the reference's ABFT modes
-    raise (they must never run unchecked)."""
-    if verify in ("abft", "abft-stages"):
-        raise NotImplementedError(
-            f"verify={verify!r} needs runtime/abft.py, not ported yet "
-            "(ROADMAP queue 1 item 6)")
+    """Accept the health-guard modes ("nan", "residual") and the ABFT
+    modes ("abft", "abft-stages")."""
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                          f"got {verify!r}")
@@ -450,29 +481,28 @@ class PoissonSolver:
     non-finite values, raises ``SolveError`` and never hides behind
     cuFFT.  ``verify`` ("nan" | "residual", default off) arms the
     numerical health guards on every solve; a tripped guard walks the
-    same ladder.  The reference's ABFT modes ("abft", "abft-stages") and
-    its ``abft_rtol`` are not ported yet and raise
-    ``NotImplementedError``.
+    same ladder.  ``verify="abft"`` / ``"abft-stages"`` arm the
+    algorithm-based fault tolerance of ``repro_torch.runtime.abft`` (see
+    ``solve``); ``abft_rtol`` is its checksum tolerance, 0.0 meaning
+    ``abft.tol_for`` of the data dtype.
     """
 
     def __init__(self, shape, L, bcs, layout=DataLayout.CELL,
                  green_kind=gr.GreenKind.CHAT2, eps_factor=2.0,
                  engine="cuda", doubling="deferred", relayout="scheduled",
                  order_policy="layout", device=None, green=None,
-                 verify=None, verify_rtol=0.5, abft_rtol=None):
+                 verify=None, verify_rtol=0.5, abft_rtol=0.0):
         if relayout not in RELAYOUT_MODES:
             raise ValueError(f"relayout must be one of {RELAYOUT_MODES}")
         _check_verify(verify)
-        if abft_rtol is not None:
-            raise NotImplementedError(
-                "abft_rtol needs runtime/abft.py, not ported yet (ROADMAP "
-                "queue 1 item 6)")
         self.device = _resolve_device(device)
         self._base = dict(shape=tuple(shape), L=L, bcs=bcs, layout=layout,
                           green_kind=green_kind, eps_factor=eps_factor,
                           order_policy=order_policy)
         self.verify = verify
         self.verify_rtol = float(verify_rtol)
+        # ABFT checksum tolerance; 0.0 = auto per data dtype (abft.tol_for)
+        self.abft_rtol = float(abft_rtol)
         self.stats = {"solves": 0, "retries": 0, "verify_failures": 0,
                       "degradations": []}
         self._green_nat = None if green is None else np.asarray(
@@ -512,6 +542,9 @@ class PoissonSolver:
             g = np.transpose(g, self.schedule.layouts.spectral)
         self._green = {torch.float64: torch.from_numpy(
             np.ascontiguousarray(g)).to(self.device)}
+        # the Freivalds pairs (r, w = S^T r) of verify="abft", per input
+        # signature; rebuilt per config, as the reference's are
+        self._lite_weights = {}
 
     @property
     def input_shape(self):
@@ -525,23 +558,24 @@ class PoissonSolver:
             g = self._green[dtype] = self._green[torch.float64].to(dtype)
         return g
 
-    def _solve_impl(self, f):
+    def _solve_impl(self, f, col=None, tol=None):
         """Baseline pipeline: every direction transformed in natural
-        layout through the moveaxis adapters."""
+        layout through the moveaxis adapters.  ``col``/``tol``: the ABFT
+        collector threaded through every stage (None: unchecked)."""
         plan = self.plan
         sched = self.schedule
         green = self._green_as(f.dtype)
         y = materialize_doubling(f, plan.dirs)   # no-op when deferred
         for d in plan.order:
-            y = sched.fwd_chunk(y, d)
-        y = sched.green_multiply(y, green)
+            y = sched.fwd_chunk(y, d, col, tol)
+        y = sched.green_multiply(y, green, col, tol)
         for d in reversed(plan.order):
-            y = sched.bwd_chunk(y, d)
+            y = sched.bwd_chunk(y, d, col, tol)
         if y.is_complex():
             y = y.real
         return crop_doubling(y, plan.dirs)
 
-    def _solve_scheduled(self, f):
+    def _solve_scheduled(self, f, col=None, tol=None):
         """Layout-scheduled pipeline: one composed transpose per direction
         change, transforms always on the minor-most axis, the Green
         multiplied in the spectral layout, and -- on the cuda engine -- the
@@ -558,27 +592,84 @@ class PoissonSolver:
         for i, d in enumerate(plan.order[:-1]):
             y = _relayout(y, cur, lay.fwd[i])
             cur = lay.fwd[i]
-            y = sched.fwd_last(y, d)
+            y = sched.fwd_last(y, d, col, tol)
         d_last = plan.order[-1]
         y = _relayout(y, cur, lay.spectral)
-        y = sched.fwd_last_green(y, d_last, green)
+        y = sched.fwd_last_green(y, d_last, green, col, tol)
         cur = lay.spectral
         for i, d in enumerate(reversed(plan.order)):
             y = _relayout(y, cur, lay.bwd[i])
             cur = lay.bwd[i]
-            y = sched.bwd_last(y, d)
+            y = sched.bwd_last(y, d, col, tol)
         y = _relayout(y, cur, nat)
         if y.is_complex():
             y = y.real
         return crop_doubling(y, plan.dirs)
+
+    def _pipeline(self, f, col=None, tol=None):
+        """The configured pipeline on ``f``: a contiguous tensor of ``f``'s
+        dtype."""
+        run = (self._solve_scheduled if self.relayout == "scheduled"
+               else self._solve_impl)
+        return run(f, col, tol).to(f.dtype).contiguous()
+
+    # -- ABFT (DESIGN.md #13) ----------------------------------------------
+
+    def _abft_tol(self, dtype) -> float:
+        return self.abft_rtol or abft.tol_for(dtype)
+
+    def _checked_dispatch(self, f):
+        """The fully checked pipeline: ``(u, report, names)``, the report
+        stacking every stage's mismatch scalar, ``names`` their stages."""
+        col = abft.Collector()
+        u = self._pipeline(f, col, self._abft_tol(f.dtype))
+        return u, col.stacked(), list(col.names)
+
+    def _lite_reference_impl(self):
+        """The baseline pipeline on the ``"torch"`` engine, used only to
+        build the sandwich weight ``w = S^T r`` by autograd: differentiable
+        whatever the active engine (the kernels carry no gradient) and the
+        same linear operator as every engine and rung up to roundoff."""
+        return lite_reference_impl(self.plan, self._green_nat, self.device)
+
+    def _lite_pair(self, shape, dtype):
+        """Plan-time Freivalds pair for one input signature: the fixed
+        probe ``r`` and the weight ``w = S^T r`` (``lite_weight``), cached
+        per (shape, dtype, device)."""
+        key = (tuple(shape), dtype, str(self.device))
+        rw = self._lite_weights.get(key)
+        if rw is None:
+            r = torch.from_numpy(abft.lite_probe(shape, dtype)).to(
+                self.device)
+            w = lite_weight(self._lite_reference_impl(), r)
+            rw = self._lite_weights[key] = (r, w)
+        return rw
+
+    def _lite_dispatch(self, f):
+        """The clean pipeline (the same kernels as ``verify=None``) and the
+        end-to-end sandwich: ``(u, [<r,u>, <w,f>, ||u||^2])`` -- three
+        dot products on top of the solve, nothing per stage."""
+        r, w = self._lite_pair(f.shape, f.dtype)
+        u = self._pipeline(f)
+        uf = u.reshape(-1)
+        rep = torch.stack([torch.dot(r.reshape(-1), uf),
+                           torch.dot(w.reshape(-1), f.reshape(-1)),
+                           torch.dot(uf, uf)])
+        return u, rep
 
     def solve(self, f, verify=None):
         """Solve lap(u) = f.  ``f``: a numpy array or a tensor of shape
         ``(*grid)`` or ``(B, *grid)``, float32 or float64; it is moved to
         the solver's device.  Returns a contiguous tensor of ``f``'s shape
         and dtype on the solver's device.  ``verify`` overrides the
-        constructor's health-guard mode for this call ("nan" | "residual"
-        | None)."""
+        constructor's guard mode for this call ("nan" | "residual" |
+        "abft" | "abft-stages" | None).  ``"abft"`` is the two-phase
+        guard: every solve runs the end-to-end linearity sandwich on the
+        same kernels as ``verify=None``, and only a tripped sandwich
+        re-dispatches through the fully checked pipeline to localize the
+        stage, repair it selectively, and raise ``IntegrityError`` into
+        the degradation ladder if the corruption persists.
+        ``"abft-stages"`` runs the checked pipeline on every solve."""
         if isinstance(f, np.ndarray):
             f = torch.from_numpy(np.ascontiguousarray(f))
         f = torch.as_tensor(f).to(self.device)
@@ -594,15 +685,34 @@ class PoissonSolver:
         self.stats["solves"] += 1
         fired = 0
 
+        def checked():
+            u, rep, names = self._checked_dispatch(f)
+            abft.verify_report(names, rep, tol=self._abft_tol(f.dtype),
+                               stats=self.stats, describe="solve")
+            return u
+
         def attempt():
             nonlocal fired
             fired = faults.firings()
             faults.fail_point("solve.dispatch")
-            if self.relayout == "scheduled":
-                u = self._solve_scheduled(f)
-            else:
-                u = self._solve_impl(f)
-            u = u.to(f.dtype).contiguous()
+            if verify == "abft-stages":
+                return checked()
+            if verify == "abft":
+                u, rep = self._lite_dispatch(f)
+                m = abft.lite_mismatch(rep.cpu().numpy())
+                tol = self._abft_tol(f.dtype) * abft.LITE_HEADROOM
+                if m <= tol:
+                    return u
+                # the sandwich tripped: localize through the checked
+                # pipeline (selective repair; persistent corruption raises
+                # IntegrityError out of verify_report into the ladder)
+                self.stats["verify_failures"] += 1
+                self.stats.setdefault("integrity", []).append({
+                    "stage": "solve.linearity", "kind": "linearity",
+                    "mismatch": float(m), "tol": float(tol),
+                    "action": "localize", "describe": "solve"})
+                return checked()
+            u = self._pipeline(f)
             if verify:
                 health.check_solution(
                     u, f, self.plan, mode=verify, rtol=self.verify_rtol,
@@ -683,10 +793,10 @@ def get_solver(shape, L, bcs, layout=DataLayout.CELL,
     which hashes by its ranks, layout, device type and axis names.  The
     key is every constructor argument, the device (None resolves to the
     card, and raises without one), and the armed fault plan's token.
-    For the single-process solver ``kw`` takes the health-guard arguments
-    (``verify``, ``verify_rtol``; ``abft_rtol`` raises until ABFT is
-    ported).  Entries are evicted least-recently-used beyond
-    ``set_solver_cache_capacity`` (default 16 solvers).
+    For the single-process solver ``kw`` takes the guard arguments
+    (``verify``, ``verify_rtol``, ``abft_rtol``).  Entries are evicted
+    least-recently-used beyond ``set_solver_cache_capacity`` (default 16
+    solvers).
 
     Construction is SINGLE-FLIGHT per key: when N threads miss the same
     key concurrently, exactly one of them builds -- the rest park on the

@@ -38,9 +38,21 @@ that case is left to the process groups' ``timeout=``.
 the candidate grid and only its shortlist is timed);
 ``autotune_search="brute"`` times the whole grid.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): the ABFT
-modes (``verify="abft"|"abft-stages"``, ``abft_rtol``; queue 1 item 6)
-and ``lower`` (HLO only; item 10).
+ABFT (DESIGN.md #13): ``verify="abft-stages"`` runs the checked
+pipeline (every stage checksummed, every collective with its checksum
+sidecar; the report MAX-reduced over the mesh, so every rank reaches the
+same verdict).  ``verify="abft"`` runs the clean pipeline with the
+Freivalds sandwich: ``<r, u>`` by three chained contractions of each
+rank's output pencil with the rank-1 probe's factors and ``<w, f>`` by
+one dot, both on the device, summed over the mesh, the mismatch agreed
+(MAX) before it is compared; a trip re-dispatches the checked pipeline.
+The weight ``w`` comes from the single-process ``"torch"``-engine
+adjoint over the global grid; on the ``"cuda"`` engine there is none
+(the kernels carry no gradient) and ``verify="abft"`` runs the checked
+pipeline on every solve, as the reference does on ``"pallas"``.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item): ``lower``
+(HLO only; item 10).
 """
 from __future__ import annotations
 
@@ -60,8 +72,10 @@ from repro_torch.core.engine import (RELAYOUT_MODES, as_engine,
                                      build_schedule, crop_doubling,
                                      materialize_doubling, relayout)
 from repro_torch.core.solver import (_check_kernel_lengths, _check_verify,
-                                     build_green, make_plan)
+                                     build_green, lite_reference_impl,
+                                     lite_weight, make_plan)
 from repro_torch.plan.search import guided_comm_candidates
+from repro_torch.runtime import abft as _abft
 from repro_torch.runtime import faults, health, resilience
 
 __all__ = ["DistributedPoissonSolver"]
@@ -119,6 +133,9 @@ class DistributedPoissonSolver:
     versions on CPU tensors) or ``"torch"``.  ``device``: this rank's
     device; None means ``cuda:<current device>`` and raises without a card.
     ``dtype``: the working precision (float32 or float64).
+    ``verify``: "nan" | "residual" | "abft" | "abft-stages" (see the
+    module docstring); ``abft_rtol``: the ABFT checksum tolerance, 0.0
+    meaning ``abft.tol_for(dtype)``.
 
     ``solve(f)`` takes the GLOBAL field on every rank and returns the
     global solution on every rank (the reference's API): each rank slices
@@ -147,8 +164,6 @@ class DistributedPoissonSolver:
         if relayout not in RELAYOUT_MODES:
             raise ValueError(f"relayout must be one of {RELAYOUT_MODES}")
         _check_verify(verify)
-        if abft_rtol:
-            raise _not_ported("abft_rtol", 6, "runtime/abft.py")
         if autotune_search not in ("guided", "brute"):
             raise ValueError(f"autotune_search must be 'guided' or 'brute', "
                              f"got {autotune_search!r}")
@@ -193,6 +208,8 @@ class DistributedPoissonSolver:
                           autotune_search=autotune_search)
         self.verify = verify
         self.verify_rtol = float(verify_rtol)
+        # ABFT checksum tolerance; 0.0 = auto per data dtype (abft.tol_for)
+        self.abft_rtol = float(abft_rtol)
         self.stats = {"solves": 0, "retries": 0, "verify_failures": 0,
                       "degradations": []}
         # raw (unpadded, natural-layout, float64) transformed Green: built
@@ -247,6 +264,11 @@ class DistributedPoissonSolver:
             if self._green_raw is None:
                 self._green_raw = build_green(self.plan)
             self._green_dev = self._local_green(self._green_raw)
+        # the checked solves (``abft_jit_for``) and the Freivalds material
+        # of verify="abft" (rank-1 probe factors, this rank's block of
+        # w = S^T C^T r), rebuilt per config
+        self._abft_jits = {}
+        self._lite_weights = {}
 
         if cfg["comm"] is None:
             req = c["comm_req"]
@@ -317,56 +339,66 @@ class DistributedPoissonSolver:
         pod = 1 if self.batch_axis is not None else 0
         return off - 1 if off > pod and cfg.chunk_axis == "auto" else None
 
-    def _strategy(self, cfg: CommConfig):
+    def _strategy(self, cfg: CommConfig, col=None, tol=None):
         return make_strategy(cfg, axis_sizes=self._axis_sizes,
+                             abft=None if col is None else (col, tol),
                              groups=self._groups)
 
-    def _local_solve(self, x, green, *, cfg: CommConfig):
+    def _local_solve(self, x, green, *, cfg: CommConfig, col=None,
+                     tol=None):
         """Baseline pipeline: every direction transformed in natural
-        layout; each switch carries the next direction's transform."""
+        layout; each switch carries the next direction's transform.
+        ``col``/``tol``: the ABFT collector threaded through every stage
+        and switch (None: unchecked)."""
         sched = self.schedule
         d0, d1, d2 = self.plan.order
         a1, a2 = self.axes
         U, S = self._U, self._S
-        strat = self._strategy(cfg)
+        strat = self._strategy(cfg, col, tol)
         ca = self._chunk_axis(x, cfg)
         off = x.ndim - len(self.plan.dirs)
         e0, e1, e2 = d0 + off, d1 + off, d2 + off
 
-        x = sched.fwd_chunk(x, d0)
+        x = sched.fwd_chunk(x, d0, col, tol)
         x = strat.stage(
             x, a1, e0, e1, chunk_axis=ca, valid_extent=S[d0],
-            post=lambda c: sched.fwd_chunk(crop_axis(c, e1, U[d1]), d1))
+            post=lambda c: sched.fwd_chunk(crop_axis(c, e1, U[d1]), d1,
+                                           col, tol))
         x = strat.stage(
             x, a2, e1, e2, chunk_axis=ca, valid_extent=S[d1],
-            post=lambda c: sched.fwd_chunk(crop_axis(c, e2, U[d2]), d2))
-        x = sched.green_multiply(x, green)
-        x = sched.bwd_chunk(x, d2)
+            post=lambda c: sched.fwd_chunk(crop_axis(c, e2, U[d2]), d2,
+                                           col, tol))
+        x = sched.green_multiply(x, green, col, tol)
+        x = sched.bwd_chunk(x, d2, col, tol)
         x = strat.stage(
             x, a2, e2, e1, chunk_axis=ca, valid_extent=U[d2],
-            post=lambda c: sched.bwd_chunk(crop_axis(c, e1, S[d1]), d1))
+            post=lambda c: sched.bwd_chunk(crop_axis(c, e1, S[d1]), d1,
+                                           col, tol))
         x = strat.stage(
             x, a1, e1, e0, chunk_axis=ca, valid_extent=U[d1],
-            post=lambda c: sched.bwd_chunk(crop_axis(c, e0, S[d0]), d0))
+            post=lambda c: sched.bwd_chunk(crop_axis(c, e0, S[d0]), d0,
+                                           col, tol))
         if x.is_complex():
             x = x.real
         return x.to(self.dtype)
 
-    def _local_solve_scheduled(self, x, green, *, cfg: CommConfig):
+    def _local_solve_scheduled(self, x, green, *, cfg: CommConfig, col=None,
+                               tol=None):
         """Layout-scheduled pipeline: every stage keeps its active axis
         minor-most, and the one relayout between consecutive directions
         is folded into the topology switch (``permute=``), so the
         collective splits the retiring dim as the MAJOR axis and gathers
         the incoming dim into the minor-most slot the next transform
         reads.  On the cuda engine the last forward FFT runs the Green
-        multiply as its epilogue (``fwd_last_green``)."""
+        multiply as its epilogue (``fwd_last_green``), except under a
+        collector: the checks need the spectrum before the multiply."""
         sched = self.schedule
         d0, d1, d2 = self.plan.order
         a1, a2 = self.axes
         U, S = self._U, self._S
         L0, L1, L2 = sched.layouts.fwd
         B0, B1, B2 = sched.layouts.bwd
-        strat = self._strategy(cfg)
+        strat = self._strategy(cfg, col, tol)
         ca = self._chunk_axis(x, cfg)
         off = x.ndim - len(self.plan.dirs)
         nat = tuple(range(len(self.plan.dirs)))
@@ -377,12 +409,13 @@ class DistributedPoissonSolver:
                     + tuple(off + src.index(d) for d in dst))
 
         x = relayout(x, nat, L0)
-        x = sched.fwd_last(x, d0)
+        x = sched.fwd_last(x, d0, col, tol)
         x = strat.stage(
             x, a1, first, last, chunk_axis=ca,
             valid_extent=S[d0], permute=pm(L0, L1),
-            post=lambda c: sched.fwd_last(crop_axis(c, last, U[d1]), d1))
-        if sched.can_fuse_green(d2):
+            post=lambda c: sched.fwd_last(crop_axis(c, last, U[d1]), d1,
+                                          col, tol))
+        if col is None and sched.can_fuse_green(d2):
             # the stage continuation only crops; the fused FFT x Green
             # kernel runs on the whole switched block
             x = strat.stage(
@@ -394,32 +427,168 @@ class DistributedPoissonSolver:
             x = strat.stage(
                 x, a2, first, last, chunk_axis=ca,
                 valid_extent=S[d1], permute=pm(L1, L2),
-                post=lambda c: sched.fwd_last(crop_axis(c, last, U[d2]), d2))
-            x = sched.green_multiply(x, green)
-        x = sched.bwd_last(x, d2)
+                post=lambda c: sched.fwd_last(crop_axis(c, last, U[d2]), d2,
+                                              col, tol))
+            x = sched.green_multiply(x, green, col, tol)
+        x = sched.bwd_last(x, d2, col, tol)
         x = strat.stage(
             x, a2, first, last, chunk_axis=ca,
             valid_extent=U[d2], permute=pm(B0, B1),
-            post=lambda c: sched.bwd_last(crop_axis(c, last, S[d1]), d1))
+            post=lambda c: sched.bwd_last(crop_axis(c, last, S[d1]), d1,
+                                          col, tol))
         x = strat.stage(
             x, a1, first, last, chunk_axis=ca,
             valid_extent=U[d1], permute=pm(B1, B2),
-            post=lambda c: sched.bwd_last(crop_axis(c, last, S[d0]), d0))
+            post=lambda c: sched.bwd_last(crop_axis(c, last, S[d0]), d0,
+                                          col, tol))
         x = relayout(x, B2, nat)
         if x.is_complex():
             x = x.real
         return x.to(self.dtype)
 
-    def _body(self, x, cfg: CommConfig):
+    def _body(self, x, cfg: CommConfig, col=None, tol=None):
         body = (self._local_solve_scheduled if self.relayout == "scheduled"
                 else self._local_solve)
-        return body(x, self._green_dev, cfg=cfg)
+        return body(x, self._green_dev, cfg=cfg, col=col, tol=tol)
 
-    def _run_local(self, x, cfg: CommConfig):
+    def _run_local(self, x, cfg: CommConfig, col=None, tol=None):
         if self._ctor["lazy_green"]:
             raise RuntimeError("a lazy_green solver holds no Green's "
                                "function: it only times and plans")
-        return self._body(x, cfg)
+        return self._body(x, cfg, col, tol)
+
+    # -- ABFT (DESIGN.md #13) ------------------------------------------------
+
+    def _abft_tol(self) -> float:
+        return self.abft_rtol or _abft.tol_for(self.dtype)
+
+    def _mesh_reduce(self, t, op):
+        """``t`` reduced with ``op`` over the pencil axes' groups (one
+        all-reduce per axis of more than one rank), in place."""
+        for a in self.axes:
+            if self._size[a] > 1:
+                dist.all_reduce(t, op=op, group=self._groups[a])
+        return t
+
+    def abft_jit_for(self, local_batch: bool = False):
+        """The CHECKED distributed solve: ``(fn, names)`` where ``fn(x)``
+        takes this rank's padded pencil and returns ``(y, report)``.  The
+        local pipeline runs with an ``abft.Collector`` threaded through
+        every transform stage and topology switch (the comm strategy
+        ships the checksum sidecars); the report is MAX-reduced over both
+        pencil axes, so every rank holds the same worst-case vector, and
+        ``names`` (filled by each call) gives each slot's stage.  With a
+        pod batch every batch element keeps its own report row
+        (``(B_pod, K)``, gathered over the pod axis).  Collective: every
+        rank calls ``fn``.  Cached per ``local_batch`` (the reference's
+        key; the pencil's rank carries the batch) until the next
+        config."""
+        ent = self._abft_jits.get(bool(local_batch))
+        if ent is not None:
+            return ent
+        names: list = []
+        tol = self._abft_tol()
+        pod = self.batch_axis is not None
+
+        def run(x):
+            col = _abft.Collector()
+            y = self._run_local(x, self.comm, col, tol)
+            names[:] = col.names
+            return y, col.stacked().to(self.device)
+
+        def fn(x):
+            if not pod:
+                y, rep = run(x)
+                return y, self._mesh_reduce(rep, dist.ReduceOp.MAX)
+            # one checked pipeline per local batch element (the pod axis
+            # kept at size 1), so each element keeps its report row
+            outs = [run(x[i:i + 1]) for i in range(x.shape[0])]
+            rep = self._mesh_reduce(torch.stack([r for _, r in outs]),
+                                    dist.ReduceOp.MAX)
+            rows = self._all_gather(rep, self.batch_axis, 0)
+            return torch.cat([y for y, _ in outs]), rows
+
+        ent = self._abft_jits[bool(local_batch)] = (fn, names)
+        return ent
+
+    def _lite_pair(self):
+        """Plan-time Freivalds material: ``(qs, w, w_norm, q_local)`` --
+        the rank-1 probe factors ``lite_probe_axes(user_grid)`` (numpy),
+        this rank's pencil of ``w = S^T C^T r`` (zero in the padding; its
+        valid corner is that of the single-process adjoint), ``||w||``
+        over the whole grid, and this rank's slices of the factors
+        zero-padded to the padded extents (on the device).  ``w`` is one
+        vector-Jacobian product of the single-process ``"torch"``-engine
+        solve over the global grid (the same linear operator as the
+        distributed pipeline), with the probe as its cotangent.  The
+        batch axes share it, so it is built once per config.  None on
+        the ``"cuda"`` engine (the kernels carry no gradient) and for a
+        lazy_green solver: ``solve`` then runs the checked pipeline."""
+        if "pair" in self._lite_weights:
+            return self._lite_weights["pair"]
+        ent = None
+        if not (self.engine.use_cuda or self._ctor["lazy_green"]):
+            grid = tuple(p.n_pts for p in self.plan.dirs)
+            qs = _abft.lite_probe_axes(grid, self.dtype)
+            r = torch.from_numpy(np.einsum("i,j,k->ijk", *qs)).to(
+                self.device)
+            w = lite_weight(lite_reference_impl(
+                self.plan, self._green_raw, self.device), r)
+            wn = float(torch.linalg.vector_norm(w.double()))
+            if self.batch_axis is None:
+                w_loc = self.shard_input(w)
+            else:      # shard_input splits the leading pod axis too
+                npod = self._size[self.batch_axis]
+                w_loc = self.shard_input(w.expand((npod,) + w.shape))[0]
+            # the factors on the padded extents, this rank's block of d1
+            # and d2 (d0 is whole on every rank)
+            d0, d1, d2 = self.plan.order
+            a1, a2 = self.axes
+            shp = self.local_input_shape()
+            q_loc = []
+            for dim, q in enumerate(qs):
+                full = np.zeros(self.padded_input_shape()[dim], q.dtype)
+                full[:q.shape[0]] = q
+                start = {d1: self._coord[a1] * shp[d1],
+                         d2: self._coord[a2] * shp[d2]}.get(dim, 0)
+                q_loc.append(torch.from_numpy(
+                    full[start:start + shp[dim]].copy()).to(self.device))
+            ent = (qs, w_loc, wn, q_loc)
+        self._lite_weights["pair"] = ent
+        return ent
+
+    def _lite_mismatch(self, x, y, ent):
+        """The sandwich's relative mismatch, the same on every rank: this
+        rank's ``<r, u>`` (three chained contractions of its output
+        pencil ``y`` with its factor slices), ``<w, f>`` (one dot of its
+        input pencil ``x`` with its block of ``w``) and ``||f||^2`` per
+        batch row, summed over the mesh; the mismatch of those sums is
+        MAX-agreed before anyone compares it with the tolerance."""
+        _, w_loc, wn, (q0, q1, q2) = ent
+        off = x.ndim - 3
+        lead = tuple(x.shape[:off])
+        rows = int(np.prod(lead)) if lead else 1
+        a = torch.matmul(torch.matmul(torch.matmul(y, q2), q1), q0)
+        xf = x.reshape(rows, -1)
+        b = torch.matmul(xf, w_loc.reshape(-1))
+        ff = torch.linalg.vector_norm(xf, dim=-1) ** 2
+        part = torch.stack([a.reshape(rows), b, ff]).double()
+        start, total = 0, rows
+        if self.batch_axis is not None:
+            # the pod rows are this rank's block of the global batch
+            npod = self._size[self.batch_axis]
+            start, total = self._coord[self.batch_axis] * rows, rows * npod
+        sums = torch.zeros((3, total), dtype=torch.float64,
+                           device=self.device)
+        sums[:, start:start + rows] = part
+        self._mesh_reduce(sums, dist.ReduceOp.SUM)
+        if self.batch_axis is not None and npod > 1:
+            dist.all_reduce(sums, op=dist.ReduceOp.SUM,
+                            group=self._groups[self.batch_axis])
+        a, b, ff = sums.cpu().numpy()
+        n = float(np.prod([p.n_pts for p in self.plan.dirs]))
+        floor = wn * np.sqrt(ff) / np.sqrt(n)
+        return self._agree([_abft.lite_mismatch_ab(a, b, floor)])[0]
 
     # -- plan-time comm autotuner -----------------------------------------
 
@@ -592,8 +761,11 @@ class DistributedPoissonSolver:
         global solution, a tensor on every rank's device in the working
         precision.  Runs under the degradation ladder (every step agreed
         across the mesh; a rung is taken only for a failure an armed fault
-        plan injected) and the ``verify`` health guard ("nan" |
-        "residual")."""
+        plan injected) and the ``verify`` guard ("nan" | "residual" |
+        "abft" | "abft-stages"; module docstring).  Under ABFT, repaired
+        stages land in ``stats["integrity"]``, surviving compute
+        corruption raises ``IntegrityError`` into the ladder, and
+        wire-attributed corruption retries as a transient first."""
         if isinstance(f, np.ndarray):
             f = torch.from_numpy(np.ascontiguousarray(f))
         f = torch.as_tensor(f).to(device=self.device, dtype=self.dtype)
@@ -606,14 +778,46 @@ class DistributedPoissonSolver:
         verify = self.verify if verify is None else verify
         _check_verify(verify)
 
+        def checked(x):
+            fn, names = self.abft_jit_for(x.ndim > base)
+            y, rep = fn(x)
+            # the report is the same on every rank: so is the verdict
+            _abft.verify_report(list(names), rep, tol=self._abft_tol(),
+                                stats=self.stats, describe="dist.solve")
+            return self.gather_output(y)
+
+        def lite(x):
+            ent = self._lite_pair()
+            if ent is None:        # no sandwich weight: the checked mode
+                return checked(x)
+            y = self._run_local(x, self.comm)
+            m = self._lite_mismatch(x, y, ent)
+            tol = self._abft_tol() * _abft.LITE_HEADROOM
+            if m <= tol:
+                return self.gather_output(y)
+            # the sandwich tripped on the mesh: localize through the
+            # checked pipeline (every rank agreed on m, so every rank
+            # re-dispatches)
+            self.stats["verify_failures"] += 1
+            self.stats.setdefault("integrity", []).append({
+                "stage": "solve.linearity", "kind": "linearity",
+                "mismatch": float(m), "tol": float(tol),
+                "action": "localize", "describe": "dist.solve"})
+            return checked(x)
+
         def attempt():
             fired = faults.firings()
             err = None
             try:
                 faults.fail_point("dist.dispatch")
-                out = self.gather_output(
-                    self._run_local(self.shard_input(f), self.comm))
-                if verify:
+                x = self.shard_input(f)
+                if verify == "abft-stages":
+                    out = checked(x)
+                elif verify == "abft":
+                    out = lite(x)
+                else:
+                    out = self.gather_output(self._run_local(x, self.comm))
+                if verify in ("nan", "residual"):
                     health.check_solution(
                         out, f, self.plan, mode=verify,
                         rtol=self.verify_rtol, stats=self.stats,
@@ -673,19 +877,12 @@ class DistributedPoissonSolver:
             autotune_budget=c["autotune_budget"],
             autotune_search=c["autotune_search"],
             verify=self.verify, verify_rtol=self.verify_rtol,
-            device=self.device, _green_cache=self._green_raw)
+            abft_rtol=self.abft_rtol, device=self.device,
+            _green_cache=self._green_raw)
         new.stats["degradations"] = list(self.stats["degradations"])
         return new
 
     # -- not ported ----------------------------------------------------------
-
-    def abft_jit_for(self, local_batch: bool = False):
-        raise _not_ported("the checked (ABFT) distributed solve", 6,
-                          "runtime/abft.py")
-
-    def _lite_pair(self, fp_shape, local_batch: bool):
-        raise _not_ported("the Freivalds (ABFT lite) sandwich", 6,
-                          "runtime/abft.py")
 
     def lower(self, batch=None, dtype=None, *, local_batch: bool = False):
         raise _not_ported("lower (an HLO dry run)", 10,

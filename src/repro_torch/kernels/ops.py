@@ -21,13 +21,29 @@ from .fft_stockham import (fft_stockham, fft_stockham_scale,
 from .spectral_scale import spectral_scale
 from .twiddle_pack import twiddle_pack
 
-__all__ = ["green_multiply", "post_twiddle", "dct2_post_twiddle",
-           "rfft_twiddle", "fft1d", "rfft_kernel", "irfft_kernel",
+__all__ = ["green_checksum", "green_multiply", "post_twiddle",
+           "dct2_post_twiddle", "rfft_twiddle", "fft1d", "rfft_kernel", "irfft_kernel",
            "ifft_pruned", "irfft_pruned", "fft1d_green", "rfft_green"]
 
 
 def _rows(shape):
     return math.prod(shape[:-1])
+
+
+def green_checksum(fhat, green):
+    """Reference side of the ABFT Green-multiply invariant (DESIGN.md #13):
+    ``sum(fhat * green)`` for a (batched) spectral field ``fhat`` and its
+    real Green plane, as one matrix-vector product over the batch rows
+    (a complex ``fhat`` read as interleaved real pairs), so the product
+    block is never materialized.  Plain torch, as the reference's is
+    plain ``jnp``: no kernel of its own."""
+    g = green.reshape(-1).to(ref._rdt(fhat))
+    m = g.numel()
+    if fhat.is_complex():
+        f = torch.view_as_real(fhat.contiguous()).reshape(-1, m, 2)
+        re, im = torch.matmul(g, f).sum(0).unbind(-1)
+        return torch.complex(re, im)
+    return torch.matmul(fhat.contiguous().reshape(-1, m), g).sum()
 
 
 def green_multiply(fhat, green, scale: float = 1.0):

@@ -73,8 +73,13 @@ def test_labels_round_trip_as_the_reference(cfg):
 
 
 def test_abft_sidecar_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_strategy(CommConfig("a2a"), abft=(object(), 1e-6))
+    """Ported since: ``make_strategy`` hands the ``(collector, tol)`` pair
+    to the strategy, which ships the checksum sidecar (run on ranks in
+    ``test_torch_abft.py``)."""
+    ab = (object(), 1e-6)
+    for strategy in ("a2a", "pipelined", "fused", "overlap"):
+        assert make_strategy(CommConfig(strategy), abft=ab).abft is ab
+    assert make_strategy(CommConfig("a2a")).abft is None
 
 
 # -- chunk padding ----------------------------------------------------------

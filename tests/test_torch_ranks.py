@@ -286,7 +286,7 @@ def scenario_faults(rank, d, params):
     """The ladder on every rank: an armed ``comm.overlap`` and
     ``comm.pipelined`` fault, a NaN at ``green`` under verify="nan",
     transient ``dist.dispatch`` faults, a real (not injected) switch
-    failure, and the not-ported entry points."""
+    failure, and the not-ported entry point (``lower``)."""
     from repro_torch.core.comm import CommConfig, PipelinedStrategy
     from repro_torch.runtime import SolveError, faults
     f, want = _ref_case(d)
@@ -348,8 +348,7 @@ def scenario_faults(rank, d, params):
     finally:
         PipelinedStrategy._switch = real
     out["not_ported"] = []
-    for call in (lambda: s.lower(), lambda: s.abft_jit_for(),
-                 lambda: s.solve(f, verify="abft")):
+    for call in (lambda: s.lower(),):
         try:
             call()
         except NotImplementedError as e:
@@ -592,6 +591,173 @@ def scenario_census(rank, d, params):
                                          for e in c.per_collective],
                                "issued": counter.calls - n0,
                                "stats": c.stats()}
+    return out
+
+
+def scenario_abft_sdc(rank, d, params):
+    """The assertions of ``tests/test_abft.py``'s distributed SDC script,
+    one by one, on mesh (2, 4), float32, engine "torch" (the reference's
+    "xla"): per case, the verdicts and what they saw."""
+    import torch
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    from repro_torch.runtime import SolveError, faults
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    n = params["n"]
+    f = np.load(os.path.join(d, "f.npy"))
+    kw = dict(mesh=mesh, engine="torch", device="cpu",
+              dtype=torch.float32)
+    P, U = ("PER", "PER"), ("UNB", "UNB")
+    out = {}
+    for tag, names, comm in (("ppp_a2a", (P, P, P), CommConfig("a2a")),
+                             ("upu_pipelined", (U, P, U),
+                              CommConfig("pipelined", 2))):
+        bcs = _bcs(names)
+        s = DistributedPoissonSolver((n,) * 3, 1.0, bcs, comm=comm,
+                                     verify="abft", **kw)
+        want = s.solve(f).numpy()
+        s_off = DistributedPoissonSolver((n,) * 3, 1.0, bcs, comm=comm,
+                                         _green_cache=s._green_raw, **kw)
+        res = {"clean_bits": bool(np.array_equal(want,
+                                                 s_off.solve(f).numpy())),
+               "clean_records": s.stats.get("integrity", [])}
+        with faults.FaultPlan([dict(kind="flip", stage="fwd.0",
+                                    count=2)]) as plan:
+            got = s.solve(f).numpy()
+        recs = s.stats["integrity"]
+        res["fwd0"] = {"log": len(plan.log),
+                       "stages": [(r["stage"], r["action"]) for r in recs],
+                       "bits": bool(np.array_equal(got, want)),
+                       "degradations": s.stats["degradations"]}
+        s.stats["integrity"] = []
+        with faults.FaultPlan([dict(kind="flip", stage="comm.wire.*",
+                                    count=1)]) as plan:
+            got = s.solve(f).numpy()
+        res["wire"] = {"log": len(plan.log),
+                       "stages": [r["stage"] for r in s.stats["integrity"]],
+                       "bits": bool(np.array_equal(got, want))}
+        out[tag] = res
+    s = DistributedPoissonSolver((n,) * 3, 1.0, _bcs((P, P, P)),
+                                 comm=CommConfig("a2a"),
+                                 verify="abft-stages", **kw)
+    want = s.solve(f).numpy()
+    scale = float(np.max(np.abs(want)))
+    with faults.FaultPlan([dict(kind="flip", stage="comm.wire.*",
+                                count=1)]) as plan:
+        got = s.solve(f).numpy()
+    out["stages_wire"] = {
+        "log": len(plan.log),
+        "records": [(r["stage"], r["kind"], r["action"])
+                    for r in s.stats["integrity"]],
+        "retries": s.stats["retries"],
+        "err": float(np.max(np.abs(got - want))) / scale}
+    s = DistributedPoissonSolver((n,) * 3, 1.0, _bcs((P, P, P)),
+                                 comm=CommConfig("a2a"),
+                                 verify="abft-stages",
+                                 _green_cache=s._green_raw, **kw)
+    try:
+        with faults.FaultPlan([dict(kind="flip", stage="green",
+                                    count=-1)]):
+            s.solve(f)
+        out["persistent"] = None
+    except SolveError as e:
+        out["persistent"] = [e.stage, [r["action"] for r in e.degradations]]
+    return out
+
+
+def scenario_abft_slabs(rank, d, params):
+    """Eight ranks on the slab meshes (1, 8) and (8, 1): the checked solve
+    under a2a and overlap:2 -- its report names (a ``wire.<axis>`` entry
+    for every switch, the one-rank axis's included), its collective
+    census (a sidecar beside each payload of the non-unit axis only) and
+    its result -- beside the verify-off census, which the byte predictor
+    names."""
+    import torch
+    from repro_torch.core import comm as cm
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    from repro_torch.plan import predict_bytes
+    f, want = _ref_case(d)
+    out = {}
+    green = None
+    for ms in ((1, 8), (8, 1)):
+        mesh = _mesh(ms, ("data", "model"))
+        for lbl in ("a2a:1", "overlap:2"):
+            ds = _solver(mesh, comm=cm.label_to_cfg(lbl),
+                         verify="abft-stages", _green_cache=green)
+            green = ds._green_raw
+            x = ds.shard_input(torch.from_numpy(f))
+            with cm.collective_census() as off:
+                ds.solve_local(x)
+            fn, names = ds.abft_jit_for()
+            with cm.collective_census() as on:
+                y, rep = fn(x)
+            u = ds.solve(f)
+            out[f"{ms[0]}x{ms[1]}/{lbl}"] = {
+                "names": list(names),
+                "report": rep.tolist(),
+                "off": off.per_collective,
+                "on": on.per_collective,
+                "predicted": predict_bytes(ds.plan, ms[0], ms[1], ds.dtype,
+                                           ds.comm),
+                "err": _maxerr(u, want),
+                "records": ds.stats.get("integrity", [])}
+    return out
+
+
+def scenario_abft_weight(rank, d, params):
+    """Eight ranks: the distributed sandwich weight ``w`` (gathered over
+    the mesh) against the reference's, written by the pytest process;
+    ``verify="abft"`` on the "torch" engine (the sandwich) and on the
+    "cuda" engine (no weight: the checked pipeline, counted), and both
+    ABFT modes on the pod batch of mesh (2, 2, 2) with its report rows,
+    each against the reference's solve."""
+    import torch
+    from repro_torch.distributed import pencil
+    from repro_torch.runtime import abft
+    f, want = _ref_case(d)
+    w_ref = np.load(os.path.join(d, "w_ref.npy"))
+    mesh = _mesh((2, 4), ("data", "model"))
+    out = {}
+    ds = _solver(mesh, engine="torch", verify="abft")
+    green = ds._green_raw
+    qs, w_loc, wn, _ = ds._lite_pair()
+    w = ds.gather_output(w_loc).numpy()
+    out["w_err"] = _maxerr(w, w_ref) / float(np.max(np.abs(w_ref)))
+    out["w_norm"] = [wn, float(np.linalg.norm(w_ref))]
+    out["qs"] = [q.tolist() for q in qs]
+    out["torch_abft"] = [_maxerr(ds.solve(f), want),
+                         ds.stats.get("integrity", [])]
+    calls = []
+    real = pencil.DistributedPoissonSolver.abft_jit_for
+
+    def counted(self, *a, **kw):
+        calls.append(self.engine.name)
+        return real(self, *a, **kw)
+
+    pencil.DistributedPoissonSolver.abft_jit_for = counted
+    try:
+        dc = _solver(mesh, engine="cuda", verify="abft", _green_cache=green)
+        err = _maxerr(dc.solve(f), want)
+        out["cuda_abft"] = [dc._lite_pair() is None, calls, err,
+                            dc.stats.get("integrity", [])]
+    finally:
+        pencil.DistributedPoissonSolver.abft_jit_for = real
+    mesh3 = _mesh((2, 2, 2), ("pod", "data", "model"))
+    fb = np.stack([f, 2.0 * f])
+    for verify in ("abft", "abft-stages"):
+        dp = _solver(mesh3, engine="torch", verify=verify,
+                     batch_axis="pod", _green_cache=green)
+        got = dp.solve(fb)
+        fn, names = dp.abft_jit_for()
+        _, rep = fn(dp.shard_input(torch.from_numpy(fb)))
+        out[f"pod/{verify}"] = {
+            "err": max(_maxerr(got[0], want), _maxerr(got[1], 2.0 * want)),
+            "report_shape": list(rep.shape), "n_names": len(names),
+            "clean": max(rep.max().item(), 0.0) < abft.tol_for(
+                torch.float64),
+            "records": dp.stats.get("integrity", [])}
     return out
 
 

@@ -502,17 +502,21 @@ def test_degradation_warns_once_until_reset():
 
 
 def test_abft_modes_raise_until_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _port((8, 8, 8), BCS, verify="abft")
-    s = _port((8, 8, 8), BCS)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        s.solve(_rhs(s.input_shape), verify="abft-stages")
+    """Ported since: both ABFT modes and ``abft_rtol`` (the reference's
+    default 0.0 included) are accepted and solve clean; an unknown mode
+    is still refused.  The ABFT cases run in ``test_torch_abft.py``."""
+    s = _port((8, 8, 8), BCS, verify="abft")
+    f = _rhs(s.input_shape)
+    u = s.solve(f)
+    assert torch.equal(u, _port((8, 8, 8), BCS).solve(f))
+    assert s.solve(f, verify="abft-stages").shape == u.shape
+    assert not s.stats.get("integrity") and not s.stats["verify_failures"]
     with pytest.raises(ValueError):
         _port((8, 8, 8), BCS, verify="bogus")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _port((8, 8, 8), BCS, abft_rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        get_solver((8, 8, 8), 1.0, _pb(BCS), device="cpu", abft_rtol=1e-3)
+    assert _port((8, 8, 8), BCS, abft_rtol=1e-3).abft_rtol == 1e-3
+    assert _port((8, 8, 8), BCS, abft_rtol=0.0).abft_rtol == 0.0
+    assert get_solver((8, 8, 8), 1.0, _pb(BCS), device="cpu",
+                      abft_rtol=1e-3).abft_rtol == 1e-3
 
 
 def test_stats_count_solves():

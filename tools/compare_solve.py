@@ -33,6 +33,15 @@ solves on the ``"torch"`` engine, one thread, 4000 alternating pairs of
 ``solve`` and its bare pipeline a turn; it prints each tree's median
 pipeline time and median ``solve - pipeline`` ("wrap"), in
 microseconds, and this tree's minus the other's.
+
+    python3 tools/compare_solve.py --verify abft .
+    python3 tools/compare_solve.py --verify abft-stages .
+
+solve with ``verify=<mode>`` in this tree's turns only (the other
+tree's solves keep the guard off): with this checkout as the other tree,
+the ratio is the guard's overhead on whole solves, measured in turns
+(``"abft"``: the Freivalds sandwich; ``"abft-stages"``: every stage
+checked, the Green multiply unfused).
 """
 from __future__ import annotations
 
@@ -52,12 +61,13 @@ CPU_REPS = 4000
 ROUNDS = 3
 
 
-def _alternate(s, f, reps, sync):
-    """Host times of ``s.solve(f)`` and of its bare scheduled pipeline,
-    in alternation (each goes first on every other turn, so neither gains
-    from the order), each after ``sync()``: two lists of seconds."""
+def _alternate(s, f, reps, sync, verify=None):
+    """Host times of ``s.solve(f, verify)`` and of its bare scheduled
+    pipeline, in alternation (each goes first on every other turn, so
+    neither gains from the order), each after ``sync()``: two lists of
+    seconds."""
     whole, bare = [], []
-    calls = ((whole, lambda: s.solve(f)),
+    calls = ((whole, lambda: s.solve(f, verify=verify)),
              (bare, lambda: s._solve_scheduled(f).to(f.dtype).contiguous()))
     for i in range(reps):
         for sink, call in (calls if i % 2 == 0 else calls[::-1]):
@@ -97,7 +107,7 @@ def host_worker(tree: str) -> int:
     return 0
 
 
-def worker(tree: str) -> int:
+def worker(tree: str, verify=None) -> int:
     sys.path.insert(0, str(Path(tree) / "src"))
     import numpy as np
     import torch
@@ -119,25 +129,26 @@ def worker(tree: str) -> int:
         f = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).cuda()
         for _ in range(3):
-            s.solve(f)
+            s.solve(f, verify=verify)
         torch.cuda.synchronize()
         ts = []
         for _ in range(REPS):
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
-            s.solve(f)
+            s.solve(f, verify=verify)
             b.record()
             b.synchronize()
             ts.append(a.elapsed_time(b))
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         for _ in range(STREAM):
-            s.solve(f)
+            s.solve(f, verify=verify)
         b.record()
         b.synchronize()
         out[f"{case} single"] = statistics.median(ts)
         out[f"{case} stream"] = a.elapsed_time(b) / STREAM
-        whole, bare = _alternate(s, f, HOST_REPS, torch.cuda.synchronize)
+        whole, bare = _alternate(s, f, HOST_REPS, torch.cuda.synchronize,
+                                 verify)
         out[f"{case} host"] = 1e3 * statistics.median(whole)
         out[f"{case} host-pipeline"] = 1e3 * statistics.median(bare)
     print(json.dumps(out))
@@ -145,30 +156,42 @@ def worker(tree: str) -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--worker", "--host-worker"):
-        run = worker if sys.argv[1] == "--worker" else host_worker
-        return run(sys.argv[2])
+    if sys.argv[1:2] == ["--worker"] and len(sys.argv) in (3, 4):
+        return worker(*sys.argv[2:])
+    if len(sys.argv) == 3 and sys.argv[1] == "--host-worker":
+        return host_worker(sys.argv[2])
     import torch
-    host = sys.argv[1:2] == ["--host"]
-    if len(sys.argv) != 2 + host or not (host
-                                         or torch.cuda.is_available()):
-        print("usage: compare_solve.py [--host] <other tree> (without "
-              "--host, on a CUDA device)", file=sys.stderr)
+    args = sys.argv[1:]
+    verify = None
+    if args[:1] == ["--verify"] and len(args) >= 2:
+        verify, args = args[1], args[2:]
+    host = args[:1] == ["--host"]
+    if (len(args) != 1 + host or verify not in (None, "abft", "abft-stages")
+            or (host and verify) or not (host
+                                         or torch.cuda.is_available())):
+        print("usage: compare_solve.py [--host | --verify abft|abft-stages]"
+              " <other tree> (without --host, on a CUDA device)",
+              file=sys.stderr)
         return 2
-    trees = {"other": str(Path(sys.argv[-1]).resolve()), "this": str(ROOT)}
+    trees = {"other": str(Path(args[-1]).resolve()), "this": str(ROOT)}
     if torch.cuda.is_available():
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True).stdout.strip()
         print(f"card: {smi}")
+    if verify:
+        print(f"this tree solves with verify={verify!r}, the other with "
+              "the guard off")
     times = {k: [] for k in trees}
     unit = "us" if host else "ms"
     for _ in range(ROUNDS):
         for who in ("other", "this", "this", "other"):
-            res = subprocess.run([sys.executable, __file__,
-                                  "--host-worker" if host else "--worker",
-                                  trees[who]], capture_output=True,
-                                 text=True, check=True)
+            cmd = [sys.executable, __file__,
+                   "--host-worker" if host else "--worker", trees[who]]
+            if verify and who == "this":
+                cmd.append(verify)
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 check=True)
             got = json.loads(res.stdout.strip().splitlines()[-1])
             times[who].append(got)
             print(f"{who}: " + ", ".join(f"{k} {v:.4f} {unit}"

@@ -106,8 +106,33 @@ Phases (each raises on failure; nothing is caught):
      fwd.0 flip localized and repaired bit-exact, a wire flip caught by
      the sandwich), a wire flip attributed to the wire under
      "abft-stages", a persistent green flip raising SolveError;
-  9. every kernel call of the recorded solves (the distributed ones,
-     search_plan's radix-2 calls among them) replayed at its shape
+  8b. the solve server (repro_torch.serve, float32, "cuda" engine unless
+     marked): PoissonServer(max_batch=8, max_delay_ms=4) serves 8 tenant
+     threads x 4 requests over four keys, (U,U,U) and (P,P,P) at 256^3,
+     semi-unbounded (U,E),(U,U),(U,U) at 128^3 and (E,E),(O,O),(E,O) at
+     192^3 (library rfft, twiddle_pack, spectral_scale), every response
+     the bits of an individual solve of the same solver; one batch per
+     key at ranks 1, 2, 4 (3 rows padded) and 8, each launching exactly
+     the key's EXPECTED pattern (the counts do not depend on B: a
+     coalesced batch is one solve on the device), recorded for phase 9;
+     a "torch"-engine batch of 8 against individual solves (printed);
+     for (U,U,U) + (P,P,P) at 256^3 and 128^3 the throughput of a
+     coalescing server and of one with max_batch=1, both warm, taking
+     the same 8-tenant bursts in alternated rounds (the median and the
+     range of the rounds' ratios), each tenant's
+     p50/p95/p99, occupancy, padded rows, the pool's estimate beside
+     torch.cuda.memory_allocated, and each rank's batch time split by
+     CUDA events into the host-to-device copy, the solve and the
+     device-to-host copy (printed, not held); one fault-armed request of
+     four co-batched taking engine:cuda->torch once, seen by every
+     tenant, every answer within 1e-5 relative, the warm plan clean
+     after; the reference's serve soak (tests/test_abft.py) on a
+     one-rank NCCL mesh, (P,P,P) 256^3, a2a, verify="abft", engine
+     "torch"; the launcher (python -m repro_torch.launch.serve --n 128
+     --tenants 8 --requests 4 --max-batch 8 --seq, float64) as a
+     process of its own, exit 0, deviation 0.000e+00, its payload read;
+  9. every kernel call of the recorded solves (the distributed and the
+     served ones, search_plan's radix-2 calls among them) replayed at its shape
      against the plain version, and times with CUDA events (medians after
      warm-up; a kernel call is timed from a start event the device reaches
      only after the host has queued the call, and a kernel under 0.1 ms
@@ -122,7 +147,8 @@ Phases (each raises on failure; nothing is caught):
      breakdown of its device time by kernel with the idle share that
      leaves.
 The last two lines are the kernels' JSON record (with each kernel's
-launches in every distributed run, ``dist_launches``) and the device JSON.
+launches in every distributed run, ``dist_launches``, and every served
+batch, ``serve_launches``) and the device JSON.
 The script imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -676,6 +702,373 @@ def _dist4_abft(rank, dev, f, n):
                           [r["action"] for r in raised.degradations]]
     seen["wall_s"] = time.perf_counter() - t0
     return seen
+
+
+# the serve phase: each traffic key's cells per direction (and the
+# launch pattern of EXPECTED it runs), the grids the coalescing numbers
+# are taken at with each tenant's requests per burst and the rounds of
+# bursts per server, the launcher's grid, and the one-batch sizes whose
+# launches are counted with the rank each pads to
+SERVE_N = {"UUU": N, "PPP": N, "SEMI": N // 2, "SYM": 192}
+SERVE_PATTERN = {"UUU": "UUU", "PPP": "PPP", "SEMI": "SEMI_E",
+                 "SYM": "SYM384"}
+SERVE_ROUNDS = {N: (4, 6), N // 2: (16, 6)}
+SERVE_LAUNCHER_N = N // 2
+SERVE_BATCHES = {1: 1, 2: 2, 3: 4, 8: 8}
+
+
+def _serve_phase(dev, smi, run_counted):
+    """Phase 8b: the solve server (``repro_torch.serve``) on the card, as
+    the module docstring lists it.  ``run_counted(run, fn)`` runs
+    ``fn()`` with the launch counts set to 0 just before and read just
+    after, held to ``EXPECTED[run]``, each kernel call recorded for
+    phase 9.  Raises on the first failed check; returns each counted
+    run's launches."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.bc import BCType
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.core.solver import clear_solver_cache, get_solver
+    from repro_torch.runtime import faults
+    from repro_torch.serve import PlanSpec, PoissonServer
+    from repro_torch.serve.pool import _green_bytes
+
+    t0 = time.perf_counter()
+    U, P = (BCType.UNB, BCType.UNB), (BCType.PER, BCType.PER)
+    E, O = BCType.EVEN, BCType.ODD
+    bcs = {"UUU": (U, U, U), "PPP": (P, P, P),
+           "SEMI": ((BCType.UNB, E), U, U), "SYM": ((E, E), (O, O), (E, O))}
+    rng = np.random.default_rng(8)
+    mem0 = torch.cuda.memory_allocated()
+    clear_solver_cache()
+
+    # -- 1. traffic at full width, float32, engine "cuda" -----------------
+    specs, fields, indiv = {}, {}, {}
+    for key, n in SERVE_N.items():
+        spec = specs[key] = PlanSpec((n,) * 3, bcs[key], device=dev)
+        solver = get_solver((n,) * 3, 1.0, bcs[key], device=dev)
+        if spec.build() is not solver:
+            raise AssertionError(f"SERVE_{key}: PlanSpec.build missed the "
+                                 "get_solver cache")
+        fields[key] = [rng.standard_normal((n,) * 3, dtype=np.float32)
+                       for _ in range(8)]
+        # the individual solves every served response is held to
+        indiv[key] = [solver.solve(f).cpu().numpy() for f in fields[key]]
+
+    def bitexact(key, i, r):
+        if not np.array_equal(r.u, indiv[key][i]):
+            raise AssertionError(
+                f"SERVE_{key}: field {i} served at batch {r.batch_size} "
+                f"(rank {r.padded_to}) differs from its individual solve by "
+                f"{np.abs(r.u - indiv[key][i]).max():.3e}")
+
+    served = {}
+    for key, spec in specs.items():
+        for b, rank in SERVE_BATCHES.items():
+            run = f"SERVE_{key}/B{b}"
+            EXPECTED[run] = EXPECTED[SERVE_PATTERN[key]]
+            srv = PoissonServer(max_batch=8, max_delay_ms=60_000)
+
+            def one_batch(srv=srv, spec=spec, fs=fields[key][:b]):
+                """b requests, one flush (full at 8, else the drain)."""
+                srv.start()
+                futs = [srv.submit(f, spec, tenant=f"w{i}")
+                        for i, f in enumerate(fs)]
+                srv.stop(drain=True)
+                return [fut.result() for fut in futs]
+            res, counts = run_counted(run, one_batch)
+            st = srv.server_stats()
+            got = {(r.batch_size, r.padded_to) for r in res}
+            if st["batches"] != 1 or got != {(b, rank)}:
+                raise AssertionError(f"{run}: {st['batches']} batches, "
+                                     f"(batch, rank) {got}")
+            for i, r in enumerate(res):
+                bitexact(key, i, r)
+            served[run] = {k: v for k, v in counts.items() if v}
+        print(f"SERVE_{key} n={SERVE_N[key]} float32 cuda: one batch at "
+              f"each rank {sorted(SERVE_BATCHES.values())} launches "
+              f"{served[run]} (the {SERVE_PATTERN[key]} pattern, the same "
+              "at every rank); every row the bits of its individual solve")
+
+    # eight tenant threads, four requests each in a burst, two tenants a
+    # key; the main thread reads every future
+    keys = list(specs)
+
+    def client(t):
+        key = keys[t % len(keys)]
+        lo = (t // len(keys)) * 4
+        return [(key, i, srv.submit(fields[key][i], specs[key],
+                                    tenant=f"t{t}"))
+                for i in range(lo, lo + 4)]
+    with PoissonServer(max_batch=8, max_delay_ms=4) as srv, \
+            ThreadPoolExecutor(8) as ex:
+        subs = [ex.submit(client, t) for t in range(8)]
+        out = [(key, i, fut.result(timeout=600)) for s in subs
+               for key, i, fut in s.result()]
+        stats = srv.server_stats()
+    sizes = collections.defaultdict(set)
+    for key, i, r in out:
+        bitexact(key, i, r)
+        if r.degradations or r.integrity:
+            raise AssertionError(f"SERVE_{key}: records {r.degradations} "
+                                 f"{r.integrity}")
+        sizes[key].add((r.batch_size, r.padded_to))
+    print(f"SERVE traffic (8 tenants x 4 requests, max_batch 8, 4 ms): "
+          f"{stats['completed']} served in {stats['batches']} batches "
+          f"(full {stats['full_flushes']}, deadline "
+          f"{stats['deadline_flushes']}, drain {stats['drain_flushes']}), "
+          f"padded rows {stats['padded_rhs']}; (batch, rank) per key "
+          + "; ".join(f"{k} {sorted(v)}" for k, v in sizes.items())
+          + "; every response the bits of its individual solve")
+    # the "torch" engine (cuFFT): a batch of 8 against individual solves,
+    # printed (cuFFT may plan another batch count differently)
+    for key in ("UUU", "PPP"):
+        n = N // 2
+        spec = PlanSpec((n,) * 3, bcs[key], engine="torch", device=dev)
+        fs = [rng.standard_normal((n,) * 3, dtype=np.float32)
+              for _ in range(8)]
+        with PoissonServer(max_batch=8, max_delay_ms=60_000) as srv:
+            futs = [srv.submit(f, spec) for f in fs]
+        dev_ = max(float(np.abs(fut.result().u - spec.build().solve(f)
+                                .cpu().numpy()).max())
+                   for f, fut in zip(fs, futs))
+        print(f"SERVE_TORCH_{key} n={n} float32 torch engine: a batch of 8 "
+              f"against individual solves, max |dev| {dev_:.3e} ("
+              + ("bit-exact" if dev_ == 0.0 else "NOT bit-exact") + ")")
+
+    # -- 2. numbers: coalescing, percentiles, the copy split, the pool ----
+    # a coalescing server and a sequential one (max_batch=1), both warm at
+    # every rank, take the same bursts in alternated rounds (C S, S C,
+    # ...), so a drift of the host's speed falls on both alike
+    for n, (requests, rounds) in SERVE_ROUNDS.items():
+        nspecs = [PlanSpec((n,) * 3, bcs[k], device=dev)
+                  for k in ("UUU", "PPP")]
+        fs = [rng.standard_normal((n,) * 3, dtype=np.float32)
+              for _ in range(8)]
+
+        def burst(srv, nspecs=nspecs, fs=fs, requests=requests):
+            """8 tenant threads, the keys alternating, each submitting its
+            requests at once and reading their futures: the wall from
+            the first submit to the last answer."""
+            def client(t):
+                futs = [srv.submit(fs[(t + i) % 8], nspecs[t % 2],
+                                   tenant=f"t{t}") for i in range(requests)]
+                return [fut.result(timeout=600) for fut in futs]
+            with ThreadPoolExecutor(8) as ex:
+                t1 = time.perf_counter()
+                list(ex.map(client, range(8)))
+                return time.perf_counter() - t1
+
+        with PoissonServer(max_batch=8, max_delay_ms=4) as co, \
+                PoissonServer(max_batch=1, max_delay_ms=4) as seq:
+            srvs = {"coalesced": co, "sequential": seq}
+            for srv in srvs.values():
+                for spec in nspecs:
+                    for b in srv.batch_ranks:
+                        for fut in [srv.submit(f, spec, tenant="_warm")
+                                    for f in fs[:b]]:
+                            fut.result(timeout=600)
+            warm = co.server_stats()
+            walls = {how: [] for how in srvs}
+            for r in range(rounds):
+                for how in (list(srvs) if r % 2 == 0 else list(srvs)[::-1]):
+                    walls[how].append(burst(srvs[how]))
+            st = co.server_stats()
+            tstats = {how: srv.tenant_stats() for how, srv in srvs.items()}
+            mem = torch.cuda.memory_allocated()
+        per = 8 * requests
+        med = {how: statistics.median(w) for how, w in walls.items()}
+        ratios = [s_ / c_ for c_, s_ in zip(walls["coalesced"],
+                                            walls["sequential"])]
+        batches = st["batches"] - warm["batches"]
+        print(f"SERVE_NUMBERS n={n} float32 cuda, (U,U,U) + (P,P,P), 8 "
+              f"tenants x {requests} requests a burst, {rounds} bursts a "
+              f"server in alternated rounds ({per * rounds} requests "
+              f"each): coalesced {per / med['coalesced']:.2f} req/s "
+              f"(median wall {med['coalesced']:.4f} s), sequential "
+              f"{per / med['sequential']:.2f} req/s (median wall "
+              f"{med['sequential']:.4f} s), coalescing speedup "
+              f"{med['sequential'] / med['coalesced']:.3f}x (the rounds' "
+              f"ratios {min(ratios):.3f} to {max(ratios):.3f}, median "
+              f"{statistics.median(ratios):.3f}); mean occupancy "
+              f"{(st['completed'] - warm['completed']) / batches:.3f}, "
+              f"padded rows {st['padded_rhs'] - warm['padded_rhs']}, "
+              f"batches {batches}; card: {smi}")
+        for how, w in walls.items():
+            print(f"  {how} walls s: " + " ".join(f"{x:.4f}" for x in w))
+        for how, ts in tstats.items():
+            print(f"  {how} p50/p95/p99 ms per tenant: " + "; ".join(
+                f"{t} {s['p50_ms']:.2f}/{s['p95_ms']:.2f}/{s['p99_ms']:.2f}"
+                for t, s in sorted(ts.items()) if t != "_warm"))
+        green = sum(_green_bytes(s.build()) for s in nspecs)
+        print(f"  pool estimate {st['pool']['total_bytes'] / 2 ** 30:.3f} "
+              f"GiB ({st['pool']['size']} plans; their device Green copies "
+              f"{green / 2 ** 30:.3f} GiB, the rest three float64 fields "
+              f"per served rank); torch.cuda.memory_allocated "
+              f"{mem / 2 ** 30:.3f} GiB, {(mem - mem0) / 2 ** 30:.3f} GiB "
+              "above the phase's start")
+        del fs
+        fb = rng.standard_normal((8,) + (n,) * 3, dtype=np.float32)
+        for spec, key in zip(nspecs, ("UUU", "PPP")):
+            solver = spec.build()
+            parts = []
+            for rank in (1, 2, 4, 8):
+                reps = []
+                for _ in range(3):
+                    h0 = time.perf_counter()
+                    hb = np.stack(list(fb[:rank]), axis=0)
+                    h_ms = (time.perf_counter() - h0) * 1e3
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(4)]
+                    ev[0].record()
+                    x = torch.from_numpy(hb).to(dev)
+                    ev[1].record()
+                    u = solver.solve(x)
+                    ev[2].record()
+                    u.cpu()
+                    ev[3].record()
+                    ev[3].synchronize()
+                    reps.append([h_ms] + [ev[i].elapsed_time(ev[i + 1])
+                                          for i in range(3)])
+                    del x, u
+                h_ms, h2d, sol, d2h = (statistics.median(c)
+                                       for c in zip(*reps))
+                tot = h2d + sol + d2h
+                # what one batch allocates above what is resident, beside
+                # the pool's workspace estimate for the rank
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                solver.solve(torch.from_numpy(hb).to(dev)).cpu()
+                peak = torch.cuda.max_memory_allocated() - resident
+                parts.append(f"rank {rank}: H2D {h2d:.3f} + solve {sol:.3f}"
+                             f" + D2H {d2h:.3f} ms (copies "
+                             f"{(h2d + d2h) / tot:.1%} of {tot:.3f} ms; "
+                             f"host np.stack {h_ms:.3f} ms; peak "
+                             f"{peak / 2 ** 30:.3f} GiB above resident, "
+                             f"estimated {3 * hb.size * 8 / 2 ** 30:.3f})")
+            print(f"  {key} n={n} batch split (CUDA events, median of 3): "
+                  + "; ".join(parts))
+        del fb
+
+    # -- 3. fault isolation: one armed request of four co-batched ---------
+    spec, fs = specs["PPP"], fields["PPP"][:4]
+    plan = faults.FaultPlan([{"kind": "error", "stage": "solve.dispatch",
+                              "count": 1}])
+    with PoissonServer(max_batch=4, max_delay_ms=50) as srv:
+        r0 = srv.solve(fs[0], spec, tenant="before")
+        futs = [srv.submit(f, spec, tenant=f"f{i}",
+                           fault_plan=plan if i == 2 else None)
+                for i, f in enumerate(fs)]
+        res = [fut.result(timeout=600) for fut in futs]
+        r1 = srv.solve(fs[0], spec, tenant="after")
+        tstats = srv.tenant_stats()
+    acts = [[d["action"] for d in r.degradations] for r in res]
+    rel = max(float(np.abs(r.u - indiv["PPP"][i]).max()
+                    / np.abs(indiv["PPP"][i]).max())
+              for i, r in enumerate(res))
+    if (len(plan.log) != 1 or [r.batch_size for r in res] != [4] * 4
+            or acts != [["engine:cuda->torch"]] * 4
+            or any(len(tstats[f"f{i}"]["degradations"]) != 1
+                   for i in range(4))
+            or rel > 1e-5 or r0.degradations or r1.degradations
+            or not np.array_equal(r0.u, r1.u)
+            or spec.build()._cfg["engine"] != "cuda"):
+        raise AssertionError(f"SERVE fault isolation: fired {plan.log}, "
+                             f"batches {[r.batch_size for r in res]}, "
+                             f"actions {acts}, rel {rel:.3e}, before "
+                             f"{r0.degradations}, after {r1.degradations}")
+    bitexact("PPP", 0, r0)
+    print(f"SERVE fault isolation (P,P,P) n={SERVE_N['PPP']}: one of 4 "
+          f"co-batched requests armed (error at solve.dispatch): the batch "
+          f"took {acts[0]} once, every tenant saw that one record, every "
+          f"answer within {rel:.3e} relative of the clean cuda solve; the "
+          "next clean request on the warm plan: no record, the same bits")
+
+    # -- 4. the reference's serve soak on a one-rank mesh -----------------
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        DIST_BACKEND, init_method=f"file://{tmp.name}/serve", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    n = SERVE_N["PPP"]
+    # engine "torch": the distributed sandwich's weight comes from its
+    # autograd (on "cuda" verify="abft" runs the checked pipeline alone)
+    soak = PlanSpec((n,) * 3, bcs["PPP"], engine="torch", device=dev,
+                    mesh=mesh, solver_kw=(("comm", CommConfig("a2a")),))
+    fs = fields["PPP"][:4]
+    t1 = time.perf_counter()
+    with PoissonServer(max_batch=4, max_delay_ms=1.0, verify="abft") as srv:
+        base = [srv.solve(f, soak, tenant="warm") for f in fs]
+        if any(r.integrity or r.degradations for r in base):
+            raise AssertionError(f"SERVE soak baseline: "
+                                 f"{[r.integrity for r in base]}")
+        plan = faults.FaultPlan([dict(kind="flip", stage="fwd.0", count=2)])
+        bad = srv.submit(fs[0], soak, tenant="chaos",
+                         fault_plan=plan).result(timeout=600)
+        stages = [r["stage"] for r in bad.integrity]
+        if (not stages or stages[0] != "solve.linearity"
+                or not any(s.split("#")[0] == "fwd.0" for s in stages)
+                or not np.array_equal(bad.u, base[0].u)):
+            raise AssertionError(f"SERVE soak chaos: {bad.integrity}, "
+                                 f"bits {np.array_equal(bad.u, base[0].u)}")
+        for t in range(6):
+            for i, f in enumerate(fs):
+                r = srv.solve(f, soak, tenant=f"t{t}")
+                if (r.integrity or r.degradations
+                        or not np.array_equal(r.u, base[i].u)):
+                    raise AssertionError(f"SERVE soak t{t} field {i}: "
+                                         f"{r.integrity} {r.degradations}")
+    rel = max(float(np.abs(r.u - indiv["PPP"][i]).max()
+                    / np.abs(indiv["PPP"][i]).max())
+              for i, r in enumerate(base))
+    if rel > 1e-5:
+        raise AssertionError(f"SERVE soak: {rel:.3e} from the cuda solve")
+    print(f"SERVE soak (P,P,P) n={n} float32, one-rank {DIST_BACKEND} mesh "
+          f"(1, 1), a2a, verify='abft', engine torch: the flip-armed tenant "
+          f"localized {[(r['stage'], r['action']) for r in bad.integrity]} "
+          f"and repaired to the baseline bits; 6 tenants x 4 fields after "
+          f"it bit-exact, no integrity or degradation record; baseline "
+          f"within {rel:.3e} of the single-process cuda solve; "
+          f"{time.perf_counter() - t1:.1f} s")
+    dist.destroy_process_group()
+    tmp.cleanup()
+    clear_solver_cache()
+
+    # -- 5. the launcher, a process of its own, float64 fields -----------
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "serve.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--n",
+               str(SERVE_LAUNCHER_N), "--tenants", "8", "--requests", "4",
+               "--max-batch", "8", "--seq", "--json", path]
+        t1 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                           timeout=600)
+        if (p.returncode != 0 or "max |dev| vs per-request solves: "
+                "0.000e+00" not in p.stdout):
+            raise AssertionError(f"launcher: exit {p.returncode}\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        with open(path) as fh:
+            payload = json.load(fh)
+    if (payload["max_abs_dev_vs_individual"] != 0.0
+            or "coalescing_speedup" not in payload
+            or payload["server"]["completed"]
+            != payload["server"]["admitted"]):
+        raise AssertionError(f"launcher payload: {payload}")
+    print(f"SERVE launcher ({' '.join(cmd[1:3])} --n {SERVE_LAUNCHER_N} ... "
+          f"--seq), exit 0 in {time.perf_counter() - t1:.1f} s, payload "
+          "read back:")
+    for line in p.stdout.splitlines():
+        print(f"  {line}")
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    return served
 
 
 def _rate(table, name, default):
@@ -1839,6 +2232,9 @@ def main() -> int:
     print(f"distributed phase: {len(dist_launches)} runs in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # -- 8b. the solve server -------------------------------------------------
+    serve_launches = _serve_phase(dev, smi, run_counted)
+
     # -- 9. replays and times -------------------------------------------------
     def nbytes(t):
         return t.numel() * t.element_size()
@@ -1976,7 +2372,9 @@ def main() -> int:
                          else "operations"),
             "library_ms": None if kname in lib_none else p["library_ms"],
             "dist_launches": {r: c[kname] for r, c in dist_launches.items()
-                              if kname in c}})
+                              if kname in c},
+            "serve_launches": {r: c[kname] for r, c in serve_launches.items()
+                               if kname in c}})
     print(f"chip_smoke.py: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")

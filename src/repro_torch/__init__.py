@@ -18,9 +18,13 @@ over a ``torch.distributed`` ``DeviceMesh`` (the four comm strategies of
 builds and caches it.  ``repro_torch.plan`` is the plan space, the cost
 model and the guided search: ``comm="auto"`` times only the cost model's
 shortlist by default, and ``plan.search_plan`` searches mesh shape,
-order, relayout and radix on top of it.  The package imports
-no JAX and nothing of ``repro``; its tests hold it against ``repro`` on
-the same inputs.
+order, relayout and radix on top of it.  ``PoissonServer`` serves
+solves to many tenants: requests whose ``PlanSpec`` freeze to one key
+coalesce into one batched solve, from a warm pool of solvers under a
+memory budget (``repro_torch.serve``; ``python -m
+repro_torch.launch.serve`` drives it with threaded clients).  The
+package imports no JAX and nothing of ``repro``; its tests hold it
+against ``repro`` on the same inputs.
 """
 from .core.biot_savart import BiotSavartSolver  # noqa: F401
 from .core.comm import CommConfig  # noqa: F401
@@ -28,7 +32,8 @@ from .core.solver import (PoissonSolver, evict_solver_entries,  # noqa: F401
                           get_solver, make_plan)
 from .distributed.pencil import DistributedPoissonSolver  # noqa: F401
 from .runtime import SolveError  # noqa: F401
+from .serve import PlanSpec, PoissonServer  # noqa: F401
 
 __all__ = ["BiotSavartSolver", "CommConfig", "DistributedPoissonSolver",
-           "PoissonSolver", "SolveError", "evict_solver_entries",
-           "get_solver", "make_plan"]
+           "PlanSpec", "PoissonServer", "PoissonSolver", "SolveError",
+           "evict_solver_entries", "get_solver", "make_plan"]

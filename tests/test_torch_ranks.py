@@ -761,6 +761,73 @@ def scenario_abft_weight(rank, d, params):
     return out
 
 
+def _soak_spec(mesh, n):
+    """The reference serve soak's spec (``tests/test_abft.py``): (P,P,P),
+    ``comm`` a2a, float32 on ``mesh``; engine "torch" (the distributed
+    sandwich weight comes from its autograd)."""
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.serve import PlanSpec
+    return PlanSpec(shape=(n, n, n), bcs=_bcs((("PER", "PER"),) * 3),
+                    mesh=mesh, engine="torch", device="cpu",
+                    solver_kw=(("comm", CommConfig("a2a")),))
+
+
+def scenario_serve_one(rank, d, params):
+    """One rank: the reference's serve soak on a (1, 1) mesh -- a clean
+    baseline per field, one flip-armed tenant localized and repaired on
+    its shadow solver, then six clean tenants x four fields bit-exact
+    with no record; and the baseline against the reference's solve."""
+    from repro_torch.runtime import faults
+    from repro_torch.serve import PoissonServer
+
+    spec = _soak_spec(_mesh((1, 1), ("data", "model")), params["n"])
+    fields = np.load(os.path.join(d, "f.npy")).astype(np.float32)
+    want = np.load(os.path.join(d, "want.npy"))
+    out = {}
+    sizes = set()
+    with PoissonServer(max_batch=4, max_delay_ms=1.0, verify="abft") as srv:
+        base = [srv.solve(f, spec, tenant="warm") for f in fields]
+        out["base_records"] = sum(len(r.integrity) for r in base)
+        plan = faults.FaultPlan([dict(kind="flip", stage="fwd.0", count=2)])
+        bad = srv.submit(fields[0], spec, tenant="chaos",
+                         fault_plan=plan).result(timeout=60)
+        out["chaos_stages"] = [r["stage"] for r in bad.integrity]
+        out["chaos_log"] = len(plan.log)
+        out["chaos_bits"] = bool(np.array_equal(bad.u, base[0].u))
+        soak = {"solves": 0, "bitexact": 0, "records": 0,
+                "degradations": 0}
+        for t in range(6):
+            for i, f in enumerate(fields):
+                r = srv.solve(f, spec, tenant=f"t{t}")
+                soak["solves"] += 1
+                soak["bitexact"] += int(np.array_equal(r.u, base[i].u))
+                soak["records"] += len(r.integrity)
+                soak["degradations"] += len(r.degradations)
+                sizes.add(r.batch_size)
+        out["soak"] = soak
+    out["batch_sizes"] = sorted(sizes)
+    u = np.stack([r.u for r in base])
+    out["rel_vs_reference"] = _maxerr(u, want) / float(np.abs(want).max())
+    return out
+
+
+def scenario_serve_two(rank, d, params):
+    """Two ranks on a (1, 2) mesh: ``submit`` refuses the spec (every
+    rank would have to enter each batched solve)."""
+    from repro_torch.serve import PoissonServer
+
+    spec = _soak_spec(_mesh((1, 2), ("data", "model")), params["n"])
+    n = params["n"]
+    with PoissonServer(max_batch=4, max_delay_ms=1.0) as srv:
+        try:
+            srv.submit(np.zeros((n, n, n), np.float32), spec)
+            out = {"error": None, "message": ""}
+        except NotImplementedError as e:
+            out = {"error": type(e).__name__, "message": str(e)}
+        out["admitted"] = srv.server_stats()["admitted"]
+    return out
+
+
 def _run_rank(rank, scenario, d, world):
     import torch
     import torch.distributed as dist

@@ -17,8 +17,9 @@ rows; and the first at the Green epilogue (a (4160, 8192) plane), which
 neither solve runs on a two-pass direction.  Each time is the device
 time of 20 back-to-back calls between one event pair, the median of 5
 rounds taken in turn.  Pass 2 is the whole call less pass 1; the strided
-stores cost the whole call less the contiguous variant.  Exits 2 without
-a CUDA device.
+stores cost the whole call less the contiguous variant.  Each call's
+plain PyTorch version (``kernels/ref.py``) is timed beside it, the median
+of 3 single calls after one warm-up call.  Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -157,6 +158,29 @@ def main() -> int:
               f"({(whole - contig) / whole:.0%} of the call)")
         for v, t in times.items():
             print(f"    {v:18s} " + " ".join(f"{u:.4f}" for u in t))
+        # the plain version of the same call (the wrappers' arguments)
+        if g is not None:
+            plain = lambda: ref.fft_stockham_scale(  # noqa: E731
+                x, g, pad_to=nf)
+        elif real_out:
+            plain = lambda: ref.fft_stockham_twiddle(  # noqa: E731
+                x, ab[0], ab[1])
+        else:
+            plain = lambda: ref.fft_stockham(  # noqa: E731
+                x, inverse=bool(inverse),
+                pad_to=nf if n_in < nf else None)
+        plain()  # warm, as the kernel calls are
+        ts = []
+        for _ in range(3):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            s.record()
+            plain()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e))
+        print(f"  plain version {statistics.median(ts):.4f} ms "
+              "(median of 3 single calls)")
     return 0
 
 

@@ -22,7 +22,10 @@ order, relayout and radix on top of it.  ``PoissonServer`` serves
 solves to many tenants: requests whose ``PlanSpec`` freeze to one key
 coalesce into one batched solve, from a warm pool of solvers under a
 memory budget (``repro_torch.serve``; ``python -m
-repro_torch.launch.serve`` drives it with threaded clients).  The
+repro_torch.launch.serve`` drives it with threaded clients).
+``python -m repro_torch.launch.solve`` is the paper's workload on a grid
+of ranks, with the survivable ``--ckpt`` loop over
+``repro_torch.ckpt.checkpoint``.  The
 package imports no JAX and nothing of ``repro``; its tests hold it
 against ``repro`` on the same inputs.
 """

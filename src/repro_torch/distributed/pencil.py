@@ -52,7 +52,7 @@ adjoint over the global grid; on the ``"cuda"`` engine there is none
 pipeline on every solve, as the reference does on ``"pallas"``.
 
 Not ported (``NotImplementedError`` naming the ROADMAP item): ``lower``
-(HLO only; item 10).
+(HLO only; queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -885,6 +885,6 @@ class DistributedPoissonSolver:
     # -- not ported ----------------------------------------------------------
 
     def lower(self, batch=None, dtype=None, *, local_batch: bool = False):
-        raise _not_ported("lower (an HLO dry run)", 10,
+        raise _not_ported("lower (an HLO dry run)", 4,
                           "launch/hlo_stats.py's census")
 

@@ -180,7 +180,12 @@ def ifft_pruned(y, keep: int, max_radix: int = 4):
               for part in (y2[:, 0::2], y2[:, 1::2]))
     j = torch.arange(keep, dtype=torch.float64, device=y.device)
     mod = torch.polar(torch.ones_like(j), torch.pi * j / n).to(h0.dtype)
-    out = 0.5 * (h0 + mod * h1)
+    # on the CPU the product in real arithmetic (``ref.cmul``): PyTorch's
+    # CPU loops round a complex product differently in their vector body
+    # and scalar tail, so a row's bits would depend on where it sits in a
+    # batch.  On the card every element runs the same instructions, and
+    # the complex product makes fewer passes over the block
+    out = 0.5 * (h0 + (mod * h1 if h1.is_cuda else ref.cmul(h1, mod)))
     return out.reshape(shp[:-1] + (keep,))
 
 

@@ -17,8 +17,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["ONE_PASS_N", "twiddles", "fft_stockham", "fft_stockham_scale",
-           "fft_stockham_twiddle", "spectral_scale", "twiddle_pack"]
+__all__ = ["ONE_PASS_N", "twiddles", "cmul", "fft_stockham",
+           "fft_stockham_scale", "fft_stockham_twiddle", "spectral_scale",
+           "twiddle_pack"]
 
 
 def _cdt(rdt):
@@ -39,6 +40,17 @@ def twiddles(n: int, cdtype, device) -> torch.Tensor:
     ang = -2.0 * np.pi * np.arange(n) / n
     w = np.cos(ang) + 1j * np.sin(ang)
     return torch.from_numpy(w).to(device=device, dtype=cdtype)
+
+
+def cmul(z, w):
+    """``z * w`` in real arithmetic, one rounding per product and sum:
+    PyTorch's CPU complex product rounds differently in its vector loops
+    and their scalar tail, which would make a row's bits depend on where
+    it sits in the batch."""
+    wr = torch.view_as_real(w)
+    wi = torch.stack((-w.imag, w.real), dim=-1)
+    zr = torch.view_as_real(z)
+    return torch.view_as_complex(zr[..., 0:1] * wr + zr[..., 1:2] * wi)
 
 
 def _minus_i(z, inverse):
@@ -65,7 +77,7 @@ def _rows_fft(X, n, inverse, max_radix, w, stride):
     if n_in < n:
         # pruned first stage: x1 == 0, so e = x0 and d = x0 * w^j
         wj = w[torch.arange(n_in, device=dev) * stride]
-        X = torch.stack([X, X * wj], dim=-1).reshape(b, n)
+        X = torch.stack([X, cmul(X, wj)], dim=-1).reshape(b, n)
         m, l = n // 2, 2
     while m > 1:
         if m % 4 == 0 and max_radix >= 4:
@@ -78,14 +90,15 @@ def _rows_fft(X, n, inverse, max_radix, w, stride):
             u3 = _minus_i(B - D, inverse)
             j = torch.arange(q, device=dev) * (n // m * stride)
             w1, w2, w3 = (w[s * j][:, None] for s in (1, 2, 3))
-            ys = [t0 + t2, (t1 + u3) * w1, (t0 - t2) * w2, (t1 - u3) * w3]
+            ys = [t0 + t2, cmul(t1 + u3, w1), cmul(t0 - t2, w2),
+                  cmul(t1 - u3, w3)]
             X = torch.stack(ys, dim=2).reshape(b, n)
             m, l = q, 4 * l
         else:
             half = m // 2
             x0, x1 = X.reshape(b, 2, half, l).unbind(1)
             j = torch.arange(half, device=dev) * (n // m * stride)
-            X = torch.stack([x0 + x1, (x0 - x1) * w[j][:, None]],
+            X = torch.stack([x0 + x1, cmul(x0 - x1, w[j][:, None])],
                             dim=2).reshape(b, n)
             m, l = half, 2 * l
     return X
@@ -122,7 +135,7 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
                       max_radix, w, n2)
         t = (torch.arange(n2, device=dev)[:, None]
              * torch.arange(n1, device=dev)[None, :])
-        Z = (Y.reshape(b, n2, n1) * w[t]).transpose(1, 2)
+        Z = cmul(Y.reshape(b, n2, n1), w[t]).transpose(1, 2)
         V = _rows_fft(Z.reshape(b * n1, n2), n2, inverse, max_radix, w, n1)
         X = V.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
     if inverse:

@@ -33,8 +33,9 @@ them no-ops (one ``None`` check) when no plan is active:
     trace); ``count`` limits the firings either way.
 
 ``should_fire(kind, step=k)``
-    Time-step poll (no raise): a time-stepping loop asks it whether
-    a ``device_loss`` spec fires at step ``k``.
+    Driver-level poll (no raise): a time-stepping loop (the solve
+    launcher's ``--ckpt`` loop) asks at stage ``driver`` whether a
+    ``device_loss`` spec fires at step ``k``.
 
 Spec matching is by ``fnmatch`` pattern over stage names, with ``after`` /
 ``count`` controlling which matching hits actually fire -- a ``count``-
@@ -303,8 +304,8 @@ def taint_host(stage: str, arr):
     return out
 
 
-def should_fire(kind: str, step=None, stage: str = "step") -> bool:
-    """Time-step poll (device loss at step k); never raises."""
+def should_fire(kind: str, step=None, stage: str = "driver") -> bool:
+    """Driver-level poll (device loss at step k); never raises."""
     p = active()
     if p is None:
         return False

@@ -44,7 +44,7 @@ The paper's dominant production operation -- the unbounded Poisson solve
   as any other.  Every rank of a larger mesh would have to enter each
   batched solve (it is collective), and batches are decided here by
   wall-clock deadlines in one process, so ``submit`` refuses such a
-  spec (ROADMAP queue 1 item 8b).
+  spec (ROADMAP queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -355,7 +355,7 @@ class PoissonServer:
             raise NotImplementedError(
                 f"serving a mesh of {spec.mesh.size()} ranks needs rank 0 "
                 "to broadcast each batch to the follower ranks, not ported "
-                "yet (ROADMAP queue 1 item 8b)")
+                "yet (ROADMAP queue 1 item 1)")
         f = np.asarray(f)
         ts = self._tenant(tenant)
         grid = tuple(spec.shape)

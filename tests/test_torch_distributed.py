@@ -197,7 +197,7 @@ def test_real_switch_failure_raises_without_a_rung(misc_runs):
 def test_not_ported_entry_points_raise(misc_runs):
     for res in misc_runs["faults"]:
         items = [m.split("item ")[-1].rstrip(")") for m in res["not_ported"]]
-        assert items == ["10"]
+        assert items == ["4"]
 
 
 def test_rebuild_onto_the_survivors_mesh(misc_runs):

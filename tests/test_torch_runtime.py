@@ -120,6 +120,21 @@ def test_taint_and_step_matching(dtype):
         assert plan.log[0]["step"] == 3
 
 
+def test_should_fire_polls_the_driver_stage_as_the_reference():
+    # the reference's own device-loss spec (tests/test_faults.py): both
+    # packages poll stage "driver" by default and log the same firing
+    spec = dict(kind="device_loss", stage="driver", step=3)
+    logs = []
+    for mod in (faults, rfaults):
+        with mod.FaultPlan([dict(spec)]) as plan:
+            assert not mod.should_fire("device_loss", step=2)
+            assert mod.should_fire("device_loss", step=3)
+            assert not mod.should_fire("device_loss", step=3)
+        logs.append(plan.log)
+    assert logs[0] == logs[1] == [{"stage": "driver", "kind": "device_loss",
+                                   "step": 3, "hit": 1}]
+
+
 def test_taint_host_suppressed_mangle_and_stall():
     a = np.ones(4)
     with faults.FaultPlan([dict(kind="inf", stage="ckpt.*")]):

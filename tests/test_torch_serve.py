@@ -32,8 +32,8 @@ from repro.runtime import faults as rfaults
 from repro.serve import PlanSpec as RPlanSpec
 from repro.serve import PoissonServer as RPoissonServer
 from repro_torch.core.bc import BCType, DataLayout
-from repro_torch.core.solver import (clear_solver_cache, get_solver,
-                                     solver_cache_info)
+from repro_torch.core.solver import (PoissonSolver, clear_solver_cache,
+                                     get_solver, solver_cache_info)
 from repro_torch.launch import serve as launcher
 from repro_torch.runtime import faults, resilience
 from repro_torch.serve import (AdmissionError, PlanSpec, PoissonServer,
@@ -91,6 +91,19 @@ def test_torch_coalesced_batch_bitexact_vs_individual(engine):
         # same plan, same pipeline, batch rows are independent: the
         # served (coalesced, possibly zero-padded) answer is BIT-exact
         np.testing.assert_array_equal(s.solve(f).numpy(), r.u)
+
+
+def test_torch_cuda_engine_batch_bitexact_at_16_on_the_cpu():
+    # the plain kernels on a batch large enough that PyTorch's CPU loops
+    # split it among threads at the default thread count: a batched row
+    # keeps the bits of the same row solved alone
+    s = PoissonSolver((16,) * 3, 1.0, UNB3, engine="cuda", device="cpu")
+    rng = np.random.default_rng(0)
+    f = torch.from_numpy(rng.standard_normal(
+        (8,) + s.input_shape).astype(np.float32))
+    ub = s.solve(f)
+    for i in range(8):
+        assert torch.equal(ub[i], s.solve(f[i])), i
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -536,7 +549,7 @@ def test_torch_serve_soak_on_a_one_rank_mesh(serve_ranks):
 def test_torch_serve_refuses_a_mesh_of_two_ranks(serve_ranks):
     for res in serve_ranks["two"]:
         assert res["error"] == "NotImplementedError"
-        assert "ROADMAP queue 1 item 8b" in res["message"]
+        assert "ROADMAP queue 1 item 1" in res["message"]
         assert res["admitted"] == 0
 
 

@@ -138,7 +138,8 @@ Phases (each raises on failure; nothing is caught):
      --comm auto (the guided search times the CPU's shortlist), and
      --bcs unb at n=64, each run's launches held to its EXPECTED pattern
      once per solve (plus the search's timed solves), its ms/solve, E_inf
-     and plan-cache counters printed; per and mix E_inf < 1e-10, unb
+     and plan-cache counters printed, the runs of one plan sharing its
+     host Green assembly; per and mix E_inf < 1e-10, unb
      within 1e-12 of the "torch" engine's and below n=64's; four gloo
      ranks on the card (--p1 2 --p2 2 --comm pipelined, n=64 unb) within
      1e-10 of the one-rank E_inf, launches summed over the ranks; the
@@ -146,10 +147,13 @@ Phases (each raises on failure; nothing is caught):
      per, --steps 6 --ckpt --ckpt-every 2 --verify nan) under the
      reference's device-loss spec at step 3: the (1x2) surviving mesh,
      E_inf < 1e-5, the chaos report's keys, the launches of its 20
-     rank-solves; a checkpoint of tensors on the card restored bit-equal,
+     rank-solves; the spawned ranks of both runs record their kernel
+     calls for phase 9, which must be the launches they counted; a
+     checkpoint of tensors on the card restored bit-equal,
      a flip at ckpt.leaf.0 raising CheckpointError naming leaf 0;
-  9. every kernel call of the recorded solves (the distributed and the
-     served ones, search_plan's radix-2 calls among them) replayed at its shape
+  9. every kernel call of the recorded solves (the distributed, the
+     served and the launched ones, the spawned ranks' and search_plan's
+     radix-2 calls among them) replayed at its shape
      against the plain version, and times with CUDA events (medians after
      warm-up; a kernel call is timed from a start event the device reaches
      only after the host has queued the call, and a kernel under 0.1 ms
@@ -420,6 +424,29 @@ def _recorded(run, calls):
     finally:
         for k, v in saved.items():
             setattr(ops, k, v)
+
+
+# the environment by which the solve launcher's spawned ranks learn where
+# to write their kernel calls and the run they are recorded under
+RANK_CALLS_DIR = "CHIP_SMOKE_RANK_CALLS_DIR"
+RANK_CALLS_RUN = "CHIP_SMOKE_RANK_CALLS_RUN"
+
+
+def _launch_rank(rank, args, backend, devices, d):
+    """A rank spawned by the solve launcher, in place of its
+    ``_rank_main``: that rank with every kernel call recorded
+    (``_recorded``) under ``$CHIP_SMOKE_RANK_CALLS_RUN`` and written to
+    ``$CHIP_SMOKE_RANK_CALLS_DIR/calls<rank>.pkl`` for phase 9."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.solve import _rank_main
+    calls = {}
+    with _recorded(os.environ[RANK_CALLS_RUN], calls):
+        res = _rank_main(rank, args, backend, devices, d)
+    with open(os.path.join(os.environ[RANK_CALLS_DIR], f"calls{rank}.pkl"),
+              "wb") as fh:
+        pickle.dump(calls, fh)
+    return res
 
 
 # the distributed phase: the one-rank mesh's backend, how the four gloo
@@ -1122,26 +1149,34 @@ LAUNCH_FAULTS = '[{"kind": "device_loss", "stage": "driver", "step": 3}]'
 CHAOS_KEYS = {"steps", "final_mesh", "device_losses", "err_inf",
               "fault_log", "retries", "degradations", "integrity"}
 # the survivable loop's child process: the launcher with its report hook
-# writing rank 0's record beside the checkpoints
+# writing rank 0's record beside the checkpoints, and its spawned ranks
+# recording their kernel calls (``_launch_rank``)
 _LOSS_SCRIPT = r"""
 import json, sys
+import chip_smoke
 from repro_torch.launch import solve
 def keep(rec):
     with open(sys.argv[1], "w") as fh:
         json.dump({k: rec[k] for k in ("err", "backend", "devices",
                                        "launches", "final_mesh")}, fh)
 solve.report = keep
+solve._rank_main = chip_smoke._launch_rank
 solve.main(sys.argv[2:])
 """
 
 
-def _launch_phase(dev, smi, run_counted):
+def _launch_phase(dev, smi, run_counted, calls):
     """Phase 8c: the solve launcher (``repro_torch.launch.solve``) and the
     checkpoints on the card, as the module docstring lists them.
     ``run_counted(run, fn, expected)`` runs ``fn()`` with the launch counts
     set to 0 just before and read just after, held to ``expected(fn())``,
-    each kernel call recorded for phase 9.  Raises on the first failed
-    check; returns each run's launches (summed over its ranks)."""
+    each kernel call recorded for phase 9; the kernel calls of the
+    launcher's spawned ranks are recorded there (``_launch_rank``) and
+    merged into ``calls``.  The one-rank runs of one plan share its host
+    Green assembly: the NODE (U,U,U) 256^3 runs differ only in engine and
+    comm, on which the Green's function does not depend.  Raises on the
+    first failed check; returns each run's launches (summed over its
+    ranks)."""
     import os
     import tempfile
     import torch
@@ -1150,6 +1185,7 @@ def _launch_phase(dev, smi, run_counted):
     from repro_torch.core.comm import cfg_label
     from repro_torch.core.green import GreenKind
     from repro_torch.core.solver import make_plan
+    from repro_torch.distributed import pencil
     from repro_torch.launch import solve as launcher
     from repro_torch.plan import guided_comm_candidates
     from repro_torch.runtime import faults
@@ -1158,6 +1194,26 @@ def _launch_phase(dev, smi, run_counted):
     records = []
     launched = {}
     hook, launcher.report = launcher.report, records.append
+    build_green, greens = pencil.build_green, {}
+
+    def shared_green(plan):
+        if plan not in greens:
+            greens[plan] = build_green(plan)
+        return greens[plan]
+
+    def merge_rank_calls(td, run, got):
+        """Merge the calls the spawned ranks wrote to ``td`` into
+        ``calls``; they must be the launches the ranks counted."""
+        n = {}
+        for name in sorted(os.listdir(td)):
+            # written by this run's own ranks (_launch_rank)
+            with open(os.path.join(td, name), "rb") as fh:
+                for key, c in pickle.load(fh).items():
+                    calls[key] = calls.get(key, 0) + c
+                    n[key[1][0]] = n.get(key[1][0], 0) + c
+        if n != got:
+            raise AssertionError(f"{run}: the ranks recorded kernel calls "
+                                 f"{n}, counted launches {got}")
 
     def times(pattern, k):
         return {name: v * k for name, v in pattern.items() if v}
@@ -1187,6 +1243,7 @@ def _launch_phase(dev, smi, run_counted):
 
     try:
         # -- 1. one rank at full width -----------------------------------
+        pencil.build_green = shared_green
         n = str(LAUNCH_N)
         rec = {}
         for run, argv in (
@@ -1222,6 +1279,10 @@ def _launch_phase(dev, smi, run_counted):
               f"{rec['LAUNCH_AUTO']['comm']}")
         small = launch("LAUNCH_UNB_SMALL", ["--n", str(LAUNCH_SMALL_N),
                                             "--bcs", "unb"] + LAUNCH_REPS)
+        pencil.build_green = build_green
+        print(f"  LAUNCH: {len(greens)} host Green assemblies for the "
+              f"{len(launched)} one-rank runs")
+        greens.clear()
         for run in ("LAUNCH_PER", "LAUNCH_MIX"):
             if rec[run]["err"] >= 1e-10:
                 raise AssertionError(f"{run}: E_inf {rec[run]['err']}")
@@ -1238,10 +1299,22 @@ def _launch_phase(dev, smi, run_counted):
         t1 = time.perf_counter()
         argv = ["--n", str(LAUNCH_SMALL_N), "--p1", "2", "--p2", "2",
                 "--bcs", "unb", "--comm", "pipelined"] + LAUNCH_RANK_REPS
-        launcher.main(argv)
-        r4 = records[-1]
+        with tempfile.TemporaryDirectory() as td:
+            # the ranks inherit this environment when they are spawned
+            os.environ.update({RANK_CALLS_RUN: "LAUNCH_RANKS4",
+                               RANK_CALLS_DIR: td})
+            rank_main = launcher._rank_main
+            launcher._rank_main = _launch_rank
+            try:
+                launcher.main(argv)
+            finally:
+                launcher._rank_main = rank_main
+                for k in (RANK_CALLS_RUN, RANK_CALLS_DIR):
+                    os.environ.pop(k)
+            r4 = records[-1]
+            got = {k: v for k, v in r4["launches"].items() if v}
+            merge_rank_calls(td, "LAUNCH_RANKS4", got)
         want = times(EXPECTED["LAUNCH_UNB"], 4 * r4["solves"])
-        got = {k: v for k, v in r4["launches"].items() if v}
         if (r4["backend"] != "gloo" or len(r4["devices"]) != 4
                 or got != want or abs(r4["err"] - small["err"]) > 1e-10):
             raise AssertionError(f"LAUNCH_RANKS4: {r4['backend']} on "
@@ -1261,12 +1334,18 @@ def _launch_phase(dev, smi, run_counted):
         with tempfile.TemporaryDirectory() as td:
             out, chaos = os.path.join(td, "rec.json"), \
                 os.path.join(td, "chaos.json")
+            rank_calls = os.path.join(td, "calls")
+            os.mkdir(rank_calls)
             argv = ["--n", str(LAUNCH_SMALL_N), "--p1", "2", "--p2", "2",
                     "--bcs", "per", "--steps", "6", "--ckpt",
                     os.path.join(td, "ck"), "--ckpt-every", "2",
                     "--verify", "nan"]
-            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                       REPRO_FAULTS=LAUNCH_FAULTS, REPRO_CHAOS_LOG=chaos)
+            env = dict(os.environ,
+                       PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                                   str(ROOT)]),
+                       REPRO_FAULTS=LAUNCH_FAULTS, REPRO_CHAOS_LOG=chaos,
+                       **{RANK_CALLS_DIR: rank_calls,
+                          RANK_CALLS_RUN: "LAUNCH_LOSS"})
             p = subprocess.run([sys.executable, "-c", _LOSS_SCRIPT, out]
                                + argv, capture_output=True, text=True,
                                cwd=ROOT, env=env, timeout=600)
@@ -1280,10 +1359,11 @@ def _launch_phase(dev, smi, run_counted):
                 rl = json.load(fh)
             with open(chaos) as fh:
                 report = json.load(fh)
+            got = {k: v for k, v in rl["launches"].items() if v}
+            merge_rank_calls(rank_calls, "LAUNCH_LOSS", got)
         # steps 0-2 on the four ranks, then (rolled back to the step-1
         # checkpoint) steps 2-5 on the two survivors
         want = times(EXPECTED["LAUNCH_PER"], 3 * 4 + 4 * 2)
-        got = {k: v for k, v in rl["launches"].items() if v}
         if (rl["err"] >= 1e-5 or set(report) != CHAOS_KEYS or got != want
                 or report["final_mesh"] != [1, 2]
                 or report["device_losses"] != 1):
@@ -1328,6 +1408,7 @@ def _launch_phase(dev, smi, run_counted):
               "ckpt.leaf.0 raised CheckpointError(leaf=0)")
     finally:
         launcher.report = hook
+        pencil.build_green = build_green
     print(f"launch phase: {time.perf_counter() - t0:.1f} s")
     return launched
 
@@ -2499,7 +2580,7 @@ def main() -> int:
     serve_launches = _serve_phase(dev, smi, run_counted)
 
     # -- 8c. the solve launcher and checkpoints -------------------------------
-    launch_launches = _launch_phase(dev, smi, run_counted)
+    launch_launches = _launch_phase(dev, smi, run_counted, calls)
 
     # -- 9. replays and times -------------------------------------------------
     def nbytes(t):

@@ -23,8 +23,7 @@ reference's leaf order (dict keys sorted, lists and tuples in order), so
 manifest's ``treedef`` string is this package's own: restore checks the
 leaf count and each leaf's shape, as the reference does.  A tensor is
 saved from its host copy; a restored leaf comes back on its like-leaf's
-device and in its dtype (a numpy like-leaf as numpy, unless ``device=``
-names where it should go).
+device and in its dtype (a numpy like-leaf as numpy).
 
 The reference's ``shardings=`` re-shard on restore has no counterpart: a
 rank of ``DistributedPoissonSolver`` holds the global field
@@ -211,10 +210,9 @@ def latest_step(directory):
     return steps[-1] if steps else None
 
 
-def restore(directory, step, like_tree, device=None):
+def restore(directory, step, like_tree):
     """Restore into the structure of ``like_tree``: each leaf on its
-    like-leaf's device and in its dtype; ``device`` places every leaf
-    there instead (a numpy like-leaf then comes back as a tensor).
+    like-leaf's device and in its dtype (a numpy like-leaf as numpy).
 
     The manifest is validated against both the on-disk arrays and
     ``like_tree`` (leaf count, per-leaf shape) before anything is loaded;
@@ -247,12 +245,8 @@ def restore(directory, step, like_tree, device=None):
                 f"manifest records {want}): checkpoint bytes rotted "
                 f"between save and restore", path=path, leaf=i)
         if torch.is_tensor(leaf):
-            out.append(torch.from_numpy(arr).to(
-                device=leaf.device if device is None else device,
-                dtype=leaf.dtype))
-        elif device is not None:
-            out.append(torch.from_numpy(np.asarray(arr, dtype=leaf.dtype))
-                       .to(device))
+            out.append(torch.from_numpy(arr).to(device=leaf.device,
+                                                dtype=leaf.dtype))
         else:
             out.append(np.asarray(arr, dtype=leaf.dtype))
     return _unflatten(like_tree, out)

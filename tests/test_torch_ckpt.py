@@ -128,10 +128,13 @@ def test_restore_places_leaves_on_the_like_leaf_device_and_dtype(tmp_path):
                             "t": torch.zeros(3, dtype=torch.float64)})
     assert isinstance(out["a"], np.ndarray) and out["a"].dtype == np.float32
     assert torch.is_tensor(out["t"]) and out["t"].dtype == torch.float64
-    out = ck.restore(d, 0, {"a": np.zeros(4), "t": torch.zeros(3)},
-                     device="cpu")
+    # the like-leaf's kind decides, not what was saved
+    out = ck.restore(d, 0, {"a": torch.zeros(4, dtype=torch.float64),
+                            "t": np.zeros(3)})
     assert torch.is_tensor(out["a"]) and out["a"].device.type == "cpu"
     assert torch.equal(out["a"], torch.arange(4.0, dtype=torch.float64))
+    assert isinstance(out["t"], np.ndarray)
+    np.testing.assert_array_equal(out["t"], np.arange(3.0))
 
 
 def _mixed_tree(kind):

@@ -151,6 +151,21 @@ Phases (each raises on failure; nothing is caught):
      calls for phase 9, which must be the launches they counted; a
      checkpoint of tensors on the card restored bit-equal,
      a flip at ckpt.leaf.0 raising CheckpointError naming leaf 0;
+  8d. serving on a mesh (repro_torch.serve on four gloo ranks spawned on
+     the card, mesh (2, 2): rank 0 runs every PoissonServer, ranks 1-3
+     follow each one, engine "cuda", overlap:2): (U,U,U) and (P,P,P)
+     float32 at DIST4_GLOO's 128^3, one batch at ranks 1, 2, 4 and 8, and
+     NODE (E,E),(O,E),(P,P) n=64 float64 (the uneven split) at ranks 1
+     and 4, every row bit-exact against the same row served alone and
+     within 1e-5 relative (1e-10) of the single-process "torch" solve;
+     every rank entering the same solves, each with its key's per-rank
+     B=1 launches; the share of each batch spent in the header and batch
+     broadcast; the reference gate's traffic (bench_serve.py: 8 tenants
+     x 12 requests over (U,U,U) and (P,P,P) at 64^3, max_batch 8, 4 ms)
+     coalesced and sequential in alternated rounds, req/s, their ratio
+     and each tenant's p50/p95/p99; the reference's serve soak at n=16
+     (engine "torch", verify="abft"); every follower leaving each
+     server's stop; the ranks' kernel calls recorded for phase 9;
   9. every kernel call of the recorded solves (the distributed, the
      served and the launched ones, the spawned ranks' and search_plan's
      radix-2 calls among them) replayed at its shape
@@ -169,7 +184,8 @@ Phases (each raises on failure; nothing is caught):
      leaves.
 The last two lines are the kernels' JSON record (with each kernel's
 launches in every distributed run, ``dist_launches``, every served
-batch, ``serve_launches``, and every launcher run, ``launch_launches``)
+batch, ``serve_launches``, the mesh-served ones summed over the ranks and
+solves, and every launcher run, ``launch_launches``)
 and the device JSON.
 The script imports neither JAX nor the JAX package.
 """
@@ -1413,6 +1429,401 @@ def _launch_phase(dev, smi, run_counted, calls):
     return launched
 
 
+# the mesh serve phase: the DFT keys' grid (DIST4_GLOO's), the NODE key's
+# (the uneven 65-point split), the batch ranks each key is served at, the
+# gate's grid, tenants, requests a tenant and alternated rounds a server
+# kind (the reference's bench_serve.py traffic), and the soak's grid
+SERVE_MESH_N = N // 2
+SERVE_MESH_NODE_N = 64
+SERVE_MESH_RANKS = {"UUU": (1, 2, 4, 8), "PPP": (1, 2, 4, 8),
+                    "NODE": (1, 4)}
+SERVE_MESH_GATE = {"n": 64, "tenants": 8, "requests": 12, "rounds": 4}
+SERVE_MESH_SOAK_N = 16
+
+
+def _serve_mesh_tag(bcs, n, engine) -> str:
+    """The mesh phase's name of a served key: its BCs, its grid and, off
+    the "cuda" engine, the engine."""
+    from repro_torch.core.bc import BCType
+    name = ("UUU" if bcs == ((BCType.UNB, BCType.UNB),) * 3
+            else "PPP" if bcs == ((BCType.PER, BCType.PER),) * 3 else "NODE")
+    return f"{name}{n}" + ("" if engine == "cuda" else f"_{engine}")
+
+
+def _serve_mesh_rank(rank, world, d):
+    """One of the four gloo ranks of phase 8d on the one card, mesh
+    (2, 2): rank 0 runs every server of the phase, ranks 1-3 ``follow``
+    each.  Every rank logs each distributed solve it enters (its key,
+    batch rank and launches, the counts set to 0 just before and read
+    just after) and records its kernel calls; rank 0 also times each
+    batch's broadcast.  Writes what it found to ``<d>/rank<rank>.pkl``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import pencil
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import follow
+
+    d = Path(d)
+    with open(d / "params.json") as fh:
+        prm = json.load(fh)
+    dev = torch.device(prm["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{d}/gloo", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    mesh = init_device_mesh(dev.type, (2, 2), mesh_dim_names=("data", "model"))
+    out = {"log": [], "calls": {}}
+    real_solve = pencil.DistributedPoissonSolver.solve
+
+    def solve_logged(self, f, verify=None):
+        c = self._ctor
+        tag = _serve_mesh_tag(c["bcs"], c["shape"][0], c["engine_obj"].name)
+        run = f"SERVE_MESH_{tag}/B{f.shape[0]}"
+        with _recorded(run, out["calls"]):
+            sync()
+            reset_launches()
+            u = real_solve(self, f, verify)
+            sync()
+            counts = {k: v for k, v in LAUNCHES.items() if v}
+        out["log"].append((run, counts))
+        return u
+    pencil.DistributedPoissonSolver.solve = solve_logged
+    if rank != 0:
+        out["follow"] = [follow(mesh, device=dev)
+                         for _ in range(prm["servers"])]
+    else:
+        out.update(_serve_mesh_leader(prm, d, dev, mesh))
+    with open(d / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _serve_mesh_leader(prm, d, dev, mesh):
+    """Rank 0 of phase 8d: every server of the phase, in the order the
+    followers follow them; returns what the parent checks and prints."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.bc import BCType, DataLayout
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.runtime import faults
+    from repro_torch.serve import PlanSpec, PoissonServer, percentile
+    from repro_torch.serve import server as srv_mod
+
+    U, P = (BCType.UNB, BCType.UNB), (BCType.PER, BCType.PER)
+    E, O = BCType.EVEN, BCType.ODD
+    ov2 = (("comm", CommConfig("overlap", 2)),)
+    n, nn = prm["n"], prm["node_n"]
+    specs = {
+        "UUU": PlanSpec((n,) * 3, (U, U, U), mesh=mesh, device=dev,
+                        solver_kw=ov2),
+        "PPP": PlanSpec((n,) * 3, (P, P, P), mesh=mesh, device=dev,
+                        solver_kw=ov2),
+        "NODE": PlanSpec((nn,) * 3, ((E, E), (O, E), P),
+                         layout=DataLayout.NODE, mesh=mesh, device=dev,
+                         solver_kw=ov2 + (("dtype", torch.float64),))}
+    out = {"keys": {}, "sends": [], "batches": []}
+    # the header and batch broadcast, and the whole batch, timed on the
+    # host around each call (the sentinel's broadcasts not counted)
+    send, on_mesh = srv_mod._send_batch, PoissonServer._solve_on_mesh
+
+    def send_timed(group, src, header, x):
+        t0 = time.perf_counter()
+        send(group, src, header, x)
+        if x is not None:
+            out["sends"].append((x.shape[0], time.perf_counter() - t0))
+
+    def on_mesh_timed(self, key, spec, fb, plan, verify):
+        t0 = time.perf_counter()
+        res = on_mesh(self, key, spec, fb, plan, verify)
+        out["batches"].append((
+            fb.shape[0], _serve_mesh_tag(spec.bcs, spec.shape[0], spec.engine),
+            time.perf_counter() - t0))
+        return res
+    srv_mod._send_batch = send_timed
+    PoissonServer._solve_on_mesh = on_mesh_timed
+
+    # -- 1. one batch a key at each rank, then every field alone --------
+    t0 = time.perf_counter()
+    fields = {k: np.load(d / f"f_{k}.npy") for k in specs}
+    served = {}
+    for key, spec in specs.items():
+        for b in prm["ranks"][key]:
+            srv = PoissonServer(max_batch=8, max_delay_ms=60_000).start()
+            futs = [srv.submit(f, spec, tenant=f"w{i}")
+                    for i, f in enumerate(fields[key][:b])]
+            srv.stop(drain=True)
+            served[key, b] = [fu.result() for fu in futs]
+            if srv.server_stats()["batches"] != 1:
+                raise AssertionError(f"SERVE_MESH_{key}/B{b}: "
+                                     f"{srv.server_stats()['batches']} "
+                                     "batches")
+    with PoissonServer(max_batch=1, max_delay_ms=1.0) as srv:
+        alone = {k: [srv.solve(f, spec, tenant="alone")
+                     for f in fields[k][:max(prm["ranks"][k])]]
+                 for k, spec in specs.items()}
+    for key in specs:
+        want = np.load(d / f"u_{key}.npy")
+        tol = 1e-10 if key == "NODE" else 1e-5
+        rel, bits = 0.0, True
+        for b in prm["ranks"][key]:
+            for i, r in enumerate(served[key, b]):
+                if (r.batch_size, r.padded_to) != (b, b) or r.degradations:
+                    raise AssertionError(f"SERVE_MESH_{key}/B{b}: row {i} "
+                                         f"({r.batch_size}, {r.padded_to}) "
+                                         f"{r.degradations}")
+                bits &= bool(np.array_equal(r.u, alone[key][i].u))
+                rel = max(rel, float(np.abs(r.u - want[i]).max()
+                                     / np.abs(want[i]).max()))
+        if not bits or rel > tol:
+            raise AssertionError(f"SERVE_MESH_{key}: bit-exact against the "
+                                 f"rows served alone {bits}, relative "
+                                 f"{rel:.3e} from the single-process torch "
+                                 f"solve (tolerance {tol:.0e})")
+        out["keys"][key] = {"rel": rel, "ranks": prm["ranks"][key]}
+    out["keys_s"] = time.perf_counter() - t0
+
+    # -- 2. the reference gate's traffic, coalesced and sequential -------
+    g = prm["gate"]
+    gate = [PlanSpec((g["n"],) * 3, bcs, mesh=mesh, device=dev,
+                     solver_kw=ov2) for bcs in ((U, U, U), (P, P, P))]
+    rng = np.random.default_rng(12)
+    gfs = [rng.standard_normal((g["n"],) * 3, dtype=np.float32)
+           for _ in range(8)]
+    t0 = time.perf_counter()
+    with PoissonServer(max_batch=8, max_delay_ms=4) as srv:
+        for spec in gate:                      # warm: every key and rank
+            for b in srv.batch_ranks:
+                for fu in [srv.submit(f, spec, tenant="_warm")
+                           for f in gfs[:b]]:
+                    fu.result(timeout=600)
+    walls = {"coalesced": [], "sequential": []}
+    lat = {how: collections.defaultdict(list) for how in walls}
+
+    def burst(how):
+        with PoissonServer(max_batch=8 if how == "coalesced" else 1,
+                           max_delay_ms=4) as srv:
+            def client(t):
+                futs = [srv.submit(gfs[(t + i) % 8], gate[t % 2],
+                                   tenant=f"t{t}")
+                        for i in range(g["requests"])]
+                return [fu.result(timeout=600) for fu in futs]
+            with ThreadPoolExecutor(g["tenants"]) as ex:
+                t1 = time.perf_counter()
+                res = list(ex.map(client, range(g["tenants"])))
+                walls[how].append(time.perf_counter() - t1)
+        for t, rs in enumerate(res):
+            lat[how][f"t{t}"] += [r.total_s for r in rs]
+    for r in range(g["rounds"]):
+        for how in (("coalesced", "sequential") if r % 2 == 0
+                    else ("sequential", "coalesced")):
+            burst(how)
+    out["gate"] = {
+        "walls": walls, "gate_s": time.perf_counter() - t0,
+        "pct": {how: {t: [percentile(v, q) * 1e3 for q in (50, 95, 99)]
+                      for t, v in sorted(ts.items())}
+                for how, ts in lat.items()}}
+
+    # -- 3. the reference's serve soak on the mesh -----------------------
+    t0 = time.perf_counter()
+    ns = prm["soak_n"]
+    soak = PlanSpec((ns,) * 3, (P, P, P), engine="torch", mesh=mesh,
+                    device=dev, solver_kw=(("comm", CommConfig("a2a")),))
+    sf = np.load(d / "f_SOAK.npy")
+    with PoissonServer(max_batch=4, max_delay_ms=1.0, verify="abft") as srv:
+        base = [srv.solve(f, soak, tenant="warm") for f in sf]
+        if any(r.integrity or r.degradations for r in base):
+            raise AssertionError(f"SERVE_MESH soak baseline: "
+                                 f"{[r.integrity for r in base]}")
+        plan = faults.FaultPlan([dict(kind="flip", stage="fwd.0", count=2)])
+        bad = srv.submit(sf[0], soak, tenant="chaos",
+                         fault_plan=plan).result(timeout=600)
+        stages = [r["stage"] for r in bad.integrity]
+        if (len(plan.log) != 2 or not stages
+                or stages[0] != "solve.linearity"
+                or not any(s.split("#")[0] == "fwd.0" for s in stages)
+                or not np.array_equal(bad.u, base[0].u)):
+            raise AssertionError(f"SERVE_MESH soak chaos: {plan.log} "
+                                 f"{bad.integrity}")
+        for t in range(6):
+            for i, f in enumerate(sf):
+                r = srv.solve(f, soak, tenant=f"t{t}")
+                if (r.integrity or r.degradations
+                        or not np.array_equal(r.u, base[i].u)):
+                    raise AssertionError(f"SERVE_MESH soak t{t} field {i}: "
+                                         f"{r.integrity} {r.degradations}")
+    want = np.load(d / "u_SOAK.npy")
+    out["soak"] = {"stages": [(r["stage"], r["action"])
+                              for r in bad.integrity],
+                   "rel": max(float(np.abs(r.u - w).max() / np.abs(w).max())
+                              for r, w in zip(base, want)),
+                   "soak_s": time.perf_counter() - t0}
+    srv_mod._send_batch, PoissonServer._solve_on_mesh = send, on_mesh
+    return out
+
+
+def _serve_mesh_phase(dev, smi, calls):
+    """Phase 8d: serving on a mesh of four gloo ranks on the one card, as
+    the module docstring lists it.  The parent draws the fields and
+    solves each on one process ("torch" engine: cuFFT) for the ranks to
+    hold their rows to, spawns the ranks, checks that every rank entered
+    the same solves with each key's launch pattern, merges the ranks'
+    kernel calls into ``calls`` for phase 9 and prints the numbers.
+    Raises on the first failed check; returns each run's launches summed
+    over the ranks and solves."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.core.bc import BCType, DataLayout
+    from repro_torch.core.solver import PoissonSolver
+
+    t0 = time.perf_counter()
+    U, P = (BCType.UNB, BCType.UNB), (BCType.PER, BCType.PER)
+    E, O = BCType.EVEN, BCType.ODD
+    n, nn, ns = SERVE_MESH_N, SERVE_MESH_NODE_N, SERVE_MESH_SOAK_N
+    rng = np.random.default_rng(22)
+    cases = {"UUU": ((n,) * 3, (U, U, U), DataLayout.CELL, np.float32, 8),
+             "PPP": ((n,) * 3, (P, P, P), DataLayout.CELL, np.float32, 8),
+             "NODE": ((nn,) * 3, ((E, E), (O, E), P), DataLayout.NODE,
+                      np.float64, 4),
+             "SOAK": ((ns,) * 3, (P, P, P), DataLayout.CELL, np.float32, 4)}
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    for key, (shape, bcs, layout, dt, k) in cases.items():
+        sp = PoissonSolver(shape, 1.0, bcs, layout=layout, engine="torch",
+                           device=dev)
+        fs = rng.standard_normal((k,) + tuple(sp.input_shape)).astype(dt)
+        np.save(d / f"f_{key}.npy", fs)
+        x = torch.from_numpy(fs).to(dev)
+        if dt == np.float32:
+            x = x.float()
+        np.save(d / f"u_{key}.npy", sp.solve(x).cpu().numpy())
+        del sp, x
+    rounds = SERVE_MESH_GATE["rounds"]
+    servers = sum(len(r) for r in SERVE_MESH_RANKS.values()) + 1 + 1 \
+        + 2 * rounds + 1
+    with open(d / "params.json", "w") as fh:
+        json.dump({"device": str(dev), "n": n, "node_n": nn, "soak_n": ns,
+                   "ranks": SERVE_MESH_RANKS, "gate": SERVE_MESH_GATE,
+                   "servers": servers}, fh)
+    t_ref = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    mp.start_processes(_serve_mesh_rank, args=(4, str(d)), nprocs=4,
+                       start_method=DIST_START)
+    ranks = []
+    for r in range(4):
+        # written by this phase's own ranks just above
+        with open(d / f"rank{r}.pkl", "rb") as fh:
+            ranks.append(pickle.load(fh))
+    tmp.cleanup()
+    t_ranks = time.perf_counter() - t1
+    lead = ranks[0]
+
+    # every rank entered the same solves, each at its key's launches
+    runs = [r for r, _ in lead["log"]]
+    if any([r for r, _ in res["log"]] != runs for res in ranks):
+        raise AssertionError("SERVE_MESH: the ranks entered different "
+                             "solves: " + "; ".join(
+                                 f"rank {i} {len(res['log'])}"
+                                 for i, res in enumerate(ranks)))
+    for i, res in enumerate(ranks[1:], 1):
+        if len(res["follow"]) != servers or any(
+                f["failed"] for f in res["follow"]):
+            raise AssertionError(f"SERVE_MESH: rank {i} followed "
+                                 f"{res['follow']}")
+    node = {k: v // 4 for k, v in
+            EXPECTED["DIST4_GLOO_NODE/overlap:2"].items()}
+    pattern = {f"UUU{n}": uuu_launches("overlap:2"),
+               f"UUU{SERVE_MESH_GATE['n']}": uuu_launches("overlap:2"),
+               f"NODE{nn}": node, f"PPP{ns}_torch": {}}
+    first = {}
+    totals = collections.defaultdict(collections.Counter)
+    for res in ranks:
+        for run, counts in res["log"]:
+            tag = run.split("_", 2)[2].split("/")[0]
+            want = pattern.get(tag) or first.setdefault(tag, counts)
+            if counts != want:
+                raise AssertionError(f"{run}: launches {counts}, the key's "
+                                     f"B=1 count {want}")
+            totals[run].update(counts)
+        for key, c in res["calls"].items():
+            calls[key] = calls.get(key, 0) + c
+    if not first.get(f"PPP{n}", {}).get("fft_stockham_scale"):
+        raise AssertionError(f"SERVE_MESH PPP: launches {first}")
+    launched = {run: dict(c) for run, c in totals.items() if c}
+    solves = collections.Counter(runs)
+
+    # the broadcast's share of each batch (one broadcast a batch)
+    if len(lead["sends"]) != len(lead["batches"]):
+        raise AssertionError(f"SERVE_MESH: {len(lead['sends'])} broadcasts "
+                             f"for {len(lead['batches'])} batches")
+    shares = [s / b for (_, _, b), (_, s) in zip(lead["batches"],
+                                                 lead["sends"])]
+    for key, res in lead["keys"].items():
+        tag = f"{key}{nn if key == 'NODE' else n}"
+        print(f"SERVE_MESH_{key} n={nn if key == 'NODE' else n} "
+              f"{'float64' if key == 'NODE' else 'float32'} cuda overlap:2 on "
+              f"4 gloo ranks, mesh (2, 2): one batch at each rank "
+              f"{list(res['ranks'])}, every row bit-exact against the same "
+              f"row served alone, relative max |diff| {res['rel']:.3e} from "
+              f"the single-process torch solve; launches per rank and solve "
+              f"{pattern.get(tag) or first[tag]} at every rank; card: {smi}")
+    for (rank, tag, b_s), s in zip(lead["batches"], shares):
+        if tag in (f"UUU{n}", f"PPP{n}") and rank == 8:
+            print(f"  SERVE_MESH rank-8 {tag} batch: {b_s * 1e3:.1f} ms, of "
+                  f"which the header and batch broadcast {s * b_s * 1e3:.1f} "
+                  f"ms ({s:.1%}); card: {smi}")
+    gt = lead["gate"]
+    g = SERVE_MESH_GATE
+    per_burst = g["tenants"] * g["requests"]
+    med = {how: statistics.median(w) for how, w in gt["walls"].items()}
+    ratios = [s_ / c_ for c_, s_ in zip(gt["walls"]["coalesced"],
+                                        gt["walls"]["sequential"])]
+    g_sh = [s for (rank, tag, _), s in zip(lead["batches"], shares)
+            if tag[3:] == str(g["n"]) and rank == 8]
+    print(f"SERVE_MESH_GATE n={g['n']} float32 cuda overlap:2, (U,U,U) + "
+          f"(P,P,P), {g['tenants']} tenants x {g['requests']} requests a "
+          f"burst, {g['rounds']} bursts a server kind in alternated rounds: "
+          f"coalesced {per_burst / med['coalesced']:.2f} req/s (median wall "
+          f"{med['coalesced']:.4f} s), sequential "
+          f"{per_burst / med['sequential']:.2f} req/s (median wall "
+          f"{med['sequential']:.4f} s), coalescing "
+          f"{med['sequential'] / med['coalesced']:.3f}x (the rounds' ratios "
+          + " ".join(f"{x:.3f}" for x in ratios)
+          + f"); rank-8 batches {len(g_sh)}, the broadcast's share median "
+          f"{statistics.median(g_sh) if g_sh else float('nan'):.1%}; "
+          f"card: {smi}")
+    for how, ts in gt["pct"].items():
+        print(f"  {how} p50/p95/p99 ms per tenant: " + "; ".join(
+            f"{t} {a:.1f}/{b:.1f}/{c:.1f}" for t, (a, b, c) in ts.items()))
+    so = lead["soak"]
+    if so["rel"] > 1e-5:
+        raise AssertionError(f"SERVE_MESH soak: {so['rel']:.3e} from the "
+                             "single-process torch solve")
+    print(f"SERVE_MESH soak (P,P,P) n={ns} float32, a2a, verify='abft', "
+          f"engine torch, mesh (2, 2): the flip-armed tenant localized "
+          f"{so['stages']} and repaired to the baseline bits; 6 tenants x 4 "
+          f"fields bit-exact, no record; baseline within {so['rel']:.3e} of "
+          f"the single-process torch solve; {so['soak_s']:.1f} s; card: "
+          f"{smi}")
+    print(f"  SERVE_MESH: {len(runs)} distributed solves entered by every "
+          f"rank ({', '.join(f'{r} x{c}' for r, c in sorted(solves.items()))}"
+          f"); every follower left each of the {servers} servers' stop; "
+          f"references {t_ref:.1f} s, ranks {t_ranks:.1f} s (keys "
+          f"{lead['keys_s']:.1f} s, gate {gt['gate_s']:.1f} s); card: "
+          f"{smi}")
+    print(f"serve mesh phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
+    return launched
+
+
 def _rate(table, name, default):
     for key, v in table.items():
         if key in name:
@@ -2581,6 +2992,9 @@ def main() -> int:
 
     # -- 8c. the solve launcher and checkpoints -------------------------------
     launch_launches = _launch_phase(dev, smi, run_counted, calls)
+
+    # -- 8d. serving on a mesh of four ranks ----------------------------------
+    serve_launches.update(_serve_mesh_phase(dev, smi, calls))
 
     # -- 9. replays and times -------------------------------------------------
     def nbytes(t):

@@ -52,7 +52,9 @@ def run_harness(*, n=32, tenants=8, requests=12, max_batch=8,
     -- the max deviation vs per-request reference solves (must be 0.0:
     coalescing and rank padding never perturb a row).  ``device`` places
     the default specs (None: the card).  The fields are float64, the
-    reference's draw for draw.
+    reference's draw for draw.  ``specs`` on a mesh of several ranks are
+    served from this rank, the mesh's lowest; every other rank calls
+    ``repro_torch.serve.follow(mesh)`` for the server this call runs.
     """
     from repro_torch.serve import PoissonServer
 
@@ -96,6 +98,13 @@ def run_harness(*, n=32, tenants=8, requests=12, max_batch=8,
         stats = server.server_stats()
         tstats = {k: v for k, v in server.tenant_stats().items()
                   if k != "_warm"}
+        # a spec on a mesh of several ranks is solved only through the
+        # server, which its follower ranks enter: its reference solves
+        # are rank-1 batches, one request at a time
+        alone = {name: [server.submit(f, spec, tenant="_check")
+                        .result(timeout=600).u for f in fs]
+                 for name, (spec, fs) in traffic.items()
+                 if check and spec.mesh is not None and spec.mesh.size() > 1}
 
     if errors:
         raise RuntimeError("harness clients failed: " + "; ".join(errors))
@@ -118,10 +127,10 @@ def run_harness(*, n=32, tenants=8, requests=12, max_batch=8,
     if check:
         maxdev = 0.0
         for name, (spec, fs) in traffic.items():
-            ref = spec.build()
-            for f, r in zip(fs, results[name]):
-                maxdev = max(maxdev, float(np.max(np.abs(
-                    ref.solve(f).cpu().numpy() - r.u))))
+            refs = alone.get(name) or [spec.build().solve(f).cpu().numpy()
+                                       for f in fs]
+            for u, r in zip(refs, results[name]):
+                maxdev = max(maxdev, float(np.max(np.abs(u - r.u))))
         payload["max_abs_dev_vs_individual"] = maxdev
     return payload
 

@@ -12,6 +12,12 @@ living on behind the pool's back.
 ``acquire`` goes through ``get_solver``, so concurrent workers hitting a
 cold key coalesce into ONE construction (the single-flight path) and a
 re-acquired evicted key rebuilds transparently.
+
+A key served on a mesh of several ranks has a mirror on every follower
+rank (``serve.server.follow``): the server decides with ``lookup``
+whether a batch hits or builds, learns every eviction through
+``on_evict`` and ``discard``s a build that failed on another rank, so
+the followers build, hit and evict exactly when this pool does.
 """
 from __future__ import annotations
 
@@ -72,22 +78,31 @@ class WarmPool:
     its own admission, so one plan larger than the whole budget still
     serves (the budget then only forbids *keeping* anything else)."""
 
-    def __init__(self, budget_bytes: int | None = None):
+    def __init__(self, budget_bytes: int | None = None, on_evict=None):
         self.budget_bytes = budget_bytes
+        # called with each evicted key, under the pool lock
+        self.on_evict = on_evict
         self._entries: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
         self.stats = {"builds": 0, "hits": 0, "evictions": 0,
                       "evicted_bytes": 0}
 
-    def acquire(self, key, build):
+    def lookup(self, key):
+        """The warm solver of ``key`` (counted as a hit), or None."""
         with self._lock:
             e = self._entries.get(key)
-            if e is not None:
-                e.hits += 1
-                e.last_used = time.perf_counter()
-                self._entries.move_to_end(key)
-                self.stats["hits"] += 1
-                return e.solver
+            if e is None:
+                return None
+            e.hits += 1
+            e.last_used = time.perf_counter()
+            self._entries.move_to_end(key)
+            self.stats["hits"] += 1
+            return e.solver
+
+    def acquire(self, key, build):
+        solver = self.lookup(key)
+        if solver is not None:
+            return solver
         # build OUTSIDE the pool lock: construction is seconds of planning
         # and Green assembly, and get_solver's single-flight already
         # coalesces concurrent builders of the same key
@@ -118,6 +133,14 @@ class WarmPool:
             e.est_bytes = _estimate_bytes(e.solver, e.warmed_ranks)
             self._evict_over_budget(keep=key)
 
+    def discard(self, key):
+        """Drop ``key`` (and its module-LRU entry) without counting an
+        eviction: its build is void."""
+        with self._lock:
+            e = self._entries.pop(key, None)
+        if e is not None:
+            sv.evict_solver_instance(e.solver)
+
     def warmed_ranks(self, key) -> tuple:
         with self._lock:
             e = self._entries.get(key)
@@ -134,6 +157,8 @@ class WarmPool:
             self.stats["evictions"] += 1
             self.stats["evicted_bytes"] += e.est_bytes
             sv.evict_solver_instance(e.solver)
+            if self.on_evict is not None:
+                self.on_evict(victim)
 
     def total_bytes_locked(self) -> int:
         return sum(e.est_bytes for e in self._entries.values())

@@ -41,32 +41,52 @@ The paper's dominant production operation -- the unbounded Poisson solve
   stream, so ``workers > 1`` overlaps host work (stacking, copies,
   launch overhead), not device work.
 * **Distributed specs**: a spec whose ``mesh`` holds one rank is served
-  as any other.  Every rank of a larger mesh would have to enter each
-  batched solve (it is collective), and batches are decided here by
-  wall-clock deadlines in one process, so ``submit`` refuses such a
-  spec (ROADMAP queue 1 item 1).
+  as any other.  A larger mesh is served by its lowest rank (rank 0 of
+  the world when the mesh spans it), and every other rank of the mesh
+  calls ``follow(mesh)``, which returns when the server stops: the
+  multi-controller counterpart of the reference's single controller.
+  For each batch the server broadcasts a header (the spec without mesh
+  and device, the batch's shape, rank, dtype and verify mode, the armed
+  fault plan's specs, and the pool's decision: build, hit or a shadow
+  build, plus the keys it evicted since the last header), then the
+  padded batch in the solver's working dtype.  Every rank then builds or
+  looks up its solver as the pool decided, the ranks agree on the
+  build's outcome, and all enter the same ``solve``; the answer is
+  turned into ``SolveResult``s on the server's rank only.  Mesh batches
+  hold one lock from their broadcast to the end of their solve, so with
+  ``workers > 1`` their collectives never interleave and the followers
+  meet them in the order sent; other keys still run concurrently.
+  ``stop`` ends with a stop sentinel for every mesh served.  The header
+  travels over the world group when the mesh spans the world, else a
+  group of the mesh's ranks; a follower waits for it at most that
+  group's timeout, then raises.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import queue
 import threading
 import time
+import warnings
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.core import solver as sv
 from repro_torch.core.bc import DataLayout
 from repro_torch.core.green import GreenKind
+from repro_torch.runtime import faults
 
 from .pool import WarmPool
 from .stats import RequestRecord, TenantStats
 
 __all__ = ["PlanSpec", "SolveResult", "PoissonServer", "AdmissionError",
-           "ServerClosed", "default_batch_ranks"]
+           "ServerClosed", "default_batch_ranks", "follow"]
 
 
 class AdmissionError(RuntimeError):
@@ -190,6 +210,195 @@ def default_batch_ranks(max_batch: int) -> tuple:
     return tuple(dict.fromkeys(ranks))
 
 
+# -- serving on a mesh of several ranks ---------------------------------------
+
+def _on_mesh(spec: PlanSpec) -> bool:
+    return spec.mesh is not None and spec.mesh.size() > 1
+
+
+def _mesh_ranks(mesh) -> tuple:
+    return tuple(sorted(int(r) for r in mesh.mesh.flatten().tolist()))
+
+
+def _mesh_layout(mesh) -> tuple:
+    return tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names or ())
+
+
+_GROUPS: dict = {}
+_GROUPS_LOCK = threading.Lock()
+# mesh ranks -> the server serving them: followers follow one at a time
+_SERVING: dict = {}
+
+
+def _serve_group(mesh):
+    """The process group that carries a mesh's headers and batches (None,
+    the world, when the mesh spans it) and its leader, the mesh's lowest
+    global rank."""
+    ranks = _mesh_ranks(mesh)
+    if len(ranks) == dist.get_world_size():
+        return None, ranks[0]
+    with _GROUPS_LOCK:
+        g = _GROUPS.get(ranks)
+        if g is None:
+            g = _GROUPS[ranks] = dist.new_group(
+                list(ranks), use_local_synchronization=True)
+    return g, ranks[0]
+
+
+def _wire_device(group) -> torch.device:
+    """Where a group's tensors travel: the card under NCCL, else the
+    host (gloo stages a CUDA tensor through it anyway)."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _send_batch(group, src, header: dict, x):
+    """The leader's side of one batch: the header (pickled), then the
+    padded batch (none after the stop sentinel)."""
+    dist.broadcast_object_list([header], src=src, group=group)
+    if x is not None:
+        dist.broadcast(x, src=src, group=group)
+
+
+def _recv_batch(group, src):
+    """A follower's side of ``_send_batch``: ``(header, batch)``, the
+    batch None after the stop sentinel."""
+    box = [None]
+    dist.broadcast_object_list(box, src=src, group=group)
+    h = box[0]
+    if h["op"] == "stop":
+        return h, None
+    x = torch.empty(h["shape"], dtype=h["dtype"], device=_wire_device(group))
+    dist.broadcast(x, src=src, group=group)
+    return h, x
+
+
+def _agree_build(group, ranks, err):
+    """Agree on every rank's solver build before any rank enters the
+    collective solve: when one failed, every rank raises the same
+    ``RuntimeError`` naming each failed rank's error."""
+    flag = torch.tensor([0.0 if err is None else 1.0],
+                        device=_wire_device(group))
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    if flag.item() == 0.0:
+        return
+    why = [None] * len(ranks)
+    dist.all_gather_object(why, None if err is None else repr(err),
+                           group=group)
+    failed = "; ".join(f"rank {r}: {w}" for r, w in zip(ranks, why)
+                       if w is not None)
+    raise RuntimeError(f"building the batch's solver failed on {failed}") \
+        from err
+
+
+def _mesh_batch(group, ranks, op, get, drop, run):
+    """One batch on any rank of a mesh, after its broadcast: the solver
+    (``get()``: a hit, a build or a shadow build as the header's ``op``
+    says), its outcome agreed over the mesh, then ``run(solver)``, the
+    collective solve.  A build that failed on another rank is void:
+    ``drop(solver)`` forgets it, so the next batch of its key builds
+    again on every rank; a shadow solver is evicted after its batch."""
+    solver = err = None
+    try:
+        solver = get()
+    except Exception as e:  # noqa: BLE001 -- agreed below
+        err = e
+    try:
+        _agree_build(group, ranks, err)
+    except RuntimeError:
+        if solver is not None and op != "hit":
+            drop(solver)
+        raise
+    try:
+        return run(solver)
+    finally:
+        if op == "shadow":
+            sv.evict_solver_instance(solver)
+
+
+def _timed_solve(solver, fb, verify):
+    """The batch's solve with its seconds and the degradation and
+    integrity records it added.  The solver moves the batch to its
+    device; the answer comes back to the host inside the window (which
+    waits for the device: its work is asynchronous)."""
+    ndeg0 = len(solver.stats["degradations"])
+    nint0 = len(solver.stats.get("integrity", ()))
+    t0 = time.perf_counter()
+    ub = solver.solve(fb, verify=verify).cpu().numpy()
+    solve_s = time.perf_counter() - t0
+    return (ub, solve_s, tuple(solver.stats["degradations"][ndeg0:]),
+            tuple(solver.stats.get("integrity", ())[nint0:]))
+
+
+def follow(mesh, *, device=None) -> dict:
+    """Follow the server of ``mesh`` on this rank until it stops.
+
+    Every rank of the mesh but its lowest (the one that runs
+    ``PoissonServer``) calls this once per server, with the ``DeviceMesh``
+    the server's specs carry.  For each batch it receives the header and
+    the padded batch, rebuilds the spec on ``mesh`` and ``device`` (this
+    rank's; None means the card and raises without one), builds, hits or
+    evicts its solver as the server's pool did, arms a fresh
+    ``FaultPlan`` from the header's specs around the batch, and enters
+    the same ``solve``.  A batch whose build or solve fails fails on every
+    rank alike (the outcome is agreed); the follower notes it and waits
+    for the next header.  Returns at the stop sentinel with ``batches``
+    (entered), ``failed`` (each failed batch's error) and ``solvers``
+    (the solvers this rank keeps warm: the server's pool size on the
+    mesh).  Raises when no header arrives within the group's timeout."""
+    group, src = _serve_group(mesh)
+    ranks = _mesh_ranks(mesh)
+    me = dist.get_rank()
+    if me == src or me not in ranks:
+        raise ValueError(f"rank {me} is not a follower of the mesh over "
+                         f"ranks {ranks}: rank {src} runs the server")
+    layout = _mesh_layout(mesh)
+    mirror: dict = {}
+    out = {"batches": 0, "failed": []}
+    while True:
+        h, x = _recv_batch(group, src)
+        for kid in h["evict"]:
+            s = mirror.pop(kid, None)
+            if s is not None:
+                sv.evict_solver_instance(s)
+        if x is None:
+            break
+        out["batches"] += 1
+        kid, op = h["key"], h["op"]
+        spec = dataclasses.replace(h["spec"], mesh=mesh, device=device)
+
+        def get():
+            if h["mesh"] != layout:
+                raise ValueError(f"the batch's mesh {h['mesh']} is not "
+                                 f"this follower's {layout}")
+            if op == "hit":
+                return mirror[kid]
+            if op == "shadow":
+                return spec.build()
+            stale = mirror.pop(kid, None)
+            if stale is not None:
+                sv.evict_solver_instance(stale)
+            s = mirror[kid] = spec.build()
+            return s
+
+        def drop(s):
+            if mirror.get(kid) is s:
+                del mirror[kid]
+            sv.evict_solver_instance(s)
+
+        plan = (contextlib.nullcontext() if h["faults"] is None
+                else faults.FaultPlan(h["faults"]))
+        try:
+            with plan:
+                _mesh_batch(group, ranks, op, get, drop,
+                            lambda s: s.solve(x, verify=h["verify"]))
+        except Exception as e:  # noqa: BLE001 -- failed on every rank
+            out["failed"].append(f"{type(e).__name__}: {e}")
+    out["solvers"] = len(mirror)
+    return out
+
+
 class PoissonServer:
     """Long-lived multi-tenant Poisson solve service.
 
@@ -228,7 +437,7 @@ class PoissonServer:
         self.drain_timeout_s = drain_timeout_s
         self.pool = WarmPool(
             None if memory_budget_mb is None
-            else int(memory_budget_mb * 1e6))
+            else int(memory_budget_mb * 1e6), on_evict=self._evicted)
         self.max_pending = int(max_pending)
         self.workers = int(workers)
         self._ids = itertools.count()
@@ -242,6 +451,14 @@ class PoissonServer:
         self._threads: list = []
         self._tenants: dict = {}
         self._tenants_lock = threading.Lock()
+        # mesh batches: one at a time from broadcast to gather; each mesh
+        # key's id in the headers; the mesh keys the pool evicted since
+        # the last header; each mesh's (group, leader), for the sentinel
+        self._mesh_lock = threading.Lock()
+        self._mesh_ids: dict = {}
+        self._mesh_evicted: list = []
+        self._evicted_lock = threading.Lock()
+        self._meshes: dict = {}
         self.stats = {"admitted": 0, "rejected": 0, "completed": 0,
                       "failed": 0, "batches": 0, "deadline_flushes": 0,
                       "full_flushes": 0, "drain_flushes": 0,
@@ -309,6 +526,30 @@ class PoissonServer:
             with self._cv:
                 self.stats["abandoned_threads"] = \
                     self.stats.get("abandoned_threads", 0) + len(alive)
+        self._release_followers(join_t)
+
+    def _release_followers(self, wait_s):
+        """Send every mesh served the stop sentinel once no mesh batch
+        holds the lock, waiting at most ``wait_s`` (None: no bound) for
+        a wedged one; past that the followers leave at their group's
+        timeout."""
+        if not self._meshes:
+            return
+        if not self._mesh_lock.acquire(
+                timeout=-1 if wait_s is None else wait_s):
+            warnings.warn("PoissonServer.stop: a mesh batch still holds "
+                          "the mesh lock; its followers leave at their "
+                          "group's timeout", RuntimeWarning, stacklevel=3)
+            return
+        try:
+            evict = self._take_evicted()
+            for ranks, (group, src) in self._meshes.items():
+                _send_batch(group, src, {"op": "stop", "evict": evict}, None)
+                with _GROUPS_LOCK:
+                    _SERVING.pop(ranks, None)
+            self._meshes.clear()
+        finally:
+            self._mesh_lock.release()
 
     def _fail_unserved_locked(self, deadline):
         """Drain deadline expired: fail every unserved request (in-flight
@@ -348,14 +589,17 @@ class PoissonServer:
         ``ServerClosed`` after ``stop`` began and ``AdmissionError`` under
         backpressure (``max_pending`` admitted-but-unserved requests) or on
         a shape mismatch -- rejections are also counted per tenant.
-        Raises ``NotImplementedError`` for a spec whose mesh holds more
-        than one rank (every rank would have to enter each batched solve).
+        A spec on a mesh of several ranks is served by the mesh's lowest
+        rank; ``submit`` on any other rank raises ``RuntimeError`` (that
+        rank calls ``follow(mesh)``).
         """
-        if spec.mesh is not None and spec.mesh.size() > 1:
-            raise NotImplementedError(
-                f"serving a mesh of {spec.mesh.size()} ranks needs rank 0 "
-                "to broadcast each batch to the follower ranks, not ported "
-                "yet (ROADMAP queue 1 item 1)")
+        if _on_mesh(spec):
+            src = _mesh_ranks(spec.mesh)[0]
+            if dist.get_rank() != src:
+                raise RuntimeError(
+                    f"rank {dist.get_rank()} follows the server of this "
+                    f"mesh: call repro_torch.serve.follow(mesh) here and "
+                    f"submit on rank {src}")
         f = np.asarray(f)
         ts = self._tenant(tenant)
         grid = tuple(spec.shape)
@@ -484,22 +728,17 @@ class PoissonServer:
         verify = next((r.verify for r in reqs if r.verify is not None),
                       self.verify)
         with ctx:
-            # an armed batch bypasses the pool: the fault token in the
-            # get_solver key yields a SHADOW solver, so the ladder degrades
-            # (and the fault taints) that transient instance -- never the
-            # clean warm plan other tenants keep hitting
-            solver = spec.build() if plans \
-                else self.pool.acquire(key, spec.build)
-            ndeg0 = len(solver.stats["degradations"])
-            nint0 = len(solver.stats.get("integrity", ()))
-            t0 = time.perf_counter()
-            # the solver moves the batch to its device; the answer comes
-            # back to the host inside the window (which waits for the
-            # device: its work is asynchronous)
-            ub = solver.solve(fb, verify=verify).cpu().numpy()
-            solve_s = time.perf_counter() - t0
-            degs = tuple(solver.stats["degradations"][ndeg0:])
-            ints = tuple(solver.stats.get("integrity", ())[nint0:])
+            if _on_mesh(spec):
+                ub, solve_s, degs, ints = self._solve_on_mesh(
+                    key, spec, fb, plans[0] if plans else None, verify)
+            else:
+                # an armed batch bypasses the pool: the fault token in the
+                # get_solver key yields a SHADOW solver, so the ladder
+                # degrades (and the fault taints) that transient instance
+                # -- never the clean warm plan other tenants keep hitting
+                solver = spec.build() if plans \
+                    else self.pool.acquire(key, spec.build)
+                ub, solve_s, degs, ints = _timed_solve(solver, fb, verify)
         if not plans:                       # shadow solvers are transient
             self.pool.note_rank(key, rank)
         done_t = time.perf_counter()
@@ -526,6 +765,59 @@ class PoissonServer:
                 r.request_id, res.queue_wait_s, solve_s, res.total_s,
                 b, rank, degs))
             r.future.set_result(res)
+
+    def _solve_on_mesh(self, key, spec: PlanSpec, fb, plan, verify):
+        """One batch of a mesh spec, the leader's side (module docstring):
+        under the mesh lock, the header and the padded batch go to the
+        followers, every rank gets its solver as this pool decides, the
+        outcome is agreed, and every rank enters the solve."""
+        group, src = _serve_group(spec.mesh)
+        ranks = _mesh_ranks(spec.mesh)
+        dtype = dict(spec.solver_kw).get("dtype", torch.float32)
+        with self._mesh_lock:
+            with _GROUPS_LOCK:
+                other = _SERVING.setdefault(ranks, self)
+            if other is not self:
+                raise RuntimeError(f"another PoissonServer serves the mesh "
+                                   f"over ranks {ranks}: its followers "
+                                   "follow one server at a time")
+            self._meshes[ranks] = (group, src)
+            kid = self._mesh_ids.setdefault(key, len(self._mesh_ids))
+            solver = None if plan is not None else self.pool.lookup(key)
+            op = ("shadow" if plan is not None
+                  else "hit" if solver is not None else "build")
+            # the working dtype's bits, cast once here for every rank
+            x = torch.from_numpy(fb).to(_wire_device(group), dtype)
+            header = {
+                "op": op, "key": kid, "evict": self._take_evicted(),
+                "spec": dataclasses.replace(spec, mesh=None, device=None),
+                "mesh": _mesh_layout(spec.mesh), "rank": fb.shape[0],
+                "shape": tuple(x.shape), "dtype": dtype, "verify": verify,
+                "faults": None if plan is None else [
+                    dataclasses.asdict(s) for s in plan.specs]}
+            _send_batch(group, src, header, x)
+
+            def get():
+                if op == "hit":
+                    return solver
+                if op == "shadow":
+                    return spec.build()
+                return self.pool.acquire(key, spec.build)
+            return _mesh_batch(group, ranks, op, get,
+                               lambda s: self.pool.discard(key),
+                               lambda s: _timed_solve(s, x, verify))
+
+    def _evicted(self, key):
+        # the pool's eviction hook (under its lock): a mesh key's
+        # followers drop it at the next header
+        if key in self._mesh_ids:
+            with self._evicted_lock:
+                self._mesh_evicted.append(self._mesh_ids[key])
+
+    def _take_evicted(self) -> list:
+        with self._evicted_lock:
+            taken, self._mesh_evicted = self._mesh_evicted, []
+        return taken
 
     def _request_done(self):
         # caller holds self._cv

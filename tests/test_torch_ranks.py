@@ -8,7 +8,8 @@ never imports JAX.  That process imports torch and ``repro_torch``
 once, then forks ``world`` ranks (it has run no torch op, so it holds no
 thread to lose across the fork).  Each rank joins a gloo process group
 that rendezvous through a file in the test's directory (no port, so
-parallel test workers never collide), with a ``timeout`` of its own, runs
+parallel test workers never collide), with a ``timeout`` of its own
+(``GROUP_TIMEOUT_S``, or the ``group_timeout`` a scenario's params set), runs
 the named scenario function of this module and writes what it found to
 ``<dir>/rank<r>.json``.  A mismatched collective fails the run at the
 group's timeout, and ``launch`` bounds the whole subprocess too.
@@ -811,20 +812,247 @@ def scenario_serve_one(rank, d, params):
     return out
 
 
-def scenario_serve_two(rank, d, params):
-    """Two ranks on a (1, 2) mesh: ``submit`` refuses the spec (every
-    rank would have to enter each batched solve)."""
-    from repro_torch.serve import PoissonServer
+_SERVE_KEYS = {"UUU": (("UNB", "UNB"),) * 3, "PPP": (("PER", "PER"),) * 3}
 
-    spec = _soak_spec(_mesh((1, 2), ("data", "model")), params["n"])
+
+def _mesh_spec(mesh, key, n, comm):
+    """A served (U,U,U) or (P,P,P) key on ``mesh``: engine "cuda" (the
+    kernels' plain versions on the CPU), float64, ``comm`` a label."""
+    import torch
+    from repro_torch.core.comm import label_to_cfg
+    from repro_torch.serve import PlanSpec
+    return PlanSpec(shape=(n, n, n), bcs=_bcs(_SERVE_KEYS[key]), mesh=mesh,
+                    device="cpu",
+                    solver_kw=(("comm", label_to_cfg(comm)),
+                               ("dtype", torch.float64)))
+
+
+def _served_err(d, key, results):
+    want = np.load(os.path.join(d, f"want_{key}.npy"))
+    return max(_maxerr(r.u, w) for r, w in zip(results, want))
+
+
+def _follow(mesh, servers):
+    """A follower rank: ``follow`` once per server the leader runs."""
+    from repro_torch.serve import follow
+    return [follow(mesh, device="cpu") for _ in range(servers)]
+
+
+_SERVE_COMMS = ("a2a:1", "overlap:2")
+
+
+def scenario_serve_mesh(rank, d, params):
+    """Four ranks, mesh (2, 2): rank 0 serves (U,U,U) and (P,P,P) n=16
+    float64 under each of ``_SERVE_COMMS``, three requests a key in one
+    drain flush (padded to rank 4), then each alone (rank-1 batches);
+    then ``run_harness`` on the two keys under overlap:2.  Ranks 1-3
+    follow every server."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import PoissonServer
+    mesh = _mesh((2, 2), ("data", "model"))
+    f = np.load(os.path.join(d, "f.npy"))
+    n = f.shape[-1]
+    if rank != 0:
+        return {"follow": _follow(mesh, 2 * len(_SERVE_COMMS) + 1)}
+    out = {}
+    for comm in _SERVE_COMMS:
+        specs = {k: _mesh_spec(mesh, k, n, comm) for k in _SERVE_KEYS}
+        srv = PoissonServer(max_batch=4, max_delay_ms=60_000).start()
+        futs = {k: [srv.submit(x, spec, tenant=k) for x in f]
+                for k, spec in specs.items()}
+        srv.stop(drain=True)
+        batch = {k: [fu.result() for fu in v] for k, v in futs.items()}
+        with PoissonServer(max_batch=1, max_delay_ms=1.0) as srv:
+            alone = {k: [srv.solve(x, spec, tenant=k) for x in f]
+                     for k, spec in specs.items()}
+            pool = srv.server_stats()["pool"]["size"]
+        for k in specs:
+            out[f"{comm}/{k}"] = {
+                "err": _served_err(d, k, batch[k]),
+                "bits": all(np.array_equal(a.u, b.u)
+                            for a, b in zip(alone[k], batch[k])),
+                "batch": sorted({(r.batch_size, r.padded_to)
+                                 for r in batch[k]}),
+                "alone": sorted({(r.batch_size, r.padded_to)
+                                 for r in alone[k]}),
+                "pool": pool}
+    payload = launcher.run_harness(
+        n=n, tenants=2, requests=2, max_batch=2,
+        specs=[_mesh_spec(mesh, k, n, "overlap:2") for k in _SERVE_KEYS])
+    out["harness"] = {k: payload["server"][k]
+                      for k in ("admitted", "completed")}
+    out["harness"]["dev"] = payload["max_abs_dev_vs_individual"]
+    return out
+
+
+def scenario_serve_mesh_chaos(rank, d, params):
+    """Four ranks, mesh (2, 2), one server (``verify="abft"``): the
+    reference's serve soak on the mesh; a batch whose solve raises on
+    every rank (an error armed at ``dist.dispatch``), then a clean one;
+    a (U,U,U) build that fails on rank 2 alone, then the same key again."""
+    from repro_torch.core import solver as sv
+    from repro_torch.runtime import SolveError, faults
+    from repro_torch.serve import PoissonServer, follow
+    mesh = _mesh((2, 2), ("data", "model"))
     n = params["n"]
-    with PoissonServer(max_batch=4, max_delay_ms=1.0) as srv:
+    spec = _soak_spec(mesh, n)
+    fields = np.load(os.path.join(d, "soak_f.npy")).astype(np.float32)
+    f = np.load(os.path.join(d, "f.npy"))
+    uuu = _mesh_spec(mesh, "UUU", n, "a2a:1")
+    if rank == 2:
+        real, refused = sv.get_solver, []
+
+        def flaky(shape, L, bcs, *a, **kw):
+            if kw.get("mesh") is not None and bcs == uuu.bcs \
+                    and not refused:
+                refused.append(1)
+                raise RuntimeError("rank 2 refuses this build")
+            return real(shape, L, bcs, *a, **kw)
+        sv.get_solver = flaky
+    if rank != 0:
+        return {"follow": follow(mesh, device="cpu")}
+    out = {}
+    with PoissonServer(max_batch=4, max_delay_ms=1.0, verify="abft") as srv:
+        base = [srv.solve(x, spec, tenant="warm") for x in fields]
+        out["base_records"] = sum(len(r.integrity) for r in base)
+        plan = faults.FaultPlan([dict(kind="flip", stage="fwd.0", count=2)])
+        bad = srv.submit(fields[0], spec, tenant="chaos",
+                         fault_plan=plan).result(timeout=60)
+        out["chaos_stages"] = [r["stage"] for r in bad.integrity]
+        out["chaos_log"] = len(plan.log)
+        out["chaos_bits"] = bool(np.array_equal(bad.u, base[0].u))
+        soak = {"solves": 0, "bitexact": 0, "records": 0,
+                "degradations": 0}
+        for t in range(6):
+            for i, x in enumerate(fields):
+                r = srv.solve(x, spec, tenant=f"t{t}")
+                soak["solves"] += 1
+                soak["bitexact"] += int(np.array_equal(r.u, base[i].u))
+                soak["records"] += len(r.integrity)
+                soak["degradations"] += len(r.degradations)
+        out["soak"] = soak
+        doomed = faults.FaultPlan([dict(kind="error", stage="dist.dispatch",
+                                        count=-1)])
         try:
-            srv.submit(np.zeros((n, n, n), np.float32), spec)
-            out = {"error": None, "message": ""}
-        except NotImplementedError as e:
-            out = {"error": type(e).__name__, "message": str(e)}
-        out["admitted"] = srv.server_stats()["admitted"]
+            srv.submit(fields[1], spec, tenant="doomed",
+                       fault_plan=doomed).result(timeout=60)
+            out["doomed"] = None
+        except SolveError as e:
+            out["doomed"] = f"{type(e).__name__}: {e}"
+        after = srv.solve(fields[1], spec, tenant="after")
+        out["after"] = [bool(np.array_equal(after.u, base[1].u)),
+                        len(after.degradations), len(after.integrity)]
+        try:
+            srv.solve(f[0], uuu, tenant="refused")
+            out["refused"] = None
+        except RuntimeError as e:
+            out["refused"] = f"{type(e).__name__}: {e}"
+        again = srv.solve(f[0], uuu, tenant="again")
+        out["again_err"] = _maxerr(
+            again.u, np.load(os.path.join(d, "want_UUU.npy"))[0])
+        st = srv.server_stats()
+        out["pool"] = st["pool"]["size"]
+        out["failed"] = st["failed"]
+    return out
+
+
+def scenario_serve_mesh_ops(rank, d, params):
+    """Four ranks, mesh (2, 2), three servers of (U,U,U) and (P,P,P) n=16
+    float64 overlap:2: two workers under concurrent traffic (and a second
+    server refused meanwhile); a memory budget that evicts at every other
+    admission; ``stop`` while a batch is stalled past the drain deadline.  Then one batch on the sub-mesh
+    of ranks 0 and 1.  ``submit`` on a follower raises."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.runtime import faults
+    from repro_torch.serve import PoissonServer, ServerClosed, follow
+    mesh = _mesh((2, 2), ("data", "model"))
+    # every rank builds the sub-mesh (its groups are collective over the
+    # world); only ranks 0 and 1 serve on it
+    sub = DeviceMesh("cpu", [[0, 1]], mesh_dim_names=("data", "model"))
+    f = np.load(os.path.join(d, "f.npy"))
+    n = f.shape[-1]
+    specs = {k: _mesh_spec(mesh, k, n, "overlap:2") for k in _SERVE_KEYS}
+    if rank != 0:
+        out = {}
+        try:
+            PoissonServer().submit(f[0], specs["UUU"])
+            out["submit"] = None
+        except RuntimeError as e:
+            out["submit"] = str(e)
+        out["follow"] = _follow(mesh, 3)
+        if rank == 1:
+            out["sub"] = follow(sub, device="cpu")
+        return out
+    out = {}
+    keys = list(specs)
+
+    def client(t):
+        k = keys[t % 2]
+        return [(k, i, srv.submit(f[i % len(f)], specs[k], tenant=f"t{t}"))
+                for i in range(6)]
+    with PoissonServer(max_batch=4, max_delay_ms=2.0, workers=2) as srv:
+        with ThreadPoolExecutor(4) as ex:
+            subs = list(ex.map(client, range(4)))
+        got = [(k, i, fu.result(timeout=60)) for s in subs for k, i, fu in s]
+        st = srv.server_stats()
+        # a second server on the same mesh meanwhile: refused, nothing sent
+        with PoissonServer(max_batch=1) as other:
+            try:
+                other.solve(f[0], specs["UUU"], timeout=60)
+                out["second"] = None
+            except RuntimeError as e:
+                out["second"] = str(e)
+    wants = {k: np.load(os.path.join(d, f"want_{k}.npy")) for k in keys}
+    out["workers"] = {"served": len(got), "completed": st["completed"],
+                      "batches": st["batches"], "pool": st["pool"]["size"],
+                      "err": max(_maxerr(r.u, wants[k][i % len(f)])
+                                 for k, i, r in got)}
+    with PoissonServer(max_batch=1, memory_budget_mb=1e-6) as srv:
+        errs = [_maxerr(srv.solve(f[0], specs[keys[i % 2]]).u,
+                        wants[keys[i % 2]][0]) for i in range(4)]
+        pool = srv.server_stats()["pool"]
+    out["evict"] = {"err": max(errs), **{k: pool[k] for k in
+                                         ("size", "builds", "evictions")}}
+    srv = PoissonServer(max_batch=1, max_delay_ms=1.0,
+                        drain_timeout_s=0.3).start()
+    plan = faults.FaultPlan([dict(kind="stall", stage="dist.dispatch",
+                                  seconds=1.5)])
+    fut = srv.submit(f[0], specs["PPP"], fault_plan=plan)
+    time.sleep(0.2)
+    t0 = time.perf_counter()
+    srv.stop()
+    out["stall"] = {"stop_s": time.perf_counter() - t0,
+                    "pool": srv.server_stats()["pool"]["size"]}
+    try:
+        fut.result(timeout=0)
+        out["stall"]["error"] = None
+    except ServerClosed as e:
+        out["stall"]["error"] = e.queue_position
+    with PoissonServer(max_batch=1, max_delay_ms=1.0) as srv:
+        r = srv.solve(f[0], _mesh_spec(sub, "UUU", n, "a2a:1"))
+    out["sub"] = _maxerr(r.u, wants["UUU"][0])
+    return out
+
+
+def scenario_serve_mesh_lost(rank, d, params):
+    """Four ranks, mesh (2, 2), a short group timeout: rank 0 never runs
+    a server, and each follower raises at the timeout instead of
+    hanging."""
+    import time
+    from repro_torch.serve import follow
+    mesh = _mesh((2, 2), ("data", "model"))
+    if rank == 0:
+        time.sleep(2 * params["group_timeout"] + 1)
+        return {}
+    t0 = time.perf_counter()
+    try:
+        follow(mesh, device="cpu")
+        out = {"error": None}
+    except RuntimeError as e:
+        out = {"error": type(e).__name__}
+    out["waited_s"] = time.perf_counter() - t0
     return out
 
 
@@ -832,19 +1060,22 @@ def _run_rank(rank, scenario, d, world):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
+    with open(os.path.join(d, "params.json")) as fh:
+        params = json.load(fh)
     dist.init_process_group(
         "gloo", init_method=f"file://{os.path.join(d, 'rendezvous')}",
-        rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        rank=rank, world_size=world, timeout=datetime.timedelta(
+            seconds=params.get("group_timeout", GROUP_TIMEOUT_S)))
     try:
-        with open(os.path.join(d, "params.json")) as fh:
-            params = json.load(fh)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             res = globals()[f"scenario_{scenario}"](rank, d, params)
         with open(os.path.join(d, f"rank{rank}.json"), "w") as fh:
             json.dump(res, fh)
-        dist.barrier()
+        # a scenario that lets a collective time out leaves the group's
+        # connections closed: its ranks end without the barrier
+        if "group_timeout" not in params:
+            dist.barrier()
     finally:
         dist.destroy_process_group()
 

@@ -14,9 +14,9 @@ Beside them: the same traffic through ``repro.serve.PoissonServer``
 responses within 1e-10, batch sizes and ranks equal, the stats' keys
 equal, degradation actions equal with the engine rung renamed; the
 reference's serve soak (``tests/test_abft.py``) in process and on a
-one-rank gloo mesh (``tests/test_torch_ranks.py``), and a two-rank mesh
-refused; ``PlanSpec``'s search default and key; the default device
-without a card; the launcher.
+one-rank gloo mesh (``tests/test_torch_ranks.py``; meshes of several
+ranks are ``tests/test_torch_serve_mesh.py``'s); ``PlanSpec``'s search
+default and key; the default device without a card; the launcher.
 """
 import json
 import threading
@@ -514,8 +514,8 @@ def test_torch_serve_soak_flip_armed_tenant_isolated(engine):
 
 @pytest.fixture(scope="module")
 def serve_ranks(tmp_path_factory):
-    """``scenario_serve_one`` on one gloo rank (the soak on a (1, 1) mesh)
-    and ``scenario_serve_two`` on two ranks (refused)."""
+    """``scenario_serve_one`` on one gloo rank (the soak on a (1, 1)
+    mesh)."""
     from repro.core.solver import PoissonSolver as RPoissonSolver
     d1 = tmp_path_factory.mktemp("serve_one")
     rng = np.random.default_rng(0)
@@ -525,9 +525,7 @@ def serve_ranks(tmp_path_factory):
     np.save(d1 / "f.npy", fields)
     np.save(d1 / "want.npy", np.stack([np.asarray(ref.solve(f))
                                        for f in fields]))
-    d2 = tmp_path_factory.mktemp("serve_two")
-    return {"one": ranks.launch("serve_one", d1, 1, {"n": N}),
-            "two": ranks.launch("serve_two", d2, 2, {"n": N})}
+    return {"one": ranks.launch("serve_one", d1, 1, {"n": N})}
 
 
 def test_torch_serve_soak_on_a_one_rank_mesh(serve_ranks):
@@ -544,13 +542,6 @@ def test_torch_serve_soak_on_a_one_rank_mesh(serve_ranks):
                            "degradations": 0}
     assert res["batch_sizes"] == [1]
     assert res["rel_vs_reference"] < 1e-5
-
-
-def test_torch_serve_refuses_a_mesh_of_two_ranks(serve_ranks):
-    for res in serve_ranks["two"]:
-        assert res["error"] == "NotImplementedError"
-        assert "ROADMAP queue 1 item 1" in res["message"]
-        assert res["admitted"] == 0
 
 
 # -- PlanSpec and the device -------------------------------------------------

@@ -166,6 +166,29 @@ Phases (each raises on failure; nothing is caught):
      and each tenant's p50/p95/p99; the reference's serve soak at n=16
      (engine "torch", verify="abft"); every follower leaving each
      server's stop; the ranks' kernel calls recorded for phase 9;
+  8e. LM training (repro_torch.launch.train, no kernel of this script:
+     the models' products are cuBLAS calls through torch.einsum/bmm):
+     qwen3-0.6b at its full config (28 layers, d_model 1024, vocab
+     151936, bfloat16 compute, float32 master weights), batch 4 x seq
+     2048, 12 steps uninterrupted, then 6 steps with one checkpoint and
+     --fail-at 6 and a relaunch that resumes from it: every loss finite,
+     step 0 within 2 nats of ln(vocab), the first run's losses and the
+     resumed run's last loss within 1e-3 relative of the uninterrupted
+     run's (deterministic algorithms off); the median ms/step, tokens/s,
+     peak max_memory_allocated, model TFLOP/s (6 N T + 12 L B S^2 H dh)
+     and a profiled step's device time by kernel with its idle share;
+     the other five families at full width and a cut depth
+     (LM_FAMILIES: moonshot-v1-16b-a3b 2 layers, mamba2-2.7b 2 layers,
+     recurrentgemma-9b one (rec, rec, attn) group, whisper-medium whole,
+     paligemma-3b 4 layers, starcoder2-7b 2 layers at 8192 tokens so
+     that its 4096 window masks), a few steps each on one batch: losses
+     finite, step 0 within 2 nats of ln(vocab) (for the gemma-style
+     recurrentgemma-9b and paligemma-3b, whose tied sqrt(d)-scaled
+     embedding dominates the residual stream at initialisation, between
+     ln(vocab) - 2 and the embedding-only model's loss + 2), the last
+     below the first; and the ten smoke configs in float32 from the same
+     parameters, the card's forward logits and one train step (loss,
+     grad_norm, new parameters) within 1e-4 relative of the host CPU's;
   9. every kernel call of the recorded solves (the distributed, the
      served and the launched ones, the spawned ranks' and search_plan's
      radix-2 calls among them) replayed at its shape
@@ -194,6 +217,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import datetime
+import gc
 import json
 import math
 import pickle
@@ -1824,6 +1848,357 @@ def _serve_mesh_phase(dev, smi, calls):
     return launched
 
 
+# the LM training phase (8e): qwen3-0.6b at its full config through the
+# train launcher, the other families at full width and a cut depth, and
+# the card against the host CPU on the ten smoke configs.  LM_FULL False
+# runs the smoke configs instead (a CPU rehearsal of the phase)
+LM_FULL = True
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_SEQ, LM_STEPS, LM_FAIL = 4, 2048, 12, 6
+# (arch, config overrides, batch, seq, the cut as printed)
+LM_FAMILIES = (
+    ("moonshot-v1-16b-a3b", {"n_layers": 2}, 2, 2048, "48 -> 2 layers"),
+    ("mamba2-2.7b", {"n_layers": 2}, 2, 2048, "64 -> 2 layers"),
+    ("recurrentgemma-9b", {"n_layers": 3}, 1, 2048,
+     "38 -> 3 layers, one (rec, rec, attn) group"),
+    ("whisper-medium", {}, 2, 448, "none: 24 + 24 layers, 1500 frames"),
+    ("paligemma-3b", {"n_layers": 4}, 2, 1024,
+     "18 -> 4 layers, 256 image tokens"),
+    ("starcoder2-7b", {"n_layers": 2, "attn_block": 1024}, 1, 8192,
+     "32 -> 2 layers; 8192 tokens so that the 4096 window masks, in "
+     "1024-query blocks"),
+)
+LM_FAMILY_STEPS = 4
+LM_CARD_TOL = 1e-4
+# dense bf16 tensor-core rate of the H100 SXM, NVIDIA's data sheet
+LM_PEAK_BF16 = 989e12
+
+
+def _lm_flops(model, cfg, batch, seq):
+    """Model FLOPs of one train step: 6 N T + 12 L B S^2 H dh, N the
+    parameters that enter a matmul (every tensor of rank >= 2; a tied
+    embedding once, as the output projection), T = B S tokens, and the
+    full S x S attention square the port computes (forward 4 L B S^2 H
+    dh, backward twice that); remat's recomputation not counted."""
+    n = sum(p.numel() for p in model.parameters() if p.ndim >= 2)
+    if not cfg.tie_embeddings:
+        n -= model.embed.numel()       # the embedding is a gather
+    attn = 12 * cfg.n_layers * batch * seq ** 2 * cfg.n_heads * cfg.d_head
+    return 6 * n * batch * seq + attn, n
+
+
+def _device_breakdown(prof):
+    """{device event name: [ms, count]} of a torch.profiler run."""
+    from torch.autograd import DeviceType
+    agg = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            a = agg.setdefault(e.name, [0.0, 0])
+            a[0] += e.time_range.elapsed_us() / 1e3
+            a[1] += 1
+    return agg
+
+
+def _lm_groups(agg):
+    """Device ms by kind of kernel (by its name)."""
+    kinds = (("matmul", ("gemm", "xmma", "cutlass", "sm90", "cublas",
+                         "ampere", "nvjet")),
+             ("softmax", ("softmax",)),
+             ("reduction", ("reduce", "norm", "sum")),
+             ("copy/index", ("copy", "cat", "index", "gather", "scatter",
+                             "memcpy", "memset")),
+             ("elementwise", ("elementwise", "vectorized", "unrolled")))
+    out = collections.Counter()
+    for name, (ms, _) in agg.items():
+        low = name.lower()
+        kind = next((k for k, keys in kinds if any(w in low for w in keys)),
+                    "other")
+        out[kind] += ms
+    return out
+
+
+def _lm_phase(dev, smi):
+    """Phase 8e: LM training on the card.  Raises on the first failed
+    check; prints the numbers."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs import LM_ARCHS, get_config, get_smoke
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gib = lambda b: b / 2 ** 30
+    resident = 0.0
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = gib(torch.cuda.memory_allocated())
+        print(f"LM phase: {resident:.3f} GiB "
+              f"resident from the earlier phases; deterministic algorithms "
+              f"{'on' if torch.are_deterministic_algorithms_enabled() else 'off'}")
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return gib(torch.cuda.max_memory_allocated()) if on_card else 0.0
+
+    def check_losses(label, losses, vocab, high=None):
+        """Finite; step 0 within 2 nats of ln(vocab), or with ``high``
+        between ln(vocab) - 2 and ``high`` + 2."""
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: a loss is not finite: {losses}")
+        lo, hi = math.log(vocab) - 2.0, (high or math.log(vocab)) + 2.0
+        if not lo <= losses[0] <= hi:
+            raise AssertionError(f"{label}: step 0 loss {losses[0]:.4f} is "
+                                 f"not within [{lo:.4f}, {hi:.4f}]")
+
+    def embedding_only_loss(model, cfg, batch):
+        """The loss of the same parameters with every block skipped: the
+        final norm of the embedded inputs against the tied embedding.  A
+        gemma-style model (tied, sqrt(d)-scaled embedding) starts near
+        it, not near ln(vocab): the scaled embedding dominates the
+        residual stream, and each position's logit of its own input
+        token is about sqrt(d) |e| ~ 0.018 d."""
+        with torch.no_grad():
+            x, _ = tf._embed_in(model, cfg, batch["inputs"],
+                                batch.get("frontend"))
+            logits = tf._logits(model, cfg, x)[:, -batch["labels"].shape[1]:]
+            gold = logits.gather(-1, batch["labels"][..., None].long())
+            return float((logits.logsumexp(-1) - gold[..., 0]).mean())
+
+    # -- 1. qwen3-0.6b at its full config, through the launcher ----------
+    cfg = get_config(LM_ARCH) if LM_FULL else get_smoke(LM_ARCH)
+    argv = ["--arch", LM_ARCH, "--steps", str(LM_STEPS), "--batch",
+            str(LM_BATCH), "--seq", str(LM_SEQ), "--log-every", "1",
+            "--device", str(dev)] + ([] if LM_FULL else ["--smoke"])
+    records, timed = [], collections.defaultdict(list)
+    real_report, real_save, real_restore = train.report, ck.save, ck.restore
+
+    def timer(key, fn):
+        def wrapped(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            timed[key].append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    train.report = records.append
+    ck.save, ck.restore = timer("save", real_save), timer("restore",
+                                                          real_restore)
+    try:
+        peak_reset()
+        state = train.main(argv)                       # uninterrupted
+        peak_gib = peak()
+        flops, n_mm = _lm_flops(state.params, cfg, LM_BATCH, LM_SEQ)
+        del state
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = ["--ckpt-dir", d, "--ckpt-every", str(LM_FAIL)]
+            try:
+                train.main(argv + ckpt + ["--fail-at", str(LM_FAIL)])
+                raise AssertionError("--fail-at did not stop the run")
+            except SystemExit as e:
+                failed = str(e)
+            ck_bytes = sum(p.stat().st_size for p in Path(d).rglob("*")
+                           if p.is_file())
+            # the relaunch saves no second checkpoint
+            state = train.main(argv + ["--ckpt-dir", d, "--ckpt-every",
+                                       str(10 * LM_STEPS)])
+    finally:
+        train.report = real_report
+        ck.save, ck.restore = real_save, real_restore
+    straight, first, resumed = records
+    if first["steps"] != list(range(LM_FAIL)) or \
+            resumed["steps"] != list(range(LM_FAIL, LM_STEPS)) or \
+            resumed["start"] != LM_FAIL:
+        raise AssertionError(f"LM resume: steps {first['steps']} then "
+                             f"{resumed['steps']}")
+    check_losses("LM_TRAIN", straight["loss"], cfg.vocab)
+    check_losses("LM_TRAIN first run", first["loss"], cfg.vocab)
+    if not all(math.isfinite(x) for x in resumed["loss"]):
+        raise AssertionError(f"LM resume: {resumed['loss']}")
+    last, want = resumed["loss"][-1], straight["loss"][-1]
+    resume_err = abs(last - want) / abs(want)
+    first_err = max(abs(a - b) / abs(b) for a, b in
+                    zip(first["loss"], straight["loss"]))
+    # tolerance: 1e-3 relative.  Deterministic algorithms are off; cuBLAS
+    # and the kernels this step runs are deterministic for one shape on
+    # one card, but an atomically accumulated backward (an index_add or
+    # an embedding's scatter) may sum in another order
+    if resume_err > 1e-3 or first_err > 1e-3:
+        raise AssertionError(f"LM resume: last loss {last} against "
+                             f"{want} uninterrupted ({resume_err:.2e}); "
+                             f"the first run's against the straight one "
+                             f"{first_err:.2e}")
+    warm = straight["seconds"][2:]
+    ms = statistics.median(warm) * 1e3
+    tokens = LM_BATCH * LM_SEQ
+    print(f"LM_TRAIN {LM_ARCH}: {'full config' if LM_FULL else 'SMOKE'} "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.n_params()} parameters, {cfg.compute_dtype} "
+          f"compute, {cfg.param_dtype} master), batch {LM_BATCH} x seq "
+          f"{LM_SEQ}, {LM_STEPS} steps: losses "
+          f"{[round(x, 4) for x in straight['loss']]}; step 0 "
+          f"{straight['loss'][0]:.4f} against ln(V) "
+          f"{math.log(cfg.vocab):.4f}; median {ms:.1f} ms/step over steps "
+          f"2-{LM_STEPS - 1} (host clock, each step ending in the loss's "
+          f"read), {tokens / ms * 1e3:.0f} tokens/s, peak "
+          f"max_memory_allocated {peak_gib:.3f} GiB ({resident:.3f} of it "
+          f"resident from the earlier phases); model "
+          f"{flops / 1e12:.2f} TFLOP/step = 6 N T + 12 L B S^2 H dh (N = "
+          f"{n_mm} matmul parameters, T = {tokens}), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{flops / ms / 1e9 / (LM_PEAK_BF16 / 1e12):.1%} of the H100 SXM "
+          f"data sheet's {LM_PEAK_BF16 / 1e12:.0f} TFLOP/s dense bf16; "
+          f"card: {smi}")
+    print(f"LM_TRAIN resume: '{failed}'; one checkpoint of "
+          f"{ck_bytes / 1e9:.3f} GB saved in {sum(timed['save']):.2f} s, "
+          f"restored in {sum(timed['restore']):.2f} s; the relaunch ran "
+          f"steps {resumed['steps'][0]}-{resumed['steps'][-1]}, last loss "
+          f"{last:.6f} against {want:.6f} uninterrupted (relative "
+          f"{resume_err:.2e}, tolerance 1e-3; the first run's losses "
+          f"against the uninterrupted ones {first_err:.2e}); deterministic "
+          f"algorithms off")
+
+    # one profiled step of the resumed state
+    step_fn = ts.train_step_fn(cfg, adam=opt.AdamWConfig(
+        lr=3e-4, total_steps=LM_STEPS, warmup=min(20, LM_STEPS // 10 + 1)))
+    batch = synthetic_batch(cfg, LM_STEPS, LM_BATCH, LM_SEQ, device=dev)
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+        agg = _device_breakdown(prof)
+        busy = sum(v[0] for v in agg.values())
+        if busy <= 0:
+            print("LM_TRAIN profile: device time not measured (the "
+                  "profiler saw no device activity)")
+        else:
+            rows = sorted(((v[0], v[1], k) for k, v in agg.items()),
+                          reverse=True)
+            groups = "; ".join(f"{k} {v:.1f} ms" for k, v in
+                               _lm_groups(agg).most_common())
+            top = "; ".join(f"{t:.1f} ms x{c} {k[:70]}"
+                            for t, c, k in rows[:8])
+            print(f"LM_TRAIN profile of one step: device busy {busy:.1f} "
+                  f"ms of the median {ms:.1f} ms step (idle share "
+                  f"{max(0.0, 1 - busy / ms):.1%}); by kind: {groups}; "
+                  f"top: {top}")
+    del state, step_fn, batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- 2. the other families at full width, a cut depth ----------------
+    for arch, over, b, s, cut in LM_FAMILIES:
+        base = get_config(arch) if LM_FULL else get_smoke(arch)
+        fcfg = dataclasses.replace(base, **over) if LM_FULL else base
+        if not LM_FULL:
+            b, s = 2, 64
+        adam = opt.AdamWConfig(lr=1e-3, warmup=0, total_steps=LM_FAMILY_STEPS)
+        peak_reset()
+        state = ts.make_train_state(torch.Generator(dev).manual_seed(0),
+                                    fcfg, adam=adam)
+        step_fn = ts.train_step_fn(fcfg, adam=adam)
+        batch = synthetic_batch(fcfg, 0, b, s, device=dev)
+        gemma = fcfg.scale_embed and fcfg.tie_embeddings
+        skip = embedding_only_loss(state.params, fcfg, batch) if gemma \
+            else None
+        losses, secs, drops = [], [], []
+        for _ in range(LM_FAMILY_STEPS):
+            sync()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t)
+            drops.append(float(m["moe_drop"]))
+        check_losses(f"LM_FAMILY {arch}", losses, fcfg.vocab, skip)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"LM_FAMILY {arch}: the loss did not fall "
+                                 f"on its fixed batch: {losses}")
+        extra = (f", moe_drop {[round(x, 4) for x in drops]}"
+                 if fcfg.family == "moe" else "")
+        print(f"LM_FAMILY {arch} ({fcfg.family}; cut: {cut}; d_model "
+              f"{fcfg.d_model}, {fcfg.n_params()} parameters), batch {b} x "
+              f"seq {s}, {LM_FAMILY_STEPS} steps on one batch: losses "
+              f"{[round(x, 4) for x in losses]} (ln V "
+              f"{math.log(fcfg.vocab):.4f}"
+              + (f"; the embedding-only model's {skip:.4f}" if gemma else "")
+              + f"){extra}; median "
+              f"{statistics.median(secs[1:]) * 1e3:.1f} ms/step over steps "
+              f"1-{LM_FAMILY_STEPS - 1}, peak {peak():.3f} GiB ("
+              f"{resident:.3f} of it resident from the earlier phases)")
+        del state, step_fn, batch
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- 3. the card against the host CPU, the ten smoke configs, f32 ----
+    host = torch.device("cpu")
+    worst = {}
+    for arch in LM_ARCHS:
+        scfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+        tree = convert.to_reference(
+            tf.init_params(torch.Generator().manual_seed(0), scfg))
+        cpu_state = ts.TrainState(convert.from_reference(tree, scfg, host),
+                                  None, None)
+        card_state = ts.TrainState(convert.from_reference(tree, scfg, dev),
+                                   None, None)
+        for st_ in (cpu_state, card_state):
+            st_.opt_state = opt.init_opt_state(
+                dict(st_.params.named_parameters()))
+        batch = synthetic_batch(scfg, 0, 2, 32)
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            want, waux = cpu_state.params(batch["inputs"],
+                                          batch.get("frontend"))
+            got, gaux = card_state.params(card_batch["inputs"],
+                                          card_batch.get("frontend"))
+        rel = lambda g, w: float((g.detach().cpu().double() - w.double())
+                                 .abs().max() / w.double().abs().max())
+        errs = {"logits": rel(got, want),
+                "moe_drop": abs(float(gaux["moe_drop"]) -
+                                float(waux["moe_drop"]))}
+        step = ts.train_step_fn(scfg, adam=opt.AdamWConfig(
+            lr=1e-3, warmup=0, total_steps=10))
+        cpu_state, cm = step(cpu_state, batch)
+        card_state, gm = step(card_state, card_batch)
+        errs["loss"] = rel(gm["loss"], cm["loss"])
+        errs["grad_norm"] = rel(gm["grad_norm"], cm["grad_norm"])
+        wp = dict(cpu_state.params.named_parameters())
+        norm_err = max(
+            float((p.detach().cpu().double() - wp[n].detach().double())
+                  .norm() / wp[n].detach().double().norm().clamp_min(1e-30))
+            for n, p in card_state.params.named_parameters())
+        errs["params"] = norm_err
+        bad = {k: v for k, v in errs.items() if v > LM_CARD_TOL}
+        if bad:
+            raise AssertionError(f"LM_CARD_VS_CPU {arch}: beyond "
+                                 f"{LM_CARD_TOL:.0e}: {bad}")
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        print(f"LM_CARD_VS_CPU {arch} (smoke, float32): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    print(f"LM_CARD_VS_CPU: ten smoke configs within {LM_CARD_TOL:.0e} "
+          f"(logits, loss, grad_norm: max relative; params: norm-wise "
+          f"relative after one step; moe_drop: absolute); worst "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    print(f"LM phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
+
+
 def _rate(table, name, default):
     for key, v in table.items():
         if key in name:
@@ -2995,6 +3370,9 @@ def main() -> int:
 
     # -- 8d. serving on a mesh of four ranks ----------------------------------
     serve_launches.update(_serve_mesh_phase(dev, smi, calls))
+
+    # -- 8e. LM training ------------------------------------------------------
+    _lm_phase(dev, smi)
 
     # -- 9. replays and times -------------------------------------------------
     def nbytes(t):

@@ -25,7 +25,12 @@ memory budget (``repro_torch.serve``; ``python -m
 repro_torch.launch.serve`` drives it with threaded clients).
 ``python -m repro_torch.launch.solve`` is the paper's workload on a grid
 of ranks, with the survivable ``--ckpt`` loop over
-``repro_torch.ckpt.checkpoint``.  The
+``repro_torch.ckpt.checkpoint``.  The LM substrate's training path
+is ported too: ``repro_torch.configs`` (the ten LM configs),
+``repro_torch.models`` (``Transformer(cfg)`` and the converter from and
+to the reference's parameter trees), ``repro_torch.training`` (AdamW
+with int8 error feedback, the train step), ``repro_torch.data`` and
+``python -m repro_torch.launch.train``.  The
 package imports no JAX and nothing of ``repro``; its tests hold it
 against ``repro`` on the same inputs.
 """

@@ -1,0 +1,174 @@
+"""The reference's parameter trees and training states, to and from the
+port's modules.
+
+The reference keeps each uniform stack's layers stacked on a leading axis
+(``jax.vmap`` of the block init); the port keeps one module per layer in
+a ``ModuleList``.  A parameter's dotted name in the port is its
+reference path with the layer index inserted: ``layers.3.attn.wq`` is
+``params["layers"]["attn"]["wq"][3]``, ``groups.rec0.5.rec.lam`` is
+``params["groups"]["rec0"]["rec"]["lam"][5]``, and an unstacked leaf
+(``embed``, ``ln_f.scale``, the hybrid's ``rem.rec0.rec.lam``) has no
+index.  ``ref_path`` gives the pair for a name.
+
+``from_reference(tree, cfg)`` loads a reference parameter tree (nested
+dicts of arrays, stacked) into a new ``Transformer``; given a training
+state (the reference's ``TrainState`` with array leaves, or the tuple
+``to_reference`` returns for one) it returns the port's ``TrainState``.
+``to_reference`` is the inverse: a model -> the stacked parameter tree of
+numpy arrays; a ``TrainState`` -> ``(params, {"m", "step", "v"},
+err_fb)``, the reference ``TrainState``'s fields in their order, so
+``repro_torch.ckpt.checkpoint`` writes the leaves in the reference's
+order and shapes and either package's launcher resumes the other's
+checkpoint.  ``reference_like`` is that tuple's shapes and dtypes, with
+no data behind them, to restore into.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["ref_path", "from_reference", "to_reference", "reference_like"]
+
+
+def ref_path(name: str):
+    """``(path, index)`` of a dotted parameter name: the reference tree's
+    keys and the layer index (``None`` for an unstacked leaf)."""
+    parts = name.split(".")
+    idx = [int(p) for p in parts if p.isdigit()]
+    return tuple(p for p in parts if not p.isdigit()), \
+        (idx[0] if idx else None)
+
+
+def _layout(model):
+    """``{path: [(index, tensor), ...]}`` over the model's parameters."""
+    out: dict = {}
+    for name, p in model.named_parameters():
+        path, i = ref_path(name)
+        out.setdefault(path, []).append((i, p))
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def _flat(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _stack_named(named: dict) -> dict:
+    """{dotted name: tensor} -> the stacked reference tree of numpy
+    arrays."""
+    groups: dict = {}
+    for name, t in named.items():
+        path, i = ref_path(name)
+        groups.setdefault(path, []).append((i, t))
+    flat = {}
+    for path, entries in groups.items():
+        if entries[0][0] is None:
+            flat[path] = _host(entries[0][1])
+        else:
+            entries.sort(key=lambda e: e[0])
+            flat[path] = np.stack([_host(t) for _, t in entries])
+    return _nest(flat)
+
+
+def _unstack_named(model, tree, device) -> dict:
+    """The reference tree -> {dotted name: tensor} in the model's layout."""
+    flat = _flat(tree)
+    out = {}
+    for name, p in model.named_parameters():
+        path, i = ref_path(name)
+        leaf = np.asarray(flat[path])
+        v = leaf if i is None else leaf[i]
+        if tuple(v.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference leaf {'/'.join(path)} "
+                             f"gives {v.shape}, the model holds "
+                             f"{tuple(p.shape)}")
+        out[name] = torch.from_numpy(np.array(v)).to(device=device,
+                                                      dtype=p.dtype)
+    return out
+
+
+def _model(cfg, tree, device):
+    from .transformer import Transformer
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    model = model.to_empty(device=device)
+    values = _unstack_named(model, tree, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(values[name])
+    return model
+
+
+def _fields(state):
+    if isinstance(state, (tuple, list)):
+        return state
+    return state.params, state.opt_state, state.err_fb
+
+
+def from_reference(tree, cfg, device="cpu"):
+    """A reference parameter tree -> ``Transformer``; a reference training
+    state -> ``repro_torch.training.train_step.TrainState``."""
+    if isinstance(tree, dict):
+        return _model(cfg, tree, device)
+    from repro_torch.training.train_step import TrainState
+    params, opt_state, err_fb = _fields(tree)
+    model = _model(cfg, params, device)
+    m = _unstack_named(model, opt_state["m"], device)
+    v = _unstack_named(model, opt_state["v"], device)
+    step = torch.tensor(int(np.asarray(opt_state["step"])),
+                        dtype=torch.int32, device=device)
+    err = None if err_fb is None else _unstack_named(model, err_fb, device)
+    return TrainState(model, {"m": m, "v": v, "step": step}, err)
+
+
+def to_reference(obj):
+    """A model -> its stacked parameter tree (numpy); a ``TrainState`` ->
+    ``(params, {"m", "step", "v"}, err_fb)`` in the reference's layout."""
+    if isinstance(obj, torch.nn.Module):
+        return _stack_named(dict(obj.named_parameters()))
+    opt = obj.opt_state
+    return (_stack_named(dict(obj.params.named_parameters())),
+            {"m": _stack_named(opt["m"]), "step": _host(opt["step"]),
+             "v": _stack_named(opt["v"])},
+            None if obj.err_fb is None else _stack_named(obj.err_fb))
+
+
+def reference_like(cfg, compress: bool = False):
+    """The shapes and dtypes of ``to_reference(state)`` for ``cfg``, as
+    numpy arrays with no data behind them (a restore target)."""
+    from .transformer import Transformer
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    shapes = {}
+    for path, entries in _layout(model).items():
+        p = entries[0][1]
+        shapes[path] = (tuple(p.shape) if entries[0][0] is None else
+                        (len(entries),) + tuple(p.shape),
+                        str(p.dtype).replace("torch.", ""))
+
+    def tree(dtype=None):
+        return _nest({path: np.broadcast_to(np.zeros((), dtype or dt), shape)
+                      for path, (shape, dt) in shapes.items()})
+
+    return (tree(),
+            {"m": tree("float32"), "step": np.zeros((), np.int32),
+             "v": tree("float32")},
+            tree("float32") if compress else None)

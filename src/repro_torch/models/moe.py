@@ -1,0 +1,119 @@
+"""MoE FFN with capacity-based (GShard-style) dispatch, on one device.
+
+Counterpart of ``repro.models.moe``'s local path.  The router runs in
+float32; the top-k keeps ``lax.top_k``'s order (descending, the lower
+expert first on ties) through a stable sort, since ``torch.topk``'s order
+on ties is unspecified on CUDA.  Capacity slots come from a cumulative
+sum in the flattened (T*k) order, so the dropped entries and the
+``moe_drop`` metric are the reference's.
+
+The expert-parallel path, whose dispatch and combine are each one flups
+topology switch over the ``"model"`` mesh axis, is not ported yet
+(ROADMAP queue 1 item 3b): ``moe_block`` raises on such a mesh.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import (ModelConfig, act_fn, dense_init_, initialise,
+                     is_gated, not_ported, param)
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        m = cfg.moe
+        d, dff, e = cfg.d_model, cfg.d_ff, m.n_experts
+        self.router = param((d, e), torch.float32)
+        self.w_in = param((e, d, dff), cfg.pdtype())
+        self.w_out = param((e, dff, d), cfg.pdtype())
+        if is_gated(cfg.act):
+            self.w_gate = param((e, d, dff), cfg.pdtype())
+
+    def init_weights(self, gen):
+        d, dff = self.w_in.shape[1:]
+        dense_init_(self.router, gen, fan_in=d)
+        dense_init_(self.w_in, gen, fan_in=d)
+        dense_init_(self.w_out, gen, fan_in=dff)
+        if hasattr(self, "w_gate"):
+            dense_init_(self.w_gate, gen, fan_in=d)
+
+
+def init_moe(gen, cfg: ModelConfig) -> MoE:
+    with torch.device(gen.device):
+        return initialise(MoE(cfg), gen)
+
+
+def _route(p, m, xf):
+    logits = (xf.float() @ p.router).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[:, :m.top_k], idx[:, :m.top_k]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gate, idx
+
+
+def _dispatch_local(x, idx, n_experts, capacity):
+    """Bucket local tokens into a (E, C, d) buffer.
+
+    x: (T, d); idx: (T, k) top-k expert assignments.
+    Returns buf (E, C, d) and the (dest, keep) bookkeeping for combine.
+    """
+    t, k = idx.shape
+    flat_e = idx.reshape(-1)                      # (T*k,)
+    # position of each entry within its expert's bucket
+    onehot = F.one_hot(flat_e, n_experts)         # (T*k, E)
+    pos = onehot.cumsum(dim=0) - 1
+    slot = pos.gather(1, flat_e[:, None])[:, 0]
+    keep = slot < capacity
+    slot_c = torch.where(keep, slot, 0)
+    dest = flat_e * capacity + slot_c             # flat (E*C) index
+    src = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = x.new_zeros((n_experts * capacity, x.shape[-1]))
+    buf = buf.index_add(0, dest, torch.where(keep[:, None], x[src], 0.0))
+    return buf.reshape(n_experts, capacity, -1), (dest, keep)
+
+
+def _combine_local(ybuf, book, gate, t, k):
+    dest, keep = book
+    y = ybuf.reshape(-1, ybuf.shape[-1])[dest]    # (T*k, d)
+    y = torch.where(keep[:, None], y, 0.0)
+    y = y * gate.reshape(-1)[:, None].to(y.dtype)
+    return y.reshape(t, k, -1).sum(dim=1)
+
+
+def _expert_ffn(cfg, buf, w_in, w_gate, w_out):
+    cd = cfg.cdtype()
+    h = torch.bmm(buf, w_in.to(cd))
+    if w_gate is not None:
+        h = act_fn(cfg.act, h, torch.bmm(buf, w_gate.to(cd)))
+    else:
+        h = act_fn(cfg.act, h)
+    return torch.bmm(h, w_out.to(cd))
+
+
+def _moe_local(p, cfg: ModelConfig, x):
+    """Single-device MoE: returns (out (B, S, D), drop fraction)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    gate, idx = _route(p, m, xf)
+    capacity = int(t * m.top_k / m.n_experts * m.capacity_factor) + 1
+    buf, book = _dispatch_local(xf, idx, m.n_experts, capacity)
+    y = _expert_ffn(cfg, buf, p.w_in, getattr(p, "w_gate", None), p.w_out)
+    out = _combine_local(y, book, gate, t, m.top_k)
+    drop = 1.0 - book[1].float().mean()
+    return out.reshape(b, s, d).to(x.dtype), drop
+
+
+def moe_block(p, cfg: ModelConfig, x, comm=None, mesh=None):
+    """MoE FFN. x: (B, S, D).  The local path unless a mesh with a
+    ``"model"`` axis is given, which is not ported yet."""
+    if "model" in (getattr(mesh, "mesh_dim_names", None) or ()):
+        raise not_ported("the expert-parallel moe_block", "3b",
+                         "the dispatch and combine topology switches over "
+                         "the model mesh axis")
+    return _moe_local(p, cfg, x)

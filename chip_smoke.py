@@ -1850,9 +1850,7 @@ def _serve_mesh_phase(dev, smi, calls):
 
 # the LM training phase (8e): qwen3-0.6b at its full config through the
 # train launcher, the other families at full width and a cut depth, and
-# the card against the host CPU on the ten smoke configs.  LM_FULL False
-# runs the smoke configs instead (a CPU rehearsal of the phase)
-LM_FULL = True
+# the card against the host CPU on the ten smoke configs
 LM_ARCH = "qwen3-0.6b"
 LM_BATCH, LM_SEQ, LM_STEPS, LM_FAIL = 4, 2048, 12, 6
 # (arch, config overrides, batch, seq, the cut as printed)
@@ -1923,9 +1921,7 @@ def _lm_phase(dev, smi):
     import dataclasses
     import tempfile
 
-    import numpy as np
     import torch
-    from repro_torch.ckpt import checkpoint as ck
     from repro_torch.configs import LM_ARCHS, get_config, get_smoke
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.launch import train
@@ -1935,24 +1931,13 @@ def _lm_phase(dev, smi):
     from repro_torch.training import train_step as ts
 
     t0 = time.perf_counter()
-    on_card = dev.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
     gib = lambda b: b / 2 ** 30
-    resident = 0.0
-    if on_card:
-        gc.collect()
-        torch.cuda.empty_cache()
-        resident = gib(torch.cuda.memory_allocated())
-        print(f"LM phase: {resident:.3f} GiB "
-              f"resident from the earlier phases; deterministic algorithms "
-              f"{'on' if torch.are_deterministic_algorithms_enabled() else 'off'}")
-
-    def peak_reset():
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-
-    def peak():
-        return gib(torch.cuda.max_memory_allocated()) if on_card else 0.0
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = gib(torch.cuda.memory_allocated())
+    print(f"LM phase: {resident:.3f} GiB "
+          f"resident from the earlier phases; deterministic algorithms "
+          f"{'on' if torch.are_deterministic_algorithms_enabled() else 'off'}")
 
     def check_losses(label, losses, vocab, high=None):
         """Finite; step 0 within 2 nats of ln(vocab), or with ``high``
@@ -1979,48 +1964,29 @@ def _lm_phase(dev, smi):
             return float((logits.logsumexp(-1) - gold[..., 0]).mean())
 
     # -- 1. qwen3-0.6b at its full config, through the launcher ----------
-    cfg = get_config(LM_ARCH) if LM_FULL else get_smoke(LM_ARCH)
+    cfg = get_config(LM_ARCH)
     argv = ["--arch", LM_ARCH, "--steps", str(LM_STEPS), "--batch",
             str(LM_BATCH), "--seq", str(LM_SEQ), "--log-every", "1",
-            "--device", str(dev)] + ([] if LM_FULL else ["--smoke"])
-    records, timed = [], collections.defaultdict(list)
-    real_report, real_save, real_restore = train.report, ck.save, ck.restore
-
-    def timer(key, fn):
-        def wrapped(*a, **kw):
-            sync()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            sync()
-            timed[key].append(time.perf_counter() - t)
-            return out
-        return wrapped
-
-    train.report = records.append
-    ck.save, ck.restore = timer("save", real_save), timer("restore",
-                                                          real_restore)
-    try:
-        peak_reset()
-        state = train.main(argv)                       # uninterrupted
-        peak_gib = peak()
-        flops, n_mm = _lm_flops(state.params, cfg, LM_BATCH, LM_SEQ)
-        del state
-        with tempfile.TemporaryDirectory() as d:
-            ckpt = ["--ckpt-dir", d, "--ckpt-every", str(LM_FAIL)]
-            try:
-                train.main(argv + ckpt + ["--fail-at", str(LM_FAIL)])
-                raise AssertionError("--fail-at did not stop the run")
-            except SystemExit as e:
-                failed = str(e)
-            ck_bytes = sum(p.stat().st_size for p in Path(d).rglob("*")
-                           if p.is_file())
-            # the relaunch saves no second checkpoint
-            state = train.main(argv + ["--ckpt-dir", d, "--ckpt-every",
-                                       str(10 * LM_STEPS)])
-    finally:
-        train.report = real_report
-        ck.save, ck.restore = real_save, real_restore
-    straight, first, resumed = records
+            "--device", str(dev)]
+    torch.cuda.reset_peak_memory_stats()
+    state = train.main(argv)                           # uninterrupted
+    peak_gib = gib(torch.cuda.max_memory_allocated())
+    straight = state.record
+    flops, n_mm = _lm_flops(state.params, cfg, LM_BATCH, LM_SEQ)
+    del state
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = ["--ckpt-dir", d, "--ckpt-every", str(LM_FAIL)]
+        try:
+            train.main(argv + ckpt + ["--fail-at", str(LM_FAIL)])
+            raise AssertionError("--fail-at did not stop the run")
+        except SystemExit as e:
+            failed, first = str(e), e.record
+        ck_bytes = sum(p.stat().st_size for p in Path(d).rglob("*")
+                       if p.is_file())
+        # the relaunch saves no second checkpoint
+        state = train.main(argv + ["--ckpt-dir", d, "--ckpt-every",
+                                   str(10 * LM_STEPS)])
+    resumed = state.record
     if first["steps"] != list(range(LM_FAIL)) or \
             resumed["steps"] != list(range(LM_FAIL, LM_STEPS)) or \
             resumed["start"] != LM_FAIL:
@@ -2046,8 +2012,7 @@ def _lm_phase(dev, smi):
     warm = straight["seconds"][2:]
     ms = statistics.median(warm) * 1e3
     tokens = LM_BATCH * LM_SEQ
-    print(f"LM_TRAIN {LM_ARCH}: {'full config' if LM_FULL else 'SMOKE'} "
-          f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+    print(f"LM_TRAIN {LM_ARCH}: full config ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.n_params()} parameters, {cfg.compute_dtype} "
           f"compute, {cfg.param_dtype} master), batch {LM_BATCH} x seq "
           f"{LM_SEQ}, {LM_STEPS} steps: losses "
@@ -2065,8 +2030,10 @@ def _lm_phase(dev, smi):
           f"data sheet's {LM_PEAK_BF16 / 1e12:.0f} TFLOP/s dense bf16; "
           f"card: {smi}")
     print(f"LM_TRAIN resume: '{failed}'; one checkpoint of "
-          f"{ck_bytes / 1e9:.3f} GB saved in {sum(timed['save']):.2f} s, "
-          f"restored in {sum(timed['restore']):.2f} s; the relaunch ran "
+          f"{ck_bytes / 1e9:.3f} GB saved in "
+          f"{sum(first['save_seconds']):.2f} s, restored in "
+          f"{resumed['restore_seconds']:.2f} s (each with its conversion "
+          f"from or to the card's modules); the relaunch ran "
           f"steps {resumed['steps'][0]}-{resumed['steps'][-1]}, last loss "
           f"{last:.6f} against {want:.6f} uninterrupted (relative "
           f"{resume_err:.2e}, tolerance 1e-3; the first run's losses "
@@ -2077,40 +2044,35 @@ def _lm_phase(dev, smi):
     step_fn = ts.train_step_fn(cfg, adam=opt.AdamWConfig(
         lr=3e-4, total_steps=LM_STEPS, warmup=min(20, LM_STEPS // 10 + 1)))
     batch = synthetic_batch(cfg, LM_STEPS, LM_BATCH, LM_SEQ, device=dev)
-    if on_card:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, m = step_fn(state, batch)
-            float(m["loss"])
-        agg = _device_breakdown(prof)
-        busy = sum(v[0] for v in agg.values())
-        if busy <= 0:
-            print("LM_TRAIN profile: device time not measured (the "
-                  "profiler saw no device activity)")
-        else:
-            rows = sorted(((v[0], v[1], k) for k, v in agg.items()),
-                          reverse=True)
-            groups = "; ".join(f"{k} {v:.1f} ms" for k, v in
-                               _lm_groups(agg).most_common())
-            top = "; ".join(f"{t:.1f} ms x{c} {k[:70]}"
-                            for t, c, k in rows[:8])
-            print(f"LM_TRAIN profile of one step: device busy {busy:.1f} "
-                  f"ms of the median {ms:.1f} ms step (idle share "
-                  f"{max(0.0, 1 - busy / ms):.1%}); by kind: {groups}; "
-                  f"top: {top}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+    agg = _device_breakdown(prof)
+    busy = sum(v[0] for v in agg.values())
+    if busy <= 0:
+        print("LM_TRAIN profile: device time not measured (the "
+              "profiler saw no device activity)")
+    else:
+        rows = sorted(((v[0], v[1], k) for k, v in agg.items()),
+                      reverse=True)
+        groups = "; ".join(f"{k} {v:.1f} ms" for k, v in
+                           _lm_groups(agg).most_common())
+        top = "; ".join(f"{t:.1f} ms x{c} {k[:70]}"
+                        for t, c, k in rows[:8])
+        print(f"LM_TRAIN profile of one step: device busy {busy:.1f} "
+              f"ms of the median {ms:.1f} ms step (idle share "
+              f"{max(0.0, 1 - busy / ms):.1%}); by kind: {groups}; "
+              f"top: {top}")
     del state, step_fn, batch
-    if on_card:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
 
     # -- 2. the other families at full width, a cut depth ----------------
     for arch, over, b, s, cut in LM_FAMILIES:
-        base = get_config(arch) if LM_FULL else get_smoke(arch)
-        fcfg = dataclasses.replace(base, **over) if LM_FULL else base
-        if not LM_FULL:
-            b, s = 2, 64
+        fcfg = dataclasses.replace(get_config(arch), **over)
         adam = opt.AdamWConfig(lr=1e-3, warmup=0, total_steps=LM_FAMILY_STEPS)
-        peak_reset()
+        torch.cuda.reset_peak_memory_stats()
         state = ts.make_train_state(torch.Generator(dev).manual_seed(0),
                                     fcfg, adam=adam)
         step_fn = ts.train_step_fn(fcfg, adam=adam)
@@ -2120,7 +2082,7 @@ def _lm_phase(dev, smi):
             else None
         losses, secs, drops = [], [], []
         for _ in range(LM_FAMILY_STEPS):
-            sync()
+            torch.cuda.synchronize()
             t = time.perf_counter()
             state, m = step_fn(state, batch)
             losses.append(float(m["loss"]))
@@ -2140,11 +2102,11 @@ def _lm_phase(dev, smi):
               + (f"; the embedding-only model's {skip:.4f}" if gemma else "")
               + f"){extra}; median "
               f"{statistics.median(secs[1:]) * 1e3:.1f} ms/step over steps "
-              f"1-{LM_FAMILY_STEPS - 1}, peak {peak():.3f} GiB ("
+              f"1-{LM_FAMILY_STEPS - 1}, peak "
+              f"{gib(torch.cuda.max_memory_allocated()):.3f} GiB ("
               f"{resident:.3f} of it resident from the earlier phases)")
         del state, step_fn, batch
-        if on_card:
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
     # -- 3. the card against the host CPU, the ten smoke configs, f32 ----
     host = torch.device("cpu")

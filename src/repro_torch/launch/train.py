@@ -21,9 +21,11 @@ without a card it raises rather than train on the CPU.
 
 The model initialises from ``torch.Generator`` seed 0 on the device and
 trains on ``synthetic_batch`` tokens; no weights or data are read.
-``main`` hands a record of the run (per-step losses and wall times, the
-steps run, the device) to ``report``, a no-op a test or a calling program
-replaces, before it returns or raises at ``--fail-at``.
+``main`` returns the final ``TrainState`` with a record of the run as its
+``record`` attribute: the device, the first step, per step the loss,
+``grad_norm`` and wall time, and the seconds of each checkpoint save and
+of the restore (the conversion included).  The ``SystemExit`` raised at
+``--fail-at`` carries the same record as its ``record``.
 """
 from __future__ import annotations
 
@@ -41,11 +43,6 @@ from repro_torch.training import optimizer as opt
 from repro_torch.training.train_step import make_train_state, train_step_fn
 
 
-def report(record: dict):
-    """Receives the run's record once per ``main`` call.  Does nothing; a
-    test or a calling program replaces it."""
-
-
 def _resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -53,6 +50,13 @@ def _resolve_device(device) -> torch.device:
             "repro_torch.launch.train runs on the GPU by default, and torch "
             "finds no CUDA device; pass --device cpu to train on the CPU")
     return dev
+
+
+def _synced(dev, t0) -> float:
+    """Seconds since ``t0`` once ``dev`` has finished its queued work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
 
 
 def _parser():
@@ -87,13 +91,15 @@ def main(argv=None):
         warmup=min(20, args.steps // 10 + 1),
         grad_compress="int8" if args.compress else "none")
 
-    start = 0
+    start, restore_s = 0, None
     latest = ck.latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if latest is not None:
+        t0 = time.perf_counter()
         tree = ck.restore(args.ckpt_dir, latest,
                           convert.reference_like(cfg, args.compress))
         state = convert.from_reference(tree, cfg, dev)
         del tree
+        restore_s = _synced(dev, t0)
         start = latest
         print(f"[train] resumed from step {latest}")
     else:
@@ -103,36 +109,39 @@ def main(argv=None):
     # the local path runs no topology switch, so --comm selects nothing yet
     step_fn = train_step_fn(cfg, adam=adam)
     record = {"device": str(dev), "start": start, "steps": [], "loss": [],
-              "grad_norm": [], "seconds": []}
+              "grad_norm": [], "seconds": [], "save_seconds": [],
+              "restore_seconds": restore_s}
     times = []
-    try:
-        for step in range(start, args.steps):
+    for step in range(start, args.steps):
+        t0 = time.perf_counter()
+        batch = synthetic_batch(cfg, step, args.batch, args.seq,
+                                device=dev)
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])        # waits for the device
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        for k, v in (("steps", step), ("loss", loss), ("seconds", dt),
+                     ("grad_norm", float(metrics["grad_norm"]))):
+            record[k].append(v)
+        med = float(np.median(times[-20:]))
+        if len(times) > 5 and dt > 3.0 * med:
+            print(f"[train] STRAGGLER step {step}: {dt:.2f}s vs median "
+                  f"{med:.2f}s (stateless pipeline -> safe to re-issue)")
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"[train] step {step}  loss {loss:.4f}"
+                  f"  gnorm {float(metrics['grad_norm']):.3f}"
+                  f"  lr {float(metrics['lr']):.2e}  {dt:.2f}s")
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             t0 = time.perf_counter()
-            batch = synthetic_batch(cfg, step, args.batch, args.seq,
-                                    device=dev)
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])        # waits for the device
-            dt = time.perf_counter() - t0
-            times.append(dt)
-            for k, v in (("steps", step), ("loss", loss), ("seconds", dt),
-                         ("grad_norm", float(metrics["grad_norm"]))):
-                record[k].append(v)
-            med = float(np.median(times[-20:]))
-            if len(times) > 5 and dt > 3.0 * med:
-                print(f"[train] STRAGGLER step {step}: {dt:.2f}s vs median "
-                      f"{med:.2f}s (stateless pipeline -> safe to re-issue)")
-            if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step {step}  loss {loss:.4f}"
-                      f"  gnorm {float(metrics['grad_norm']):.3f}"
-                      f"  lr {float(metrics['lr']):.2e}  {dt:.2f}s")
-            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                ck.save(args.ckpt_dir, step + 1, convert.to_reference(state))
-            if args.fail_at is not None and step + 1 >= args.fail_at:
-                raise SystemExit(f"[train] simulated failure at step "
-                                 f"{step + 1} -- relaunch to resume")
-    finally:
-        report(record)
+            ck.save(args.ckpt_dir, step + 1, convert.to_reference(state))
+            record["save_seconds"].append(time.perf_counter() - t0)
+        if args.fail_at is not None and step + 1 >= args.fail_at:
+            crash = SystemExit(f"[train] simulated failure at step "
+                               f"{step + 1} -- relaunch to resume")
+            crash.record = record
+            raise crash
     print("[train] done")
+    state.record = record
     return state
 
 

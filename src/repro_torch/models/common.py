@@ -238,19 +238,25 @@ def _truncated_normal_(t, gen):
     return t
 
 
+def _scaled_truncated_normal_(p, gen, scale):
+    """``p`` <- ``scale`` times a truncated normal drawn in float32: in
+    place when ``p`` is float32, so that a 4 GB embedding does not need
+    two more of its size."""
+    with torch.no_grad():
+        t = p if p.dtype == torch.float32 else torch.empty(
+            p.shape, dtype=torch.float32, device=p.device)
+        _truncated_normal_(t, gen).mul_(scale)
+        if t is not p:
+            p.copy_(t)
+
+
 def dense_init_(p, gen, fan_in=None):
     fan_in = fan_in if fan_in is not None else p.shape[0]
-    with torch.no_grad():
-        t = _truncated_normal_(torch.empty(p.shape, dtype=torch.float32,
-                                           device=p.device), gen)
-        p.copy_(t * (1.0 / math.sqrt(fan_in)))
+    _scaled_truncated_normal_(p, gen, 1.0 / math.sqrt(fan_in))
 
 
 def embed_init_(p, gen):
-    with torch.no_grad():
-        t = _truncated_normal_(torch.empty(p.shape, dtype=torch.float32,
-                                           device=p.device), gen)
-        p.copy_(t * 0.02)
+    _scaled_truncated_normal_(p, gen, 0.02)
 
 
 def initialise(module, gen):

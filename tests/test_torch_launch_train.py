@@ -27,18 +27,11 @@ LINE = re.compile(r"^\[train\] step (\d+)  loss (\d+\.\d{4})  gnorm "
                   r"(\d+\.\d{3})  lr (\d\.\d\de[-+]\d\d)  \d+\.\d\ds$")
 
 
-@pytest.fixture
-def records(monkeypatch):
-    got = []
-    monkeypatch.setattr(train, "report", got.append)
-    return got
-
-
 def _lines(out):
     return [l for l in out.splitlines() if l.startswith("[train]")]
 
 
-def test_smoke_prints_the_reference_lines(capsys, records):
+def test_smoke_prints_the_reference_lines(capsys):
     rtrain.main(ARGS)
     want = _lines(capsys.readouterr().out)
     state = train.main(ARGS + ["--device", "cpu"])
@@ -51,23 +44,28 @@ def test_smoke_prints_the_reference_lines(capsys, records):
         assert mg.group(1) == mw.group(1)            # the step
         assert mg.group(4) == mw.group(4)            # the lr
         assert abs(float(mg.group(2)) - np.log(512)) < 0.5
-    rec, = records
+    rec = state.record
     assert rec["device"] == "cpu" and rec["steps"] == [0, 1, 2, 3]
+    assert rec["start"] == 0 and rec["restore_seconds"] is None
+    assert rec["save_seconds"] == [] and len(rec["seconds"]) == 4
     assert all(np.isfinite(rec["loss"]))
     assert int(state.opt_state["step"]) == 4
 
 
-def test_fail_at_then_resume_matches_uninterrupted(tmp_path, capsys,
-                                                   records):
+def test_fail_at_then_resume_matches_uninterrupted(tmp_path, capsys):
     base = ARGS + ["--device", "cpu", "--ckpt-every", "2"]
     straight = train.main(base)
-    with pytest.raises(SystemExit, match="simulated failure at step 2"):
+    with pytest.raises(SystemExit, match="simulated failure at step 2") as e:
         train.main(base + ["--ckpt-dir", str(tmp_path), "--fail-at", "2"])
     resumed = train.main(base + ["--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "[train] resumed from step 2" in out
+    records = [straight.record, e.value.record, resumed.record]
     assert [r["steps"] for r in records] == [[0, 1, 2, 3], [0, 1], [2, 3]]
     assert records[2]["loss"] == records[0]["loss"][2:]
+    assert len(records[1]["save_seconds"]) == 1
+    assert records[1]["restore_seconds"] is None
+    assert records[2]["start"] == 2 and records[2]["restore_seconds"] > 0
     for a, b in zip(straight.params.parameters(), resumed.params.parameters()):
         assert torch.equal(a, b)
 

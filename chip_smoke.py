@@ -17,21 +17,22 @@ Phases (each raises on failure; nothing is caught):
      kernel launched), ragged and
      batched scale shapes (B in {1, 3} on aligned and ragged planes),
      twiddle_pack on a strided half-spectrum window at the
-     (E,E),(O,O),(E,O) 384^3 path's shape; the two-pass Stockham path at
-     N in {8192, 16384, 65536}: forward, inverse, pruned pad_to, kept
-     bins, the Green epilogue at start 0 and 1 (grows dividing the rows),
-     the DCT-I/DCT-II/DST-II twiddle windows, batch 1 and 13, radix 2 and
-     4, and one row of 2^24 points; one 16384-point float64 row against
-     torch.fft.fft;
+     (E,E),(O,O),(E,O) 384^3 path's shape; the Stockham kernel's long
+     rows at N in {8192, 16384, 32768} (one pass on a thread-block
+     cluster) and 65536 (two passes): forward, inverse, pruned pad_to,
+     kept bins, the Green epilogue at start 0 and 1 (grows dividing the
+     rows), the DCT-I/DCT-II/DST-II twiddle windows, batch 1 and 13, radix
+     2 and 4, and one row of 2^24 points; float64 rows of 16384 (cluster)
+     and 65536 points (two passes) against torch.fft.fft;
   4. the main path: PoissonSolver.solve on the "cuda" engine, CELL, CHAT2,
      float32, for (U,U,U) and (P,P,P) at 256^3, (U,P,U) at 128^3 (its
      host Green assembly at 256^3 costs 10 s), (U,U,U) at 128^3 with B=2, semi-unbounded (U,E),(U,U),(U,U) at 256^3 and
      (U,U),(U,U),(O,U) at 128^3, the wall-bounded (E,E),(O,O),(E,O)
      at 384^3, and the elongated LONG_UUU (U,U,U) 4096x64x64 and
      LONG_SEMI (U,E),(U,U),(U,U) 2048x64x64, whose x direction needs an
-     8192-point FFT (two passes), each against the "torch" (cuFFT) engine
-     on the card, with the launch counts of all five kernels, and of the
-     two-pass calls, read around each solve;
+     8192-point FFT (on a cluster), each against the "torch" (cuFFT)
+     engine on the card, with the launch counts of all five kernels, and
+     of the cluster and two-pass calls, read around each solve;
   5. the analytic checks: NODE (U,U,U) HEJ4 n=64 float64 Gaussian blob
      (spectral_scale), and NODE (U,E),(U,U),(U,U) HEJ4 n=64 float64 blob
      and its even image (the DCT-I on fft_stockham_twiddle);
@@ -64,6 +65,14 @@ Phases (each raises on failure; nothing is caught):
      guard (count=2 at fwd.1 under "abft": two firings, solve.linearity,
      then the recompute); a persistent flip at green raising SolveError
      at verify.abft@green after the rungs engine, relayout, doubling;
+  7c. every main-path solve of phases 4 and 6 (Biot-Savart included)
+     timed on both engines, the device memory a solve allocates above
+     what is resident, and a torch.profiler breakdown of its device time
+     by kernel with the idle share that leaves (marked INCOMPLETE where
+     the profiler saw fewer Stockham kernels than the solve's Stockham
+     calls: profiles taken after phases 8-8d lose device events), the
+     long rows' cluster and column kernels counted (a profiled LONG
+     solve must show no column pass);
   8. the pencil-distributed solve (DistributedPoissonSolver over a
      DeviceMesh, CELL, CHAT2, float32 unless marked): DIST1_UUU, (U,U,U)
      at 256^3 on a one-rank NCCL mesh (1, 1) -- the switches' relayouts
@@ -200,11 +209,7 @@ Phases (each raises on failure; nothing is caught):
      each kernel's time per solve at its
      path's shapes beside its plain version, one equivalent PyTorch call
      where there is one, and its bound, also spectral_scale at the SYM384
-     shape and the two-pass calls of LONG_UUU and LONG_SEMI; the whole
-     solve (Biot-Savart included) on both engines, the device memory a
-     solve allocates above what is resident, and a torch.profiler
-     breakdown of its device time by kernel with the idle share that
-     leaves.
+     shape and the cluster calls of LONG_UUU and LONG_SEMI.
 The last two lines are the kernels' JSON record (with each kernel's
 launches in every distributed run, ``dist_launches``, every served
 batch, ``serve_launches``, the mesh-served ones summed over the ranks and
@@ -371,13 +376,16 @@ EXPECTED = {
     "LAUNCH_CELL_B2": {"fft_stockham": 8, "fft_stockham_scale": 1},
     "LAUNCH_UNB_SMALL": {"fft_stockham": 6, "spectral_scale": 1},
 }
-# of those, the calls whose rows are longer than one pass takes: the
-# pruned 8192-point forward of LONG_UUU's x direction; LONG_SEMI's fused
-# DCT-II on the 8192-point extension and the inverse of its DCT-III
-EXPECTED_TWO_PASS = {
+# of those, the calls whose rows run on a thread-block cluster (8192 to
+# 32768 points): the pruned 8192-point forward of LONG_UUU's x direction;
+# LONG_SEMI's fused DCT-II on the 8192-point extension and the inverse of
+# its DCT-III; and the calls whose rows take two passes (above 32768
+# points): none on the main path
+EXPECTED_CLUSTER = {
     "LONG_UUU": {"fft_stockham": 1},
     "LONG_SEMI": {"fft_stockham": 1, "fft_stockham_twiddle": 1},
 }
+EXPECTED_TWO_PASS = {}
 
 
 def uuu_launches(label: str, ranks: int = 1) -> dict:
@@ -406,7 +414,7 @@ TIMED_ON = {"fft_stockham": "UUU", "fft_stockham_scale": "UUU",
             "fft_stockham_twiddle": "SEMI_E"}
 # further runs whose calls are timed and printed (not in the record): the
 # other spectral_scale shapes (the checked (U,U,U) solve's among them),
-# the two-pass calls, and the checked stages' one-row reference rows
+# the cluster calls, and the checked stages' one-row reference rows
 ALSO_TIMED = {"spectral_scale": ("SYM384", "BS_UUU", "ABFT_UUU/abft-stages"),
               "fft_stockham": ("LONG_UUU", "LONG_SEMI",
                                "ABFT_UUU/abft-stages"),
@@ -2189,9 +2197,10 @@ def main() -> int:
     from repro_torch.core.solver import PoissonSolver
     from repro_torch.kernels import (LAUNCHES, TWO_PASS, _build, ops, ref,
                                      reset_launches)
+    from repro_torch.kernels._build import CLUSTER
     from repro_torch.kernels.fft_stockham import (ONE_PASS_N, fft_stockham,
                                                   fft_stockham_scale,
-                                                  fft_stockham_twiddle)
+                                                  fft_stockham_twiddle, path)
     from repro_torch.kernels.spectral_scale import spectral_scale
     from repro_torch.kernels.twiddle_pack import twiddle_pack
     wrappers = {"fft_stockham": fft_stockham,
@@ -2365,11 +2374,14 @@ def main() -> int:
         hold("fft_stockham_twiddle", fft_stockham_twiddle(x, a, b),
              ref.fft_stockham_twiddle(x, a, b), *fft_tol(rdt, 1024))
         checks += 1
-        # the two-pass path (rows above ONE_PASS_N points); its largest
-        # error per length, against the spectrum's largest value
-        for n in (8192, 16384, 65536):
+        # rows above ONE_PASS_N points: on a cluster up to 32768, in two
+        # passes above; the largest error per length, against the
+        # spectrum's largest value, and the path each call took
+        for n in (8192, 16384, 32768, 65536):
             rtol, atol = fft_tol(rdt, n)
             worst = [0.0, 0.0]
+            t_n = time.perf_counter()
+            reset_launches()
 
             def hold2(kname, got, want):
                 d = hold(kname, got, want, rtol, atol)
@@ -2418,14 +2430,21 @@ def main() -> int:
                                   fft_stockham_twiddle(x, a, b, **kw),
                                   ref.fft_stockham_twiddle(x, a, b, **kw))
                             checks += 1
-            print(f"  two-pass {rdt} N={n}: max |err| {worst[0]:.3e} "
-                  f"against a largest |value| {worst[1]:.3e}")
+            took = {"cluster": sum(CLUSTER.values()),
+                    "two_pass": sum(TWO_PASS.values())}
+            if took[path(n)] != sum(LAUNCHES.values()):
+                raise AssertionError(f"N={n}: {dict(LAUNCHES)} launches, "
+                                     f"{took} by tier; {path(n)} expected")
+            print(f"  {path(n)} {rdt} N={n}: max |err| {worst[0]:.3e} "
+                  f"against a largest |value| {worst[1]:.3e}; "
+                  f"{took[path(n)]} calls, all {path(n)}, in "
+                  f"{time.perf_counter() - t_n:.2f} s")
         # the longest row the kernel takes: 4096-point column FFTs, one or
         # two columns per block
         x = randn((1, 2 ** 24), cdt)
         d = hold("fft_stockham", fft_stockham(x), ref.fft_stockham(x),
                  *fft_tol(rdt, 2 ** 24))
-        print(f"  two-pass {rdt} N={2 ** 24}: max |err| {d:.3e}")
+        print(f"  {path(2 ** 24)} {rdt} N={2 ** 24}: max |err| {d:.3e}")
         checks += 1
         del x
         for shape in ((8, 128), (7, 130), (129, 384), (3, 16, 256),
@@ -2450,14 +2469,16 @@ def main() -> int:
                  ref.twiddle_pack(x, a, b), *scale_tol(rdt))
             checks += 1
         del half, packs
-    # an absolute reference: the two-pass path against cuFFT in float64
-    x = randn((1, 16384), torch.complex128)
-    d = hold("fft_stockham", fft_stockham(x), torch.fft.fft(x),
-             *fft_tol(torch.float64, 16384))
-    print(f"  two-pass float64 N=16384 against torch.fft.fft: max |err| "
-          f"{d:.3e}")
-    checks += 1
-    print(f"kernels vs plain versions: {checks} checks passed in "
+    # an absolute reference: the cluster and two-pass paths against cuFFT
+    # in float64
+    for n in (16384, 65536):
+        x = randn((1, n), torch.complex128)
+        d = hold("fft_stockham", fft_stockham(x), torch.fft.fft(x),
+                 *fft_tol(torch.float64, n))
+        print(f"  {path(n)} float64 N={n} against torch.fft.fft: max |err| "
+              f"{d:.3e}")
+        checks += 1
+    print(f"phase 3, kernels vs plain versions: {checks} checks passed in "
           f"{time.perf_counter() - t0:.2f} s; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
@@ -2493,19 +2514,24 @@ def main() -> int:
         just after, each kernel call recorded under ``run``; the counts
         must be EXPECTED[run] exactly (``expected(fn())`` where given: the
         totals of a run of several solves, worked out from what it
-        returned), and the two-pass calls among them
-        EXPECTED_TWO_PASS[run] (none where the run has no entry)."""
+        returned), and the cluster and two-pass calls among them
+        EXPECTED_CLUSTER[run] and EXPECTED_TWO_PASS[run] (none where the
+        run has no entry)."""
         with _recorded(run, calls):
             sync()
             reset_launches()
             out = fn()
             sync()
             counts = dict(LAUNCHES)
+            clu = {k: v for k, v in CLUSTER.items() if v}
             two = {k: v for k, v in TWO_PASS.items() if v}
         got = {k: v for k, v in counts.items() if v}
         want = EXPECTED[run] if expected is None else expected(out)
         if got != want:
             raise AssertionError(f"{run}: launches {got}, expected {want}")
+        if clu != EXPECTED_CLUSTER.get(run, {}):
+            raise AssertionError(f"{run}: cluster calls {clu}, expected "
+                                 f"{EXPECTED_CLUSTER.get(run, {})}")
         if two != EXPECTED_TWO_PASS.get(run, {}):
             raise AssertionError(f"{run}: two-pass calls {two}, expected "
                                  f"{EXPECTED_TWO_PASS.get(run, {})}")
@@ -2558,16 +2584,18 @@ def main() -> int:
         tag = (f"{case} " + ("x".join(map(str, nn)) if isinstance(nn, tuple)
                              else f"n={nn}")
                + (f" B={batch}" if batch else ""))
-        # the directions whose (power-of-two) FFT takes two passes
+        # the directions whose (power-of-two) FFT is longer than one
+        # block takes, and the kernel's tier for each
         long_dirs = []
         for d, p in enumerate(sc.plan.dirs):
             nf = (p.n_fft if p.kind is None
                   else transforms.fft_length(p.kind, p.n_fft))
             if transforms._pow2(nf) and nf > ONE_PASS_N:
                 long_dirs.append(f"direction {d} ({p.category}, {nf} "
-                                 "points)")
+                                 f"points, {path(nf)})")
         print(f"main path {tag}: plan+green {t_plan:.2f} s, launches "
-              f"{ {k: v for k, v in counts.items() if v} }, two-pass "
+              f"{ {k: v for k, v in counts.items() if v} }, cluster "
+              f"{EXPECTED_CLUSTER.get(case, {})}, two-pass "
               f"{EXPECTED_TWO_PASS.get(case, {})} for "
               f"{', '.join(long_dirs) or 'no direction'}, max|u| "
               f"{ut.abs().max().item():.4e}, cuda vs torch engine relative "
@@ -2831,10 +2859,13 @@ def main() -> int:
         device activity."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+        ffts = ("fft_stockham", "fft_stockham_scale", "fft_stockham_twiddle")
+        launched = -sum(LAUNCHES[k] for k in ffts)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             sync()
+        launched += sum(LAUNCHES[k] for k in ffts)
         # device-side events only (kernels, copies): the CPU ops that
         # launched them carry the same device time again
         agg = {}
@@ -2855,13 +2886,24 @@ def main() -> int:
             return None
         top = "; ".join(f"{ms:.3f} ms x{c} {k[:60]}"
                         for ms, c, k in rows[:6] if ms > 0)
-        # the Stockham kernels' instantiations (one per row length) summed
-        fft = [(ms, c) for ms, c, k in rows
-               if "stockham_kernel" in k or "column_kernel" in k]
-        print(f"  {label}: device busy {busy:.3f} ms of {solve_ms:.3f} ms "
-              f"(idle share {max(0.0, 1 - busy / solve_ms):.1%}); Stockham "
-              f"kernels {sum(ms for ms, _ in fft):.3f} ms "
-              f"x{sum(c for _, c in fft)}; aten::copy_ x{n_copy}; {top}")
+        # the Stockham kernels' instantiations (one per row length) summed,
+        # and how many of them ran the long rows' cluster and column passes
+        stock = ("stockham_kernel", "cluster_kernel", "column_kernel")
+        fft = [(ms, c) for ms, c, k in rows if any(s in k for s in stock)]
+        tiers = ", ".join(f"{s} x{sum(c for _, c, k in rows if s in k)}"
+                          for s in stock[1:])
+        # a Stockham call launches one kernel (two when it takes two
+        # passes): fewer kernel events than calls is a profile that lost
+        # events, whose times are not the solve's
+        seen = sum(c for _, c in fft)
+        whole = ("" if seen >= launched else
+                 f"INCOMPLETE profile, {seen} of {launched} Stockham calls "
+                 "seen: ")
+        print(f"  {label}: {whole}device busy {busy:.3f} ms of "
+              f"{solve_ms:.3f} ms (idle share "
+              f"{max(0.0, 1 - busy / solve_ms):.1%}); Stockham kernels "
+              f"{sum(ms for ms, _ in fft):.3f} ms x{seen} ({tiers}); "
+              f"aten::copy_ x{n_copy}; {top}")
         return agg
 
     # -- 7b. ABFT: checked stages and the Freivalds sandwich ---------------
@@ -2997,6 +3039,31 @@ def main() -> int:
     del sp, s_eop, f_eop, want, got, u_off, u_ab, u_st
     clear_solver_cache()
     print(f"ABFT phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 7c. whole solves: times, memory and profiles ------------------------
+    # here, before the distributed, serve and launcher phases: profiles
+    # taken after them lose most device events
+    for tag, (sc, st, f) in solvers.items():
+        t_c = time_ms(lambda: sc.solve(f))
+        t_t = time_ms(lambda: st.solve(f))
+        # what one solve allocates above the resident solvers, Green
+        # planes and inputs of every case
+        sync()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sc.solve(f)
+        sync()
+        mem = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        print(f"solve {tag} float32: cuda engine {t_c:.3f} ms, torch "
+              f"engine (cuFFT) {t_t:.3f} ms, cuda-engine solve memory "
+              f"{mem:.3f} GiB above {resident / 2 ** 30:.3f} GiB resident")
+        agg = where_the_time_goes(f"{tag} cuda engine", lambda: sc.solve(f),
+                                  t_c)
+        # the long rows run on clusters: no column pass, so no scratch
+        if agg and any("column_kernel" in k for k in agg):
+            raise AssertionError(f"{tag}: a column pass ran: "
+                                 f"{[k for k in agg if 'column' in k]}")
+        where_the_time_goes(f"{tag} torch engine", lambda: st.solve(f), t_t)
 
     # -- 8. the distributed solve --------------------------------------------
     # DIST1: a one-rank NCCL mesh, the whole distributed pipeline (pack,
@@ -3434,7 +3501,7 @@ def main() -> int:
         runs_of = ", ".join(f"x{c} per {r}" for r, c in counts.items()
                             if r == TIMED_ON[kname] or r in also)
         print(f"  {kname} ({runs_of} solve"
-              f"{'; two passes' if nf > ONE_PASS_N else ''}): x "
+              f"{'' if nf <= ONE_PASS_N else '; ' + path(nf)}): x "
               f"{tuple(x.shape)} stride {x.stride()} {x.dtype} {kw} -> "
               f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
               f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}, bound "
@@ -3456,23 +3523,6 @@ def main() -> int:
           f"({n_r2} of them radix 2, from search_plan's solves) held "
           f"against their plain versions and timed in "
           f"{time.perf_counter() - t0:.2f} s")
-
-    for tag, (sc, st, f) in solvers.items():
-        t_c = time_ms(lambda: sc.solve(f))
-        t_t = time_ms(lambda: st.solve(f))
-        # what one solve allocates above the resident solvers, Green
-        # planes and inputs of every case
-        sync()
-        resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        sc.solve(f)
-        sync()
-        mem = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
-        print(f"solve {tag} float32: cuda engine {t_c:.3f} ms, torch "
-              f"engine (cuFFT) {t_t:.3f} ms, cuda-engine solve memory "
-              f"{mem:.3f} GiB above {resident / 2 ** 30:.3f} GiB resident")
-        where_the_time_goes(f"{tag} cuda engine", lambda: sc.solve(f), t_c)
-        where_the_time_goes(f"{tag} torch engine", lambda: st.solve(f), t_t)
 
     kernels = []
     for kname in LAUNCHES:

@@ -10,8 +10,9 @@ back: a missing ``nvcc`` or a failed build raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one
 where it launches its kernel and nowhere else (CPU calls run the plain
-version and count nothing).  ``TWO_PASS`` counts, of those, the Stockham
-calls whose rows were too long for one pass and took two.
+version and count nothing).  Of those, ``CLUSTER`` counts the Stockham
+calls whose rows ran on a thread-block cluster (8192 to 32768 points) and
+``TWO_PASS`` those whose rows were longer still and took two passes.
 """
 from __future__ import annotations
 
@@ -23,11 +24,13 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "TWO_PASS", "reset_launches", "build", "library",
-           "check", "BUILD_LOG"]
+__all__ = ["LAUNCHES", "CLUSTER", "TWO_PASS", "reset_launches", "build",
+           "library", "check", "BUILD_LOG"]
 
 LAUNCHES = {"fft_stockham": 0, "fft_stockham_scale": 0, "spectral_scale": 0,
             "twiddle_pack": 0, "fft_stockham_twiddle": 0}
+CLUSTER = {"fft_stockham": 0, "fft_stockham_scale": 0,
+           "fft_stockham_twiddle": 0}
 TWO_PASS = {"fft_stockham": 0, "fft_stockham_scale": 0,
             "fft_stockham_twiddle": 0}
 
@@ -65,8 +68,8 @@ _lock = threading.Lock()
 
 
 def reset_launches():
-    """Set every launch count (and two-pass count) to 0."""
-    for counts in (LAUNCHES, TWO_PASS):
+    """Set every launch count (and cluster and two-pass count) to 0."""
+    for counts in (LAUNCHES, CLUSTER, TWO_PASS):
         for k in counts:
             counts[k] = 0
 

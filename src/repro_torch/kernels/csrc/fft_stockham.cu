@@ -85,23 +85,37 @@
 // b[j] Im of the j-th kept bin: the DCT/DST post-twiddle, so a
 // real-to-real transform's complex spectrum never reaches device memory.
 //
-// Rows longer than kMaxN (= N2 = 4096) points do not fit in shared memory
-// and take two passes (the four-step FFT), N = N1 N2 with N1 = N / 4096,
+// Rows longer than kMaxN (= N2 = 4096) points do not fit one block's
+// shared memory and take the four-step FFT, N = N1 N2 with N1 = N / 4096,
 // input n = N2 n1 + n2, output f = k1 + N1 k2:
 //   X[k1 + N1 k2] = sum_n2 W_N2^(n2 k2) W_N^(n2 k1) sum_n1 x[N2 n1 + n2] W_N1^(n1 k1)
-// Pass 1 (column_kernel) runs the N1-point FFTs down the stride-N2 columns
-// of a row, a tile of adjacent columns per block so that each warp reads
-// whole 128-byte lines, multiplies by the inter-pass twiddle W_N^(n2 k1)
-// (n2 k1 < N: no overflow) and stores Z[r, k1, n2] to a scratch buffer;
-// its stages run one per sweep over ping-pong shared-memory buffers
-// (stages()).  The pruned input (n < N/2, so n1 < N1/2) is the pruned
-// first stage of the column FFTs.  Pass 2 is the register core above over
-// the rows * N1 contiguous rows Z[r, k1, :], with the twiddle table read
-// at stride N1; its epilogue maps kernel row (r, k1) and bin k2 to f = k1
-// + N1 k2 and keeps the same bin windows, so all three epilogues stay
-// fused.  Its stores are strided (N1 apart).  One table of length N serves
-// both passes (pass 1 reads it at stride N2); only pass 2 scales the
-// inverse, by 1/N.
+// the N1-point FFTs down the stride-N2 columns, the inter-pass twiddle
+// W_N^(n2 k1) (n2 k1 < N: no overflow), then the register core above on
+// the rows Z[k1, :] with the table read at stride N1; its epilogue maps
+// kernel row (r, k1) and bin k2 to f = k1 + N1 k2 and keeps the same bin
+// windows, so all three epilogues stay fused.  The pruned input (n < N/2,
+// so n1 < N1/2) is the pruned first stage of the column FFTs.  One table
+// of length N serves both steps (the columns read it at stride N2); only
+// the row step scales the inverse, by 1/N.  Its stores are strided (N1
+// apart); the N1 kernel rows of a caller row fill each sector together.
+// So the rows take three tiers by length, each bounded by memory:
+// - N <= 4096: one pass, the core alone (one block a row or less).
+// - 4096 < N <= 32768 (N1 = 2, 4, 8): one pass on a thread-block cluster
+//   of N1 blocks a row (cluster_kernel).  Block c loads its slice of every
+//   column (N1 contiguous segments of 4096 / N1 >= 512 points), runs
+//   those columns' FFTs in registers (16 / N1 columns a thread), and
+//   stores Z[k1, n2] straight into block k1's shared memory (distributed
+//   shared memory); after the cluster barrier each block runs the core on
+//   its own Z row.  Z never reaches device memory: the call reads its
+//   input once and writes its kept bins once, the bound's bytes.  At most
+//   8 blocks a cluster (the portable limit) keeps N1 <= 8.
+// - N > 32768 (up to 4096^2): two passes.  Pass 1 (column_kernel) runs the
+//   column FFTs, a tile of adjacent columns per block so that each warp
+//   reads whole 128-byte lines, one stage per sweep over ping-pong
+//   shared-memory buffers (stages()), and stores Z[r, k1, n2] to a scratch
+//   buffer; pass 2 is the core over the rows * N1 rows of Z.  Z's round
+//   trip through device memory (rows * N complex values written, then
+//   read) is paid on top of the bound's bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,6 +123,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxN = 4096;
+// the longest row on one thread-block cluster: kMaxN points a block, at
+// most 8 blocks (the portable cluster size)
+constexpr int kClusterN = 8 * kMaxN;
 // points a thread of the register core holds (fewer for rows below 16)
 constexpr int kPoints = 16;
 // the column pass's tiles: at least this many points per block
@@ -125,6 +142,12 @@ constexpr int kSmemOptIn = 232448;
 // complex128 points a thread and takes one block
 template <typename T> struct CoreBlocks { static constexpr int value = 2; };
 template <> struct CoreBlocks<double> { static constexpr int value = 1; };
+// blocks of the cluster kernel per SM that its register budget asks for:
+// float32 64 registers a thread with no spill, the fastest of 2, 3 and 4
+// blocks at every cluster size on an H100
+// (tools/probe_cluster_variants.py); float64 takes one block, as the core
+template <typename T> struct ClusterBlocks { static constexpr int value = 4; };
+template <> struct ClusterBlocks<double> { static constexpr int value = 1; };
 // input slots of a core block's bulk-copy ring: the copy of the next
 // row-block is in flight while one is transformed
 constexpr int kSlots = 2;
@@ -255,6 +278,54 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------
+// Thread-block clusters: the block's rank in its cluster, stores to
+// another block's shared memory (distributed shared memory), and the
+// cluster barrier, in PTX.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of p (in this block's shared memory) in block `rank`'s
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(shared_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void store_remote(uint32_t a, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ void store_remote(uint32_t a, double2 v) {
+  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};\n" ::"r"(a),
+               "d"(v.x), "d"(v.y)
+               : "memory");
+}
+
+// the cluster barrier, run by every thread of every block: arrive
+// (release: this thread's earlier stores, to any block's shared memory,
+// become visible to the threads that wait; relaxed: nothing to release),
+// then wait until every thread has arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------
 // The column pass's stages: one stage per sweep over shared memory.
 
 // sample j of a row, the pruned first stage folded in when pruned: x1 ==
@@ -338,6 +409,86 @@ __device__ __forceinline__ void stages(
     C* t = src;
     src = dst;
     dst = t;
+  }
+}
+
+// The same stages on one column of kN <= 8 points held in registers, from
+// sub-transform length kM and span kL: radix-4 stages with one radix-2
+// step (kR4), or radix-2 only.  W_kN^t is table entry t * kMaxN (the table
+// of an N = kN * kMaxN point row).  x holds the column in natural order,
+// and then its spectrum.
+template <typename T, int kN, int kM, int kL, bool kR4>
+__device__ __forceinline__ void column_stages(
+    typename Cplx<T>::type (&x)[kN],
+    const typename Cplx<T>::type* __restrict__ tw, bool inv) {
+  using C = typename Cplx<T>::type;
+  if constexpr (kM > 1) {
+    constexpr int kStep = kN / kM * kMaxN;
+    C y[kN];
+    if constexpr (kR4 && kM % 4 == 0) {
+      constexpr int kQ = kM / 4;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const C w1 = twiddle<T>(tw, j * kStep, inv);
+        const C w2 = twiddle<T>(tw, 2 * j * kStep, inv);
+        const C w3 = twiddle<T>(tw, 3 * j * kStep, inv);
+#pragma unroll
+        for (int kk = 0; kk < kL; ++kk) {
+          C a = x[j * kL + kk], b = x[(j + kQ) * kL + kk];
+          C c = x[(j + 2 * kQ) * kL + kk], d = x[(j + 3 * kQ) * kL + kk];
+          bfly4<T>(a, b, c, d, w1, w2, w3, inv);
+          y[j * 4 * kL + kk] = a;
+          y[j * 4 * kL + kL + kk] = b;
+          y[j * 4 * kL + 2 * kL + kk] = c;
+          y[j * 4 * kL + 3 * kL + kk] = d;
+        }
+      }
+      column_stages<T, kN, kQ, 4 * kL, kR4>(y, tw, inv);
+    } else {
+      constexpr int kH = kM / 2;
+#pragma unroll
+      for (int j = 0; j < kH; ++j) {
+        const C w = twiddle<T>(tw, j * kStep, inv);
+#pragma unroll
+        for (int kk = 0; kk < kL; ++kk) {
+          C a = x[j * kL + kk], b = x[(j + kH) * kL + kk];
+          bfly2<T>(a, b, w);
+          y[j * 2 * kL + kk] = a;
+          y[j * 2 * kL + kL + kk] = b;
+        }
+      }
+      column_stages<T, kN, kH, 2 * kL, kR4>(y, tw, inv);
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) x[i] = y[i];
+  }
+}
+
+// the N1-point FFT of a column in registers, x[0, kN / 2) its samples when
+// pruned (the zero tail not stored): the pruned first stage (put_first's
+// e = x0, d = x0 W^j at 2j, 2j+1), then the stages
+template <typename T, int kN>
+__device__ __forceinline__ void column_fft(
+    typename Cplx<T>::type (&x)[kN], bool pruned, int max_radix,
+    const typename Cplx<T>::type* __restrict__ tw, bool inv) {
+  using C = typename Cplx<T>::type;
+  if (pruned) {
+    C y[kN];
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) {
+      y[2 * j] = x[j];
+      y[2 * j + 1] = mul<T>(x[j], twiddle<T>(tw, j * kMaxN, inv));
+    }
+    if (max_radix >= 4)
+      column_stages<T, kN, kN / 2, 2, true>(y, tw, inv);
+    else
+      column_stages<T, kN, kN / 2, 2, false>(y, tw, inv);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) x[i] = y[i];
+  } else if (max_radix >= 4) {
+    column_stages<T, kN, kN, 1, true>(x, tw, inv);
+  } else {
+    column_stages<T, kN, kN, 1, false>(x, tw, inv);
   }
 }
 
@@ -651,6 +802,65 @@ __device__ __forceinline__ void epilogue(
   }
 }
 
+// The passes of a row from sub-transform length 2^lg_m and span 2^lg_l,
+// v holding the first pass's (radix `radix`) inputs: the butterflies in
+// registers, the exchanges through the row's shared memory sm between
+// passes (after the caller's __syncthreads once the first pass's input
+// has been read).  Returns the last pass's radix, v holding the bins.
+template <typename T, int kLgN>
+__device__ __forceinline__ int row_passes(
+    typename Cplx<T>::type (&v)[Shape<kLgN>::kP], const Core<T>& c,
+    typename Cplx<T>::type* sm, int lg_m, int lg_l, int radix,
+    int max_radix) {
+  for (bool exchanged = false;; exchanged = true) {
+    with_radix<kLgN>(radix, [&](auto r) {
+      butterflies<T, kLgN, decltype(r)::value>(v, c, lg_m, lg_l);
+    });
+    const int lg_r = __ffs(radix) - 1;
+    if (lg_m == lg_r) return radix;  // the last pass: its outputs are bins
+    if (exchanged) __syncthreads();  // the last exchange has been read
+    with_radix<kLgN>(radix, [&](auto r) {
+      to_shared<T, kLgN, decltype(r)::value>(v, sm, c, lg_l);
+    });
+    __syncthreads();
+    lg_m -= lg_r;
+    lg_l += lg_r;
+    radix = pass_radix<Shape<kLgN>::kP>(1 << lg_m, max_radix);
+    with_radix<kLgN>(radix, [&](auto r) {
+      from_shared<T, kLgN, decltype(r)::value>(v, sm, c);
+    });
+  }
+}
+
+// The epilogue of kernel row `row`, the bins of the last pass (radix
+// `radix`) in v: the bins [start, start+k) of caller row row >> lg_n1.
+// A long row's kernel row (r, k1 = row % n1), n1 = 2^lg_n1, holds the
+// bins f = k1 + n1 k2; a one-pass row is lg_n1 = 0.
+template <typename T, int kLgN>
+__device__ __forceinline__ void row_epilogue(
+    const typename Cplx<T>::type (&v)[Shape<kLgN>::kP], const Core<T>& c,
+    int radix, typename Cplx<T>::type* out, const T* g, const T* ta,
+    const T* tb, int start, int k, int grows, int row, int lg_n1) {
+  Epilogue<T> e;
+  e.ta = ta;
+  e.tb = tb;
+  e.start = start;
+  e.k = k;
+  e.inv = c.inv;
+  e.lg_n1 = lg_n1;
+  e.k1 = row & ((1 << lg_n1) - 1);
+  const int r = row >> lg_n1;
+  // a real output (the post-twiddle) or a complex one
+  e.out = ta != nullptr
+              ? static_cast<void*>(reinterpret_cast<T*>(out) + (size_t)r * k)
+              : static_cast<void*>(out + (size_t)r * k);
+  e.g = g != nullptr ? g + (size_t)(r % grows) * k : nullptr;
+  e.scale = T(1) / (T(Shape<kLgN>::kN) * T(1 << lg_n1));
+  with_radix<kLgN>(radix, [&](auto rd) {
+    epilogue<T, kLgN, decltype(rd)::value>(v, c, e);
+  });
+}
+
 // kRowPass false: the whole FFT of rows of length n = 2^kLgN, in one
 // pass.  kRowPass true: pass 2 of the two-pass FFT (n = N2, kernel row R =
 // (r, k1) with n1 = N1, rows = the caller's rows times N1, table of length
@@ -741,53 +951,11 @@ stockham_kernel(const T* __restrict__ x, int x_complex,
     __syncthreads();
     const int ahead = rb + kSlots * gridDim.x;
     if (bulk && threadIdx.x == 0 && ahead < row_blocks) fetch(ahead, i_slot);
-    for (bool exchanged = false;; exchanged = true) {
-      with_radix<kLgN>(radix, [&](auto r) {
-        butterflies<T, kLgN, decltype(r)::value>(v, c, lg_m, lg_l);
-      });
-      const int lg_r = __ffs(radix) - 1;
-      if (lg_m == lg_r) break;  // the last pass: its outputs are the bins
-      if (exchanged) __syncthreads();  // the last exchange has been read
-      with_radix<kLgN>(radix, [&](auto r) {
-        to_shared<T, kLgN, decltype(r)::value>(v, sm, c, lg_l);
-      });
-      __syncthreads();
-      lg_m -= lg_r;
-      lg_l += lg_r;
-      radix = pass_radix<P>(1 << lg_m, max_radix);
-      with_radix<kLgN>(radix, [&](auto r) {
-        from_shared<T, kLgN, decltype(r)::value>(v, sm, c);
-      });
-    }
+    radix = row_passes<T, kLgN>(v, c, sm, lg_m, lg_l, radix, max_radix);
     if (!live) continue;
-
-    // epilogue: the bins [start, start+k) of the caller row
-    Epilogue<T> e;
-    e.ta = ta;
-    e.tb = tb;
-    e.start = start;
-    e.k = k;
-    e.inv = c.inv;
-    int r = row;
-    int n1 = 1;
-    e.lg_n1 = 0;
-    e.k1 = 0;
-    if constexpr (kRowPass) {
-      // kernel row (r, k1) holds the bins f = k1 + n1 k2
-      n1 = n1_arg;
-      e.lg_n1 = __ffs(n1) - 1;
-      r = row >> e.lg_n1;
-      e.k1 = row & (n1 - 1);
-    }
-    // a real output (the post-twiddle) or a complex one
-    e.out = ta != nullptr
-                ? static_cast<void*>(reinterpret_cast<T*>(out) + (size_t)r * k)
-                : static_cast<void*>(out + (size_t)r * k);
-    e.g = g != nullptr ? g + (size_t)(r % grows) * k : nullptr;
-    e.scale = T(1) / (T(S::kN) * T(n1));
-    with_radix<kLgN>(radix, [&](auto rd) {
-      epilogue<T, kLgN, decltype(rd)::value>(v, c, e);
-    });
+    // kernel row (r, k1) of a long row holds the bins f = k1 + n1 k2
+    row_epilogue<T, kLgN>(v, c, radix, out, g, ta, tb, start, k, grows, row,
+                          kRowPass ? __ffs(n1_arg) - 1 : 0);
   }
 }
 
@@ -835,6 +1003,96 @@ column_kernel(const T* __restrict__ x, int x_complex,
     z[((size_t)r * n1 + k1) * n2 + c0 + c] =
         mul<T>(v, twiddle<T>(tw, (c0 + c) * k1, inv));
   }
+}
+
+// A row of N = n1 * kMaxN points (n1 = 2^kLgN1 <= 8) on a cluster of n1
+// blocks, the same four-step split as the two passes: cluster r takes
+// caller row r, and its block c first runs the n1-point FFTs of the
+// columns n2 in [c w, (c + 1) w), w = kMaxN / n1 (each thread w / 256 of
+// them, one column in registers), multiplies bin k1 by W_N^(n2 k1) and
+// stores it at point n2 of block k1's row Z[k1, :] in shared memory.  After
+// the cluster barrier, block c holds Z[c, :] and runs the register core on
+// it as kernel row (r, c) of the row pass (lg_n1 = kLgN1), Z read where
+// the core's first pass reads a bulk-copied slot; its exchange buffer
+// overlays Z, which the first pass has read by its __syncthreads.  The
+// block's input, the n1 (n1 / 2 pruned) segments x[r, j kMaxN + c w ..
+// + w) of w >= 512 elements, is loaded straight into registers, all of it
+// before the first butterfly (neighbouring threads on neighbouring
+// elements): faster than bulk copies into shared memory here, which add
+// the slot's round trip to a block that has nothing to overlap with it.
+template <typename T, int kLgN1>
+__global__ void __launch_bounds__(kThreads, ClusterBlocks<T>::value)
+cluster_kernel(const T* __restrict__ x, int x_complex,
+               typename Cplx<T>::type* __restrict__ out,
+               const T* __restrict__ g, const T* __restrict__ ta,
+               const T* __restrict__ tb,
+               const typename Cplx<T>::type* __restrict__ tw, int n_in,
+               int inverse, int max_radix, int start, int k, int grows) {
+  using C = typename Cplx<T>::type;
+  constexpr int kLgN = 12;
+  constexpr int kN1 = 1 << kLgN1;
+  constexpr int kW = kMaxN / kN1;
+  constexpr int kCols = kW / kThreads;
+  static_assert(Shape<kLgN>::kRows == 1, "a block holds one 4096-point row");
+  // shared memory: Z[c, :] (kMaxN points), then the core's exchange buffer
+  // over it
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* z = reinterpret_cast<C*>(smem_raw);
+  const int c = (int)cluster_rank();
+  const int r = blockIdx.x >> kLgN1;
+  // this block has started: the others may store to its shared memory
+  // once every block has arrived here
+  cluster_arrive_relaxed();
+
+  const bool inv = inverse != 0;
+  const int t = threadIdx.x;
+  const int n1_in = n_in >> kLgN;  // n1, or n1 / 2 pruned
+  const size_t base = (size_t)r * n_in + (size_t)c * kW + t;
+  C v[kCols][kN1];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+#pragma unroll
+    for (int j = 0; j < kN1; ++j)
+      v[i][j] = j < n1_in ? load<T>(x, x_complex,
+                                    base + (size_t)j * kMaxN + i * kThreads)
+                          : mk<T>(T(0), T(0));
+  }
+#pragma unroll
+  for (int i = 0; i < kCols; ++i)
+    column_fft<T, kN1>(v[i], n1_in < kN1, max_radix, tw, inv);
+
+  // bin k1 of column n2, times W_N^(n2 k1), to point n2 of block k1's Z
+  uint32_t zr[kN1];
+#pragma unroll
+  for (int j = 0; j < kN1; ++j) zr[j] = map_rank(z, j);
+  cluster_wait();
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int n2 = c * kW + t + i * kThreads;
+#pragma unroll
+    for (int k1 = 0; k1 < kN1; ++k1)
+      store_remote(zr[k1] + n2 * (uint32_t)sizeof(C),
+                   mul<T>(v[i][k1], twiddle<T>(tw, n2 * k1, inv)));
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // the row pass on Z[c, :]: kernel row (r, c), the table read at stride n1
+  Core<T> cr;
+  cr.tw = tw;
+  cr.tw_stride = kN1;
+  cr.t = t;
+  cr.inv = inv;
+  int radix = pass_radix<Shape<kLgN>::kP>(kMaxN, max_radix);
+  C u[Shape<kLgN>::kP];
+  with_radix<kLgN>(radix, [&](auto rd) {
+    load_input<T, kLgN, decltype(rd)::value>(
+        u, cr, reinterpret_cast<const T*>(z), 1, 0, true, kMaxN, false);
+  });
+  __syncthreads();
+  radix = row_passes<T, kLgN>(u, cr, z, kLgN, 0, radix, max_radix);
+  row_epilogue<T, kLgN>(u, cr, radix, out, g, ta, tb, start, k, grows,
+                        (r << kLgN1) + c, kLgN1);
 }
 
 template <typename KernelPtr>
@@ -912,6 +1170,44 @@ cudaError_t launch_one_pass(int lg_n, const T* x, int x_complex,
   }
 }
 
+// a row of 2^(12 + kLgN1) points on a cluster of 2^kLgN1 blocks, one
+// cluster a caller row.  Refused (and not launched) when no such cluster
+// fits on the card.
+template <typename T, int kLgN1>
+cudaError_t launch_cluster(const T* x, int x_complex,
+                           typename Cplx<T>::type* out, const T* g,
+                           const T* ta, const T* tb,
+                           const typename Cplx<T>::type* tw, int rows,
+                           int n_in, int inverse, int max_radix, int start,
+                           int k, int grows, cudaStream_t s) {
+  using C = typename Cplx<T>::type;
+  constexpr int kN1 = 1 << kLgN1;
+  const size_t smem = (size_t)Shape<12>::kPad * sizeof(C);
+  const auto kernel = cluster_kernel<T, kLgN1>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)rows * kN1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kN1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kernel, x, x_complex, out, g, ta, tb, tw,
+                         n_in, inverse, max_radix, start, k, grows);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, int x_complex, void* out, const void* g,
            const void* ta, const void* tb, const void* tw, void* scratch,
@@ -924,7 +1220,7 @@ int launch(const void* x, int x_complex, void* out, const void* g,
       start < 0 || start + k > n || grows < 1 || rows % grows != 0 ||
       (ta == nullptr) != (tb == nullptr) ||
       (ta != nullptr && (g != nullptr || inverse)) ||
-      (n > kMaxN && scratch == nullptr)) {
+      (n > kClusterN && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
@@ -938,8 +1234,18 @@ int launch(const void* x, int x_complex, void* out, const void* g,
         static_cast<const T*>(tb), twc, rows, n_in, inverse, max_radix,
         start, k, grows, s);
   }
-  // pass 1 into the scratch; pass 2 reads it as rows * n1 full rows
   const int n1 = n / kMaxN;
+  if (n <= kClusterN) {
+    const auto cluster = n1 == 2   ? launch_cluster<T, 1>
+                         : n1 == 4 ? launch_cluster<T, 2>
+                                   : launch_cluster<T, 3>;
+    return (int)cluster(static_cast<const T*>(x), x_complex,
+                        static_cast<C*>(out), static_cast<const T*>(g),
+                        static_cast<const T*>(ta), static_cast<const T*>(tb),
+                        twc, rows, n_in, inverse, max_radix, start, k, grows,
+                        s);
+  }
+  // pass 1 into the scratch; pass 2 reads it as rows * n1 full rows
   const int n2 = kMaxN;
   int cols = kMinPointsPerBlock / n1 > 16 ? kMinPointsPerBlock / n1 : 16;
   if (cols > n2) cols = n2;
@@ -968,7 +1274,7 @@ extern "C" {
 
 // out is complex (rows, k), or real (rows, k) when ta and tb are given;
 // tw is the length-n table; scratch (rows * n complex) is needed, and
-// used, only when n > 4096
+// used, only when n > 32768 (it may be null otherwise)
 int repro_fft_stockham_f32(const void* x, int x_complex, void* out,
                            const void* g, const void* ta, const void* tb,
                            const void* tw, void* scratch, int rows, int n_in,

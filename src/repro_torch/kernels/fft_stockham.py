@@ -11,25 +11,29 @@ plane (the kernel reads it directly, no zeros plane is materialized).
 On a CUDA tensor each wrapper launches its kernel on the current stream
 and counts the launch; on a CPU tensor it runs the plain version in
 ``ref``.  Anything else (other devices, dtypes, shapes, strides) raises.
-Rows longer than ``ONE_PASS_N`` points take the kernel's two passes (a
-column pass into a scratch buffer the wrapper allocates, then the row
-pass with the epilogue); such a call still counts once in ``LAUNCHES``,
-and once more in ``TWO_PASS``.
+A row takes one of three tiers by its length (``path``): up to
+``ONE_PASS_N`` points one pass; up to ``CLUSTER_N`` one pass on a
+thread-block cluster of N / ``ONE_PASS_N`` blocks a row; longer rows two
+passes (a column pass into a scratch buffer the wrapper allocates, then
+the row pass with the epilogue).  Every call counts once in ``LAUNCHES``,
+and a cluster or two-pass call once more in ``CLUSTER`` or ``TWO_PASS``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from ._build import LAUNCHES, TWO_PASS, check, library
+from ._build import CLUSTER, LAUNCHES, TWO_PASS, check, library
 
 __all__ = ["fft_stockham", "fft_stockham_scale", "fft_stockham_twiddle",
-           "MAX_N", "ONE_PASS_N"]
+           "path", "MAX_N", "ONE_PASS_N", "CLUSTER_N"]
 
-# Longest row transformed in one pass: one block of 256 threads holding 16
-# points each.  Longer rows take two passes of at most 4096 points each,
-# so the kernel takes up to 4096^2.
+# Longest row transformed by one block: 256 threads holding 16 points
+# each.  Rows up to 8 times longer run on a cluster of up to 8 blocks (the
+# portable cluster size); longer rows take two passes of at most 4096
+# points each, so the kernel takes up to 4096^2.
 ONE_PASS_N = ref.ONE_PASS_N
+CLUSTER_N = 8 * ONE_PASS_N
 MAX_N = ONE_PASS_N ** 2
 
 _REAL = (torch.float32, torch.float64)
@@ -68,6 +72,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def path(n):
+    """The kernel's tier for rows of ``n`` points (a power of two up to
+    ``MAX_N``), in either precision: ``"one_pass"``, ``"cluster"`` or
+    ``"two_pass"``."""
+    if n <= ONE_PASS_N:
+        return "one_pass"
+    return "cluster" if n <= CLUSTER_N else "two_pass"
+
+
 def _launch(kname, x, out, n, inverse, max_radix, start, k, g=None,
             grows=1, a=None, b=None):
     rows, n_in = x.shape
@@ -76,17 +89,20 @@ def _launch(kname, x, out, n, inverse, max_radix, start, k, g=None,
           else lib.repro_fft_stockham_f32)
     cdt = ref._cdt(ref._rdt(x))
     tw = ref.twiddles(n, cdt, x.device)
+    tier = path(n)
     # the column pass's output, (rows, N1, N2): read by the row pass on the
     # same stream, so the caching allocator may reuse it once this returns
     scratch = (torch.empty(rows * n, dtype=cdt, device=x.device)
-               if n > ONE_PASS_N else None)
+               if tier == "two_pass" else None)
     err = fn(x.data_ptr(), int(x.is_complex()), out.data_ptr(), _ptr(g),
              _ptr(a), _ptr(b), tw.data_ptr(), _ptr(scratch), rows, n_in, n,
              int(inverse), max_radix, start, k, grows,
              torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "fft_stockham kernel launch")
     LAUNCHES[kname] += 1
-    if scratch is not None:
+    if tier == "cluster":
+        CLUSTER[kname] += 1
+    elif tier == "two_pass":
         TWO_PASS[kname] += 1
 
 

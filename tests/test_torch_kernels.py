@@ -20,6 +20,7 @@ from repro.kernels import fft_stockham as rk
 from repro.kernels.spectral_scale import spectral_scale as r_spectral_scale
 from repro.kernels.twiddle_pack import twiddle_pack as r_twiddle_pack
 from repro_torch.kernels import LAUNCHES, TWO_PASS, reset_launches
+from repro_torch.kernels._build import CLUSTER
 from repro_torch.kernels import fft_stockham as tk
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.spectral_scale import spectral_scale
@@ -191,11 +192,22 @@ def test_spectral_scale_matches_pallas(shape, dtype):
                                **_tol(dtype))
 
 
-# -- the two-pass path (rows longer than ONE_PASS_N) --------------------------
+# -- rows longer than ONE_PASS_N: the cluster and two-pass tiers ------------
 
 def test_two_pass_limits():
     assert tk.ONE_PASS_N == tref.ONE_PASS_N == 4096
+    assert tk.CLUSTER_N == 8 * 4096
     assert tk.MAX_N == 2 ** 24
+
+
+@pytest.mark.parametrize("n,tier", [
+    (2, "one_pass"), (4096, "one_pass"), (8192, "cluster"),
+    (16384, "cluster"), (32768, "cluster"), (65536, "two_pass"),
+    (2 ** 24, "two_pass")])
+def test_fft_stockham_path(n, tier):
+    """The kernel's tier by row length: one block up to 4096 points, a
+    cluster of N / 4096 <= 8 blocks up to 32768, two passes above."""
+    assert tk.path(n) == tier
 
 
 @pytest.mark.parametrize("dtype,n,mode", [
@@ -203,8 +215,9 @@ def test_two_pass_limits():
       for mode in ("forward", "inverse", "pad_to", "real_keep")),
     (np.float32, 8192, "forward"), (np.float32, 8192, "pad_to")])
 def test_fft_stockham_two_pass_matches_pallas(dtype, n, mode):
-    """Lengths above 4096 take two passes (N1 = N / 4096 point column
-    FFTs, the inter-pass twiddle, 4096-point row FFTs); the Pallas kernel
+    """Lengths above 4096 take the four-step split (N1 = N / 4096 point
+    column FFTs, the inter-pass twiddle, 4096-point row FFTs), on a
+    cluster up to 32768 points and in two passes above; the Pallas kernel
     runs them in one.  ``real_keep`` is the pruned rfft of the (U,U,U)
     forward: a real input, ``pad_to = 2N``, bins ``[0, N/2+1)``."""
     rng = np.random.default_rng(n + len(mode))
@@ -269,11 +282,12 @@ def test_fft_stockham_twiddle_two_pass_matches_pallas(n, window):
                                **_tol(np.float64, n))
 
 
-@pytest.mark.parametrize("n", [2 ** 13, 2 ** 15, 2 ** 18])
+@pytest.mark.parametrize("n", [2 ** 13, 2 ** 14, 2 ** 15, 2 ** 18])
 @pytest.mark.parametrize("radix", [2, 4])
 def test_fft_stockham_two_pass_float64_matches_numpy(n, radix):
-    """Forward, inverse and pruned two-pass FFTs exact to float64 roundoff,
-    up to N1 = 64 point column FFTs."""
+    """Forward, inverse and pruned FFTs above 4096 points exact to float64
+    roundoff: every cluster length (N1 = 2, 4, 8 point column FFTs) and
+    two passes up to N1 = 64."""
     rng = np.random.default_rng(n + radix)
     re, im = _planes(rng, (2, n), np.float64)
     x = re + 1j * im
@@ -319,9 +333,11 @@ def test_cpu_calls_count_no_launch():
     tk.fft_stockham_twiddle(x, torch.ones(4), torch.ones(4))
     twiddle_pack(x, torch.ones(8), torch.ones(8))
     tk.fft_stockham(torch.zeros((1, 8192), dtype=torch.complex64))
+    tk.fft_stockham(torch.zeros((1, 65536), dtype=torch.complex64))
     assert LAUNCHES == {"fft_stockham": 0, "fft_stockham_scale": 0,
                         "spectral_scale": 0, "twiddle_pack": 0,
                         "fft_stockham_twiddle": 0}
+    assert not any(CLUSTER.values())
     assert not any(TWO_PASS.values())
 
 

@@ -6,22 +6,25 @@ turns, on one NVIDIA GPU.
     python3 tools/compare_stockham.py build/other
 
 Builds ``src/repro_torch/kernels/csrc/fft_stockham.cu`` of both trees,
-binds each with the C signature its source declares (with the two-pass
-scratch pointer or without it), and times the calls of chip_smoke.py's
-solves, in the order other, this, this, other, three times over:
-float32, the one-pass calls of (U,U,U) 256^3 (the pruned real forward,
-the pruned complex forward, the pruned forward fused with the Green
-multiply, the two inverse shapes) and SEMI_E's fused DCT-II; the
-two-pass calls of LONG_UUU (the pruned 8192-point forward, and the same
-call fused with a Green plane, which no solve runs) and LONG_SEMI (the
-fused DCT-II and the inverse on 8192 points); float64, the NODE HEJ4
-n=64 calls (the real and complex 128-point forwards, the inverse, and
-the semi-even case's fused DCT-I on 256 points).  Each time is the
-device time of 20 back-to-back calls between one event pair after a
-device sleep; the script prints every time and the ratio of the medians.
-Both builds' outputs are compared before timing (two-pass calls only
-with a tree whose source takes a scratch pointer).  Exits 2 without a
-CUDA device.
+binds each with the C signature its source declares (with the long
+rows' scratch pointer or without it), and times the calls of
+chip_smoke.py's solves, in the order other, this, this, other, three
+times over: float32, the one-pass calls of (U,U,U) 256^3 (the pruned
+real forward, the pruned complex forward, the pruned forward fused with
+the Green multiply, the two inverse shapes) and SEMI_E's fused DCT-II;
+the 8192-point calls of LONG_UUU (the pruned forward, and the same call
+fused with a Green plane, which no solve runs) and LONG_SEMI (the fused
+DCT-II and the inverse), and a 65536-point pruned forward of the same
+bytes as LONG_UUU's; float64, the NODE HEJ4 n=64 calls (the real and
+complex 128-point forwards, the inverse, and the semi-even case's fused
+DCT-I on 256 points).  Each time is the device time of 20 back-to-back
+calls between one event pair after a device sleep; the script prints
+every time, the ratio of the medians and each build's share of the
+call's bound (its input and output bytes once at the HBM rate).  Every
+long-row call is given a scratch buffer, which a tree takes where its
+rows run in two passes.  Both builds' outputs are compared before timing
+(long rows only with a tree whose source takes a scratch pointer).
+Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -97,13 +100,13 @@ def main() -> int:
          0),
         ("(U,U,U) inverse, 65792 rows", (65792, 256), c64, 256, 1, 256, 0, 0),
         ("SEMI_E fused DCT-II", (65536, 1024), f32, 1024, 0, 512, 0, 512),
-        ("LONG_UUU pruned forward, two passes", (4160, 4096), c64, 8192, 0,
-         8192, 0, 0),
-        ("LONG_UUU pruned forward x Green, two passes", (4160, 4096), c64,
-         8192, 0, 8192, 4160, 0),
-        ("LONG_SEMI fused DCT-II, two passes", (4096, 8192), f32, 8192, 0,
-         4096, 0, 4096),
-        ("LONG_SEMI inverse, two passes", (4096, 8192), c64, 8192, 1, 8192,
+        ("LONG_UUU pruned forward", (4160, 4096), c64, 8192, 0, 8192, 0, 0),
+        ("LONG_UUU pruned forward x Green", (4160, 4096), c64, 8192, 0,
+         8192, 4160, 0),
+        ("LONG_SEMI fused DCT-II", (4096, 8192), f32, 8192, 0, 4096, 0,
+         4096),
+        ("LONG_SEMI inverse", (4096, 8192), c64, 8192, 1, 8192, 0, 0),
+        ("65536-point pruned forward", (520, 32768), c64, 65536, 0, 65536,
          0, 0),
         ("NODE real forward", (4225, 128), f64, 128, 0, 65, 0, 0),
         ("NODE forward", (8320, 128), c128, 128, 0, 128, 0, 0),
@@ -134,7 +137,7 @@ def main() -> int:
         scratch = (torch.empty(rows * nf, dtype=cdt, device=dev)
                    if nf > ref.ONE_PASS_N else None)
         if scratch is not None and not all(s for _, s in libs.values()):
-            print(f"{label}: skipped, a tree has no two-pass path")
+            print(f"{label}: skipped, a tree has no long-row path")
             continue
         outs = {}
 

@@ -8,18 +8,22 @@ is; with the row pass's epilogue storing each kernel row's kept bins
 contiguously (the same bytes in the same buffer, at the wrong places:
 what the strided stores would cost if they were not strided; exact for
 the windows timed here, which start at bin 0 and hold a multiple of N1
-bins); and
-returning after the column pass (pass 1 alone).  Times each, float32, at
-the two-pass calls of chip_smoke.py's LONG_UUU and LONG_SEMI solves: the
-pruned 8192-point forward of 4160 complex rows, the fused DCT-II window
-of 4096 real 8192-point rows, and the 8192-point inverse of 4096 complex
-rows; and the first at the Green epilogue (a (4160, 8192) plane), which
-neither solve runs on a two-pass direction.  Each time is the device
+bins); and returning after the column pass (pass 1 alone).  Rows of up
+to 32768 points run on a thread-block cluster and take no column pass,
+so the probe times the two-pass path at 65536 points (N1 = 16), float32,
+at the bytes of chip_smoke.py's LONG_UUU and LONG_SEMI calls: the pruned
+forward of 520 complex rows, the fused DCT-II window of 512 real rows
+and the inverse of 512 complex rows; and the first at the Green epilogue
+(a (520, 65536) plane).  A source edit whose text is not found where it
+is expected stops the probe (a RuntimeError, exit 1) before anything is
+timed.  Each time is the device
 time of 20 back-to-back calls between one event pair, the median of 5
 rounds taken in turn.  Pass 2 is the whole call less pass 1; the strided
 stores cost the whole call less the contiguous variant.  Each call's
 plain PyTorch version (``kernels/ref.py``) is timed beside it, the median
-of 3 single calls after one warm-up call.  Exits 2 without a CUDA device.
+of 3 single calls after one warm-up call, and for the complex forward
+and inverse the ``torch.fft`` call of the same transform (cuFFT), timed as
+the kernel is.  Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -93,19 +97,19 @@ def main() -> int:
     print(f"card: {smi}")
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    n = 8192
+    n = 65536
     tw = ref.twiddles(n, torch.complex64, dev)
     null = None
     cases = []
-    x = torch.randn((4160, n // 2), dtype=torch.complex64, device=dev)
-    cases.append(("LONG_UUU pruned forward", x, n, 0, n, None, None))
-    g = torch.randn((4160, n), dtype=torch.float32, device=dev)
-    cases.append(("LONG_UUU pruned forward x Green", x, n, 0, n, None, g))
-    x = torch.randn((4096, n), dtype=torch.float32, device=dev)
+    x = torch.randn((520, n // 2), dtype=torch.complex64, device=dev)
+    cases.append(("pruned forward", x, n, 0, n, None, None))
+    g = torch.randn((520, n), dtype=torch.float32, device=dev)
+    cases.append(("pruned forward x Green", x, n, 0, n, None, g))
+    x = torch.randn((512, n), dtype=torch.float32, device=dev)
     ab = torch.randn((2, n // 2), dtype=torch.float32, device=dev)
-    cases.append(("LONG_SEMI fused DCT-II", x, n, 0, n // 2, ab, None))
-    x = torch.randn((4096, n), dtype=torch.complex64, device=dev)
-    cases.append(("LONG_SEMI inverse", x, n, 1, n, None, None))
+    cases.append(("fused DCT-II", x, n, 0, n // 2, ab, None))
+    x = torch.randn((512, n), dtype=torch.complex64, device=dev)
+    cases.append(("inverse", x, n, 1, n, None, None))
 
     def loop_ms(fn):
         torch.cuda.synchronize()
@@ -181,6 +185,14 @@ def main() -> int:
             ts.append(s.elapsed_time(e))
         print(f"  plain version {statistics.median(ts):.4f} ms "
               "(median of 3 single calls)")
+        # the one PyTorch call that computes the same function, where
+        # there is one (cuFFT), timed as the kernel is
+        if g is None and not real_out:
+            lib = torch.fft.ifft if inverse else torch.fft.fft
+            t_lib = statistics.median(
+                loop_ms(lambda: lib(x, n=nf)) for _ in range(ROUNDS))
+            print(f"  library call (torch.fft, cuFFT) {t_lib:.4f} ms "
+                  f"(median of {ROUNDS} rounds of {REPS} calls)")
     return 0
 
 

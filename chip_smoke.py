@@ -198,6 +198,31 @@ Phases (each raises on failure; nothing is caught):
      below the first; and the ten smoke configs in float32 from the same
      parameters, the card's forward logits and one train step (loss,
      grad_norm, new parameters) within 1e-4 relative of the host CPU's;
+  8f. LM serving (repro_torch.models.transformer prefill and decode_step;
+     no kernel of this script): qwen3-0.6b at its full config, eight
+     requests of 2048 prompt tokens prefilled into caches of 2176 slots,
+     then 128 greedy decode steps: the prefill logits against forward on
+     the prompt and every decode step's logits against forward's
+     position on the prompt + the tokens decode consumed (relative max
+     error 2e-2, the reference test's), every logit finite; the warm
+     prefill's ms and tokens/s, decode ms/step and tokens/s over the 128
+     steps, the KV cache's and the peak max_memory_allocated GiB, and a
+     profiled decode step's device time by kind with its idle share; the
+     other nine configs at full width and a cut depth
+     (LM_SERVE_FAMILIES, the MoE ones at capacity factor E / k, so that
+     no token is dropped and moe_drop is 0): a short prompt (starcoder2's
+     4200 tokens over its 4096 window, so the rolling buffer runs;
+     whisper's 1500 frames and paligemma's 256 image tokens as the
+     frontend) prefilled and 8 decode steps, each held against forward
+     (2e-2); the ten smoke configs in float32, prefill and two decode
+     steps on the card against the host CPU (logits and every cache
+     leaf, 1e-4); and four gloo ranks spawned on the card, mesh (1, 4):
+     ring attention at qwen3-0.6b's attention width, seq 4096 (each rank
+     a quarter of the queries, the KV blocks passed rank to rank + 1)
+     against the whole attention on one process, and the
+     expert-parallel MoE (moonshot-v1-16b-a3b's layer at full width, 16
+     experts a rank) against _moe_local on each rank's tokens, float32,
+     1e-4, its drop the blocks' mean;
   9. every kernel call of the recorded solves (the distributed, the
      served and the launched ones, the spawned ranks' and search_plan's
      radix-2 calls among them) replayed at its shape
@@ -2169,6 +2194,390 @@ def _lm_phase(dev, smi):
     print(f"LM phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
 
 
+# the LM serving phase (8f): qwen3-0.6b at its full config through prefill
+# and greedy decode_step, the other nine configs at full width and a cut
+# depth, the ten smoke configs on the card against the host CPU, and ring
+# attention and the expert-parallel MoE on four gloo ranks
+LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS = 8, 2048, 128
+LM_SERVE_TOL = 2e-2
+# (arch, config overrides, batch, prompt tokens, the cut as printed); the
+# MoE configs run with a capacity factor of E / k, so that no token is
+# dropped (a decode step's few tokens and a forward's many would get
+# different capacities), and in float32: in bfloat16 the rounding of
+# the prefill's and the forward's sequence lengths differs enough to flip
+# a router's near-tie among 128 experts (qwen3-moe's prefill 0.17 from
+# its forward at one position, NVIDIA H100 80GB HBM3, 700 W); mamba2's
+# prompt and forward stay within one 256-token chunk, starcoder2's
+# prompt passes its 4096 window
+LM_SERVE_FAMILIES = (
+    ("glm4-9b", {"n_layers": 2}, 2, 64, "40 -> 2 layers"),
+    ("minitron-8b", {"n_layers": 2}, 2, 64, "32 -> 2 layers"),
+    ("qwen3-moe-235b-a22b", {"n_layers": 1}, 2, 64, "94 -> 1 layer"),
+    ("moonshot-v1-16b-a3b", {"n_layers": 2}, 2, 64, "48 -> 2 layers"),
+    ("mamba2-2.7b", {"n_layers": 2}, 2, 248, "64 -> 2 layers"),
+    ("recurrentgemma-9b", {"n_layers": 3}, 1, 64,
+     "38 -> 3 layers, one (rec, rec, attn) group"),
+    ("whisper-medium", {}, 2, 64, "none: 24 + 24 layers, 1500 frames"),
+    ("paligemma-3b", {"n_layers": 4}, 2, 64,
+     "18 -> 4 layers, 256 image tokens"),
+    ("starcoder2-7b", {"n_layers": 2, "attn_block": 1024}, 1, 4200,
+     "32 -> 2 layers; a 4200-token prompt over the 4096 window, so the "
+     "rolling buffer runs"),
+)
+LM_SERVE_FAMILY_STEPS = 8
+# the mesh part: ring attention at qwen3-0.6b's width (batch, sequence)
+# and one moonshot-v1-16b-a3b MoE layer at full width (batch, sequence),
+# float32, on four gloo ranks, mesh (1, 4)
+LM_MESH_RING = (1, 4096)
+LM_MESH_MOE = (2, 2048)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|, over the whole tensors."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def _lm_mesh_rank(rank, world, d):
+    """One of phase 8f's four gloo ranks on the one card, mesh (1, 4):
+    ring attention on the rank's sequence block and the expert-parallel
+    MoE on its token block, each beside the single-process path on the
+    same inputs (the whole attention; ``_moe_local`` on the block).
+    Writes ``<d>/rank<rank>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+
+    with open(Path(d) / "params.json") as fh:
+        prm = json.load(fh)
+    dev = torch.device(prm["device"])
+    sync = lambda: None
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sync = torch.cuda.synchronize
+    dist.init_process_group(
+        "gloo", init_method=f"file://{d}/gloo", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    mesh = init_device_mesh(dev.type, (1, world),
+                            mesh_dim_names=("data", "model"))
+    r = mesh.get_local_rank("model")
+    out = {}
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        return res, (time.perf_counter() - t) * 1e3
+
+    with torch.no_grad():
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                                  compute_dtype="float32")
+        gen = torch.Generator(dev).manual_seed(81)
+        p = attn.init_attn(gen, cfg)
+        b, s = prm["ring"]
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        pos = torch.arange(s, device=dev).expand(b, s)
+        full, out["single_ms"] = timed(lambda: attn.attention(p, cfg, x,
+                                                              pos))
+        blk = slice(r * s // world, (r + 1) * s // world)
+        got, out["ring_ms"] = timed(lambda: attn.attention_ring(
+            p, cfg, x[:, blk].contiguous(), mesh))
+        out["ring_err"] = _rel(got, full[:, blk])
+        out["ring_finite"] = bool(torch.isfinite(got).all())
+        del full, got, x, p
+
+        mcfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                                   compute_dtype="float32")
+        m = moe.init_moe(torch.Generator(dev).manual_seed(82), mcfg)
+        b, s = prm["moe"]
+        x = torch.randn((b, s, mcfg.d_model), device=dev,
+                        generator=torch.Generator(dev).manual_seed(83))
+        x = x[:, r * s // world:(r + 1) * s // world].contiguous()
+        (got, drop), out["ep_ms"] = timed(lambda: moe.moe_block(
+            m, mcfg, x, None, mesh))
+        (want, wdrop), out["local_ms"] = timed(lambda: moe._moe_local(
+            m, mcfg, x))
+        out["moe_err"] = _rel(got, want)
+        out["moe_finite"] = bool(torch.isfinite(got).all())
+        out["ep_drop"], out["local_drop"] = float(drop), float(wdrop)
+    with open(Path(d) / f"rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _lm_serve_phase(dev, smi):
+    """Phase 8f: LM serving on the card, as the module docstring lists
+    it.  Raises on the first failed check; prints the numbers."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import LM_ARCHS, get_config, get_smoke
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    gib = lambda b: b / 2 ** 30
+    sync = torch.cuda.synchronize
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = gib(torch.cuda.memory_allocated())
+
+    def hold(label, got, want, tol=LM_SERVE_TOL):
+        """Finite, and max |got - want| <= tol max |want|."""
+        if not torch.isfinite(got).all() or not torch.isfinite(want).all():
+            raise AssertionError(f"{label}: a logit is not finite")
+        err = _rel(got, want)
+        if err > tol:
+            raise AssertionError(f"{label}: relative max error {err:.3e} "
+                                 f"beyond {tol:.0e}")
+        return err
+
+    def cache_gib(caches):
+        return gib(sum(t.numel() * t.element_size()
+                       for t in convert._dotted(caches).values()))
+
+    # -- 1. qwen3-0.6b at its full config: 8 x 2048 prompts, 128 steps ----
+    cfg = get_config(LM_ARCH)
+    b, s, n = LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS
+    gen = torch.Generator(dev).manual_seed(80)
+    model = tf.init_params(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    prefill_ms = []
+    for _ in range(2):                     # the second one is timed warm
+        logits = caches = None
+        sync()
+        t = time.perf_counter()
+        logits, caches = tf.prefill(model, prompt, max_len=s + n)
+        sync()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+    with torch.no_grad():
+        want, _ = tf.forward(model, prompt)
+    err_prefill = max(hold(f"LM_SERVE prefill row {i}", logits[i], want[i])
+                      for i in range(b))
+    del want
+    tok = logits[:, -1:].argmax(dim=-1)
+    del logits
+    steps, toks = [], [tok]
+    sync()
+    t = time.perf_counter()
+    for j in range(n):
+        lg, caches = tf.decode_step(model, tok, caches, s + j)
+        tok = lg[:, -1:].argmax(dim=-1)
+        steps.append(lg[:, 0])
+        toks.append(tok)
+    sync()
+    decode_ms = (time.perf_counter() - t) * 1e3 / n
+    c_gib = cache_gib(caches)
+    seq = torch.cat([prompt] + toks[:-1], dim=1)     # what decode consumed
+    with torch.no_grad():
+        want, _ = tf.forward(model, seq)
+    errs = [hold(f"LM_SERVE decode step {j + 1}", steps[j], want[:, s + j])
+            for j in range(n)]
+    del want
+    peak = gib(torch.cuda.max_memory_allocated())
+    print(f"LM_SERVE {LM_ARCH}: full config ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.compute_dtype} compute, "
+          f"{cfg.param_dtype} weights), {b} requests x {s} prompt tokens "
+          f"prefilled into caches of {s + n} slots, then {n} greedy "
+          f"decode steps: prefill {prefill_ms[1]:.1f} ms "
+          f"({b * s / prefill_ms[1] * 1e3:.0f} tokens/s; first call "
+          f"{prefill_ms[0]:.1f} ms), decode {decode_ms:.2f} ms/step "
+          f"({b / decode_ms * 1e3:.0f} tokens/s; host clock over the "
+          f"{n} steps, no sync between them), KV cache {c_gib:.3f} GiB, "
+          f"peak max_memory_allocated {peak:.3f} GiB ({resident:.3f} of it "
+          f"resident from the earlier phases); prefill logits against "
+          f"forward on the prompt {err_prefill:.2e}, decode against "
+          f"forward's positions on the prompt + generated tokens: step 1 "
+          f"{errs[0]:.2e}, step {n} {errs[-1]:.2e}, worst of {n} "
+          f"{max(errs):.2e} (relative max error, tolerance "
+          f"{LM_SERVE_TOL:.0e}); every logit finite; card: {smi}")
+
+    # one profiled decode step: step n again (the same token into the same
+    # slot writes the same keys and values)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tf.decode_step(model, toks[-2], caches, s + n - 1)
+        sync()
+    agg = _device_breakdown(prof)
+    busy = sum(v[0] for v in agg.values())
+    if busy <= 0:
+        print("LM_SERVE profile: device time not measured (the profiler "
+              "saw no device activity)")
+    else:
+        groups = "; ".join(f"{k} {v:.2f} ms" for k, v in
+                           _lm_groups(agg).most_common())
+        rows = sorted(((v[0], v[1], k) for k, v in agg.items()),
+                      reverse=True)
+        top = "; ".join(f"{t:.2f} ms x{c} {k[:70]}" for t, c, k in rows[:8])
+        print(f"LM_SERVE profile of one decode step: device busy "
+              f"{busy:.2f} ms of the {decode_ms:.2f} ms/step (idle share "
+              f"{max(0.0, 1 - busy / decode_ms):.1%}); "
+              f"{sum(v[1] for v in agg.values())} kernels; by kind: "
+              f"{groups}; top: {top}; card: {smi}")
+    del model, caches, steps, toks, prompt, seq, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 2. the other nine configs at full width, a cut depth ---------------
+    failed = []                  # each config's line prints before a raise
+    for arch, over, b, p, cut in LM_SERVE_FAMILIES:
+        fcfg = dataclasses.replace(get_config(arch), **over)
+        if fcfg.moe is not None:
+            fcfg = dataclasses.replace(
+                fcfg, compute_dtype="float32", moe=dataclasses.replace(
+                    fcfg.moe,
+                    capacity_factor=fcfg.moe.n_experts / fcfg.moe.top_k))
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(dev).manual_seed(0)
+        model = tf.init_params(gen, fcfg)
+        k = LM_SERVE_FAMILY_STEPS
+        tokens = torch.randint(0, fcfg.vocab, (b, p + k), generator=gen,
+                               device=dev)
+        frontend = (torch.randn((b, fcfg.n_frontend_tokens, fcfg.d_model),
+                                generator=gen, device=dev)
+                    if fcfg.n_frontend_tokens else None)
+        prefix = fcfg.n_frontend_tokens if fcfg.family == "vlm" else 0
+        sync()
+        t = time.perf_counter()
+        logits, caches = tf.prefill(model, tokens[:, :p], frontend,
+                                    max_len=p + prefix + k)
+        steps = []
+        for j in range(k):
+            lg, caches = tf.decode_step(model, tokens[:, p + j:p + j + 1],
+                                        caches, p + prefix + j)
+            steps.append(lg[:, 0])
+        sync()
+        wall = time.perf_counter() - t
+        with torch.no_grad():
+            full, aux = tf.forward(model, tokens, frontend)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in [logits, full] + steps)
+        e_pre = _rel(logits, full[:, :p + prefix])
+        e_dec = max(_rel(steps[j], full[:, p + prefix + j])
+                    for j in range(k))
+        drop = float(aux["moe_drop"])
+        if not (finite and max(e_pre, e_dec) <= LM_SERVE_TOL and drop == 0):
+            failed.append(f"{arch} (finite {finite}, moe_drop {drop})")
+        extra = (f"; float32, capacity factor {fcfg.moe.capacity_factor:g}"
+                 f" = E / k, moe_drop {drop:g}" if fcfg.moe else "")
+        print(f"LM_SERVE_FAMILY {arch} ({fcfg.family}; cut: {cut}; d_model "
+              f"{fcfg.d_model}), batch {b}, prompt {p}"
+              + (f" + {prefix} prefix" if prefix else "")
+              + f", {k} decode steps in {wall * 1e3:.1f} ms with the prefill; "
+              f"prefill against forward {e_pre:.2e}, decode worst "
+              f"{e_dec:.2e}; caches {cache_gib(caches) * 1024:.1f} MiB, "
+              f"peak "
+              f"{gib(torch.cuda.max_memory_allocated()):.3f} GiB{extra}")
+        del model, caches, logits, steps, full, tokens, frontend
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"LM_SERVE_FAMILY: beyond {LM_SERVE_TOL:.0e} "
+                             f"or not finite or dropping: {failed}")
+
+    # -- 3. the card against the host CPU, the ten smoke configs, f32 -------
+    host = torch.device("cpu")
+    worst = collections.Counter()
+    for arch in LM_ARCHS:
+        scfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+        tree = convert.to_reference(
+            tf.init_params(torch.Generator().manual_seed(0), scfg))
+        rng = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, scfg.vocab, (2, 18), generator=rng)
+        frontend = (torch.randn((2, scfg.n_frontend_tokens, scfg.d_model),
+                                generator=rng)
+                    if scfg.n_frontend_tokens else None)
+        prefix = scfg.n_frontend_tokens if scfg.family == "vlm" else 0
+        res = []                              # the host's, the card's
+        for where in (host, dev):
+            model = convert.from_reference(tree, scfg, where)
+            fr = None if frontend is None else frontend.to(where)
+            lg, caches = tf.prefill(model, tokens[:, :16].to(where), fr,
+                                    max_len=20 + prefix)
+            out = [lg.cpu()]
+            for j in range(2):
+                lg, caches = tf.decode_step(
+                    model, tokens[:, 16 + j:17 + j].to(where), caches,
+                    16 + prefix + j)
+                out.append(lg.cpu())
+            res.append((out, convert._flat(
+                convert.caches_to_reference(caches))))
+        (want_lg, want), (got_lg, got) = res
+        errs = {"prefill": _rel(got_lg[0], want_lg[0]),
+                "decode": max(_rel(g, w) for g, w in
+                              zip(got_lg[1:], want_lg[1:])),
+                "caches": max(_rel(torch.from_numpy(got[k]),
+                                   torch.from_numpy(want[k]))
+                              for k in want)}
+        bad = {k: v for k, v in errs.items() if v > LM_CARD_TOL}
+        if bad or set(got) != set(want):
+            raise AssertionError(f"LM_SERVE_CARD_VS_CPU {arch}: beyond "
+                                 f"{LM_CARD_TOL:.0e}: {bad}")
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+    print(f"LM_SERVE_CARD_VS_CPU: ten smoke configs, float32, prefill of "
+          f"16 tokens and two decode steps: the card within "
+          f"{LM_CARD_TOL:.0e} of the host CPU (relative max error; worst "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + ")")
+
+    # -- 4. ring attention and the expert-parallel MoE on four ranks -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        with open(Path(d) / "params.json", "w") as fh:
+            json.dump({"device": str(dev), "ring": LM_MESH_RING,
+                       "moe": LM_MESH_MOE}, fh)
+        t1 = time.perf_counter()
+        mp.start_processes(_lm_mesh_rank, args=(4, d), nprocs=4,
+                           start_method=DIST_START)
+        ranks = []
+        for r in range(4):
+            # written by this phase's own ranks just above
+            with open(Path(d) / f"rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+    t_ranks = time.perf_counter() - t1
+    for r, res in enumerate(ranks):
+        if not (res["ring_finite"] and res["moe_finite"]) or \
+                res["ring_err"] > LM_CARD_TOL or \
+                res["moe_err"] > LM_CARD_TOL:
+            raise AssertionError(f"LM_SERVE_MESH rank {r}: {res}")
+    local = statistics.mean(res["local_drop"] for res in ranks)
+    if any(abs(res["ep_drop"] - local) > 1e-6 for res in ranks):
+        raise AssertionError(f"LM_SERVE_MESH: the expert-parallel drop "
+                             f"{[res['ep_drop'] for res in ranks]} against "
+                             f"the blocks' mean {local}")
+    top = lambda k: max(res[k] for res in ranks)
+    n_exp = get_config("moonshot-v1-16b-a3b").moe.n_experts
+    print(f"LM_SERVE_MESH four gloo ranks on the one card, mesh (1, 4), "
+          f"float32: ring attention (qwen3-0.6b's attention, batch "
+          f"{LM_MESH_RING[0]} x seq {LM_MESH_RING[1]}, each rank's 1/4 of "
+          f"the queries, the KV blocks passed rank to rank + 1 through the "
+          f"host) within {top('ring_err'):.2e} of the whole attention on "
+          f"one process; the expert-parallel MoE (moonshot-v1-16b-a3b's "
+          f"layer, {n_exp} experts, {n_exp // 4} a rank, batch "
+          f"{LM_MESH_MOE[0]} x seq "
+          f"{LM_MESH_MOE[1]} split over the ranks, two a2a switches) within "
+          f"{top('moe_err'):.2e} of _moe_local on each rank's tokens, "
+          f"drop {ranks[0]['ep_drop']:.4f} = the blocks' mean (tolerance "
+          f"{LM_CARD_TOL:.0e}); wall ms ring {top('ring_ms'):.1f} / whole "
+          f"{top('single_ms'):.1f}, expert-parallel {top('ep_ms'):.1f} "
+          f"/ local {top('local_ms'):.1f} (gloo stages through the host: "
+          f"no communication figure); ranks {t_ranks:.1f} s; card: {smi}")
+    print(f"LM serve phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
+
+
 def _rate(table, name, default):
     for key, v in table.items():
         if key in name:
@@ -3402,6 +3811,9 @@ def main() -> int:
 
     # -- 8e. LM training ------------------------------------------------------
     _lm_phase(dev, smi)
+
+    # -- 8f. LM serving -------------------------------------------------------
+    _lm_serve_phase(dev, smi)
 
     # -- 9. replays and times -------------------------------------------------
     def nbytes(t):

@@ -1,22 +1,27 @@
-"""GQA/MQA attention with RoPE, qk-norm, sliding windows and prefix-LM
-masking (training forward).
+"""GQA/MQA attention with RoPE, qk-norm, sliding windows, prefix-LM
+masking, KV caches and ring attention.
 
-Counterpart of ``repro.models.attention``'s training path.  The functions
-take the ``Attention`` module as ``p`` (its attributes are the reference
-dict's keys).  The decode caches and ring attention are not ported yet
-(ROADMAP queue 1 item 3b).
+Counterpart of ``repro.models.attention``.  The functions take the
+``Attention`` module as ``p`` (its attributes are the reference dict's
+keys).  ``attention_decode`` writes the new token's keys and values into
+the layer's cache in place, where the reference returns an updated copy:
+the cache is not copied each step.  ``attention_ring`` runs over the
+``"model"`` axis of a ``DeviceMesh`` with point-to-point sends and is
+forward-only (its gradient is ROADMAP queue 1 item 3c).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from .common import (ModelConfig, Norm, apply_rope, dense_init_, initialise,
-                     param, rms_norm, rope_freqs)
+from .common import (ModelConfig, Norm, apply_rope, dense_init_,
+                     forward_only, initialise, param, rms_norm, rope_freqs)
 
 NEG_INF = -2.0e38
+_LSE_MIN = -1.0e30
 
 
 class Attention(nn.Module):
@@ -117,8 +122,9 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal,
 
 
 def attention(p, cfg: ModelConfig, x, positions, causal=True, rope=True,
-              prefix_len=0):
-    """Full (training) attention. x: (B, S, D)."""
+              prefix_len=0, return_kv=False):
+    """Full (training / prefill) attention. x: (B, S, D).  With
+    ``return_kv`` also the post-RoPE ``(k, v)`` in the compute dtype."""
     q, k, v = _qkv(p, cfg, x, positions, rope)
     if cfg.attn_block and x.shape[1] > cfg.attn_block:
         o = _sdpa_chunked(cfg, q, k, v, positions, positions, causal,
@@ -128,7 +134,99 @@ def attention(p, cfg: ModelConfig, x, positions, causal=True, rope=True,
         if prefix_len:
             mask = _prefix(mask, positions, prefix_len)
         o = _sdpa(cfg, q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(cfg.cdtype()))
+    out = torch.einsum("bshk,hkd->bsd", o, p.wo.to(cfg.cdtype()))
+    return (out, (k, v)) if return_kv else out
+
+
+def _ring_shift(t, group, r: int, n: int):
+    """Posts the send of ``t`` to the ring's next rank and the receive of
+    the previous rank's block; returns a function that waits for both and
+    gives the received block.  gloo's point-to-point calls take host
+    memory only, so on gloo a device block is staged through the host."""
+    nxt = dist.get_global_rank(group, (r + 1) % n)
+    prv = dist.get_global_rank(group, (r - 1) % n)
+    stage = t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    send = t.cpu() if stage else t.contiguous()
+    recv = torch.empty_like(send)
+    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, nxt, group),
+                                    dist.P2POp(dist.irecv, recv, prv, group)])
+
+    def wait():
+        for w in works:
+            w.wait()
+        return recv.to(t.device) if stage else recv
+    return wait
+
+
+def attention_ring(p, cfg: ModelConfig, x, mesh, causal=True, rope=True,
+                   prefix_len=0):
+    """Ring attention over the ``"model"`` axis of ``mesh`` (sequence-
+    sharded KV), forward only.
+
+    ``x`` (B_loc, S_loc, D) is this rank's block of the input, the
+    sequence sharded over the ``"model"`` ranks in order (the block
+    ``P(DATA_AXES, "model", None)`` gives the rank): its queries sit at
+    positions ``r * S_loc + arange(S_loc)``, ``r`` the rank's coordinate
+    on the axis.  Each rank takes its queries against its local KV block,
+    then the blocks rotate around the ring, rank r sending to r + 1 (the
+    reference's ``ppermute`` order, one point-to-point step at a time),
+    with an online-softmax accumulation in float32.  The next block's
+    send and receive are posted before the current block's work, so on
+    NCCL the transfer overlaps it.  Any head count works.  For
+    sliding-window configs only ``ceil(window / S_loc) + 1`` ring steps
+    carry unmasked work; the rest are skipped.  Returns this rank's output
+    block (B_loc, S_loc, D)."""
+    forward_only("attention_ring", x, *p.parameters())
+    group = mesh.get_group("model")
+    n_ring = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    b, s_loc, _ = x.shape
+    n_steps = (min(n_ring, -(-cfg.window // s_loc) + 1) if cfg.window
+               else n_ring)
+    ar = torch.arange(s_loc, device=x.device)
+    pos_q = r * s_loc + ar
+    q, k, v = _qkv(p, cfg, x, pos_q.expand(b, s_loc), rope)
+    h, dh = q.shape[2:]
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s_loc, hkv, g, dh)
+    f32 = torch.float32
+    acc = torch.zeros((b, hkv, g, s_loc, dh), dtype=f32, device=x.device)
+    mx = torch.full((b, hkv, g, s_loc), -torch.inf, dtype=f32,
+                    device=x.device)
+    li = torch.zeros((b, hkv, g, s_loc), dtype=f32, device=x.device)
+    kv = torch.stack([k, v])
+    for t in range(n_steps):
+        # the next block is on the wire while this one is worked on
+        pending = (_ring_shift(kv, group, r, n_ring) if t < n_steps - 1
+                   else None)
+        pos_k = (r - t) % n_ring * s_loc + ar
+        logits = torch.einsum("bqhgk,bshk->bhgqs", qg,
+                              kv[0]).float() / math.sqrt(dh)
+        mask = torch.zeros((s_loc, s_loc), dtype=f32, device=x.device)
+        if causal:
+            mask = torch.where(pos_k[None, :] > pos_q[:, None], NEG_INF,
+                               mask)
+        if cfg.window:
+            mask = torch.where(pos_k[None, :] <= pos_q[:, None]
+                               - cfg.window, NEG_INF, mask)
+        if prefix_len:
+            mask = torch.where(pos_k[None, :] < prefix_len, 0.0, mask)
+        logits = logits + mask
+        bmx = torch.maximum(mx, logits.amax(dim=-1))
+        bmx_safe = bmx.clamp_min(_LSE_MIN)
+        scale = torch.exp(mx.clamp_min(_LSE_MIN) - bmx_safe)
+        w = torch.exp(logits - bmx_safe[..., None])
+        li = li * scale + w.sum(dim=-1)
+        acc = acc * scale[..., None] + torch.einsum(
+            "bhgqs,bshk->bhgqk", w, kv[1].float())
+        mx = bmx
+        if pending is not None:
+            kv = pending()
+    out = acc / li[..., None].clamp_min(1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s_loc, h, dh)
+    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype),
+                        p.wo.to(cfg.cdtype()))
 
 
 def attention_cross(p, cfg: ModelConfig, x, kv):
@@ -152,3 +250,44 @@ def encode_kv(p, cfg: ModelConfig, x_enc):
     if cfg.qk_norm:
         k = rms_norm(k, p.k_norm.scale, cfg.norm_eps)
     return k, v
+
+
+# -- decode path -------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch, max_len, dtype, device):
+    """KV cache for one attention layer: (B, S_max, Hkv, dh) pair."""
+    shape = (batch, max_len, cfg.n_kv, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, rope=True):
+    """One-token decode.  x: (B, 1, D); pos: the token's 0-based index.
+
+    Writes the token's k and v into ``cache`` in place and returns
+    ``(out, cache)``.  For sliding-window configs whose cache has
+    ``cfg.window`` slots it is a rolling buffer: position ``pos`` lives
+    in slot ``pos % window``.  A slot past the cache raises (the
+    reference's ``dynamic_update_slice`` would clamp it to the last)."""
+    b = x.shape[0]
+    q, k, v = _qkv(p, cfg, x, torch.full((b, 1), pos, device=x.device),
+                   rope=rope)
+    s_max = cache["k"].shape[1]
+    rolling = bool(cfg.window) and s_max == cfg.window
+    slot = pos % cfg.window if rolling else pos
+    if not 0 <= slot < s_max:
+        raise IndexError(f"attention_decode: position {pos} is past the "
+                         f"cache's {s_max} slots")
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    idx = torch.arange(s_max, device=x.device)
+    if rolling:
+        # slot i holds the position whose age (pos - position) is
+        # (slot - i) mod window
+        valid = pos - (slot - idx) % cfg.window >= 0
+    else:
+        valid = idx <= pos
+    mask = torch.zeros(s_max, dtype=torch.float32, device=x.device)
+    mask = mask.masked_fill(~valid, NEG_INF).expand(b, 1, s_max)
+    o = _sdpa(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(cfg.cdtype())), cache

@@ -11,9 +11,14 @@ each block.  Initialisers draw from an explicit ``torch.Generator``, so
 they cannot reproduce the reference's threefry bits; parity tests load
 the reference's initial parameters through ``models.convert`` instead.
 
-The reference's sharding hints (``maybe_constrain``, ``batch_spec``) have
-no counterpart: the port runs the model on one device (ROADMAP queue 1
-item 3b).
+Sharding is expressed as the reference's tree of partition specs
+(``P``, ``transformer.param_specs`` / ``cache_specs``) over the logical
+mesh axes: ``DATA_AXES`` shard the batch, ``"model"`` shards heads /
+ffn / experts / vocab.  ``spec_placements`` maps a spec onto the
+``torch.distributed.tensor`` placements of a ``DeviceMesh``.  PyTorch
+runs eagerly and multi-controller: every rank holds plain local tensors
+and no compiler propagates layouts, so ``maybe_constrain`` returns its
+input (the reference's ``with_sharding_constraint`` only guides XLA).
 """
 from __future__ import annotations
 
@@ -33,6 +38,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def not_ported(what: str, item, needs: str) -> NotImplementedError:
     return NotImplementedError(f"{what} needs {needs}, not ported yet "
                                f"(ROADMAP queue 1 item {item})")
+
+
+def forward_only(what: str, *tensors):
+    """Raises, naming ROADMAP item 3c, where autograd would record a graph
+    through ``what``'s collectives (grad mode on and a tensor that
+    requires grad): their gradients are not ported."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise not_ported(f"the gradient of {what}", "3c",
+                         "autograd functions around its collectives")
 
 
 @dataclass(frozen=True)
@@ -99,8 +113,9 @@ class ModelConfig:
     unroll_inner: bool = False   # no effect: chunks run in a Python loop
     attn_block: int = 0          # chunked attention q-block (0 = naive)
     attn_ring: bool = False      # ring attention over the model axis
-    mlp_weight_gathered: bool = False  # a sharding hint (no effect here)
-    seq_parallel: bool = True    # a sharding hint (no effect here)
+    mlp_weight_gathered: bool = False  # param_specs: MLP replicated over
+    # "model" (activations would stay sequence-sharded under XLA)
+    seq_parallel: bool = True    # a layout hint: maybe_constrain returns x
 
     @property
     def attn_free(self) -> bool:
@@ -122,6 +137,71 @@ class ModelConfig:
         with torch.device("meta"):
             model = Transformer(self)
         return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers
+# ---------------------------------------------------------------------------
+
+DATA_AXES = ("pod", "data")  # batch shards over these when present
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dimension, each ``None``
+    (replicated), a mesh axis name or a tuple of names (major first).  As
+    ``jax.sharding.PartitionSpec`` normalises its entries, an empty tuple
+    is ``None`` and a one-name tuple is that name, so ``P(...) ==
+    tuple(PartitionSpec(...))`` for the same arguments."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return None if not e else e[0] if len(e) == 1 else e
+            return e
+        return super().__new__(cls, (norm(e) for e in entries))
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+def maybe_constrain(x, *spec):
+    """Returns ``x``: the reference's ``with_sharding_constraint`` hints a
+    layout to XLA's partitioner; in eager multi-controller PyTorch every
+    rank holds its local tensor and nothing propagates a layout."""
+    return x
+
+
+def batch_spec(mesh_names):
+    """The data-parallel sharding tuple for the batch dimension."""
+    return tuple(a for a in DATA_AXES if a in mesh_names)
+
+
+def spec_placements(spec, mesh):
+    """The ``torch.distributed.tensor`` placements (one per mesh
+    dimension) that lay a tensor out as ``spec`` says on ``mesh`` (a
+    ``DeviceMesh`` with named dimensions): ``Shard(d)`` on each mesh
+    dimension named in tensor dimension ``d``'s entry, ``Replicate()``
+    on the others.  A name the mesh lacks is an axis of size one (the
+    reference's specs name ``"data"`` on a ``{model: 16}`` mesh).  A
+    tuple entry must list its names in the mesh's order: the placements
+    shard the major mesh dimension first."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) \
+            else tuple(entry)
+        present = [a for a in axes if a in names]
+        if present != sorted(present, key=names.index):
+            raise ValueError(f"spec {spec}: dimension {d} lists {axes} "
+                             f"against the mesh order {names}")
+        for a in present:
+            if out[names.index(a)] != Replicate():
+                raise ValueError(f"spec {spec}: mesh axis {a!r} shards two "
+                                 "dimensions")
+            out[names.index(a)] = Shard(d)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -211,8 +291,10 @@ def apply_rope(x, cos, sin, rope_fraction=1.0):
     return out.to(x.dtype)
 
 
-def sinusoidal_positions(n, d, device=None):
-    pos = np.arange(n)[:, None]
+def sinusoidal_positions(n, d, device=None, start=0):
+    """Rows ``start .. start + n - 1`` of the sinusoidal table, each
+    computed as the reference's full table computes it."""
+    pos = np.arange(start, start + n)[:, None]
     dim = np.arange(d // 2)[None, :]
     ang = pos / (10000.0 ** (2 * dim / d))
     out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)

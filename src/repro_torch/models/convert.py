@@ -27,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["ref_path", "from_reference", "to_reference", "reference_like"]
+__all__ = ["ref_path", "from_reference", "to_reference", "reference_like",
+           "caches_to_reference", "caches_from_reference", "local_spec"]
 
 
 def ref_path(name: str):
@@ -48,7 +49,8 @@ def _layout(model):
     return out
 
 
-def _nest(flat: dict) -> dict:
+def nest(flat: dict) -> dict:
+    """{path tuple: leaf} -> the nested dict."""
     tree: dict = {}
     for path, v in flat.items():
         node = tree
@@ -68,7 +70,20 @@ def _flat(tree, prefix=()) -> dict:
 
 
 def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A tensor as a numpy array; bfloat16 (which numpy lacks) as
+    float32, exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (or array-like) as a tensor on ``device``; a bfloat16
+    array (``ml_dtypes``' type, as JAX hands it out) stays bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def _stack_named(named: dict) -> dict:
@@ -85,7 +100,7 @@ def _stack_named(named: dict) -> dict:
         else:
             entries.sort(key=lambda e: e[0])
             flat[path] = np.stack([_host(t) for _, t in entries])
-    return _nest(flat)
+    return nest(flat)
 
 
 def _unstack_named(model, tree, device) -> dict:
@@ -165,10 +180,87 @@ def reference_like(cfg, compress: bool = False):
                         str(p.dtype).replace("torch.", ""))
 
     def tree(dtype=None):
-        return _nest({path: np.broadcast_to(np.zeros((), dtype or dt), shape)
+        return nest({path: np.broadcast_to(np.zeros((), dtype or dt), shape)
                       for path, (shape, dt) in shapes.items()})
 
     return (tree(),
             {"m": tree("float32"), "step": np.zeros((), np.int32),
              "v": tree("float32")},
             tree("float32") if compress else None)
+
+
+# ---------------------------------------------------------------------------
+# decode caches and partition specs
+# ---------------------------------------------------------------------------
+
+def _dotted(tree, prefix="") -> dict:
+    """{dotted name: leaf} of nested dicts and lists (a list's items
+    named by their index)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_dotted(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def cache_leaves(caches) -> dict:
+    """{reference path: the first layer's tensor} of the port's caches."""
+    out: dict = {}
+    for name, t in _dotted(caches).items():
+        out.setdefault(ref_path(name)[0], t)
+    return out
+
+
+def caches_to_reference(caches) -> dict:
+    """The port's per-layer caches -> the reference's stacked tree of
+    numpy arrays."""
+    return _stack_named(_dotted(caches))
+
+
+def caches_from_reference(tree, cfg, device) -> dict:
+    """The reference's stacked caches -> the port's per-layer layout on
+    ``device``: ``"layers"`` and each of ``"groups"``' stacks become lists
+    of per-layer dicts, ``"rem"`` keeps one dict a block.  Every leaf
+    takes the dtype ``init_caches`` gives it (``cfg``'s compute dtype,
+    float32 for the recurrent states), so bfloat16 caches that travelled
+    as float32 arrays come back bit for bit."""
+    cd = cfg.cdtype()
+
+    def tensors(t, i=None, key=None):
+        """``t``'s leaves as tensors (layer ``i`` of each, if given)."""
+        if isinstance(t, dict):
+            return {k: tensors(v, i, k) for k, v in t.items()}
+        return _tensor(t if i is None else t[i], device).to(
+            torch.float32 if key == "state" else cd)
+
+    def unstack(t):
+        n = len(next(iter(_flat(t).values())))
+        return [tensors(t, i) for i in range(n)]
+
+    out = {}
+    for top, sub in tree.items():
+        if top == "layers":
+            out[top] = unstack(sub)
+        elif top == "groups":
+            out[top] = {k: unstack(v) for k, v in sub.items()}
+        else:
+            out[top] = tensors(sub)
+    return out
+
+
+def local_spec(specs, name: str):
+    """The partition spec of the port's tensor ``name`` (a parameter's
+    dotted name, or a cache leaf's such as ``layers.3.sa.k``) in the
+    reference-shaped ``specs``: the leaf at its reference path, less the
+    stacked leading axis where the port holds one layer of it."""
+    from .common import P
+    path, i = ref_path(name)
+    node = specs
+    for k in path:
+        node = node[k]
+    return node if i is None else P(*node[1:])

@@ -1,24 +1,30 @@
-"""MoE FFN with capacity-based (GShard-style) dispatch, on one device.
+"""MoE FFN with capacity-based (GShard-style) dispatch, on one device or
+expert-parallel over a mesh's ``"model"`` axis.
 
-Counterpart of ``repro.models.moe``'s local path.  The router runs in
+Counterpart of ``repro.models.moe``.  The router runs in
 float32; the top-k keeps ``lax.top_k``'s order (descending, the lower
 expert first on ties) through a stable sort, since ``torch.topk``'s order
 on ties is unspecified on CUDA.  Capacity slots come from a cumulative
 sum in the flattened (T*k) order, so the dropped entries and the
 ``moe_drop`` metric are the reference's.
 
-The expert-parallel path, whose dispatch and combine are each one flups
-topology switch over the ``"model"`` mesh axis, is not ported yet
-(ROADMAP queue 1 item 3b): ``moe_block`` raises on such a mesh.
+On a mesh with a ``"model"`` axis, tokens are split over the data axes
+and the ``"model"`` axis and experts over ``"model"``; dispatch and
+combine are each one flups topology switch over that axis
+(``repro_torch.core.comm.topology_switch``, any strategy), and the
+capacity comes from the shard's own token count.  That path is
+forward-only (its gradient is ROADMAP queue 1 item 3c).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from .common import (ModelConfig, act_fn, dense_init_, initialise,
-                     is_gated, not_ported, param)
+from repro_torch.core.comm import as_comm, topology_switch
+from .common import (ModelConfig, act_fn, dense_init_, forward_only,
+                     initialise, is_gated, param)
 
 
 class MoE(nn.Module):
@@ -94,8 +100,47 @@ def _expert_ffn(cfg, buf, w_in, w_gate, w_out):
     return torch.bmm(h, w_out.to(cd))
 
 
+def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
+    """One rank's share of the expert-parallel MoE: ``x`` is its token
+    block, its experts the ``"model"`` coordinate's ``E / n`` of ``p``'s.
+    Returns (out, the drop fraction's mean over every rank of the
+    mesh)."""
+    forward_only("the expert-parallel moe_block", x, *p.parameters())
+    m = cfg.moe
+    group = mesh.get_group("model")
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if m.n_experts % n:
+        raise ValueError(f"moe_block: {m.n_experts} experts do not divide "
+                         f"over the {n} ranks of the model axis")
+    e_loc = m.n_experts // n
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    gate, idx = _route(p, m, xf)
+    capacity = int(t * m.top_k / m.n_experts * m.capacity_factor) + 1
+    buf, book = _dispatch_local(xf, idx, m.n_experts, capacity)
+    comm = as_comm(comm)
+    groups = {"model": group}
+    experts = slice(r * e_loc, (r + 1) * e_loc)
+    w_gate = getattr(p, "w_gate", None)
+    # flups topology switch #1: (E, C, d) -> (E_loc, C * n, d)
+    buf = topology_switch(buf, "model", 0, 1, comm, groups=groups)
+    y = _expert_ffn(cfg, buf, p.w_in[experts],
+                    None if w_gate is None else w_gate[experts],
+                    p.w_out[experts])
+    # flups topology switch #2 (reverse): back to the token layout
+    y = topology_switch(y, "model", 1, 0, comm, groups=groups)
+    out = _combine_local(y, book, gate, t, m.top_k)
+    # pmean over every mesh axis
+    drop = 1.0 - book[1].float().mean()
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(drop, group=mesh.get_group(name))
+    return out.reshape(b, s, d).to(x.dtype), drop / mesh.size()
+
+
 def _moe_local(p, cfg: ModelConfig, x):
-    """Single-device MoE: returns (out (B, S, D), drop fraction)."""
+    """Single-device / decode MoE: returns (out (B, S, D), drop
+    fraction)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -110,10 +155,11 @@ def _moe_local(p, cfg: ModelConfig, x):
 
 
 def moe_block(p, cfg: ModelConfig, x, comm=None, mesh=None):
-    """MoE FFN. x: (B, S, D).  The local path unless a mesh with a
-    ``"model"`` axis is given, which is not ported yet."""
-    if "model" in (getattr(mesh, "mesh_dim_names", None) or ()):
-        raise not_ported("the expert-parallel moe_block", "3b",
-                         "the dispatch and combine topology switches over "
-                         "the model mesh axis")
-    return _moe_local(p, cfg, x)
+    """MoE FFN -> (out, drop fraction).  Without a mesh with a ``"model"``
+    axis, x: (B, S, D) and the local path.  On such a mesh, x is this
+    rank's block (B_loc, S_loc, D) of the tokens, split over the data
+    axes and the ``"model"`` axis (``P(DATA_AXES, "model", None)``), and
+    the out block is this rank's; every rank of the mesh must call it."""
+    if "model" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+        return _moe_local(p, cfg, x)
+    return _moe_shard(p, cfg, x, comm, mesh)

@@ -1,6 +1,7 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin), training forward.
+"""RG-LRU recurrent block (RecurrentGemma / Griffin): forward and O(1)
+decode.
 
-Counterpart of ``repro.models.rglru``'s training path:
+Counterpart of ``repro.models.rglru``:
 
     r_t = sigmoid(W_r x_t);  i_t = sigmoid(W_i x_t)
     a_t = exp(-c * softplus(Lambda) * r_t)
@@ -8,8 +9,8 @@ Counterpart of ``repro.models.rglru``'s training path:
 
 The recurrence is a Hillis-Steele scan of log2(S) steps with the
 reference's ``combine``; ``lax.associative_scan`` combines in another
-(tree) order, so the two agree to float32 rounding, not bit for bit.  The
-decode is not ported yet (ROADMAP queue 1 item 3b).
+(tree) order, so the two agree to float32 rounding, not bit for bit.
+Decode carries the conv history and the float32 state.
 """
 from __future__ import annotations
 
@@ -89,14 +90,46 @@ def _scan(a, b):
     return a, b
 
 
-def rglru_block(p, cfg: ModelConfig, x):
-    """x: (B, S, D) -> (out, final_state (B, dr))."""
+def rglru_block(p, cfg: ModelConfig, x, return_tail=False):
+    """x: (B, S, D) -> (out, final_state (B, dr), conv_tail); conv_tail is
+    the raw input history decode continues from (None unless
+    ``return_tail``)."""
+    cd = cfg.cdtype()
+    u_raw = torch.einsum("bsd,de->bse", x, p.w_x.to(cd))
+    gate = F.gelu(torch.einsum("bsd,de->bse", x, p.w_y.to(cd)),
+                  approximate="tanh")
+    conv_tail = (u_raw[:, -(cfg.hybrid.conv_width - 1):, :]
+                 if return_tail else None)
+    u = _conv(u_raw, p.conv_w.to(cd), p.conv_b.to(cd), cfg.hybrid.conv_width)
+    a, bb = _lru_coeffs(p, cfg, u)
+    _, hh = _scan(a, bb)
+    out = torch.einsum("bse,ed->bsd", hh.to(cd) * gate, p.w_out.to(cd))
+    return out, hh[:, -1].float(), conv_tail
+
+
+def init_rglru_cache(cfg: ModelConfig, batch, dtype, device):
+    dr = cfg.hybrid.d_rnn or cfg.d_model
+    return {
+        "conv": torch.zeros((batch, cfg.hybrid.conv_width - 1, dr),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((batch, dr), dtype=torch.float32,
+                             device=device),
+    }
+
+
+def rglru_decode(p, cfg: ModelConfig, x, cache):
+    """One token. x: (B, 1, D) -> (out, new cache); the conv's taps summed
+    in the reference's order in the compute dtype."""
     cd = cfg.cdtype()
     u = torch.einsum("bsd,de->bse", x, p.w_x.to(cd))
     gate = F.gelu(torch.einsum("bsd,de->bse", x, p.w_y.to(cd)),
                   approximate="tanh")
-    u = _conv(u, p.conv_w.to(cd), p.conv_b.to(cd), cfg.hybrid.conv_width)
-    a, bb = _lru_coeffs(p, cfg, u)
-    _, hh = _scan(a, bb)
-    out = torch.einsum("bse,ed->bsd", hh.to(cd) * gate, p.w_out.to(cd))
-    return out, hh[:, -1].float()
+    hist = torch.cat([cache["conv"], u], dim=1)
+    w = p.conv_w.to(cd)
+    conv = sum(hist[:, i, :] * w[i] for i in range(cfg.hybrid.conv_width))
+    u1 = (conv + p.conv_b.to(cd))[:, None, :]
+    a, bb = _lru_coeffs(p, cfg, u1)
+    h = cache["state"] * a[:, 0] + bb[:, 0]
+    out = torch.einsum("be,ed->bd", h.to(cd) * gate[:, 0],
+                       p.w_out.to(cd))[:, None, :]
+    return out, {"conv": hist[:, 1:], "state": h}

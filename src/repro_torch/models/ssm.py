@@ -1,15 +1,15 @@
-"""Mamba-2 (SSD, state-space duality) block, chunked scan (training
-forward).
+"""Mamba-2 (SSD, state-space duality) block, chunked scan and O(1)
+decode.
 
-Counterpart of ``repro.models.ssm``'s training path.  Per head, a
+Counterpart of ``repro.models.ssm``.  Per head, a
 scalar-decay SSM
 
     h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t,   y_t = C_t^T h_t + D x_t
 
 computed chunk-parallel: a quadratic attention-like term inside chunks of
 length ``chunk`` and a sequential state pass between chunks (a Python
-loop over chunks, in float32).  The O(1) decode is not ported yet
-(ROADMAP queue 1 item 3b).
+loop over chunks, in float32).  Decode carries the conv history and the
+float32 SSM state and costs O(1) per token.
 """
 from __future__ import annotations
 
@@ -116,14 +116,18 @@ def ssd_chunked(xh, dt, a, B, C, chunk):
     return torch.cat(ys, dim=1), state
 
 
-def ssm_block(p, cfg: ModelConfig, x):
-    """Training forward. x: (B, S, D) -> (out, final_state)."""
+def ssm_block(p, cfg: ModelConfig, x, return_tail=False):
+    """Training / prefill forward. x: (B, S, D).
+
+    Returns (out, final_state, conv_tail); conv_tail is the raw xbc history
+    needed to continue decoding (None unless ``return_tail``)."""
     s = cfg.ssm
     cd = cfg.cdtype()
     din = s.d_inner(cfg.d_model)
     nh = s.n_heads(cfg.d_model)
     proj = torch.einsum("bsd,de->bse", x, p.w_in.to(cd))
     z, xbc, dt = _split_proj(cfg, proj)
+    conv_tail = xbc[:, -(s.d_conv - 1):, :] if return_tail else None
     xbc = _conv1d(xbc, p.conv_w.to(cd), p.conv_b.to(cd), s.d_conv)
     xs, B, C = torch.split(xbc, [din, s.d_state, s.d_state], dim=-1)
     bsz, slen = x.shape[:2]
@@ -136,4 +140,50 @@ def ssm_block(p, cfg: ModelConfig, x):
     y = y.reshape(bsz, slen, din).to(cd)
     y = rms_norm(y * F.silu(z), p.out_norm.scale, cfg.norm_eps)
     out = torch.einsum("bse,ed->bsd", y, p.w_out.to(cd))
-    return out, state
+    return out, state, conv_tail
+
+
+# -- decode -------------------------------------------------------------------
+
+def init_ssm_cache(cfg: ModelConfig, batch, dtype, device):
+    s = cfg.ssm
+    din = s.d_inner(cfg.d_model)
+    nh = s.n_heads(cfg.d_model)
+    conv_dim = din + 2 * s.d_state
+    return {
+        "conv": torch.zeros((batch, s.d_conv - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, nh, s.head_dim, s.d_state),
+                             dtype=torch.float32, device=device),
+    }
+
+
+def ssm_decode(p, cfg: ModelConfig, x, cache):
+    """One token. x: (B, 1, D) -> (out, new cache).  The conv sums its
+    taps in the reference's order in the compute dtype; the state stays
+    float32."""
+    s = cfg.ssm
+    cd = cfg.cdtype()
+    din = s.d_inner(cfg.d_model)
+    nh = s.n_heads(cfg.d_model)
+    proj = torch.einsum("bsd,de->bse", x, p.w_in.to(cd))
+    z, xbc, dt = _split_proj(cfg, proj)
+    hist = torch.cat([cache["conv"], xbc], dim=1)        # (B, d_conv, C)
+    w = p.conv_w.to(cd)
+    conv = sum(hist[:, i, :] * w[i] for i in range(s.d_conv))
+    xbc1 = F.silu(conv + p.conv_b.to(cd))[:, None, :]
+    xs, B, C = torch.split(xbc1, [din, s.d_state, s.d_state], dim=-1)
+    xh = xs.reshape(-1, nh, s.head_dim).float()
+    dtv = F.softplus(dt[:, 0].float() + p.dt_bias.float())      # (B, h)
+    a = -torch.exp(p.a_log.float())
+    dec = torch.exp(dtv * a)                                     # (B, h)
+    Bv = B[:, 0].float()                                         # (B, n)
+    Cv = C[:, 0].float()
+    st = cache["state"] * dec[..., None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dtv, Bv, xh)
+    y = torch.einsum("bn,bhpn->bhp", Cv, st)
+    y = y + xh * p.d_skip.float()[None, :, None]
+    y = y.reshape(-1, 1, din).to(cd)
+    y = rms_norm(y * F.silu(z), p.out_norm.scale, cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, p.w_out.to(cd))
+    return out, {"conv": hist[:, 1:, :], "state": st}

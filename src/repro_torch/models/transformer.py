@@ -1,10 +1,13 @@
-"""Model assembly for all assigned architectures (training forward).
+"""Model assembly for all assigned architectures.
 
-Counterpart of ``repro.models.transformer``'s training path.  One
-``nn.Module`` per block kind (dense attention, MoE, SSM, recurrent,
-whisper's cross-attention decoder block), a ``ModuleList`` per stack and a
-top-level ``Transformer(cfg)`` whose ``forward(tokens, frontend)`` returns
-``(logits (B, S_total, V) float32, {"moe_drop": ...})``.
+Counterpart of ``repro.models.transformer``: one ``nn.Module`` per block
+kind (dense attention, MoE, SSM, recurrent, whisper's cross-attention
+decoder block), a ``ModuleList`` per stack and a top-level
+``Transformer(cfg)``, with three entry points:
+
+  * ``forward``      -- training / scoring (full sequence, causal or prefix)
+  * ``prefill``      -- forward + build decode caches (serving, prompt pass)
+  * ``decode_step``  -- one token with caches (serving, autoregressive)
 
 The reference stacks each uniform stack's layers on a leading axis and
 scans over them; here the layers are modules run in a Python loop, so
@@ -15,25 +18,50 @@ attribute names are the reference tree's keys, so a parameter's dotted
 name is its reference path with the layer index inserted
 (``models.convert``).
 
-``prefill``, ``decode_step``, ``init_caches``, ``param_specs`` and
-``cache_specs`` are not ported yet (ROADMAP queue 1 item 3b).
+The decode caches are a nested dict of per-layer dicts: ``{"layers":
+[layer 0's, ...]}``, the hybrid's ``{"groups": {"rec0": [...], ...},
+"rem": {...}}``, where the reference stacks them on a leading axis
+(``convert.caches_to_reference`` / ``caches_from_reference`` map one
+onto the other).  ``prefill`` and ``decode_step`` run without autograd;
+``decode_step`` updates the caches it is given in place.  Two faults of
+the reference's whisper path are not copied (ROADMAP queue 3): its
+``prefill`` returns the decoder's caches without the ``"layers"`` key
+``decode_step`` reads, and its decode applies RoPE to the decoder's
+self-attention, which its forward does not.
+
+On a mesh (a ``DeviceMesh`` with a ``"model"`` axis; ``forward`` and
+``prefill``) every rank passes the tokens of its data shard, whole
+sequences.  The blocks that run over the model axis -- ring attention
+where ``cfg.attn_ring`` and no caches are collected, the
+expert-parallel MoE -- take the rank's sequence block of their input and
+all-gather their output over the axis, so every block's input and
+output are the data shard, replicated over ``"model"``.  These paths
+are forward-only (ROADMAP queue 1 item 3c).
+
+``param_specs`` and ``cache_specs`` give the reference's partition-spec
+trees (``common.P``; stacked stacks with a leading ``None``);
+``convert.local_spec`` looks up a port tensor's spec in them and
+``common.spec_placements`` lays it onto a ``DeviceMesh``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import convert
 from .attention import Attention
-from .common import (ModelConfig, Norm, act_fn, dense_init_, embed_init_,
-                     initialise, is_gated, not_ported, param,
+from .common import (DATA_AXES, ModelConfig, Norm, P, act_fn, dense_init_,
+                     embed_init_, initialise, is_gated, param,
                      sinusoidal_positions)
-from .moe import MoE, moe_block
-from .rglru import RGLRU, rglru_block
-from .ssm import SSM, ssm_block
+from .moe import MoE, _moe_local, moe_block
+from .rglru import RGLRU, init_rglru_cache, rglru_block, rglru_decode
+from .ssm import SSM, init_ssm_cache, ssm_block, ssm_decode
 
 
 class MLP(nn.Module):
@@ -66,17 +94,63 @@ def _mlp(p, cfg, x):
 
 
 # ---------------------------------------------------------------------------
-# blocks: forward(x, positions, causal, prefix_len, x_enc, rope) -> (x, aux)
+# blocks: forward(x, positions, causal, prefix_len, x_enc, rope, comm, mesh,
+# collect) -> (x, aux, cache or None); decode(x, cache, pos) -> x
 # ---------------------------------------------------------------------------
 
 def _zero(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _attend(blk, x, positions, causal, prefix_len, rope):
-    return x + attn.attention(blk.attn, blk.cfg, blk.ln1(x), positions,
-                              causal=causal, rope=rope,
-                              prefix_len=prefix_len)
+def _model_group(mesh):
+    """The ``"model"`` axis's process group of ``mesh``, or None."""
+    if "model" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+        return None
+    return mesh.get_group("model")
+
+
+def _seq_block(x, group):
+    """This rank's block of ``x``'s sequence over the model axis."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[1] % n:
+        raise ValueError(f"a sequence of {x.shape[1]} does not split over "
+                         f"the {n} ranks of the model axis")
+    s = x.shape[1] // n
+    return x[:, r * s:(r + 1) * s]
+
+
+def _gather_seq(y, group):
+    """The model axis's sequence blocks of ``y``, in rank order."""
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def _attend(blk, x, positions, causal, prefix_len, rope, mesh, collect):
+    """x + self-attention; with ``collect`` also the layer's
+    ``{"sa": {"k", "v"}}`` cache (ring attention only without it)."""
+    cfg = blk.cfg
+    h = blk.ln1(x)
+    group = _model_group(mesh)
+    if (cfg.attn_ring and not collect and group is not None
+            and x.shape[1] % dist.get_world_size(group) == 0):
+        a = attn.attention_ring(blk.attn, cfg, _seq_block(h, group), mesh,
+                                causal=causal, rope=rope,
+                                prefix_len=prefix_len)
+        return x + _gather_seq(a, group), None
+    if collect:
+        a, (k, v) = attn.attention(blk.attn, cfg, h, positions,
+                                   causal=causal, rope=rope,
+                                   prefix_len=prefix_len, return_kv=True)
+        return x + a, {"sa": {"k": k, "v": v}}
+    return x + attn.attention(blk.attn, cfg, h, positions, causal=causal,
+                              rope=rope, prefix_len=prefix_len), None
+
+
+def _attend_decode(blk, x, cache, pos, rope=True):
+    a, _ = attn.attention_decode(blk.attn, blk.cfg, blk.ln1(x), cache["sa"],
+                                 pos, rope=rope)
+    return x + a
 
 
 class DenseBlock(nn.Module):
@@ -92,9 +166,14 @@ class DenseBlock(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, positions, causal=True, prefix_len=0, x_enc=None,
-                rope=True):
-        x = _attend(self, x, positions, causal, prefix_len, rope)
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x)
+                rope=True, comm=None, mesh=None, collect=False):
+        x, cache = _attend(self, x, positions, causal, prefix_len, rope,
+                           mesh, collect)
+        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x), cache
+
+    def decode(self, x, cache, pos):
+        x = _attend_decode(self, x, cache, pos)
+        return x + _mlp(self.mlp, self.cfg, self.ln2(x))
 
 
 class MoEBlock(nn.Module):
@@ -107,10 +186,22 @@ class MoEBlock(nn.Module):
         self.moe = MoE(cfg)
 
     def forward(self, x, positions, causal=True, prefix_len=0, x_enc=None,
-                rope=True):
-        x = _attend(self, x, positions, causal, prefix_len, rope)
-        h, aux = moe_block(self.moe, self.cfg, self.ln2(x))
-        return x + h, aux.float()
+                rope=True, comm=None, mesh=None, collect=False):
+        x, cache = _attend(self, x, positions, causal, prefix_len, rope,
+                           mesh, collect)
+        h = self.ln2(x)
+        group = _model_group(mesh)
+        if group is None:
+            out, aux = moe_block(self.moe, self.cfg, h)
+        else:
+            out, aux = moe_block(self.moe, self.cfg, _seq_block(h, group),
+                                 comm, mesh)
+            out = _gather_seq(out, group)
+        return x + out, aux.float(), cache
+
+    def decode(self, x, cache, pos):
+        x = _attend_decode(self, x, cache, pos)
+        return x + _moe_local(self.moe, self.cfg, self.ln2(x))[0]
 
 
 class CrossBlock(nn.Module):
@@ -128,11 +219,22 @@ class CrossBlock(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, positions, causal=True, prefix_len=0, x_enc=None,
-                rope=True):
-        x = _attend(self, x, positions, causal, prefix_len, rope)
+                rope=True, comm=None, mesh=None, collect=False):
+        x, cache = _attend(self, x, positions, causal, prefix_len, rope,
+                           mesh, collect)
         kv_x = attn.encode_kv(self.xattn, self.cfg, x_enc)
         x = x + attn.attention_cross(self.xattn, self.cfg, self.lnx(x), kv_x)
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x)
+        if collect:
+            cache["xk"], cache["xv"] = kv_x
+        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x), cache
+
+    def decode(self, x, cache, pos):
+        # no RoPE: the decoder's forward has none (whisper's positions are
+        # the sinusoidal table added to the embedding)
+        x = _attend_decode(self, x, cache, pos, rope=False)
+        x = x + attn.attention_cross(self.xattn, self.cfg, self.lnx(x),
+                                     (cache["xk"], cache["xv"]))
+        return x + _mlp(self.mlp, self.cfg, self.ln2(x))
 
 
 class SSMBlock(nn.Module):
@@ -143,9 +245,16 @@ class SSMBlock(nn.Module):
         self.ssm = SSM(cfg)
 
     def forward(self, x, positions, causal=True, prefix_len=0, x_enc=None,
-                rope=True):
-        h, _ = ssm_block(self.ssm, self.cfg, self.ln1(x))
-        return x + h, _zero(x)
+                rope=True, comm=None, mesh=None, collect=False):
+        h, state, tail = ssm_block(self.ssm, self.cfg, self.ln1(x),
+                                   return_tail=collect)
+        cache = {"state": state, "conv": tail} if collect else None
+        return x + h, _zero(x), cache
+
+    def decode(self, x, cache, pos):
+        h, new = ssm_decode(self.ssm, self.cfg, self.ln1(x), cache)
+        cache.update(new)
+        return x + h
 
 
 class RecBlock(nn.Module):
@@ -158,10 +267,18 @@ class RecBlock(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, positions, causal=True, prefix_len=0, x_enc=None,
-                rope=True):
-        h, _ = rglru_block(self.rec, self.cfg, self.ln1(x))
+                rope=True, comm=None, mesh=None, collect=False):
+        h, state, tail = rglru_block(self.rec, self.cfg, self.ln1(x),
+                                     return_tail=collect)
+        cache = {"state": state, "conv": tail} if collect else None
         x = x + h
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x)
+        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x), cache
+
+    def decode(self, x, cache, pos):
+        h, new = rglru_decode(self.rec, self.cfg, self.ln1(x), cache)
+        cache.update(new)
+        x = x + h
+        return x + _mlp(self.mlp, self.cfg, self.ln2(x))
 
 
 _BLOCKS = {"dense": DenseBlock, "attn": DenseBlock, "moe": MoEBlock,
@@ -185,12 +302,15 @@ def _run_block(cfg, block, x, **kw):
 
 
 def _run_stack(cfg, blocks, x, **kw):
-    """The blocks in order; the mean of their aux."""
-    auxs = []
+    """The blocks in order; the mean of their aux and, when collecting,
+    their caches (else None)."""
+    auxs, caches = [], []
     for block in blocks:
-        x, aux = _run_block(cfg, block, x, **kw)
+        x, aux, cache = _run_block(cfg, block, x, **kw)
         auxs.append(aux)
-    return x, torch.stack(auxs).mean()
+        caches.append(cache)
+    return x, torch.stack(auxs).mean(), \
+        caches if kw.get("collect") else None
 
 
 # ---------------------------------------------------------------------------
@@ -228,39 +348,12 @@ class Transformer(nn.Module):
         if hasattr(self, "lm_head"):
             dense_init_(self.lm_head, gen, fan_in=self.cfg.d_model)
 
-    def forward(self, tokens, frontend=None):
+    def forward(self, tokens, frontend=None, comm=None, mesh=None):
         """tokens: (B, S) int.  Returns (logits (B, S_total, V) float32,
         {"moe_drop": the MoE layers' mean drop fraction (0 elsewhere)})."""
-        cfg = self.cfg
-        x, prefix_len = _embed_in(self, cfg, tokens, frontend)
-        positions = torch.arange(x.shape[1], device=x.device).expand(
-            x.shape[:2])
-        if cfg.family == "hybrid":
-            n_groups, rem = _hybrid_layout(cfg)
-            pat = cfg.hybrid.pattern
-            auxs = []
-            for g in range(n_groups):
-                a = _zero(x)
-                for i, kind in enumerate(pat):
-                    x, ai = _run_block(cfg, self.groups[kind + str(i)][g], x,
-                                       positions=positions)
-                    a = a + ai
-                auxs.append(a)
-            aux = torch.stack(auxs).mean()
-            for i, kind in enumerate(rem):       # no share in the aux
-                x, _ = _run_block(cfg, self.rem[kind + str(i)], x,
-                                  positions=positions)
-        elif cfg.family == "encdec":
-            x_enc = _encode(self, cfg, frontend)
-            pos_dec = sinusoidal_positions(tokens.shape[1], cfg.d_model,
-                                           x.device).to(cfg.cdtype())
-            x = x + pos_dec[None]
-            x, aux = _run_stack(cfg, self.layers, x, positions=positions,
-                                x_enc=x_enc, rope=False)
-        else:
-            x, aux = _run_stack(cfg, self.layers, x, positions=positions,
-                                prefix_len=prefix_len)
-        return _logits(self, cfg, x), {"moe_drop": aux}
+        logits, aux, _ = _forward_impl(self, tokens, frontend, comm, mesh,
+                                       collect=False)
+        return logits, aux
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
@@ -269,16 +362,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
         return initialise(Transformer(cfg), gen)
 
 
-def _embed_in(p, cfg, tokens, frontend):
+def _embed(p, cfg, tokens):
     cd = cfg.cdtype()
     x = p.embed[tokens].to(cd)
     if cfg.scale_embed:
         # the factor is cast to the compute dtype before the product
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=cd,
                              device=x.device)
+    return x
+
+
+def _embed_in(p, cfg, tokens, frontend):
+    x = _embed(p, cfg, tokens)
     prefix_len = 0
     if frontend is not None and cfg.family != "encdec":
-        x = torch.cat([frontend.to(cd), x], dim=1)
+        x = torch.cat([frontend.to(cfg.cdtype()), x], dim=1)
         prefix_len = frontend.shape[1]
     return x, prefix_len
 
@@ -299,27 +397,307 @@ def _encode(p, cfg, frontend):
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(cd)[None]
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-    x, _ = _run_stack(cfg, p.enc, x, positions=positions, causal=False,
-                      rope=False)
+    x, _, _ = _run_stack(cfg, p.enc, x, positions=positions, causal=False,
+                         rope=False)
     return p.ln_enc(x)
 
 
-def forward(model: Transformer, tokens, frontend=None):
+def _forward_impl(model, tokens, frontend, comm, mesh, collect):
+    """(logits, {"moe_drop"}, caches in the per-layer layout or None)."""
+    cfg = model.cfg
+    x, prefix_len = _embed_in(model, cfg, tokens, frontend)
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    kw = dict(positions=positions, comm=comm, mesh=mesh, collect=collect)
+    caches = None
+    if cfg.family == "hybrid":
+        n_groups, rem = _hybrid_layout(cfg)
+        pat = cfg.hybrid.pattern
+        auxs = []
+        gcaches = {kind + str(i): [] for i, kind in enumerate(pat)}
+        for g in range(n_groups):
+            a = _zero(x)
+            for i, kind in enumerate(pat):
+                x, ai, c = _run_block(cfg, model.groups[kind + str(i)][g], x,
+                                      **kw)
+                a = a + ai
+                gcaches[kind + str(i)].append(c)
+            auxs.append(a)
+        aux = torch.stack(auxs).mean()
+        rem_caches = {}
+        for i, kind in enumerate(rem):       # no share in the aux
+            x, _, rem_caches[kind + str(i)] = _run_block(
+                cfg, model.rem[kind + str(i)], x, **kw)
+        if collect:
+            caches = {"groups": gcaches, "rem": rem_caches}
+    elif cfg.family == "encdec":
+        x_enc = _encode(model, cfg, frontend)
+        pos_dec = sinusoidal_positions(tokens.shape[1], cfg.d_model,
+                                       x.device).to(cfg.cdtype())
+        x = x + pos_dec[None]
+        x, aux, layers = _run_stack(cfg, model.layers, x, x_enc=x_enc,
+                                    rope=False, **kw)
+        caches = {"layers": layers} if collect else None
+    else:
+        x, aux, layers = _run_stack(cfg, model.layers, x,
+                                    prefix_len=prefix_len, **kw)
+        caches = {"layers": layers} if collect else None
+    return _logits(model, cfg, x), {"moe_drop": aux}, caches
+
+
+def forward(model: Transformer, tokens, frontend=None, comm=None,
+            mesh=None):
     """Training/scoring forward.  tokens: (B, S) int.
     Returns (logits (B, S_total, V) f32, aux dict)."""
-    return model(tokens, frontend)
+    return model(tokens, frontend, comm, mesh)
 
 
-def _serving(what):
-    def fn(*args, **kwargs):
-        raise not_ported(what, "3b", "the decode caches and the sharding "
-                         "specs")
-    fn.__name__ = what
-    return fn
+@torch.no_grad()
+def prefill(model: Transformer, tokens, frontend=None, comm=None, mesh=None,
+            max_len=None):
+    """Prompt pass: logits + decode caches sized ``max_len`` (the prompt's
+    length by default), on the model's device."""
+    logits, _, caches = _forward_impl(model, tokens, frontend, comm, mesh,
+                                      collect=True)
+    s = logits.shape[1]
+    return logits, _finalize_caches(model.cfg, caches, s, max_len or s)
 
 
-prefill = _serving("prefill")
-decode_step = _serving("decode_step")
-init_caches = _serving("init_caches")
-param_specs = _serving("param_specs")
-cache_specs = _serving("cache_specs")
+def _finalize_caches(cfg, caches, s, max_len):
+    """Pad / roll collected prefill caches into decode layout: each layer's
+    keys and values padded to ``max_len`` slots or, for a window config
+    whose prompt is longer than its ``min(window, max_len)`` slots, the
+    last ones scattered into the rolling buffer (position p in slot
+    p % window)."""
+    win = min(cfg.window, max_len) if cfg.window else max_len
+
+    def fix_kv(kv):
+        # kv: (B, S, hkv, dh) each
+        k = kv["k"]
+        if cfg.window and s > win:
+            idx = torch.arange(s - win, s, device=k.device) % win
+            out = {}
+            for key in ("k", "v"):
+                buf = k.new_zeros((k.shape[0], win) + tuple(k.shape[2:]))
+                buf[:, idx] = kv[key][:, s - win:]
+                out[key] = buf
+            return out
+        if max_len < s:
+            raise ValueError(f"prefill: max_len {max_len} is shorter than "
+                             f"the prompt's {s} positions")
+        return {key: F.pad(kv[key], (0, 0, 0, 0, 0, max_len - s))
+                for key in ("k", "v")}
+
+    def walk(t):
+        if isinstance(t, dict) and set(t) == {"k", "v"}:
+            return fix_kv(t)
+        if isinstance(t, dict):
+            return {kk: walk(vv) for kk, vv in t.items()}
+        if isinstance(t, list):
+            return [walk(vv) for vv in t]
+        return t
+
+    return walk(caches)
+
+
+# ---------------------------------------------------------------------------
+# serving: decode
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch, max_len, device=None):
+    """Zero decode caches, one dict per layer (the reference stacks
+    them), on the card unless ``device`` says otherwise (``"meta"`` gives
+    the shapes only)."""
+    device = torch.device("cuda" if device is None else device)
+    cd = cfg.cdtype()
+    win = min(cfg.window, max_len) if cfg.window else max_len
+
+    def attn_cache():
+        return {"sa": attn.init_cache(cfg, batch, win, cd, device)}
+
+    def layer_cache(kind):
+        if kind == "ssm":
+            return init_ssm_cache(cfg, batch, cd, device)
+        if kind == "rec":
+            return init_rglru_cache(cfg, batch, cd, device)
+        c = attn_cache()
+        if kind == "cross":
+            shape = (batch, cfg.n_frontend_tokens, cfg.n_kv, cfg.d_head)
+            c["xk"] = torch.zeros(shape, dtype=cd, device=device)
+            c["xv"] = torch.zeros(shape, dtype=cd, device=device)
+        return c
+
+    if cfg.family == "hybrid":
+        n_groups, rem = _hybrid_layout(cfg)
+        return {"groups": {kind + str(i): [layer_cache(kind)
+                                           for _ in range(n_groups)]
+                           for i, kind in enumerate(cfg.hybrid.pattern)},
+                "rem": {kind + str(i): layer_cache(kind)
+                        for i, kind in enumerate(rem)}}
+    kind = {"ssm": "ssm", "encdec": "cross"}.get(cfg.family, "attn")
+    return {"layers": [layer_cache(kind) for _ in range(cfg.n_layers)]}
+
+
+# whisper's decoder reads its position from a table of this many rows
+_SINUSOID_ROWS = 2 ** 15
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, token, caches, pos: int, comm=None,
+                mesh=None):
+    """One serving step.  token: (B, 1) int; pos: the 0-based index of
+    this token.  Updates ``caches`` in place and returns (logits (B, 1, V)
+    float32, caches).  ``comm`` and ``mesh`` are taken as the reference
+    takes them and unused: decode runs the local paths (the MoE's too)."""
+    cfg = model.cfg
+    x = _embed(model, cfg, token)
+    if cfg.family == "encdec":
+        if not 0 <= pos < _SINUSOID_ROWS:
+            raise IndexError(f"decode_step: position {pos} is past the "
+                             f"{_SINUSOID_ROWS}-row sinusoidal table")
+        x = x + sinusoidal_positions(1, cfg.d_model, x.device,
+                                     start=pos).to(cfg.cdtype())[None]
+    if cfg.family == "hybrid":
+        n_groups, rem = _hybrid_layout(cfg)
+        for g in range(n_groups):
+            for i, kind in enumerate(cfg.hybrid.pattern):
+                key = kind + str(i)
+                x = model.groups[key][g].decode(x, caches["groups"][key][g],
+                                                pos)
+        for i, kind in enumerate(rem):
+            key = kind + str(i)
+            x = model.rem[key].decode(x, caches["rem"][key], pos)
+    else:
+        for block, cache in zip(model.layers, caches["layers"], strict=True):
+            x = block.decode(x, cache, pos)
+    return _logits(model, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# sharding
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def param_specs(cfg: ModelConfig, mesh_shape: dict):
+    """The reference's partition-spec tree of the parameters (stacked
+    stacks with a leading ``None``); ``convert.local_spec`` gives a port
+    parameter's.
+
+    TP/EP over "model"; ZeRO/FSDP over "data": every weight's d_model axis
+    is additionally sharded over the data axis (when divisible) so params +
+    optimizer state scale down with the FULL mesh, not just the model axis.
+    """
+    tp = mesh_shape.get("model", 1)
+    fs = mesh_shape.get("data", 1)
+
+    def heads_ok(n):
+        return n % tp == 0
+
+    def dd(dim):  # fsdp-shard a dim when divisible
+        return "data" if dim % fs == 0 else None
+
+    dm = dd(cfg.d_model)
+    qspec = P(dm, "model", None) if heads_ok(cfg.n_heads) else \
+        P(dm, None, None)
+    kvspec = P(dm, "model", None) if heads_ok(cfg.n_kv) else \
+        P(dm, None, None)
+    ospec = P("model", None, dm) if heads_ok(cfg.n_heads) else \
+        P(None, None, dm)
+    a = {"wq": qspec, "wk": kvspec, "wv": kvspec, "wo": ospec}
+    if cfg.qk_norm:
+        a["q_norm"] = {"scale": P(None)}
+        a["k_norm"] = {"scale": P(None)}
+    nrm = ({"scale": P(None)} if cfg.norm == "rms"
+           else {"scale": P(None), "bias": P(None)})
+    if cfg.mlp_weight_gathered:
+        # weight-gathered mode: MLP replicated over model (FSDP over data
+        # only)
+        fsh = None if dm else dd(cfg.d_ff)
+        mlp = {"w_in": P(dm, fsh), "w_out": P(fsh, dm)}
+        if is_gated(cfg.act):
+            mlp["w_gate"] = P(dm, fsh)
+    else:
+        mlp = {"w_in": P(dm, "model"), "w_out": P("model", dm)}
+        if is_gated(cfg.act):
+            mlp["w_gate"] = P(dm, "model")
+
+    def block_spec(kind):
+        if kind == "ssm":
+            return {"ln1": nrm, "ssm": {
+                "w_in": P("model", dd(2 * 2 * cfg.d_model)),
+                "conv_w": P(None, None),
+                "conv_b": P(None), "a_log": P(None), "dt_bias": P(None),
+                "d_skip": P(None), "out_norm": nrm,
+                "w_out": P(None, "model")}}
+        if kind == "rec":
+            dr = cfg.hybrid.d_rnn or cfg.d_model
+            return {"ln1": nrm, "rec": {
+                "w_x": P(dm, "model"), "w_y": P(dm, "model"),
+                "conv_w": P(None, "model"), "conv_b": P("model"),
+                "w_r": P("model", dd(dr)), "w_i": P("model", dd(dr)),
+                "lam": P(None), "w_out": P("model", dm)},
+                "ln2": nrm, "mlp": mlp}
+        if kind == "moe":
+            mspec = {"router": P(None, None),
+                     "w_in": P("model", dm, None),
+                     "w_out": P("model", None, dm)}
+            if is_gated(cfg.act):
+                mspec["w_gate"] = P("model", dm, None)
+            return {"ln1": nrm, "attn": a, "ln2": nrm, "moe": mspec}
+        if kind == "cross":
+            return {"ln1": nrm, "attn": a, "lnx": nrm, "xattn": a,
+                    "ln2": nrm, "mlp": mlp}
+        return {"ln1": nrm, "attn": a, "ln2": nrm, "mlp": mlp}
+
+    def stacked(spec):
+        return _tree_map(lambda s: P(None, *s), spec)
+
+    vshard = "model" if cfg.vocab % tp == 0 else None
+    vdata = "data" if cfg.vocab % fs == 0 else None
+    out = {"embed": P(vshard, dm if vshard else (dm or vdata)), "ln_f": nrm}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = P(dm, vshard)
+    if cfg.family == "hybrid":
+        n_groups, rem = _hybrid_layout(cfg)
+        out["groups"] = {k + str(i): stacked(block_spec(k))
+                         for i, k in enumerate(cfg.hybrid.pattern)}
+        out["rem"] = {k + str(i): block_spec(k) for i, k in enumerate(rem)}
+    elif cfg.family == "encdec":
+        out["enc"] = stacked(block_spec("dense"))
+        out["ln_enc"] = nrm
+        out["layers"] = stacked(block_spec("cross"))
+    else:
+        kind = {"ssm": "ssm", "moe": "moe"}.get(cfg.family, "dense")
+        out["layers"] = stacked(block_spec(kind))
+    return out
+
+
+def cache_specs(cfg: ModelConfig, mesh_shape: dict, caches, dp=None):
+    """The reference's partition-spec tree of the decode caches (stacked,
+    with a leading ``None``), given the port's per-layer ``caches``
+    (``init_caches(..., device="meta")`` will do): batch over the data
+    axes, kv heads over "model" when divisible."""
+    tp = mesh_shape.get("model", 1)
+    if dp is None:
+        dp = tuple(a for a in DATA_AXES if a in mesh_shape)
+    kvm = "model" if cfg.n_kv % tp == 0 else None
+
+    def leaf_spec(path, a):
+        lead = () if path[0] == "rem" else (None,)   # layer-stacked?
+        name = path[-1]
+        if name in ("k", "v", "xk", "xv"):
+            return P(*lead, dp, None, kvm, None)
+        if name == "state" and a.ndim == 4:          # ssm state
+            return P(*lead, dp, kvm, None, None)
+        if name == "state":                           # rglru state
+            return P(*lead, dp, None)
+        if name == "conv":
+            return P(*lead, dp, None, None)
+        return P()
+
+    return convert.nest({path: leaf_spec(path, a) for path, a in
+                         convert.cache_leaves(caches).items()})

@@ -17,7 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig, not_ported
+from repro_torch.models.common import P, ModelConfig, not_ported
 from . import optimizer as opt
 
 
@@ -58,8 +58,9 @@ def train_step_fn(cfg: ModelConfig, adam: opt.AdamWConfig | None = None,
     """``step(state, batch) -> (state, metrics)`` with metrics ``loss``,
     ``grad_norm``, ``lr`` and ``moe_drop`` (0-d tensors)."""
     if mesh is not None:
-        raise not_ported("a train step on a mesh", "3b",
-                         "the sharding specs (state_specs)")
+        raise not_ported("a train step on a mesh", "3c",
+                         "gradients through the ring attention's and the "
+                         "expert-parallel MoE's collectives")
     adam = adam or opt.AdamWConfig()
 
     def step(state: TrainState, batch):
@@ -87,4 +88,11 @@ def train_step_fn(cfg: ModelConfig, adam: opt.AdamWConfig | None = None,
 
 
 def state_specs(cfg: ModelConfig, mesh_shape: dict):
-    raise not_ported("state_specs", "3b", "a sharded model")
+    """Partition-spec tree for the whole TrainState, as the reference's:
+    the parameters' (``transformer.param_specs``) for the parameters and
+    both moments, ``P()`` for the step.  ``models.convert.local_spec``
+    gives a moment's spec from its dotted name."""
+    pspec = tf.param_specs(cfg, mesh_shape)
+    return TrainState(params=pspec,
+                      opt_state={"m": pspec, "v": pspec, "step": P()},
+                      err_fb=None)

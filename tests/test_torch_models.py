@@ -157,10 +157,23 @@ def test_flups_poisson_and_serving_not_ported():
     assert arch_shapes("flups-poisson") == ()
     assert [s.name for s in arch_shapes("mamba2-2.7b")] == [
         "train_4k", "prefill_32k", "decode_32k", "long_500k"]
-    for fn in (tf.prefill, tf.decode_step, tf.init_caches, tf.param_specs,
-               tf.cache_specs):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            fn(None, get_smoke("qwen3-0.6b"))
+    # the serving half (ROADMAP item 3b) now runs
+    cfg = get_smoke("qwen3-0.6b")
+    model = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    logits, caches = tf.prefill(model, tokens, max_len=6)
+    assert logits.shape == (1, 4, cfg.vocab)
+    fresh = tf.init_caches(cfg, 1, 6, device="cpu")
+    assert convert.cache_leaves(fresh)[("layers", "sa", "k")].shape == \
+        convert.cache_leaves(caches)[("layers", "sa", "k")].shape
+    logits, _ = tf.decode_step(model, tokens[:, :1], caches, 4)
+    assert logits.shape == (1, 1, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    shape = {"data": 2, "model": 4}
+    assert convert.local_spec(tf.param_specs(cfg, shape),
+                              "layers.0.attn.wq") == ("data", "model", None)
+    assert tf.cache_specs(cfg, shape, fresh)["layers"]["sa"]["k"] == (
+        None, "data", None, None, None)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-medium",
@@ -425,7 +438,7 @@ def test_rglru_scan():
     p = convert.from_reference(tree, cfg).groups["rec0"][0].rec
     x = _rng_array((2, 37, cfg.d_model))
     with torch.no_grad():
-        out, state = rglru.rglru_block(p, cfg, torch.from_numpy(x))
+        out, state, _ = rglru.rglru_block(p, cfg, torch.from_numpy(x))
     rout, rstate, _ = jax.jit(functools.partial(rrglru.rglru_block,
                                                 cfg=rcfg))(rp, x=jnp.asarray(x))
     _close(out, rout, F32_TOL)

@@ -1056,6 +1056,106 @@ def scenario_serve_mesh_lost(rank, d, params):
     return out
 
 
+def _lm_model(d, tag, spec):
+    """A smoke config with ``spec``'s overrides and the model loaded from
+    the reference's parameters in ``<d>/model_<tag>.npz``."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import convert
+    cfg = dataclasses.replace(get_smoke(spec["arch"]), **spec["over"])
+    if "capacity_factor" in spec:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=spec["capacity_factor"]))
+    flat = np.load(os.path.join(d, f"model_{tag}.npz"))
+    tree = convert.nest({tuple(k.split("/")): flat[k] for k in flat.files})
+    return cfg, convert.from_reference(tree, cfg, "cpu")
+
+
+def scenario_lm_mesh(rank, d, params):
+    """Eight ranks, mesh (2, 4) ("data", "model"): ring attention on each
+    rank's (batch, sequence) block against the reference's attention; the
+    expert-parallel ``moe_block`` under each of ``params["moe_comms"]``
+    against the reference's ``_moe_local`` on the same block; both
+    raising under autograd; the model's forward with ring attention and
+    its prefill with the expert-parallel MoE, each rank passing its data
+    shard, against the reference's forward and prefill."""
+    import torch
+    from repro_torch.core.comm import label_to_cfg
+    from repro_torch.models import attention as attn
+    from repro_torch.models import convert, moe
+    from repro_torch.models import transformer as tf
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    dr, mr = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+
+    def load(name):
+        return np.load(os.path.join(d, name + ".npy"))
+
+    def block(a, seq=True, axis=0):
+        """This rank's batch shard of ``a`` (batch at ``axis``) and, with
+        ``seq``, its sequence block over the model axis."""
+        b = a.shape[axis] // 2
+        a = np.take(a, range(dr * b, (dr + 1) * b), axis=axis)
+        if seq:
+            s = a.shape[axis + 1] // 4
+            a = np.take(a, range(mr * s, (mr + 1) * s), axis=axis + 1)
+        return a
+
+    def rel(got, want):
+        got = got.detach().float().numpy() if torch.is_tensor(got) else got
+        return float(np.abs(got - want).max() /
+                     max(float(np.abs(want).max()), 1e-30))
+
+    def raises(fn):
+        try:
+            fn()
+        except NotImplementedError as e:
+            return str(e)
+        return "ran"
+
+    models = {tag: _lm_model(d, tag, spec)
+              for tag, spec in params["models"].items()}
+    out = {"ring": {}, "moe": {}}
+    for tag, case in params["ring"].items():
+        cfg, model = models[case["model"]]
+        x = torch.from_numpy(block(load(f"ring_{tag}_x")))
+        with torch.no_grad():
+            got = attn.attention_ring(model.layers[0].attn, cfg, x, mesh,
+                                      prefix_len=case["prefix_len"])
+        out["ring"][tag] = rel(got, block(load(f"ring_{tag}_want")))
+    out["ring_grad"] = raises(lambda: attn.attention_ring(
+        model.layers[0].attn, cfg, x, mesh))
+
+    cfg, model = models["moe"]
+    x = torch.from_numpy(block(load("moe_x")))
+    want = block(load("moe_want"))
+    for label in params["moe_comms"]:
+        with torch.no_grad():
+            got, drop = moe.moe_block(model.layers[0].moe, cfg, x,
+                                      label_to_cfg(label), mesh)
+        out["moe"][label] = [rel(got, want), float(drop)]
+    out["moe_grad"] = raises(lambda: moe.moe_block(
+        model.layers[0].moe, cfg, x, None, mesh))
+
+    cfg, model = models["ring_model"]
+    tokens = torch.from_numpy(block(load("fwd_tokens"), seq=False))
+    with torch.no_grad():
+        logits, _ = tf.forward(model, tokens, mesh=mesh)
+    out["forward_ring"] = rel(logits, block(load("fwd_want"), seq=False))
+
+    cfg, model = models["moe_model"]
+    tokens = torch.from_numpy(block(load("pre_tokens"), seq=False))
+    logits, caches = tf.prefill(model, tokens, mesh=mesh,
+                                max_len=params["max_len"])
+    out["prefill_moe"] = rel(logits, block(load("pre_want"), seq=False))
+    want = np.load(os.path.join(d, "pre_caches.npz"))
+    got = convert._flat(convert.caches_to_reference(caches))
+    out["prefill_caches"] = {
+        k: rel(got[tuple(k.split("/"))], block(want[k], seq=False, axis=1))
+        for k in want.files}
+    return out
+
+
 def _run_rank(rank, scenario, d, world):
     import torch
     import torch.distributed as dist

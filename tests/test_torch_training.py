@@ -437,5 +437,5 @@ def test_compressed_training_memorizes_a_batch():
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
     assert losses[-1] < losses[0]
-    with pytest.raises(NotImplementedError, match="item 3b"):
+    with pytest.raises(NotImplementedError, match="item 3c"):
         ts.train_step_fn(cfg, mesh=object())

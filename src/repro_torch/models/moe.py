@@ -9,8 +9,10 @@ sum in the flattened (T*k) order, so the dropped entries and the
 ``moe_drop`` metric are the reference's.
 
 On a mesh with a ``"model"`` axis, tokens are split over the data axes
-and the ``"model"`` axis and experts over ``"model"``; dispatch and
-combine are each one flups topology switch over that axis
+and the ``"model"`` axis and experts over ``"model"`` (a rank's module
+holds either all ``E`` experts' weights or only its own ``E / n``, as
+``param_specs`` lays them out); dispatch and combine are each one
+flups topology switch over that axis
 (``repro_torch.core.comm.topology_switch``, any strategy), and the
 capacity comes from the shard's own token count.  That path is
 forward-only (its gradient is ROADMAP queue 1 item 3c).
@@ -100,19 +102,39 @@ def _expert_ffn(cfg, buf, w_in, w_gate, w_out):
     return torch.bmm(h, w_out.to(cd))
 
 
-def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
-    """One rank's share of the expert-parallel MoE: ``x`` is its token
-    block, its experts the ``"model"`` coordinate's ``E / n`` of ``p``'s.
-    Returns (out, the drop fraction's mean over every rank of the
-    mesh)."""
-    forward_only("the expert-parallel moe_block", x, *p.parameters())
-    m = cfg.moe
-    group = mesh.get_group("model")
-    n, r = dist.get_world_size(group), dist.get_rank(group)
+def _local_experts(p, m, n, r):
+    """This rank's expert rows of ``p``: its ``E / n`` when ``p`` holds
+    only those (the layout ``param_specs`` gives, experts over
+    ``"model"``), or the ``r``-th ``E / n`` when it holds all ``E``."""
     if m.n_experts % n:
         raise ValueError(f"moe_block: {m.n_experts} experts do not divide "
                          f"over the {n} ranks of the model axis")
     e_loc = m.n_experts // n
+    rows = p.w_in.shape[0]
+    if rows == m.n_experts:
+        experts = slice(r * e_loc, (r + 1) * e_loc)
+    elif rows == e_loc:
+        experts = slice(None)
+    else:
+        raise ValueError(f"moe_block: the module holds {rows} experts' "
+                         f"weights; on {n} model ranks it takes all "
+                         f"{m.n_experts} or this rank's {e_loc}")
+    w_gate = getattr(p, "w_gate", None)
+    return (p.w_in[experts], None if w_gate is None else w_gate[experts],
+            p.w_out[experts])
+
+
+def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
+    """One rank's share of the expert-parallel MoE: ``x`` is its token
+    block, its experts the ``"model"`` coordinate's ``E / n``
+    (``_local_experts``; the router and each expert's d_model axis
+    whole).  Returns (out, the drop fraction's mean over every rank of
+    the mesh)."""
+    forward_only("the expert-parallel moe_block", x, *p.parameters())
+    m = cfg.moe
+    group = mesh.get_group("model")
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    w_in, w_gate, w_out = _local_experts(p, m, n, r)
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -121,13 +143,9 @@ def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
     buf, book = _dispatch_local(xf, idx, m.n_experts, capacity)
     comm = as_comm(comm)
     groups = {"model": group}
-    experts = slice(r * e_loc, (r + 1) * e_loc)
-    w_gate = getattr(p, "w_gate", None)
     # flups topology switch #1: (E, C, d) -> (E_loc, C * n, d)
     buf = topology_switch(buf, "model", 0, 1, comm, groups=groups)
-    y = _expert_ffn(cfg, buf, p.w_in[experts],
-                    None if w_gate is None else w_gate[experts],
-                    p.w_out[experts])
+    y = _expert_ffn(cfg, buf, w_in, w_gate, w_out)
     # flups topology switch #2 (reverse): back to the token layout
     y = topology_switch(y, "model", 1, 0, comm, groups=groups)
     out = _combine_local(y, book, gate, t, m.top_k)

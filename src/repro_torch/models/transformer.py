@@ -454,8 +454,9 @@ def forward(model: Transformer, tokens, frontend=None, comm=None,
 @torch.no_grad()
 def prefill(model: Transformer, tokens, frontend=None, comm=None, mesh=None,
             max_len=None):
-    """Prompt pass: logits + decode caches sized ``max_len`` (the prompt's
-    length by default), on the model's device."""
+    """Prompt pass: logits + decode caches for ``max_len`` positions (the
+    prompt's length by default), laid out as ``init_caches`` lays them
+    out, on the model's device."""
     logits, _, caches = _forward_impl(model, tokens, frontend, comm, mesh,
                                       collect=True)
     s = logits.shape[1]
@@ -463,22 +464,27 @@ def prefill(model: Transformer, tokens, frontend=None, comm=None, mesh=None,
 
 
 def _finalize_caches(cfg, caches, s, max_len):
-    """Pad / roll collected prefill caches into decode layout: each layer's
-    keys and values padded to ``max_len`` slots or, for a window config
-    whose prompt is longer than its ``min(window, max_len)`` slots, the
-    last ones scattered into the rolling buffer (position p in slot
-    p % window)."""
-    win = min(cfg.window, max_len) if cfg.window else max_len
+    """Pad / roll collected prefill caches into decode layout, the slots
+    ``init_caches`` gives: for a window config with ``window <= max_len``
+    a rolling buffer of ``window`` slots holding the prompt's last
+    positions (position p in slot p % window), whatever the prompt's
+    length; else each layer's keys and values padded to ``max_len``
+    slots.  (The reference pads a prompt no longer than the window to
+    ``max_len`` slots, which its decode then reads without the window:
+    ROADMAP queue 3.)"""
+    rolling = bool(cfg.window) and cfg.window <= max_len
 
     def fix_kv(kv):
         # kv: (B, S, hkv, dh) each
         k = kv["k"]
-        if cfg.window and s > win:
-            idx = torch.arange(s - win, s, device=k.device) % win
+        if rolling:
+            win = cfg.window
+            keep = min(s, win)
+            idx = torch.arange(s - keep, s, device=k.device) % win
             out = {}
             for key in ("k", "v"):
                 buf = k.new_zeros((k.shape[0], win) + tuple(k.shape[2:]))
-                buf[:, idx] = kv[key][:, s - win:]
+                buf[:, idx] = kv[key][:, s - keep:]
                 out[key] = buf
             return out
         if max_len < s:

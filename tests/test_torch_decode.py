@@ -248,6 +248,58 @@ def test_prefill_caches_match_reference(arch):
                    if name.endswith((".k", ".v")))
 
 
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "recurrentgemma-9b"])
+def test_short_prompt_prefill_keeps_the_window(arch):
+    """A window config (window 16) prefilled with 8 tokens into caches
+    for 40 positions: its attention caches have the window's 16 slots,
+    as ``init_caches`` gives them, the prompt in slots 0-7 and zeros
+    after; then 24 decode steps (positions 8-31, past the window) ==
+    the forward's positions, in float32."""
+    cfg, rcfg = _f32(arch)
+    model = _model(cfg, rcfg)
+    tokens, _ = _inputs(cfg, 8)
+    p, max_len = 8, 40
+    logits, caches = tf.prefill(model, _t(tokens[:, :p]), max_len=max_len)
+    kv = {name: t for name, t in convert._dotted(caches).items()
+          if name.endswith((".k", ".v"))}
+    assert kv and all(t.shape[1] == cfg.window for t in kv.values())
+    assert all(not t[:, p:].any() and t[:, :p].abs().amax(dim=(0, 2, 3))
+               .gt(0).all() for t in kv.values())
+    full = tf.forward(model, _t(tokens))[0].detach()
+    _close(logits, full[:, :p])
+    for j in range(S - p):
+        lg, caches = tf.decode_step(model, _t(tokens[:, p + j:p + j + 1]),
+                                    caches, p + j)
+        _close(lg[:, 0], full[:, p + j])
+
+
+def test_reference_short_prompt_window_fault():
+    """The reference's prefill of a prompt no longer than the window pads
+    its caches to ``max_len`` slots, and its decode then attends past the
+    window: on starcoder2's smoke config (window 16), 8 prompt tokens and
+    ``max_len`` 40, its decode matches its forward up to position 15 and
+    strays from it from position 16 on (ROADMAP queue 3); the port's
+    (``test_short_prompt_prefill_keeps_the_window``) does not."""
+    cfg, rcfg = _f32("starcoder2-7b")
+    tokens, _ = _inputs(cfg, 8)
+    params = _ref_params(rcfg)
+    p, max_len = 8, 40
+    _, rcaches = rtf.prefill(params, rcfg, jnp.asarray(tokens[:, :p]),
+                             max_len=max_len)
+    assert all(a.shape[2] == max_len for a in _leaves(rcaches).values())
+    full = np.asarray(rtf.forward(params, rcfg, jnp.asarray(tokens))[0])
+    fn = _ref_decode(rcfg)
+    errs = []
+    for j in range(S - p):
+        lg, rcaches = fn(params, jnp.asarray(tokens[:, p + j:p + j + 1]),
+                         rcaches, p + j)
+        errs.append(np.abs(np.asarray(lg[:, 0]) - full[:, p + j]).max()
+                    / np.abs(full[:, p + j]).max())
+    window = cfg.window - p
+    assert max(errs[:window]) <= F32_TOL, errs[:window]
+    assert min(errs[window:]) > 1e-2, errs[window:]
+
+
 def test_bfloat16_caches_round_trip():
     """The configs' own bfloat16 caches through the reference layout and
     back, bit for bit (numpy has no bfloat16: they travel as float32)."""

@@ -19,7 +19,9 @@ the comparison that test makes.
   each model rank) under a2a, pipelined:2 and fused against the
   reference's ``_moe_local`` on each rank's block: the same local
   capacity, only the FFN's row grouping changes; 1e-4, and the drop
-  fraction's mean over the 8 blocks within 1e-6.
+  fraction's mean over the 8 blocks within 1e-6; the same from a module
+  that holds only the rank's 2 experts (the layout ``param_specs``
+  gives), and a ``ValueError`` from one holding neither 8 nor 2.
 - both raise ``NotImplementedError`` naming item 3c under autograd.
 - the model on the mesh: qwen3 smoke with ``attn_ring`` (every layer's
   attention on the ring), its forward on each rank's data shard against
@@ -155,6 +157,16 @@ def test_expert_parallel_moe_matches_local(mesh_run, comm):
         err, got_drop = res["moe"][comm]
         assert err < TOL, (r, err)
         assert abs(got_drop - drop) < 1e-6, (r, got_drop, drop)
+
+
+def test_expert_parallel_moe_from_the_ranks_own_experts(mesh_run):
+    runs, drop = mesh_run
+    for r, res in enumerate(runs):
+        err, got_drop = res["moe_own_experts"]
+        assert err < TOL, (r, err)
+        assert abs(got_drop - drop) < 1e-6, (r, got_drop, drop)
+        assert "takes all 8 or this rank's 2" in res["moe_bad_rows"], \
+            res["moe_bad_rows"]
 
 
 def test_ring_and_expert_parallel_raise_under_autograd(mesh_run):

@@ -1075,10 +1075,13 @@ def scenario_lm_mesh(rank, d, params):
     """Eight ranks, mesh (2, 4) ("data", "model"): ring attention on each
     rank's (batch, sequence) block against the reference's attention; the
     expert-parallel ``moe_block`` under each of ``params["moe_comms"]``
-    against the reference's ``_moe_local`` on the same block; both
-    raising under autograd; the model's forward with ring attention and
+    against the reference's ``_moe_local`` on the same block, also from
+    a module holding only the rank's experts; both raising under
+    autograd; the model's forward with ring attention and
     its prefill with the expert-parallel MoE, each rank passing its data
     shard, against the reference's forward and prefill."""
+    import copy
+
     import torch
     from repro_torch.core.comm import label_to_cfg
     from repro_torch.models import attention as attn
@@ -1136,6 +1139,23 @@ def scenario_lm_mesh(rank, d, params):
         out["moe"][label] = [rel(got, want), float(drop)]
     out["moe_grad"] = raises(lambda: moe.moe_block(
         model.layers[0].moe, cfg, x, None, mesh))
+    # a module holding only this rank's experts (param_specs' layout)
+    e_loc = cfg.moe.n_experts // 4
+    own = copy.deepcopy(model.layers[0].moe)
+    for name in ("w_in", "w_gate", "w_out"):
+        if hasattr(own, name):
+            setattr(own, name, torch.nn.Parameter(
+                getattr(own, name)[mr * e_loc:(mr + 1) * e_loc].clone()))
+    with torch.no_grad():
+        got, drop = moe.moe_block(own, cfg, x, None, mesh)
+    out["moe_own_experts"] = [rel(got, want), float(drop)]
+    own.w_in = torch.nn.Parameter(own.w_in[:1].clone())
+    try:
+        with torch.no_grad():
+            moe.moe_block(own, cfg, x, None, mesh)
+        out["moe_bad_rows"] = "ran"
+    except ValueError as e:
+        out["moe_bad_rows"] = str(e)
 
     cfg, model = models["ring_model"]
     tokens = torch.from_numpy(block(load("fwd_tokens"), seq=False))

@@ -230,6 +230,25 @@ Phases (each raises on failure; nothing is caught):
      experts a rank) against _moe_local on each rank's tokens, float32,
      1e-4, its drop the blocks' mean, and the same from a module holding
      only the rank's 16 experts (1e-4 of the first);
+  8g. LM training on a mesh (repro_torch.training.train_step_fn(mesh=);
+     no kernel of this script), four gloo ranks spawned on the card,
+     float32 compute, TF32 off, after a memory reckoning per rank and
+     for the four against the card: qwen3-0.6b at full width cut to 4
+     layers with attn_ring, global batch 4 x 2048, two steps on mesh
+     (2, 2), a checkpoint saved whole from rank 0, a restore onto mesh
+     (1, 4) and a third step, against three one-process steps on the
+     same batches; moonshot-v1-16b-a3b at full width cut to 1 layer,
+     each rank holding its own 16 of the 64 experts, capacity factor
+     E / k, global batch 2 x 1024, two steps on mesh (1, 4), against one
+     process holding all 64 (run first and freed before the ranks
+     spawn).  Each batch's second half masks its last 256 positions.
+     Held: losses within 1e-5 relative, the first step's reduced
+     gradients within 1e-4 of each leaf's largest, the dense model's
+     last parameters within 2e-5 |p| + 2e-6, every rank's parameters
+     (but its own experts) bit-equal; printed: ms a step on the mesh
+     and on one process, the gloo gradient reduction's share, each
+     rank's peak memory_allocated, the checkpoint's save and restore
+     seconds;
   9. every kernel call of the recorded solves (the distributed, the
      served and the launched ones, the spawned ranks' and search_plan's
      radix-2 calls among them) replayed at its shape
@@ -2721,6 +2740,431 @@ def _lm_serve_phase(dev, smi):
     print(f"LM serve phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
 
 
+# the LM training-on-a-mesh phase (8g): four gloo ranks on the one card,
+# float32 compute, TF32 off.  (arch, config overrides, global batch, seq,
+# the cut as printed); the dense model takes two steps on the first mesh,
+# a checkpoint, and one step on the second; the MoE model, each rank
+# holding its own E / 4 experts, at a capacity factor of E / k, takes
+# LM_TM_MOE_STEPS steps on its mesh.  The second half of each batch drops
+# its last LM_TM_MASKED positions from the mask, so that the shards' masks
+# differ (the loss is over the global mask sum)
+LM_TM_DENSE = ("qwen3-0.6b", {"n_layers": 4, "attn_ring": True}, 4, 2048,
+               "28 -> 4 layers")
+LM_TM_DENSE_MESHES = ((2, 2), (1, 4))
+LM_TM_MOE = ("moonshot-v1-16b-a3b", {"n_layers": 1}, 2, 1024,
+             "48 -> 1 layer")
+LM_TM_MOE_MESH = (1, 4)
+LM_TM_MOE_STEPS = 2
+LM_TM_MASKED = 256
+LM_TM_SEEDS = {"dense": 91, "moe": 92, "batch": 93}
+# held: each loss within LM_TM_LOSS_TOL relative of the one process's;
+# each leaf of the first step's reduced gradient within LM_TM_GRAD_TOL of
+# the leaf's largest value; the dense parameters after the last step
+# elementwise within LM_TM_RTOL |p| + LM_TM_ATOL, the reference elastic
+# test's bound (with warmup=100 the three steps' learning rates sum to
+# 1.8e-5: the bound holds each update's direction wherever the gradient
+# is more than rounding); every rank's parameters (but its own experts)
+# bit-equal
+LM_TM_LOSS_TOL = 1e-5
+LM_TM_GRAD_TOL = 1e-4
+LM_TM_RTOL, LM_TM_ATOL = 2e-5, 2e-6
+# per rank, the float32 logits' bytes times this many in the reckoning:
+# the logits and their gradient (train_step._MaskedNLL writes the
+# gradient into one buffer, chunk by chunk)
+LM_TM_LOGIT_COPIES = 2
+
+
+def _lm_tm_cfgs():
+    """The phase's two configs, float32 compute."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, over = LM_TM_DENSE[:2]
+    dense = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                                **over)
+    arch, over = LM_TM_MOE[:2]
+    moe = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                              **over)
+    moe = dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, capacity_factor=moe.moe.n_experts / moe.moe.top_k))
+    return dense, moe
+
+
+def _lm_tm_batches(cfg, n, batch, seq, dev):
+    from repro_torch.data.pipeline import synthetic_batch
+    out = []
+    for i in range(n):
+        b = synthetic_batch(cfg, i, batch, seq, seed=LM_TM_SEEDS["batch"],
+                            device=dev)
+        b["mask"][batch // 2:, seq - LM_TM_MASKED:] = 0.0
+        out.append(b)
+    return out
+
+
+def _lm_tm_checksum(model, skip=()) -> int:
+    """An integer of every bit of ``model``'s parameters (but ``skip``):
+    each leaf's float32 words as integers, weighted by their position."""
+    import torch
+    total, chunk = 0, 1 << 24
+    for name, p in model.named_parameters():
+        if name in skip:
+            continue
+        w = p.detach().reshape(-1).view(torch.int32)
+        for i in range(0, w.numel(), chunk):
+            c = w[i:i + chunk].to(torch.int64)
+            idx = torch.arange(i, i + c.numel(), device=c.device) % 65521
+            total += int((c * (idx + 1)).sum())
+    return total
+
+
+def _lm_tm_leaf_diff(got, want, rtol=None, atol=None):
+    """(max |got - want|, max |want|) of a leaf on the card against one
+    on the host, a slice of rows at a time (a 1.3 GB leaf in float64
+    would not fit beside four ranks' states); with ``rtol`` and ``atol``
+    also the largest ``|got - want| / (atol + rtol |want|)``."""
+    import torch
+    got, want = got.detach().reshape(got.shape[0], -1), \
+        want.reshape(want.shape[0], -1)
+    rows = max(1, (1 << 24) // max(1, got.shape[1]))
+    diff = top = excess = 0.0
+    for i in range(0, got.shape[0], rows):
+        w = want[i:i + rows].to(got.device, torch.float64)
+        d = (got[i:i + rows].double() - w).abs()
+        diff = max(diff, float(d.max()))
+        top = max(top, float(w.abs().max()))
+        if rtol is not None:
+            excess = max(excess, float((d / (atol + rtol * w.abs())).max()))
+    return (diff, top) if rtol is None else (diff, top, excess)
+
+
+def _lm_tm_grad_check(model, cfg, mesh, want, out):
+    """An ``on_grads`` hook for the first mesh step: its reduced
+    gradients against the one process's ``want`` ({name: tensor}),
+    ``out`` given (largest relative error of a leaf, that leaf).  A
+    rank's own experts are held against their rows."""
+    from repro_torch.training import train_step as ts
+
+    def check(grads):
+        t = time.perf_counter()
+        r = mesh.get_local_rank("model")
+        params = dict(model.named_parameters())
+        worst = (0.0, "")
+        for n, g in grads.items():
+            w = want[n]
+            if ts.expert_block(n, params[n], cfg):
+                w = w[r * g.shape[0]:(r + 1) * g.shape[0]]
+            diff, top = _lm_tm_leaf_diff(g, w)
+            worst = max(worst, (diff / max(top, 1e-30), n))
+        out.extend(worst + ((time.perf_counter() - t) * 1e3,))
+    return check
+
+
+def _lm_train_mesh_rank(rank, world, d, refs):
+    """One of phase 8g's four gloo ranks on the one card: the dense model
+    on LM_TM_DENSE_MESHES with the checkpoint between them, then the MoE
+    model on LM_TM_MOE_MESH, against the one process's ``refs`` (its
+    first gradients and the dense model's last parameters, on the card,
+    shared by CUDA IPC).  Writes ``<d>/rank<rank>.json``."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    # four ranks' states share the card: segments that grow in place
+    # leave less of it reserved and unused between the two models
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.models import convert, moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    d = Path(d)
+    with open(d / "params.json") as fh:
+        prm = json.load(fh)
+    dev = torch.device(prm["device"])
+    sync = lambda: None
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sync = torch.cuda.synchronize
+    peak = lambda: (torch.cuda.max_memory_allocated() / 2 ** 30
+                    if dev.type == "cuda" else 0.0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{d}/gloo", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    names = ("data", "model")
+    dense, moe_cfg = _lm_tm_cfgs()
+    out = {}
+
+    def run(state, cfg, mesh, batches, rec, skip=(), on_grads=None):
+        for i, b in enumerate(batches):
+            step = ts.train_step_fn(cfg, mesh=mesh,
+                                    on_grads=on_grads if i == 0 else None)
+            sync()
+            t = time.perf_counter()
+            state, m = step(state, ts.data_shard(b, mesh))
+            rec["loss"].append(float(m["loss"]))
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["reduce_ms"].append(float(m["grad_reduce_s"]) * 1e3)
+            rec["sum"].append(_lm_tm_checksum(state.params, skip))
+        return state
+
+    # -- the dense model: two steps, a checkpoint, a restore, one step ----
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gb, seq = LM_TM_DENSE[2:4]
+    batches = _lm_tm_batches(dense, 3, gb, seq, dev)
+    mesh_a = init_device_mesh(dev.type, LM_TM_DENSE_MESHES[0],
+                              mesh_dim_names=names)
+    state = ts.make_train_state(
+        torch.Generator(dev).manual_seed(LM_TM_SEEDS["dense"]), dense)
+    out["dense_grad"] = []
+    rec = out["dense"] = {"loss": [], "ms": [], "reduce_ms": [], "sum": []}
+    state = run(state, dense, mesh_a, batches[:2], rec,
+                on_grads=_lm_tm_grad_check(state.params, dense, mesh_a,
+                                           refs["dense_grads"],
+                                           out["dense_grad"]))
+    sync()
+    t = time.perf_counter()
+    ck.save(d / "ckpt", 2, convert.to_reference(state, mesh_a), mesh=mesh_a)
+    out["save_s"] = time.perf_counter() - t
+    del state
+    gc.collect()
+    mesh_b = init_device_mesh(dev.type, LM_TM_DENSE_MESHES[1],
+                              mesh_dim_names=names)
+    t = time.perf_counter()
+    tree = ck.restore(d / "ckpt", 2, convert.reference_like(dense),
+                      mesh=mesh_b, specs=ts.state_specs(
+                          dense, dict(zip(names, LM_TM_DENSE_MESHES[1]))))
+    state = convert.from_reference(tree, dense, dev)
+    sync()
+    out["restore_s"] = time.perf_counter() - t
+    del tree
+    state = run(state, dense, mesh_b, batches[2:], rec)
+    want = refs["dense_params"]
+    worst, diff = 0.0, 0.0
+    for n, p in state.params.named_parameters():
+        d_n, _, excess = _lm_tm_leaf_diff(p, want[n], LM_TM_RTOL, LM_TM_ATOL)
+        worst, diff = max(worst, excess), max(diff, d_n)
+    out["dense_param_excess"], out["dense_param_diff"] = worst, diff
+    out["dense_peak_gib"] = peak()
+    del state, want, batches
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- the MoE model, each rank holding its own experts ------------------
+    gb, seq = LM_TM_MOE[2:4]
+    batches = _lm_tm_batches(moe_cfg, LM_TM_MOE_STEPS, gb, seq, dev)
+    mesh_m = init_device_mesh(dev.type, LM_TM_MOE_MESH, mesh_dim_names=names)
+    n_model = LM_TM_MOE_MESH[1]
+    model = tf.init_params(torch.Generator(dev).manual_seed(
+        LM_TM_SEEDS["moe"]), moe_cfg)
+    moe.own_experts_(model, n_model, mesh_m.get_local_rank("model"))
+    named = dict(model.named_parameters())
+    state = ts.TrainState(model, opt.init_opt_state(named), None)
+    own = {n for n, p in named.items() if ts.expert_block(n, p, moe_cfg)}
+    out["moe_rows"] = sorted({named[n].shape[0] for n in own})
+    out["moe_grad"] = []
+    rec = out["moe"] = {"loss": [], "ms": [], "reduce_ms": [], "sum": []}
+    state = run(state, moe_cfg, mesh_m, batches, rec, skip=own,
+                on_grads=_lm_tm_grad_check(model, moe_cfg, mesh_m,
+                                           refs["moe_grads"],
+                                           out["moe_grad"]))
+    out["moe_peak_gib"] = peak()
+    with open(d / f"rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    # the shared references go back before the producer frees them
+    del state, model, named
+    refs.clear()
+    gc.collect()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _lm_tm_reference(cfg, batches, gen, keep_params):
+    """The one-process run, a step on each batch.  Returns (losses, ms
+    per step, peak GiB, the first step's gradients, the last parameters
+    where ``keep_params``), the last two on the card, and frees the
+    state."""
+    import torch
+    from repro_torch.training import train_step as ts
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.make_train_state(gen, cfg)
+    grads = {}
+
+    def keep(g):
+        grads.update({n: t.clone() for n, t in g.items()})
+    losses, ms = [], []
+    for i, b in enumerate(batches):
+        step = ts.train_step_fn(cfg, on_grads=keep if i == 0 else None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    params = ({n: p.detach().clone()
+               for n, p in state.params.named_parameters()}
+              if keep_params else None)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, ms, peak, grads, params
+
+
+def _lm_train_mesh_phase(dev, smi):
+    """Phase 8g: LM training on a mesh of four gloo ranks on the one card,
+    as the module docstring lists it.  Raises on the first failed check;
+    prints the numbers."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    gib = lambda b: b / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    card = torch.cuda.get_device_properties(dev).total_memory
+    dense, moe_cfg = _lm_tm_cfgs()
+
+    # the memory reckoning, before anything is spawned
+    n_dense = dense.n_params()
+    e = moe_cfg.moe.n_experts
+    n_moe = moe_cfg.n_params()
+    expert = moe_cfg.n_layers * e * moe_cfg.d_model * moe_cfg.d_ff * 3
+    n_moe_rank = n_moe - expert + expert // LM_TM_MOE_MESH[1]
+    gb, seq = LM_TM_DENSE[2:4]
+    rows = max(gb // m[0] for m in LM_TM_DENSE_MESHES)
+    act_dense = LM_TM_LOGIT_COPIES * rows * seq * dense.vocab * 4
+    gb_m, seq_m = LM_TM_MOE[2:4]
+    act_moe = (LM_TM_LOGIT_COPIES * gb_m // LM_TM_MOE_MESH[0] * seq_m
+               * moe_cfg.vocab * 4)
+    per_dense = 16 * n_dense + act_dense
+    per_moe = 16 * n_moe_rank + act_moe
+    worst = max(per_dense, per_moe)
+    # kept here for the ranks: the one process's first gradients of both
+    # models and the dense model's last parameters, float32
+    kept = 4 * (2 * n_dense + n_moe)
+    print(f"LM_TRAIN_MESH reckoning: dense {LM_TM_DENSE[0]} "
+          f"({LM_TM_DENSE[4]}) {n_dense} parameters x 16 B (weights, "
+          f"gradients, two moments) = {gib(16 * n_dense):.2f} GiB a rank "
+          f"+ {LM_TM_LOGIT_COPIES} x its float32 logits ({rows} x {seq} x "
+          f"{dense.vocab}) {gib(act_dense):.2f} GiB = {gib(per_dense):.2f} "
+          f"GiB; MoE {LM_TM_MOE[0]} ({LM_TM_MOE[4]}) {n_moe_rank} "
+          f"parameters a rank ({e // LM_TM_MOE_MESH[1]} of {e} experts) x "
+          f"16 B = {gib(16 * n_moe_rank):.2f} GiB + logits "
+          f"{gib(act_moe):.2f} GiB = {gib(per_moe):.2f} GiB; four ranks "
+          f"{gib(4 * worst):.2f} GiB + {gib(resident):.2f} GiB resident "
+          f"here + {gib(kept):.2f} GiB of the one process's gradients and "
+          f"parameters kept for the ranks, against the card's "
+          f"{gib(card):.2f} GiB; card: {smi}")
+    if 4 * worst + resident + kept > card:
+        raise AssertionError("LM_TRAIN_MESH: the reckoning does not fit")
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        # the one-process runs first, each freed before the next
+        ref = {}
+        gen = torch.Generator(dev).manual_seed(LM_TM_SEEDS["dense"])
+        ref["dense"] = _lm_tm_reference(
+            dense, _lm_tm_batches(dense, 3, gb, seq, dev), gen, True)
+        # the one process keeps all of the MoE's experts
+        gen = torch.Generator(dev).manual_seed(LM_TM_SEEDS["moe"])
+        ref["moe"] = _lm_tm_reference(
+            moe_cfg, _lm_tm_batches(moe_cfg, LM_TM_MOE_STEPS, gb_m, seq_m,
+                                    dev), gen, False)
+        refs = {"dense_grads": ref["dense"][3],
+                "dense_params": ref["dense"][4],
+                "moe_grads": ref["moe"][3]}
+        with open(d / "params.json", "w") as fh:
+            json.dump({"device": str(dev)}, fh)
+        t1 = time.perf_counter()
+        mp.start_processes(_lm_train_mesh_rank, args=(4, str(d), refs),
+                           nprocs=4, start_method=DIST_START)
+        t_ranks = time.perf_counter() - t1
+        del refs
+        torch.cuda.ipc_collect()
+        ranks = []
+        for r in range(4):
+            # written by this phase's own ranks just above
+            with open(d / f"rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+
+    for part in ("dense", "moe"):
+        want = ref[part][0]
+        for r, res in enumerate(ranks):
+            got = res[part]["loss"]
+            errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+            if len(got) != len(want) or max(errs) > LM_TM_LOSS_TOL or \
+                    not all(math.isfinite(g) for g in got):
+                raise AssertionError(f"LM_TRAIN_MESH {part} rank {r}: losses "
+                                     f"{got} against {want}")
+            if res[f"{part}_grad"][0] > LM_TM_GRAD_TOL:
+                raise AssertionError(f"LM_TRAIN_MESH {part} rank {r}: the "
+                                     f"first step's gradient of "
+                                     f"{res[f'{part}_grad'][1]} "
+                                     f"{res[f'{part}_grad'][0]:.2e} off")
+            if res[part]["sum"] != ranks[0][part]["sum"]:
+                raise AssertionError(f"LM_TRAIN_MESH {part} rank {r}: its "
+                                     f"parameters differ from rank 0's")
+    for r, res in enumerate(ranks):
+        if res["dense_param_excess"] > 1.0:
+            raise AssertionError(f"LM_TRAIN_MESH dense rank {r}: the last "
+                                 f"parameters {res['dense_param_diff']:.2e} "
+                                 f"off, {res['dense_param_excess']:.2f} x "
+                                 f"the bound")
+        if res["moe_rows"] != [moe_cfg.moe.n_experts // LM_TM_MOE_MESH[1]]:
+            raise AssertionError(f"LM_TRAIN_MESH moe rank {r}: expert rows "
+                                 f"{res['moe_rows']}")
+    top = lambda k: max(res[k] for res in ranks)
+    for part, spec, meshes in (
+            ("dense", LM_TM_DENSE,
+             " then ".join(map(str, LM_TM_DENSE_MESHES))),
+            ("moe", LM_TM_MOE, str(LM_TM_MOE_MESH))):
+        ms = [max(res[part]["ms"][i] for res in ranks)
+              for i in range(len(ranks[0][part]["ms"]))]
+        red = [max(res[part]["reduce_ms"][i] for res in ranks)
+               for i in range(len(ms))]
+        losses, ref_ms, ref_peak = ref[part][:3]
+        print(f"LM_TRAIN_MESH {part} {spec[0]} ({spec[4]}, full width), "
+              f"float32, global batch {spec[2]} x seq {spec[3]}, mesh "
+              f"{meshes}: losses {[round(x, 6) for x in ranks[0][part]['loss']]}"
+              f" within {max(abs(g - w) / abs(w) for g, w in zip(ranks[0][part]['loss'], losses)):.2e}"
+              f" of the one process's {[round(x, 6) for x in losses]} "
+              f"(tolerance {LM_TM_LOSS_TOL:.0e}); the first step's reduced "
+              f"gradients within {top(part + '_grad')[0]:.2e} of the one "
+              f"process's (worst leaf {max(r[part + '_grad'] for r in ranks)[1]},"
+              f" tolerance {LM_TM_GRAD_TOL:.0e}); ranks bit-equal; ms a step "
+              f"on the mesh {[round(x, 1) for x in ms]} (the slowest rank; "
+              f"the first with its gradient check) against one process "
+              f"{[round(x, 1) for x in ref_ms]} (the first keeping its "
+              f"gradients); the check took "
+              f"{max(r[part + '_grad'][2] for r in ranks):.1f} ms of the "
+              f"first mesh step; the "
+              f"gradient reduction (gloo, host-staged) "
+              f"{[round(x, 1) for x in red]} ms, "
+              f"{[f'{a / b:.1%}' for a, b in zip(red, ms)]} of the step; "
+              f"peak memory_allocated a rank "
+              f"{[round(r[part + '_peak_gib'], 3) for r in ranks]} GiB, one "
+              f"process {ref_peak:.3f} GiB; card: {smi}")
+    print(f"LM_TRAIN_MESH checkpoint: saved on mesh "
+          f"{LM_TM_DENSE_MESHES[0]} in {top('save_s'):.2f} s (gathered, "
+          f"written once by rank 0), restored onto "
+          f"{LM_TM_DENSE_MESHES[1]} in {top('restore_s'):.2f} s; the last "
+          f"parameters within {top('dense_param_diff'):.2e} of the one "
+          f"process's ({top('dense_param_excess'):.3f} x the bound "
+          f"{LM_TM_RTOL:.0e} |p| + {LM_TM_ATOL:.0e}); the MoE ranks hold "
+          f"{ranks[0]['moe_rows'][0]} experts each; ranks {t_ranks:.1f} s")
+    print(f"LM train mesh phase: {time.perf_counter() - t0:.1f} s; card: "
+          f"{smi}")
+
+
 def _rate(table, name, default):
     for key, v in table.items():
         if key in name:
@@ -3952,11 +4396,21 @@ def main() -> int:
     # -- 8d. serving on a mesh of four ranks ----------------------------------
     serve_launches.update(_serve_mesh_phase(dev, smi, calls))
 
+    # the LM phases need the card: the solve phases' solvers, Green planes
+    # and fields leave it (phase 9 replays from the recorded descriptors)
+    solvers.clear()
+    dist1.clear()
+    del sc, st, f, ut, sp, sp_uuu, f_uuu, bc, bt
+    clear_solver_cache()
+
     # -- 8e. LM training ------------------------------------------------------
     _lm_phase(dev, smi)
 
     # -- 8f. LM serving -------------------------------------------------------
     _lm_serve_phase(dev, smi)
+
+    # -- 8g. LM training on a mesh of four ranks ------------------------------
+    _lm_train_mesh_phase(dev, smi)
 
     # -- 9. replays and times -------------------------------------------------
     def nbytes(t):

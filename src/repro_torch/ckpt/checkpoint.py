@@ -25,13 +25,22 @@ leaf count and each leaf's shape, as the reference does.  A tensor is
 saved from its host copy; a restored leaf comes back on its like-leaf's
 device and in its dtype (a numpy like-leaf as numpy).
 
-The reference's ``shardings=`` re-shard on restore has no counterpart: a
-rank of ``DistributedPoissonSolver`` holds the global field
-(``solve`` returns it on every rank), so a checkpoint restores onto any
-mesh as it is.
+A training state on a mesh is saved whole: ``models.convert.to_reference(
+state, mesh)`` gathers the leaves a rank holds a block of (its own
+``E / n`` experts' rows) over ``"model"``, and ``save(..., mesh=mesh)``
+writes each leaf's full logical array once, from the mesh's lowest rank,
+every rank returning once it is committed.  ``restore(..., mesh=mesh,
+specs=specs)`` is the counterpart of the reference's ``shardings=``: a
+like-leaf shorter than the stored leaf on a dimension gets the rank's
+block there, over the mesh axes its spec (``train_step.state_specs``,
+``convert.local_spec``'s tree) names, major first; every other leaf
+comes back whole, as the port holds it (parameters whole over the data
+axes).  A rank of ``DistributedPoissonSolver`` holds the global field,
+so a solver's checkpoint restores onto any mesh as it is.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -40,6 +49,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.models.common import P, mesh_coord
 from repro_torch.runtime import faults as _faults
 
 __all__ = ["CheckpointError", "save", "all_steps", "latest_step",
@@ -111,10 +121,29 @@ def _digest(arr) -> str:
     return f"{zlib.crc32(a.tobytes()) & 0xffffffff:08x}"
 
 
-def save(directory, step, tree, keep_last=3):
+def _mesh_barrier(mesh):
+    """A barrier over every rank of ``mesh``: one over each axis in turn
+    (a rank leaves the last only after every rank has entered the
+    first)."""
+    import torch.distributed as dist
+    for name in mesh.mesh_dim_names:
+        dist.barrier(group=mesh.get_group(name))
+
+
+def save(directory, step, tree, keep_last=3, mesh=None):
+    """Writes ``tree`` as ``<directory>/step_<step>`` and returns that
+    path.  With ``mesh`` every rank of it calls ``save`` with the whole
+    tree; the mesh's lowest rank writes it, and every rank returns once
+    the step is committed."""
+    final = os.path.join(directory, f"step_{step}")
+    if mesh is not None:
+        import torch.distributed as dist
+        if dist.get_rank() == int(mesh.mesh.min()):
+            save(directory, step, tree, keep_last)
+        _mesh_barrier(mesh)
+        return final
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"step_{step}.tmp")
-    final = os.path.join(directory, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -210,9 +239,61 @@ def latest_step(directory):
     return steps[-1] if steps else None
 
 
-def restore(directory, step, like_tree):
+def _leaf_specs(like, specs):
+    """The spec of each of ``like``'s leaves, in its leaf order, from the
+    same-shaped tree ``specs`` (a ``train_step.TrainState`` of specs
+    counts as the tuple of its fields); None where ``specs`` has no
+    entry (a leaf held whole)."""
+    if dataclasses.is_dataclass(specs):
+        specs = tuple(getattr(specs, f.name)
+                      for f in dataclasses.fields(specs))
+    out = []
+
+    def walk(t, s):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], s.get(k) if isinstance(s, dict) else None)
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, s[i] if isinstance(s, (list, tuple))
+                     and not _is_spec(s) else None)
+        else:
+            out.append(s if _is_spec(s) else None)
+
+    walk(like, specs)
+    return out
+
+
+def _is_spec(s) -> bool:
+    return isinstance(s, P)
+
+
+def _block(arr, shape, spec, mesh, i):
+    """The rank's block of ``arr`` for a like-leaf of ``shape``: on each
+    dimension where ``shape`` is shorter, the block at the rank's
+    coordinate over the mesh axes ``spec`` names there (major first)."""
+    for k, (want, have) in enumerate(zip(shape, arr.shape)):
+        if want == have:
+            continue
+        entry = () if spec is None or k >= len(spec) or spec[k] is None \
+            else spec[k] if isinstance(spec[k], tuple) else (spec[k],)
+        idx, count = mesh_coord(mesh, entry)
+        if want * count != have:
+            raise CheckpointError(
+                f"leaf {i}: checkpoint shape {tuple(arr.shape)} has no "
+                f"block of {tuple(shape)} over the mesh axes {entry} on "
+                f"dimension {k}", leaf=i)
+        arr = np.take(arr, range(idx * want, (idx + 1) * want), axis=k)
+    return arr
+
+
+def restore(directory, step, like_tree, mesh=None, specs=None):
     """Restore into the structure of ``like_tree``: each leaf on its
     like-leaf's device and in its dtype (a numpy like-leaf as numpy).
+    With ``mesh`` and ``specs`` a like-leaf may be a block of the stored
+    leaf: the rank gets its block (``_block``).
 
     The manifest is validated against both the on-disk arrays and
     ``like_tree`` (leaf count, per-leaf shape) before anything is loaded;
@@ -221,13 +302,16 @@ def restore(directory, step, like_tree):
     path = os.path.join(directory, f"step_{step}")
     manifest = _validate_step(path)
     leaves, _ = _flatten(like_tree)
+    spec_of = (_leaf_specs(like_tree, specs) if mesh is not None
+               else [None] * len(leaves))
     if manifest["n_leaves"] != len(leaves):
         raise CheckpointError(
             f"tree structure changed: checkpoint has "
             f"{manifest['n_leaves']} leaves, restore target has "
             f"{len(leaves)}", path=path)
     for i, (leaf, ent) in enumerate(zip(leaves, manifest["leaves"])):
-        if tuple(ent["shape"]) != tuple(leaf.shape):
+        if tuple(ent["shape"]) != tuple(leaf.shape) and (
+                spec_of[i] is None or len(ent["shape"]) != leaf.ndim):
             raise CheckpointError(
                 f"leaf {i}: checkpoint shape {tuple(ent['shape'])} != "
                 f"restore target shape {tuple(leaf.shape)}",
@@ -244,6 +328,8 @@ def restore(directory, step, like_tree):
                 f"leaf {i} content digest mismatch (got {_digest(arr)}, "
                 f"manifest records {want}): checkpoint bytes rotted "
                 f"between save and restore", path=path, leaf=i)
+        if tuple(arr.shape) != tuple(leaf.shape):
+            arr = _block(arr, leaf.shape, spec_of[i], mesh, i)
         if torch.is_tensor(leaf):
             out.append(torch.from_numpy(arr).to(device=leaf.device,
                                                 dtype=leaf.dtype))

@@ -6,8 +6,10 @@ Counterpart of ``repro.models.attention``.  The functions take the
 keys).  ``attention_decode`` writes the new token's keys and values into
 the layer's cache in place, where the reference returns an updated copy:
 the cache is not copied each step.  ``attention_ring`` runs over the
-``"model"`` axis of a ``DeviceMesh`` with point-to-point sends and is
-forward-only (its gradient is ROADMAP queue 1 item 3c).
+``"model"`` axis of a ``DeviceMesh`` with point-to-point sends, each ring
+shift a pair of autograd Functions whose backward sends the gradient
+round the ring the other way (the transpose JAX derives for the
+reference's ``ppermute``).
 """
 from __future__ import annotations
 
@@ -17,8 +19,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .common import (ModelConfig, Norm, apply_rope, dense_init_,
-                     forward_only, initialise, param, rms_norm, rope_freqs)
+from .common import (ModelConfig, Norm, apply_rope, dense_init_, initialise,
+                     param, rms_norm, rope_freqs)
 
 NEG_INF = -2.0e38
 _LSE_MIN = -1.0e30
@@ -138,18 +140,19 @@ def attention(p, cfg: ModelConfig, x, positions, causal=True, rope=True,
     return (out, (k, v)) if return_kv else out
 
 
-def _ring_shift(t, group, r: int, n: int):
-    """Posts the send of ``t`` to the ring's next rank and the receive of
-    the previous rank's block; returns a function that waits for both and
-    gives the received block.  gloo's point-to-point calls take host
-    memory only, so on gloo a device block is staged through the host."""
-    nxt = dist.get_global_rank(group, (r + 1) % n)
-    prv = dist.get_global_rank(group, (r - 1) % n)
+def _p2p(t, group, to: int, frm: int):
+    """Posts the send of ``t`` to ``group``'s rank ``to`` and the receive
+    of a block like it from rank ``frm``; returns a function that waits
+    for both and gives the received block.  gloo's point-to-point calls
+    take host memory only, so on gloo a device block is staged through
+    the host."""
     stage = t.device.type != "cpu" and dist.get_backend(group) == "gloo"
     send = t.cpu() if stage else t.contiguous()
     recv = torch.empty_like(send)
-    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, nxt, group),
-                                    dist.P2POp(dist.irecv, recv, prv, group)])
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, dist.get_global_rank(group, to), group),
+        dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm),
+                   group)])
 
     def wait():
         for w in works:
@@ -158,10 +161,55 @@ def _ring_shift(t, group, r: int, n: int):
     return wait
 
 
+class _Shift:
+    """One ring shift of the ``"model"`` group (rank ``r`` of ``n``): the
+    forward sends to ``r + 1`` and receives from ``r - 1``, the backward
+    sends the received block's gradient to ``r - 1`` and receives the
+    sent block's from ``r + 1``.  ``_RingPost`` and ``_RingWait`` carry
+    it through autograd."""
+
+    def __init__(self, group, r: int, n: int):
+        self.group, self.nxt, self.prv = group, (r + 1) % n, (r - 1) % n
+        self.wait = self.wait_grad = None
+
+
+class _RingPost(torch.autograd.Function):
+    """Posts the shift of ``t`` and returns an empty token that
+    ``_RingWait`` takes; its backward waits for the gradient that
+    ``_RingWait``'s backward posted and gives it as ``t``'s."""
+
+    @staticmethod
+    def forward(ctx, t, shift):
+        ctx.shift = shift
+        shift.wait = _p2p(t, shift.group, shift.nxt, shift.prv)
+        return t.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        return ctx.shift.wait_grad(), None
+
+
+class _RingWait(torch.autograd.Function):
+    """Waits for the shift ``_RingPost`` posted and returns the received
+    block; its backward posts that block's gradient round the ring the
+    other way."""
+
+    @staticmethod
+    def forward(ctx, token, shift):
+        ctx.shift = shift
+        return shift.wait()
+
+    @staticmethod
+    def backward(ctx, g):
+        shift = ctx.shift
+        shift.wait_grad = _p2p(g, shift.group, shift.prv, shift.nxt)
+        return g.new_zeros(0), None
+
+
 def attention_ring(p, cfg: ModelConfig, x, mesh, causal=True, rope=True,
                    prefix_len=0):
     """Ring attention over the ``"model"`` axis of ``mesh`` (sequence-
-    sharded KV), forward only.
+    sharded KV), with gradients.
 
     ``x`` (B_loc, S_loc, D) is this rank's block of the input, the
     sequence sharded over the ``"model"`` ranks in order (the block
@@ -175,8 +223,17 @@ def attention_ring(p, cfg: ModelConfig, x, mesh, causal=True, rope=True,
     NCCL the transfer overlaps it.  Any head count works.  For
     sliding-window configs only ``ceil(window / S_loc) + 1`` ring steps
     carry unmasked work; the rest are skipped.  Returns this rank's output
-    block (B_loc, S_loc, D)."""
-    forward_only("attention_ring", x, *p.parameters())
+    block (B_loc, S_loc, D).
+
+    Each shift is two autograd Functions, ``_RingPost`` (post) and
+    ``_RingWait`` (wait), so that the post stays ahead of the block's
+    work.  In the backward, ``_RingWait``'s posts the gradient of the
+    received block to rank r - 1 (receiving from r + 1) and
+    ``_RingPost``'s waits for it, after autograd has taken the block's
+    own work back (it was recorded later, so it runs first): each
+    forward shift has exactly one mirror, the window configs' too.  The
+    weight gradients are this rank's queries' share: the caller sums
+    them over the axis (``training.train_step``)."""
     group = mesh.get_group("model")
     n_ring = dist.get_world_size(group)
     r = dist.get_rank(group)
@@ -198,8 +255,8 @@ def attention_ring(p, cfg: ModelConfig, x, mesh, causal=True, rope=True,
     kv = torch.stack([k, v])
     for t in range(n_steps):
         # the next block is on the wire while this one is worked on
-        pending = (_ring_shift(kv, group, r, n_ring) if t < n_steps - 1
-                   else None)
+        shift = _Shift(group, r, n_ring) if t < n_steps - 1 else None
+        token = _RingPost.apply(kv, shift) if shift else None
         pos_k = (r - t) % n_ring * s_loc + ar
         logits = torch.einsum("bqhgk,bshk->bhgqs", qg,
                               kv[0]).float() / math.sqrt(dh)
@@ -221,8 +278,8 @@ def attention_ring(p, cfg: ModelConfig, x, mesh, causal=True, rope=True,
         acc = acc * scale[..., None] + torch.einsum(
             "bhgqs,bshk->bhgqk", w, kv[1].float())
         mx = bmx
-        if pending is not None:
-            kv = pending()
+        if shift:
+            kv = _RingWait.apply(token, shift)
     out = acc / li[..., None].clamp_min(1e-30)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s_loc, h, dh)
     return torch.einsum("bshk,hkd->bsd", out.to(x.dtype),

@@ -40,15 +40,6 @@ def not_ported(what: str, item, needs: str) -> NotImplementedError:
                                f"(ROADMAP queue 1 item {item})")
 
 
-def forward_only(what: str, *tensors):
-    """Raises, naming ROADMAP item 3c, where autograd would record a graph
-    through ``what``'s collectives (grad mode on and a tensor that
-    requires grad): their gradients are not ported."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise not_ported(f"the gradient of {what}", "3c",
-                         "autograd functions around its collectives")
-
-
 @dataclass(frozen=True)
 class MoEConfig:
     n_experts: int
@@ -175,6 +166,19 @@ def maybe_constrain(x, *spec):
 def batch_spec(mesh_names):
     """The data-parallel sharding tuple for the batch dimension."""
     return tuple(a for a in DATA_AXES if a in mesh_names)
+
+
+def mesh_coord(mesh, axes):
+    """``(index, count)``: this rank's block index over ``mesh``'s axes
+    among ``axes`` taken together, the major (mesh-order) axis first, and
+    the number of blocks (1 where none is present)."""
+    dims = tuple(mesh.mesh_dim_names)
+    idx, count = 0, 1
+    for a in dims:
+        if a in axes:
+            size = mesh.shape[dims.index(a)]
+            idx, count = idx * size + mesh.get_local_rank(a), count * size
+    return idx, count
 
 
 def spec_placements(spec, mesh):

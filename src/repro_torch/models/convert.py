@@ -21,6 +21,13 @@ err_fb)``, the reference ``TrainState``'s fields in their order, so
 order and shapes and either package's launcher resumes the other's
 checkpoint.  ``reference_like`` is that tuple's shapes and dtypes, with
 no data behind them, to restore into.
+
+On a mesh a rank may hold a block of a leaf: its own ``E / n`` experts'
+rows (``models.moe.own_experts_``).  ``to_reference(obj, mesh)`` gathers
+such a leaf over the axis its ``param_specs`` entry names, so that every
+rank gets the whole logical tree; ``reference_like(model)`` gives the
+rank's own shapes, and ``from_reference`` loads a tree whose expert
+leaves hold ``E / n`` rows into a model laid out so.
 """
 from __future__ import annotations
 
@@ -120,10 +127,23 @@ def _unstack_named(model, tree, device) -> dict:
     return out
 
 
+def _expert_rows(cfg, tree):
+    """The expert rows the tree's MoE leaves hold (``E`` or ``E / n``),
+    or None without experts."""
+    for path, leaf in _flat(tree).items():
+        if cfg.moe is not None and path[-2:] == ("moe", "w_in"):
+            return np.shape(leaf)[0 if path[0] == "rem" else 1]
+    return None
+
+
 def _model(cfg, tree, device):
+    from .moe import own_experts_
     from .transformer import Transformer
     with torch.device("meta"):
         model = Transformer(cfg)
+        rows = _expert_rows(cfg, tree)
+        if rows is not None and rows != cfg.moe.n_experts:
+            own_experts_(model, cfg.moe.n_experts // rows, 0)
     model = model.to_empty(device=device)
     values = _unstack_named(model, tree, device)
     with torch.no_grad():
@@ -154,24 +174,71 @@ def from_reference(tree, cfg, device="cpu"):
     return TrainState(model, {"m": m, "v": v, "step": step}, err)
 
 
-def to_reference(obj):
+def _whole(named: dict, cfg, mesh) -> dict:
+    """``named`` with each leaf this rank holds a block of gathered over
+    the mesh axes its ``param_specs`` entry names on the dimensions where
+    it is shorter than the logical leaf (every rank of ``mesh`` calls
+    it)."""
+    import torch.distributed as dist
+    from .transformer import Transformer, param_specs
+    with torch.device("meta"):
+        full = dict(Transformer(cfg).named_parameters())
+    dims = tuple(mesh.mesh_dim_names)
+    specs = param_specs(cfg, dict(zip(dims, mesh.shape)))
+    out = {}
+    for name, t in named.items():
+        spec = local_spec(specs, name)
+        for k in range(t.ndim):
+            if t.shape[k] == full[name].shape[k]:
+                continue
+            entry = spec[k] if isinstance(spec[k], tuple) else (spec[k],)
+            for axis in reversed([a for a in entry if a in dims]):
+                group = mesh.get_group(axis)
+                parts = [torch.empty_like(t)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, t.contiguous(), group=group)
+                t = torch.cat(parts, dim=k)
+            if t.shape[k] != full[name].shape[k]:
+                raise ValueError(f"{name}: a block of {t.shape[k]} on "
+                                 f"dimension {k} after gathering over "
+                                 f"{entry}; the leaf has "
+                                 f"{full[name].shape[k]}")
+        out[name] = t
+    return out
+
+
+def to_reference(obj, mesh=None):
     """A model -> its stacked parameter tree (numpy); a ``TrainState`` ->
-    ``(params, {"m", "step", "v"}, err_fb)`` in the reference's layout."""
+    ``(params, {"m", "step", "v"}, err_fb)`` in the reference's layout.
+    With ``mesh`` (every rank of it calls this) the leaves a rank holds a
+    block of are gathered first (``_whole``)."""
+    model = obj if isinstance(obj, torch.nn.Module) else obj.params
+
+    def tree(named):
+        if mesh is not None:
+            named = _whole(named, model.cfg, mesh)
+        return _stack_named(named)
+
     if isinstance(obj, torch.nn.Module):
-        return _stack_named(dict(obj.named_parameters()))
+        return tree(dict(obj.named_parameters()))
     opt = obj.opt_state
-    return (_stack_named(dict(obj.params.named_parameters())),
-            {"m": _stack_named(opt["m"]), "step": _host(opt["step"]),
-             "v": _stack_named(opt["v"])},
-            None if obj.err_fb is None else _stack_named(obj.err_fb))
+    return (tree(dict(obj.params.named_parameters())),
+            {"m": tree(opt["m"]), "step": _host(opt["step"]),
+             "v": tree(opt["v"])},
+            None if obj.err_fb is None else tree(obj.err_fb))
 
 
 def reference_like(cfg, compress: bool = False):
     """The shapes and dtypes of ``to_reference(state)`` for ``cfg``, as
-    numpy arrays with no data behind them (a restore target)."""
+    numpy arrays with no data behind them (a restore target); given a
+    model in place of ``cfg``, its parameters' shapes (a rank's own
+    experts' rows where it holds only those)."""
     from .transformer import Transformer
-    with torch.device("meta"):
-        model = Transformer(cfg)
+    if isinstance(cfg, torch.nn.Module):
+        model = cfg
+    else:
+        with torch.device("meta"):
+            model = Transformer(cfg)
     shapes = {}
     for path, entries in _layout(model).items():
         p = entries[0][1]

@@ -14,8 +14,12 @@ holds either all ``E`` experts' weights or only its own ``E / n``, as
 ``param_specs`` lays them out); dispatch and combine are each one
 flups topology switch over that axis
 (``repro_torch.core.comm.topology_switch``, any strategy), and the
-capacity comes from the shard's own token count.  That path is
-forward-only (its gradient is ROADMAP queue 1 item 3c).
+capacity comes from the shard's own token count.  Each switch is an
+autograd Function whose backward is the reverse switch under the same
+``CommConfig`` (the transpose JAX derives for the reference's
+``all_to_all``), so the path has gradients: the input's, the router's
+(this rank's tokens' share) and the experts' (every token routed to the
+rank's experts).
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.comm import as_comm, topology_switch
-from .common import (ModelConfig, act_fn, dense_init_, forward_only,
-                     initialise, is_gated, param)
+from .common import (ModelConfig, act_fn, dense_init_, initialise,
+                     is_gated, param)
 
 
 class MoE(nn.Module):
@@ -124,13 +128,47 @@ def _local_experts(p, m, n, r):
             p.w_out[experts])
 
 
+def own_experts_(model, n: int, r: int):
+    """Replaces each MoE module's expert weights in ``model`` by rank
+    ``r``'s ``E / n`` rows of them, the layout ``param_specs`` gives
+    (experts over a ``"model"`` axis of ``n`` ranks); on the ``meta``
+    device only the shapes change.  Returns ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, MoE):
+            e_loc = mod.w_in.shape[0] // n
+            for name in ("w_in", "w_gate", "w_out"):
+                if hasattr(mod, name):
+                    w = getattr(mod, name).detach()
+                    setattr(mod, name, nn.Parameter(
+                        w[r * e_loc:(r + 1) * e_loc].clone()))
+    return model
+
+
+class _Switch(torch.autograd.Function):
+    """``topology_switch`` over ``"model"`` (split ``split``, gather
+    ``concat``); its backward is the switch back (split ``concat``,
+    gather ``split``) under the same strategy, a permutation's
+    transpose."""
+
+    @staticmethod
+    def forward(ctx, x, split, concat, comm, groups):
+        ctx.args = (split, concat, comm, groups)
+        return topology_switch(x, "model", split, concat, comm,
+                               groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, concat, comm, groups = ctx.args
+        return (topology_switch(g.contiguous(), "model", concat, split, comm,
+                                groups=groups), None, None, None, None)
+
+
 def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
     """One rank's share of the expert-parallel MoE: ``x`` is its token
     block, its experts the ``"model"`` coordinate's ``E / n``
     (``_local_experts``; the router and each expert's d_model axis
     whole).  Returns (out, the drop fraction's mean over every rank of
-    the mesh)."""
-    forward_only("the expert-parallel moe_block", x, *p.parameters())
+    the mesh, outside the autograd graph)."""
     m = cfg.moe
     group = mesh.get_group("model")
     n, r = dist.get_world_size(group), dist.get_rank(group)
@@ -144,12 +182,12 @@ def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
     comm = as_comm(comm)
     groups = {"model": group}
     # flups topology switch #1: (E, C, d) -> (E_loc, C * n, d)
-    buf = topology_switch(buf, "model", 0, 1, comm, groups=groups)
+    buf = _Switch.apply(buf, 0, 1, comm, groups)
     y = _expert_ffn(cfg, buf, w_in, w_gate, w_out)
     # flups topology switch #2 (reverse): back to the token layout
-    y = topology_switch(y, "model", 1, 0, comm, groups=groups)
+    y = _Switch.apply(y, 1, 0, comm, groups)
     out = _combine_local(y, book, gate, t, m.top_k)
-    # pmean over every mesh axis
+    # pmean over every mesh axis: a metric, no gradient
     drop = 1.0 - book[1].float().mean()
     for name in mesh.mesh_dim_names:
         dist.all_reduce(drop, group=mesh.get_group(name))

@@ -13,7 +13,9 @@ The reference stacks each uniform stack's layers on a leading axis and
 scans over them; here the layers are modules run in a Python loop, so
 ``cfg.scan_layers`` and ``cfg.unroll_inner`` change nothing.
 ``cfg.remat`` of ``"block"`` or ``"full"`` wraps each block in
-``torch.utils.checkpoint`` (memory changes, numbers do not).  Module
+``torch.utils.checkpoint`` (memory changes, numbers do not), which
+re-runs the block's whole forward, its collectives included, where the
+backward first needs one of its saved tensors (``_run_block``).  Module
 attribute names are the reference tree's keys, so a parameter's dotted
 name is its reference path with the layer index inserted
 (``models.convert``).
@@ -36,7 +38,12 @@ where ``cfg.attn_ring`` and no caches are collected, the
 expert-parallel MoE -- take the rank's sequence block of their input and
 all-gather their output over the axis, so every block's input and
 output are the data shard, replicated over ``"model"``.  These paths
-are forward-only (ROADMAP queue 1 item 3c).
+have gradients: the block split's backward all-gathers the blocks'
+gradients and the gather's backward takes the rank's own block, since
+every rank of the axis computes the same loss; the ring's and the
+switches' backward passes are in ``attention`` and ``moe``.
+``training.train_step`` sums the weight gradients over the axis where
+the sharded region used them.
 
 ``param_specs`` and ``cache_specs`` give the reference's partition-spec
 trees (``common.P``; stacked stacks with a leading ``None``);
@@ -109,21 +116,63 @@ def _model_group(mesh):
     return mesh.get_group("model")
 
 
-def _seq_block(x, group):
-    """This rank's block of ``x``'s sequence over the model axis."""
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    if x.shape[1] % n:
-        raise ValueError(f"a sequence of {x.shape[1]} does not split over "
-                         f"the {n} ranks of the model axis")
-    s = x.shape[1] // n
-    return x[:, r * s:(r + 1) * s]
+class _SeqBlock(torch.autograd.Function):
+    """This rank's block of ``x``'s sequence; backward: the model axis's
+    block gradients all-gathered, so the replicated input's gradient is
+    whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        s = x.shape[1] // n
+        ctx.group = group
+        return x[:, r * s:(r + 1) * s].clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, ctx.group), None
 
 
-def _gather_seq(y, group):
-    """The model axis's sequence blocks of ``y``, in rank order."""
+class _GatherSeq(torch.autograd.Function):
+    """The model axis's sequence blocks in rank order; backward: this
+    rank's block of the gradient (every rank of the axis holds the whole
+    gradient of the same loss, so nothing is summed)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        return _all_gather_seq(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        s = g.shape[1] // n
+        return g[:, r * s:(r + 1) * s], None
+
+
+def _all_gather_seq(y, group):
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, y.contiguous(), group=group)
     return torch.cat(parts, dim=1)
+
+
+def _seq_block(x, group):
+    """This rank's block of ``x``'s sequence over the model axis."""
+    n = dist.get_world_size(group)
+    if x.shape[1] % n:
+        raise ValueError(f"a sequence of {x.shape[1]} does not split over "
+                         f"the {n} ranks of the model axis")
+    return _SeqBlock.apply(x, group)
+
+
+def on_ring(cfg: ModelConfig, mesh, seq: int) -> bool:
+    """Whether self-attention over ``seq`` positions runs as ring
+    attention on ``mesh`` (when no caches are collected): ``attn_ring``,
+    a ``"model"`` axis and a sequence that splits over it."""
+    group = _model_group(mesh)
+    return bool(cfg.attn_ring and group is not None
+                and seq % dist.get_world_size(group) == 0)
 
 
 def _attend(blk, x, positions, causal, prefix_len, rope, mesh, collect):
@@ -131,13 +180,12 @@ def _attend(blk, x, positions, causal, prefix_len, rope, mesh, collect):
     ``{"sa": {"k", "v"}}`` cache (ring attention only without it)."""
     cfg = blk.cfg
     h = blk.ln1(x)
-    group = _model_group(mesh)
-    if (cfg.attn_ring and not collect and group is not None
-            and x.shape[1] % dist.get_world_size(group) == 0):
+    if not collect and on_ring(cfg, mesh, x.shape[1]):
+        group = _model_group(mesh)
         a = attn.attention_ring(blk.attn, cfg, _seq_block(h, group), mesh,
                                 causal=causal, rope=rope,
                                 prefix_len=prefix_len)
-        return x + _gather_seq(a, group), None
+        return x + _GatherSeq.apply(a, group), None
     if collect:
         a, (k, v) = attn.attention(blk.attn, cfg, h, positions,
                                    causal=causal, rope=rope,
@@ -196,7 +244,7 @@ class MoEBlock(nn.Module):
         else:
             out, aux = moe_block(self.moe, self.cfg, _seq_block(h, group),
                                  comm, mesh)
-            out = _gather_seq(out, group)
+            out = _GatherSeq.apply(out, group)
         return x + out, aux.float(), cache
 
     def decode(self, x, cache, pos):
@@ -295,10 +343,16 @@ def _hybrid_layout(cfg: ModelConfig):
 
 def _run_block(cfg, block, x, **kw):
     """One block, recomputed in the backward pass unless ``cfg.remat`` is
-    ``"none"``."""
+    ``"none"``.  The recomputation runs the block's forward to its end
+    (early stop off), where autograd first unpacks one of the block's
+    saved tensors.  On a mesh that is what keeps the ranks' collectives
+    in step: every rank records the same graph, autograd walks it in the
+    same order on each, so each rank re-issues the same ring shifts,
+    switches and gathers, in the forward's order, at the same point of
+    its backward."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return block(x, **kw)
-    return checkpoint(block, x, use_reentrant=False, **kw)
+    return checkpoint(block, x, use_reentrant=False, early_stop=False, **kw)
 
 
 def _run_stack(cfg, blocks, x, **kw):

@@ -103,7 +103,11 @@ def compress_int8(g, err):
     return _quantize(gf, torch.clamp_min(gf.abs().max(), 1e-30) / 127.0)
 
 
-def apply_compression(cfg: AdamWConfig, grads, err):
+def apply_compression(cfg: AdamWConfig, grads, err, amax_fn=None):
+    """Error-feedback int8 quantization, one scale per reference leaf
+    (the max over its layers).  ``amax_fn(path, amax)``, where given,
+    returns the leaf's max over the whole logical leaf from this rank's
+    share of it (a rank holding a block of the leaf, on a mesh)."""
     if cfg.grad_compress == "none" or err is None:
         return grads, err
     g, e = _named(grads), _named(err)
@@ -112,19 +116,22 @@ def apply_compression(cfg: AdamWConfig, grads, err):
     for n in gf:
         leaves.setdefault(ref_path(n)[0], []).append(n)
     deq, new_err = {}, {}
-    for names in leaves.values():
+    for path, names in leaves.items():
         amax = torch.stack([gf[n].abs().max() for n in names]).max()
+        if amax_fn is not None:
+            amax = amax_fn(path, amax)
         scale = torch.clamp_min(amax, 1e-30) / 127.0
         for n in names:
             deq[n], new_err[n] = _quantize(gf[n], scale)
     return _like(grads, deq), _like(err, new_err)
 
 
-def _moments(cfg: AdamWConfig, grads, opt_state):
-    """The step, the global norm, the clip factor, the learning rate and
-    the bias corrections of one update."""
+def _moments(cfg: AdamWConfig, grads, opt_state, gnorm=None):
+    """The step, the global norm (``global_norm(grads)`` unless given),
+    the clip factor, the learning rate and the bias corrections of one
+    update."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                        max=1.0)
     b1c = 1.0 - cfg.b1 ** step.float()
@@ -163,15 +170,16 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
 _CHUNK = 1 << 24
 
 
-def adamw_update_(cfg: AdamWConfig, params, grads, opt_state):
+def adamw_update_(cfg: AdamWConfig, params, grads, opt_state, gnorm=None):
     """``adamw_update`` in place, with the same bits: writes the new
     parameters into ``params`` and the new moments into ``opt_state``, a
     slice of at most ``_CHUNK`` elements of one leaf at a time (the
     update is elementwise), so its temporaries are a few slices, not a
     second copy of the state nor several copies of the largest leaf (a
-    1.05 G-element embedding).  Returns (opt_state with the new step,
-    metrics)."""
-    step, gnorm, *k = _moments(cfg, grads, opt_state)
+    1.05 G-element embedding).  ``gnorm`` is the gradients' global norm
+    where the caller computes it (a rank holding a block of a leaf).
+    Returns (opt_state with the new step, metrics)."""
+    step, gnorm, *k = _moments(cfg, grads, opt_state, gnorm)
     G = _named(grads)
     M, V = _named(opt_state["m"]), _named(opt_state["v"])
     for n, p in _named(params).items():

@@ -8,16 +8,30 @@ model's parameters and the moments in place and returns a new
 ``TrainState`` around them: the old state shares them, so snapshot it
 (``models.convert.to_reference``) before stepping if it is needed
 after.
+
+On a mesh (``train_step_fn(..., mesh=mesh)``, a ``DeviceMesh`` with axes
+``"data"`` and ``"model"``, and ``"pod"`` where given) every rank of the
+mesh calls the step with its data shard of the global batch
+(``data_shard``) and holds the whole model (its own ``E / n`` experts'
+rows where ``own_experts_`` made it so; the reference's FSDP over
+``"data"`` is not run).  The loss is each rank's summed NLL over the
+global mask sum; the gradients are reduced by ``grad_reduction`` (one
+rule, by dotted name); compression, the global-norm clip and AdamW then
+run as on one process, so every rank holds the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import P, ModelConfig, not_ported
+from repro_torch.models.common import DATA_AXES, P, ModelConfig, mesh_coord
+from repro_torch.models.convert import ref_path
 from . import optimizer as opt
 
 
@@ -40,27 +54,252 @@ def make_train_state(gen: torch.Generator, cfg: ModelConfig, lr=3e-4,
     return TrainState(model, opt.init_opt_state(params), err)
 
 
-def loss_fn(model, cfg: ModelConfig, batch):
-    logits, aux = model(batch["inputs"], batch.get("frontend"))
+def _axes(mesh, names):
+    """``[(name, group)]`` of ``mesh``'s axes among ``names`` with more
+    than one rank, in the mesh's order."""
+    if mesh is None:
+        return []
+    dims = tuple(mesh.mesh_dim_names)
+    return [(a, mesh.get_group(a)) for a in dims
+            if a in names and mesh.shape[dims.index(a)] > 1]
+
+
+def _sum_(t, groups):
+    """``t`` summed in place over each group in turn; returns ``t``."""
+    for _, g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+def data_shard(batch, mesh):
+    """This rank's data shard of the global ``batch`` (a dict of tensors,
+    batch first): the batch split over the mesh's data axes in rank
+    order, the major axis first, as ``P(DATA_AXES, None)`` lays it."""
+    idx, count = mesh_coord(mesh, DATA_AXES)
+
+    def take(t):
+        if t.shape[0] % count:
+            raise ValueError(f"a batch of {t.shape[0]} does not split over "
+                             f"the mesh's {count} data shards")
+        b = t.shape[0] // count
+        return t[idx * b:(idx + 1) * b]
+    return {k: take(v) for k, v in batch.items()}
+
+
+# elements of the logits one chunk of ``_MaskedNLL`` works on at a time
+_NLL_CHUNK = 1 << 26
+
+
+class _MaskedNLL(torch.autograd.Function):
+    """``sum(mask * (logsumexp(logits) - logits[label]))`` over the
+    positions, float32.  Its backward writes ``(softmax(logits) -
+    onehot(label)) * mask * g`` into one buffer, a chunk of rows at a
+    time, so that the logits' gradient costs one copy of the logits (the
+    autograd of ``logsumexp`` and ``gather`` holds about three at once:
+    at 4 x 2048 tokens and a 151936-word vocabulary, 4.98 GB each)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask):
+        v = logits.shape[-1]
+        x, lab = logits.reshape(-1, v), labels.reshape(-1, 1).long()
+        rows = max(1, _NLL_CHUNK // v)
+        lse = torch.cat([torch.logsumexp(x[i:i + rows], dim=-1)
+                         for i in range(0, x.shape[0], rows)])
+        gold = x.gather(-1, lab)[:, 0]
+        ctx.save_for_backward(logits, labels, mask, lse)
+        return ((lse - gold) * mask.reshape(-1)).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, mask, lse = ctx.saved_tensors
+        v = logits.shape[-1]
+        x, lab = logits.reshape(-1, v), labels.reshape(-1, 1).long()
+        scale = (mask.reshape(-1) * g).to(logits.dtype)
+        grad = torch.empty_like(x)
+        rows = max(1, _NLL_CHUNK // v)
+        for i in range(0, x.shape[0], rows):
+            gi = grad[i:i + rows]
+            torch.exp(x[i:i + rows] - lse[i:i + rows, None], out=gi)
+            gi.scatter_add_(-1, lab[i:i + rows],
+                            torch.full_like(lab[i:i + rows], -1,
+                                            dtype=gi.dtype))
+            gi.mul_(scale[i:i + rows, None])
+        return grad.view_as(logits), None, None
+
+
+def loss_fn(model, cfg: ModelConfig, batch, comm=None, mesh=None):
+    """Masked mean next-token NLL and the forward's aux.  On a mesh,
+    ``batch`` is the rank's data shard and the loss its summed NLL over
+    the mask summed over the data axes (not the mean of the shards'
+    means, which differ where the shards' masks do)."""
+    logits, aux = model(batch["inputs"], batch.get("frontend"), comm, mesh)
     labels = batch["labels"]
     mask = batch["mask"]
     if logits.shape[1] != labels.shape[1]:       # vlm prefix tokens
         logits = logits[:, -labels.shape[1]:]
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    nll = (lse - gold) * mask
-    loss = nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    count = _sum_(mask.sum().detach(), _axes(mesh, DATA_AXES))
+    loss = _MaskedNLL.apply(logits, labels, mask) / torch.clamp_min(count,
+                                                                   1.0)
     return loss, aux
 
 
+def _expert_weight(name) -> bool:
+    """Whether dotted ``name`` is an MoE expert weight (rows by expert)."""
+    path = ref_path(name)[0]
+    return path[-2:-1] == ("moe",) and path[-1] != "router"
+
+
+def expert_block(name, p, cfg: ModelConfig) -> bool:
+    """Whether ``p`` is a block of its logical leaf: an expert weight of
+    which this rank holds its own ``E / n`` rows."""
+    return (cfg.moe is not None and _expert_weight(name)
+            and p.shape[0] != cfg.moe.n_experts)
+
+
+def grad_reduction(name, p, cfg: ModelConfig, ring: bool) -> str:
+    """How a mesh step reduces parameter ``name``'s gradient over the
+    ``"model"`` axis (over the data axes it is always summed): ``"sum"``,
+    ``"first"`` (the axis's first rank's gradient, broadcast) or
+    ``"own"`` (a block of the leaf, each rank's its own).
+
+    Every rank of the model axis holds the same data shard and computes
+    the same loss, so a gradient is summed over the axis only where the
+    parameter is replicated over it and used inside the sequence-sharded
+    region, each rank seeing its own tokens: the router; the experts
+    where the rank holds all ``E`` (the rows of other ranks' experts are
+    zero here); the self-attention weights (qk norms included) when the
+    attention runs on the ring (``ring``, ``transformer.on_ring``).  The
+    rank's own ``E / n`` experts see every token routed to them on this
+    rank, and the parameters used only in replicated compute (the
+    embeddings, norms outside the sharded blocks, MLPs, SSM and RG-LRU
+    layers, whisper's encoder and cross-attention) have the whole
+    gradient on every rank: the axis's first rank's is taken, so that
+    the ranks stay bit-equal where a kernel's float atomics order a sum
+    differently.  (``param_specs``' ``"model"`` entries describe the
+    reference's tensor parallelism, which the port does not run; the
+    rule follows where a parameter is used.)"""
+    path = ref_path(name)[0]
+    if cfg.moe is not None and path[-2:-1] == ("moe",):
+        return "own" if expert_block(name, p, cfg) else "sum"
+    if ring and path[0] != "enc" and "attn" in path:
+        return "sum"
+    return "first"
+
+
+# elements a flat buffer of one collective holds at most
+_BUCKET = 1 << 25
+
+
+def _bucketed_(tensors, fn):
+    """``fn(flat)`` on the tensors in buckets of at most ``_BUCKET``
+    elements of one dtype (a tensor alone in its bucket in place),
+    writing each bucket's result back."""
+    buckets, cur, size = [], [], 0
+    for t in tensors:
+        if cur and (size + t.numel() > _BUCKET or t.dtype != cur[0].dtype):
+            buckets.append(cur)
+            cur, size = [], 0
+        cur.append(t)
+        size += t.numel()
+    if cur:
+        buckets.append(cur)
+    for bucket in buckets:
+        if len(bucket) == 1 and bucket[0].is_contiguous():
+            fn(bucket[0])
+            continue
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        fn(flat)
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+def reduce_grads_(grads, params, cfg: ModelConfig, mesh, ring: bool):
+    """Reduces ``grads`` ({name: tensor}) in place on ``mesh`` as
+    ``grad_reduction`` says: a sum over the data axes, then over
+    ``"model"`` a sum, the first rank's, or nothing for a block."""
+    data = _axes(mesh, DATA_AXES)
+    _bucketed_(list(grads.values()), lambda t: _sum_(t, data))
+    model = _axes(mesh, ("model",))
+    if not model:
+        return
+    group = model[0][1]
+    how = {n: grad_reduction(n, params[n], cfg, ring) for n in grads}
+    _bucketed_([g for n, g in grads.items() if how[n] == "sum"],
+               lambda t: dist.all_reduce(t, group=group))
+    src = dist.get_global_rank(group, 0)
+    _bucketed_([g for n, g in grads.items() if how[n] == "first"],
+               lambda t: dist.broadcast(t, src, group=group))
+
+
+def _seq_len(cfg: ModelConfig, batch) -> int:
+    """The decoder's sequence length (the vlm's frontend prefix
+    included)."""
+    s = batch["inputs"].shape[1]
+    if "frontend" in batch and cfg.family != "encdec":
+        s += batch["frontend"].shape[1]
+    return s
+
+
+def own_experts_(state: TrainState, mesh) -> TrainState:
+    """Makes each rank of ``mesh`` hold only its own ``E / n`` experts'
+    rows (over the ``"model"`` axis, as ``param_specs`` lays them out):
+    the parameters, both moments and the error feedback, in place.
+    Returns ``state``."""
+    n, r = mesh.shape[mesh.mesh_dim_names.index("model")], \
+        mesh.get_local_rank("model")
+    cfg = state.params.cfg
+    e_loc = cfg.moe.n_experts // n
+    names = [k for k, _ in state.params.named_parameters()
+             if _expert_weight(k)]
+    moe_mod.own_experts_(state.params, n, r)
+    trees = [state.opt_state["m"], state.opt_state["v"]]
+    for tree in trees + ([state.err_fb] if state.err_fb else []):
+        for k in names:
+            tree[k] = tree[k][r * e_loc:(r + 1) * e_loc].clone()
+    return state
+
+
+def _mesh_norm_and_amax(cfg, params, grads, mesh):
+    """The global norm of ``grads`` and the compression's ``amax_fn`` on
+    ``mesh``: the leaves of which this rank holds a block enter through
+    a sum (the norm) and a max (the amax) over ``"model"``."""
+    block = {n for n in grads if expert_block(n, params[n], cfg)}
+    model = _axes(mesh, ("model",))
+
+    def norm(g):
+        sq = lambda names: sum((g[n].float().square().sum() for n in names),
+                               torch.zeros((), device=next(iter(
+                                   g.values())).device))
+        rep = sq([n for n in g if n not in block])
+        held = sq(sorted(block))
+        if block:
+            _sum_(held, model)
+        return torch.sqrt(rep + held)
+
+    paths = {ref_path(n)[0] for n in block}
+
+    def amax_fn(path, amax):
+        if path in paths:
+            for _, grp in model:
+                dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=grp)
+        return amax
+    return norm, amax_fn
+
+
 def train_step_fn(cfg: ModelConfig, adam: opt.AdamWConfig | None = None,
-                  comm=None, mesh=None):
+                  comm=None, mesh=None, on_grads=None):
     """``step(state, batch) -> (state, metrics)`` with metrics ``loss``,
-    ``grad_norm``, ``lr`` and ``moe_drop`` (0-d tensors)."""
-    if mesh is not None:
-        raise not_ported("a train step on a mesh", "3c",
-                         "gradients through the ring attention's and the "
-                         "expert-parallel MoE's collectives")
+    ``grad_norm``, ``lr`` and ``moe_drop`` (0-d tensors).  ``on_grads``,
+    where given, is called with the step's gradients ({name: tensor}, on
+    a mesh reduced) before compression and the update: a hook for checks.
+
+    With ``mesh``, every rank of it calls ``step`` with its data shard
+    (``data_shard``) and gets the global batch's loss; the ring attention
+    (where ``cfg.attn_ring``) and the expert-parallel MoE run over
+    ``"model"``; metrics also hold ``grad_reduce_s``, the seconds of the
+    gradient reduction (the device synchronised around it)."""
     adam = adam or opt.AdamWConfig()
 
     def step(state: TrainState, batch):
@@ -68,20 +307,39 @@ def train_step_fn(cfg: ModelConfig, adam: opt.AdamWConfig | None = None,
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss, aux = loss_fn(model, cfg, batch)
+        loss, aux = loss_fn(model, cfg, batch, comm, mesh)
         loss.backward()
         with torch.no_grad():
             grads = {}
             for n, p in params.items():
                 grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
                 p.grad = None
-            grads, new_err = opt.apply_compression(adam, grads, state.err_fb)
+            extra, gnorm, amax_fn = {}, None, None
+            if mesh is not None:
+                loss = _sum_(loss.detach(), _axes(mesh, DATA_AXES))
+                dev = loss.device
+                sync = (torch.cuda.synchronize if dev.type == "cuda"
+                        else lambda: None)
+                sync()
+                t0 = time.perf_counter()
+                reduce_grads_(grads, params, cfg, mesh,
+                              tf.on_ring(cfg, mesh, _seq_len(cfg, batch)))
+                sync()
+                extra["grad_reduce_s"] = torch.tensor(
+                    time.perf_counter() - t0, dtype=torch.float64)
+                norm, amax_fn = _mesh_norm_and_amax(cfg, params, grads, mesh)
+            if on_grads is not None:
+                on_grads(grads)
+            grads, new_err = opt.apply_compression(adam, grads, state.err_fb,
+                                                   amax_fn)
+            if mesh is not None:
+                gnorm = norm(grads)
             # the model's parameters and the moments are updated in place
             new_opt, om = opt.adamw_update_(
                 adam, {n: p.detach() for n, p in params.items()}, grads,
-                state.opt_state)
+                state.opt_state, gnorm)
         metrics = {"loss": loss.detach(), **om,
-                   **{k: v.detach() for k, v in aux.items()}}
+                   **{k: v.detach() for k, v in aux.items()}, **extra}
         return TrainState(model, new_opt, new_err), metrics
 
     return step

@@ -22,7 +22,12 @@ the comparison that test makes.
   fraction's mean over the 8 blocks within 1e-6; the same from a module
   that holds only the rank's 2 experts (the layout ``param_specs``
   gives), and a ``ValueError`` from one holding neither 8 nor 2.
-- both raise ``NotImplementedError`` naming item 3c under autograd.
+- both under autograd (the paths that raised before their gradients
+  were ported): on each rank the input gradient and the weight
+  gradients summed over "model" of the last ring case (paligemma at 6
+  heads) against the whole attention's on the rank's data shard, and of
+  the expert-parallel MoE against ``_moe_local``'s on the rank's block;
+  1e-4 (``test_torch_train_mesh.py`` holds both against ``jax.vjp``).
 - the model on the mesh: qwen3 smoke with ``attn_ring`` (every layer's
   attention on the ring), its forward on each rank's data shard against
   the reference's forward; moonshot smoke with a capacity factor of
@@ -170,10 +175,11 @@ def test_expert_parallel_moe_from_the_ranks_own_experts(mesh_run):
 
 
 def test_ring_and_expert_parallel_raise_under_autograd(mesh_run):
+    """They no longer raise: their gradients are the local paths'."""
     runs, _ = mesh_run
-    for res in runs:
+    for r, res in enumerate(runs):
         for key in ("ring_grad", "moe_grad"):
-            assert "item 3c" in res[key], res[key]
+            assert res[key] < TOL, (r, key, res[key])
 
 
 def test_model_on_the_mesh_matches_reference(mesh_run):

@@ -1076,13 +1076,16 @@ def scenario_lm_mesh(rank, d, params):
     rank's (batch, sequence) block against the reference's attention; the
     expert-parallel ``moe_block`` under each of ``params["moe_comms"]``
     against the reference's ``_moe_local`` on the same block, also from
-    a module holding only the rank's experts; both raising under
-    autograd; the model's forward with ring attention and
+    a module holding only the rank's experts; under autograd, both
+    paths' input and weight gradients (summed over "model") against the
+    local paths' on the same rank; the model's forward with ring
+    attention and
     its prefill with the expert-parallel MoE, each rank passing its data
     shard, against the reference's forward and prefill."""
     import copy
 
     import torch
+    import torch.distributed as dist
     from repro_torch.core.comm import label_to_cfg
     from repro_torch.models import attention as attn
     from repro_torch.models import convert, moe
@@ -1109,12 +1112,32 @@ def scenario_lm_mesh(rank, d, params):
         return float(np.abs(got - want).max() /
                      max(float(np.abs(want).max()), 1e-30))
 
-    def raises(fn):
-        try:
-            fn()
-        except NotImplementedError as e:
-            return str(e)
-        return "ran"
+    def grad_err(mesh_fn, local_fn, module, x_mesh, x_local, blk):
+        """The largest relative error of ``mesh_fn``'s input gradient
+        block and weight gradients (summed over "model") against
+        ``local_fn``'s (its input gradient's ``blk``; its weight
+        gradients summed over "model" too when ``blk`` is None), each
+        under the cotangent ``cos(arange)``."""
+        errs, grads = [], []
+        shape = x_local.shape
+        ct = torch.cos(torch.arange(x_local.numel(),
+                                    dtype=x_local.dtype)).view(shape)
+        for fn, x, c in ((mesh_fn, x_mesh, ct if blk is None else
+                          ct[:, blk]), (local_fn, x_local, ct)):
+            x = x.clone().requires_grad_()
+            (fn(x) * c).sum().backward()
+            w = {n: q.grad for n, q in module.named_parameters()}
+            for n, q in module.named_parameters():
+                q.grad = None
+            grads.append((x.grad, w))
+        (gx, gw), (lx, lw) = grads
+        errs.append(rel(gx, (lx if blk is None else lx[:, blk]).numpy()))
+        for n in gw:
+            dist.all_reduce(gw[n], group=mesh.get_group("model"))
+            if blk is None:
+                dist.all_reduce(lw[n], group=mesh.get_group("model"))
+            errs.append(rel(gw[n], lw[n].numpy()))
+        return max(errs)
 
     models = {tag: _lm_model(d, tag, spec)
               for tag, spec in params["models"].items()}
@@ -1126,8 +1149,17 @@ def scenario_lm_mesh(rank, d, params):
             got = attn.attention_ring(model.layers[0].attn, cfg, x, mesh,
                                       prefix_len=case["prefix_len"])
         out["ring"][tag] = rel(got, block(load(f"ring_{tag}_want")))
-    out["ring_grad"] = raises(lambda: attn.attention_ring(
-        model.layers[0].attn, cfg, x, mesh))
+    # the gradient of the last case's ring against the whole attention's
+    p = model.layers[0].attn
+    shard = torch.from_numpy(block(load(f"ring_{tag}_x"), seq=False))
+    s_loc = shard.shape[1] // 4
+    pos = torch.arange(shard.shape[1]).expand(shard.shape[:2])
+    out["ring_grad"] = grad_err(
+        lambda x_: attn.attention_ring(p, cfg, x_, mesh,
+                                       prefix_len=case["prefix_len"]),
+        lambda x_: attn.attention(p, cfg, x_, pos,
+                                  prefix_len=case["prefix_len"]),
+        p, x, shard, slice(mr * s_loc, (mr + 1) * s_loc))
 
     cfg, model = models["moe"]
     x = torch.from_numpy(block(load("moe_x")))
@@ -1137,8 +1169,11 @@ def scenario_lm_mesh(rank, d, params):
             got, drop = moe.moe_block(model.layers[0].moe, cfg, x,
                                       label_to_cfg(label), mesh)
         out["moe"][label] = [rel(got, want), float(drop)]
-    out["moe_grad"] = raises(lambda: moe.moe_block(
-        model.layers[0].moe, cfg, x, None, mesh))
+    out["moe_grad"] = grad_err(
+        lambda x_: moe.moe_block(model.layers[0].moe, cfg, x_, None,
+                                 mesh)[0],
+        lambda x_: moe._moe_local(model.layers[0].moe, cfg, x_)[0],
+        model.layers[0].moe, x, x, None)
     # a module holding only this rank's experts (param_specs' layout)
     e_loc = cfg.moe.n_experts // 4
     own = copy.deepcopy(model.layers[0].moe)
@@ -1173,6 +1208,188 @@ def scenario_lm_mesh(rank, d, params):
     out["prefill_caches"] = {
         k: rel(got[tuple(k.split("/"))], block(want[k], seq=False, axis=1))
         for k in want.files}
+    return out
+
+
+def _params_crc(model, skip=()) -> int:
+    """CRC32 over the bytes of ``model``'s parameters (but ``skip``), in
+    order: equal CRCs on two ranks mean bit-equal parameters."""
+    import zlib
+    crc = 0
+    for name, p in model.named_parameters():
+        if name not in skip:
+            crc = zlib.crc32(p.detach().contiguous().numpy().tobytes(), crc)
+    return crc
+
+
+def _flat_tree(tree) -> dict:
+    """{"a/b/c": array} of a nested dict of arrays."""
+    from repro_torch.models import convert
+    return {"/".join(k): np.asarray(v)
+            for k, v in convert._flat(tree).items()}
+
+
+def scenario_train_mesh(rank, d, params):
+    """Eight ranks: the gradients of ring attention and of the
+    expert-parallel MoE on mesh (2, 4) (each rank's input gradient block,
+    the weight gradients summed over "model"); the mesh train step of
+    ``params["steps"]``' cases on (2, 4), each rank on its data shard;
+    the elastic rescale, two steps on (2, 4), a checkpoint, a restore
+    onto (4, 2) and two more steps; a MoE state holding the rank's own
+    experts saved on (2, 4) and restored onto (4, 2).  Arrays go to
+    ``<d>/rank<r>.npz`` (``<d>/rank<r>_<case>.npz`` for the states, rank
+    0's only); the JSON holds the losses and per-step parameter CRCs."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.core.comm import label_to_cfg
+    from repro_torch.models import attention as attn
+    from repro_torch.models import convert, moe
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    dr, mr = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    model_group = mesh.get_group("model")
+
+    def load(name):
+        return np.load(os.path.join(d, name + ".npy"))
+
+    def block(a):
+        """This rank's (batch, sequence) block of ``a``."""
+        b, s = a.shape[0] // 2, a.shape[1] // 4
+        return a[dr * b:(dr + 1) * b, mr * s:(mr + 1) * s]
+
+    arrays, out = {}, {"steps": {}}
+
+    def grads_over_model(module, prefix):
+        for name, q in module.named_parameters():
+            if q.grad is not None:
+                dist.all_reduce(q.grad, group=model_group)
+                arrays[f"{prefix}/{name}"] = q.grad.numpy().copy()
+                q.grad = None
+
+    models = {tag: _lm_model(d, tag, spec)
+              for tag, spec in params["models"].items()}
+    for tag, case in params["ring"].items():
+        cfg, model = models[case["model"]]
+        p = model.layers[0].attn
+        x = torch.from_numpy(block(load(f"ring_{tag}_x"))).requires_grad_()
+        o = attn.attention_ring(p, cfg, x, mesh,
+                                prefix_len=case["prefix_len"])
+        (o * torch.from_numpy(block(load(f"ring_{tag}_ct")))).sum().backward()
+        arrays[f"ring_{tag}/x"] = x.grad.numpy()
+        grads_over_model(p, f"ring_{tag}")
+
+    cfg, model = models["moe"]
+    x0 = torch.from_numpy(block(load("moe_x")))
+    ct = torch.from_numpy(block(load("moe_ct")))
+    e_loc = cfg.moe.n_experts // 4
+    for label in params["moe_comms"]:
+        for layout in ("all", "own"):
+            m = copy.deepcopy(model.layers[0].moe)
+            if layout == "own":
+                moe.own_experts_(m, 4, mr)
+            x = x0.clone().requires_grad_()
+            o, _ = moe.moe_block(m, cfg, x, label_to_cfg(label), mesh)
+            (o * ct).sum().backward()
+            key = f"moe_{label}_{layout}"
+            arrays[f"{key}/x"] = x.grad.numpy()
+            dist.all_reduce(m.router.grad, group=model_group)
+            arrays[f"{key}/router"] = m.router.grad.numpy()
+            for name in ("w_in", "w_gate", "w_out"):
+                if hasattr(m, name):
+                    g = getattr(m, name).grad
+                    if layout == "all":
+                        dist.all_reduce(g, group=model_group)
+                        g = g[mr * e_loc:(mr + 1) * e_loc]
+                    arrays[f"{key}/{name}"] = g.numpy()
+
+    def state_of(tag, compress):
+        cfg, model = _lm_model(d, tag, params["models"][tag])
+        named = dict(model.named_parameters())
+        return cfg, ts.TrainState(model, opt.init_opt_state(named),
+                                  opt.init_error_feedback(named)
+                                  if compress else None)
+
+    def batch(name):
+        f = np.load(os.path.join(d, name + ".npz"))
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+    def blocks_of(state):
+        return {n for n, p in state.params.named_parameters()
+                if ts.expert_block(n, p, state.params.cfg)}
+
+    def run(state, cfg, adam, on, batches, rec):
+        step = ts.train_step_fn(cfg, adam, mesh=on)
+        for name in batches:
+            state, met = step(state, ts.data_shard(batch(name), on))
+            rec["loss"].append(float(met["loss"]))
+            rec["crc"].append(_params_crc(state.params, blocks_of(state)))
+        return state
+
+    def save_rank0(case, tree):
+        if rank == 0:
+            np.savez(os.path.join(d, f"rank0_{case}.npz"), **_flat_tree(
+                {"params": tree[0], "m": tree[1]["m"], "v": tree[1]["v"]}))
+
+    for case, spec in params["steps"].items():
+        cfg, state = state_of(spec["model"], spec["compress"])
+        if spec.get("own"):
+            ts.own_experts_(state, mesh)
+        adam = opt.AdamWConfig(grad_compress="int8" if spec["compress"]
+                               else "none")
+        rec = out["steps"][case] = {"loss": [], "crc": []}
+        state = run(state, cfg, adam, mesh, spec["batches"], rec)
+        save_rank0(case, convert.to_reference(state, mesh))
+
+    # the elastic rescale: (2, 4) -> checkpoint -> (4, 2)
+    el = params["elastic"]
+    cfg, state = state_of(el["model"], False)
+    rec = out["elastic"] = {"loss": [], "crc": []}
+    adam = opt.AdamWConfig()
+    state = run(state, cfg, adam, mesh, el["batches"][:2], rec)
+    ck_dir = os.path.join(d, "elastic_ck")
+    ck.save(ck_dir, 2, convert.to_reference(state, mesh), mesh=mesh)
+    mesh_b = _mesh((4, 2), ("data", "model"))
+    shape_b = {"data": 4, "model": 2}
+    tree = ck.restore(ck_dir, 2, convert.reference_like(cfg), mesh=mesh_b,
+                      specs=ts.state_specs(cfg, shape_b))
+    state = run(convert.from_reference(tree, cfg), cfg, adam, mesh_b,
+                el["batches"][2:], rec)
+    save_rank0("elastic", convert.to_reference(state, mesh_b))
+
+    # a state holding the rank's own experts: saved on (2, 4), restored
+    # onto (4, 2), each rank given its new experts' rows
+    own = params["own_ckpt"]
+    cfg, state = state_of(own["model"], False)
+    ts.own_experts_(state, mesh)
+    rec = out["own_ckpt"] = {"loss": [], "crc": []}
+    state = run(state, cfg, adam, mesh, own["batches"], rec)
+    ck_dir = os.path.join(d, "own_ck")
+    whole = convert.to_reference(state, mesh)
+    ck.save(ck_dir, 1, whole, mesh=mesh)
+    save_rank0("own_ckpt", whole)
+    with torch.device("meta"):
+        like = moe.own_experts_(Transformer(cfg), 2,
+                                mesh_b.get_local_rank("model"))
+    tree = ck.restore(ck_dir, 1, convert.reference_like(like), mesh=mesh_b,
+                      specs=ts.state_specs(cfg, shape_b))
+    restored = convert.from_reference(tree, cfg)
+    out["own_ckpt"]["rows"] = {
+        n: list(p.shape) for n, p in restored.params.named_parameters()
+        if ts.expert_block(n, p, cfg)}
+    for key, t in (("params", tree[0]), ("m", tree[1]["m"]),
+                   ("v", tree[1]["v"])):
+        for k, a in _flat_tree(t).items():
+            if "/moe/w_" in "/" + k:
+                arrays[f"own_ckpt/{key}/{k}"] = a
+    np.savez(os.path.join(d, f"rank{rank}.npz"), **arrays)
+    out["mesh_b"] = [mesh_b.get_local_rank("data"),
+                     mesh_b.get_local_rank("model")]
     return out
 
 

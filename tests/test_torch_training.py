@@ -424,7 +424,29 @@ def test_synthetic_batch_is_pure():
         assert not torch.equal(a["frontend"], other["frontend"])
 
 
-def test_compressed_training_memorizes_a_batch():
+def _one_rank_mesh_steps(tmp_path, cfg, adam, batch, n):
+    """``n`` mesh train steps on a one-rank gloo mesh (1, 1) of this
+    process, from seed 0: the losses and the final parameters."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        state = ts.make_train_state(torch.Generator().manual_seed(0), cfg,
+                                    adam=adam)
+        step = ts.train_step_fn(cfg, adam=adam, mesh=mesh)
+        losses = []
+        for _ in range(n):
+            state, m = step(state, ts.data_shard(batch, mesh))
+            losses.append(float(m["loss"]))
+        return losses, [p.detach().clone() for p in state.params.parameters()]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_training_memorizes_a_batch(tmp_path):
     cfg = get_smoke("qwen3-0.6b")
     adam = opt.AdamWConfig(lr=1e-3, grad_compress="int8", warmup=0)
     state = ts.make_train_state(torch.Generator().manual_seed(0), cfg,
@@ -437,5 +459,10 @@ def test_compressed_training_memorizes_a_batch():
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
     assert losses[-1] < losses[0]
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        ts.train_step_fn(cfg, mesh=object())
+    # the same on a one-rank mesh (the step that raised before training
+    # on a mesh was ported): the same losses and parameters
+    mesh_losses, mesh_params = _one_rank_mesh_steps(tmp_path, cfg, adam,
+                                                    batch, 8)
+    assert mesh_losses == losses
+    for got, want in zip(mesh_params, state.params.parameters()):
+        assert torch.equal(got, want.detach())

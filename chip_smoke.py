@@ -249,6 +249,23 @@ Phases (each raises on failure; nothing is caught):
      and on one process, the gloo gradient reduction's share, each
      rank's peak memory_allocated, the checkpoint's save and restore
      seconds;
+  8h. the dry run (repro_torch.launch.dryrun, cells, flops_probe,
+     hlo_stats, mesh; DistributedPoissonSolver.lower): the CLI in
+     subprocesses on fake ranks (a "fake" process group, fake tensors
+     on the card's device type, nothing allocated or launched) for
+     qwen3-0.6b decode_32k on the 256-rank mesh, flups-poisson on the
+     256- and 512-rank meshes and moonshot-v1-16b-a3b train_4k on 256,
+     each record's status, FLOPs, collective bytes, argument and temp
+     GB and dominant roofline term printed, every one "ok"; the
+     flups-poisson cell's solver at n=256 (NODE (U,U,U) CHAT2, an
+     in-block batch of 2, float32) on a one-rank NCCL mesh, engine
+     "cuda" within 1e-5 relative of engine "torch" with exact launches
+     (DRY_POISSON), which the same cell's dry run on a fake (1, 1) mesh
+     counts as kernel calls; the median of REPS event-timed solves
+     beside that dry run's t_compute_s and t_memory_s; and a bf16 matmul
+     rate, a device-to-device copy rate and flops_probe's count of
+     phase 8e's step at its measured ms, each beside the data sheet's
+     figure (launch.mesh), printed and not held;
   9. every kernel call of the recorded solves (the distributed, the
      served and the launched ones, the spawned ranks' and search_plan's
      radix-2 calls among them) replayed at its shape
@@ -426,6 +443,9 @@ EXPECTED = {
                    "fft_stockham_twiddle": 3},
     "LAUNCH_CELL_B2": {"fft_stockham": 8, "fft_stockham_scale": 1},
     "LAUNCH_UNB_SMALL": {"fft_stockham": 6, "spectral_scale": 1},
+    # the dry run's flups-poisson cell at n=256 on a one-rank mesh (phase
+    # 8h): NODE (U,U,U), the in-block batch of 2 in one pipeline
+    "DRY_POISSON": {"fft_stockham": 6, "spectral_scale": 1},
 }
 # of those, the calls whose rows run on a thread-block cluster (8192 to
 # 32768 points): the pruned 8192-point forward of LONG_UUU's x direction;
@@ -2218,6 +2238,7 @@ def _lm_phase(dev, smi):
           f"relative after one step; moe_drop: absolute); worst "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     print(f"LM phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
+    return ms
 
 
 # the LM serving phase (8f): qwen3-0.6b at its full config through prefill
@@ -3163,6 +3184,216 @@ def _lm_train_mesh_phase(dev, smi):
           f"{ranks[0]['moe_rows'][0]} experts each; ranks {t_ranks:.1f} s")
     print(f"LM train mesh phase: {time.perf_counter() - t0:.1f} s; card: "
           f"{smi}")
+
+
+# the dry-run phase (8h): the CLI's cells on fake ranks, and the
+# flups-poisson cell's solver at DRY_N on the card
+DRY_CELLS = (
+    ("decode", ["--arch", "qwen3-0.6b", "--shape", "decode_32k",
+                "--mesh", "single"]),
+    ("poisson", ["--arch", "flups-poisson", "--mesh", "both"]),
+    ("moe", ["--arch", "moonshot-v1-16b-a3b", "--shape", "train_4k",
+             "--mesh", "single"]),
+)
+DRY_N = 256
+DRY_TIMEOUT_S = 240
+# the measured rates: a bf16 matmul of this size cubed, a copy this long
+DRY_MATMUL_N = 8192
+DRY_COPY_BYTES = 2 ** 30
+# the flups-poisson cell at DRY_N on a fake (1, 1) mesh, engine "cuda"
+_DRY_ONE_RANK = r"""
+import json
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+from repro_torch.core.comm import CommConfig
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_local_mesh
+rec = run_cell("flups-poisson", "solve", make_local_mesh(1, 1), CommConfig(),
+               extra_cfg={"n": %d, "engine": "cuda"})
+print("RESULT " + json.dumps(rec))
+"""
+
+
+def _dryrun_phase(dev, smi, run_counted, lm_ms):
+    """Phase 8h: the dry run.  Raises on the first failed check; prints
+    the numbers (the measured rates are printed, not held)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.configs.flups_poisson import CONFIG
+    from repro_torch.core.comm import CommConfig
+    from repro_torch.distributed.pencil import DistributedPoissonSolver
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.flops_probe import measure
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+         "--out", out_dir.name, "--tag", tag], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for tag, argv in DRY_CELLS}
+    procs["one_rank"] = subprocess.Popen(
+        [sys.executable, "-c", _DRY_ONE_RANK % DRY_N], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    # -- (b) the flups-poisson cell's solver on a one-rank NCCL mesh ------
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        DIST_BACKEND, init_method=f"file://{tmp.name}/dryrun", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    cfg = dataclasses.replace(CONFIG, n=DRY_N)
+    kw = dict(layout=cfg.layout, green_kind=cfg.green, mesh=mesh,
+              comm=CommConfig(cfg.comm, cfg.comm_chunks),
+              dtype=torch.float32, device=dev, doubling=cfg.doubling,
+              relayout=cfg.relayout)
+    t1 = time.perf_counter()
+    sc = DistributedPoissonSolver((DRY_N,) * 3, 1.0, cfg.bcs, engine="cuda",
+                                  **kw)
+    st = DistributedPoissonSolver((DRY_N,) * 3, 1.0, cfg.bcs,
+                                  engine="torch", _green_cache=sc._green_raw,
+                                  **kw)
+    green_s = time.perf_counter() - t1
+    gen = torch.Generator(device=dev).manual_seed(8)
+    f = torch.randn((cfg.batch,) + tuple(sc.input_shape), generator=gen,
+                    device=dev)
+    x = sc.shard_input(f)
+    y, counts = run_counted("DRY_POISSON", lambda: sc.solve_local(x))
+    want = st.solve_local(x)
+    torch.cuda.synchronize()
+    rel = ((y - want).abs().max() / want.abs().max()).item()
+    if not torch.isfinite(y).all() or y.shape != want.shape or rel > 1e-5:
+        raise AssertionError(f"DRY_POISSON: cuda vs torch {rel:.3e} "
+                             f"(shape {tuple(y.shape)})")
+    times = []
+    for _ in range(REPS + 2):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        sc.solve_local(x)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    solve_ms = statistics.median(times[2:])
+    del sc, st, f, x, y, want
+    dist.destroy_process_group()
+    tmp.cleanup()
+
+    # -- (c) measured rates beside the data sheet's -----------------------
+    def event_ms(fn, reps=10):
+        fn()
+        ts = []
+        for _ in range(reps):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
+
+    m = DRY_MATMUL_N
+    ma = torch.randn((m, m), device=dev, dtype=torch.bfloat16)
+    mb = torch.randn((m, m), device=dev, dtype=torch.bfloat16)
+    mm_rate = 2 * m ** 3 / (event_ms(lambda: ma @ mb) / 1e3)
+    del ma, mb
+    src = torch.empty(DRY_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_rate = 2 * src.numel() / (event_ms(lambda: dst.copy_(src)) / 1e3)
+    del src, dst
+    torch.cuda.empty_cache()
+    # phase 8e's step (qwen3-0.6b, batch LM_BATCH x LM_SEQ, one process)
+    step = build_cell(LM_ARCH, ShapeSpec("phase_8e", LM_SEQ, LM_BATCH,
+                                         "train"), None, device=dev.type)
+    with step.mode:
+        counted = measure(step.fn, *step.args)
+    step_flops = counted.flops + counted.fft_flops
+    remat = step.args[0].params.cfg.remat
+    del step, counted
+
+    # -- (a) the CLI's records --------------------------------------------
+    recs, one = [], None
+    for tag, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=max(
+                1.0, DRY_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.communicate()
+            raise AssertionError(f"DRY {tag}: no result within "
+                                 f"{DRY_TIMEOUT_S} s")
+        if p.returncode != 0:
+            raise AssertionError(f"DRY {tag}: exit {p.returncode}\n"
+                                 f"{stdout[-1500:]}\n{stderr[-3000:]}")
+        if tag == "one_rank":
+            one = json.loads(stdout.split("RESULT ", 1)[1])
+            continue
+        with open(os.path.join(out_dir.name, tag + ".jsonl")) as fh:
+            recs += [json.loads(line) for line in fh if line.strip()]
+    out_dir.cleanup()
+    if len(recs) != 4:
+        raise AssertionError(f"DRY: {len(recs)} records, expected 4")
+    for r in recs:
+        where = dict(r.get("mesh", []))
+        label = f"{r['arch']}/{r['shape']} on {tuple(where.values())}"
+        if r["status"] != "ok":
+            raise AssertionError(f"DRY {label}: {r.get('error')}\n"
+                                 f"{r.get('trace', '')}")
+        mem, cost, rf = r["memory"], r["cost"], r["roofline"]
+        print(f"DRY {label}: ok, n_chips {r['n_chips']}, "
+              f"{cost['flops']:.4e} FLOP/rank, collectives "
+              f"{cost['coll_bytes'] / 1e9:.4f} GB/rank in "
+              f"{int(cost['coll_count'])}, arguments "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB/rank held "
+              f"({mem['spec_argument_size_in_bytes'] / 1e9:.3f} in the "
+              f"reference's layout), temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB/rank; roofline "
+              f"compute {rf['t_compute_s']:.4e} s, memory "
+              f"{rf['t_memory_s']:.4e} s, collective "
+              f"{rf['t_collective_s']:.4e} s: {rf['dominant']}; traced in "
+              f"{r['t_lower_s']} s")
+    launched = {k: v for k, v in counts.items() if v}
+    if one["kernels"] != launched:
+        raise AssertionError(f"DRY_POISSON: the dry run counts kernel calls "
+                             f"{one['kernels']}, the card launched {counts}")
+    rf = one["roofline"]
+    bound_ms = max(rf["t_compute_s"], rf["t_memory_s"]) * 1e3
+    print(f"DRY_POISSON flups-poisson n={DRY_N} NODE (U,U,U) CHAT2, in-block "
+          f"batch {cfg.batch}, float32, one-rank {DIST_BACKEND} mesh (1, 1): "
+          f"engine cuda within {rel:.3e} of engine torch; launches "
+          f"{launched} (the dry run's kernel calls {one['kernels']}); "
+          f"median of {REPS} event-timed "
+          f"solve_local {solve_ms:.3f} ms against the dry run's "
+          f"t_compute_s {rf['t_compute_s'] * 1e3:.4f} ms and t_memory_s "
+          f"{rf['t_memory_s'] * 1e3:.4f} ms (the larger "
+          f"{bound_ms / solve_ms:.1%} of the solve); host Green assembly {green_s:.1f} s; card: {smi}")
+    print(f"DRY rates: bf16 matmul {m}^3 {mm_rate / 1e12:.1f} TFLOP/s "
+          f"against PEAK_FLOPS_BF16 {lmesh.PEAK_FLOPS_BF16 / 1e12:.0f} "
+          f"({mm_rate / lmesh.PEAK_FLOPS_BF16:.1%}); device-to-device copy "
+          f"of {DRY_COPY_BYTES / 2 ** 30:g} GiB {copy_rate / 1e12:.3f} TB/s "
+          f"(read + write) against "
+          f"HBM_BW {lmesh.HBM_BW / 1e12:.2f} "
+          f"({copy_rate / lmesh.HBM_BW:.1%}); NVLINK_BW and INTER_NODE_BW "
+          f"not measured (one card); card: {smi}")
+    print(f"DRY step: flops_probe counts phase 8e's {LM_ARCH} step "
+          f"(batch {LM_BATCH} x seq {LM_SEQ}, remat {remat!r}: its "
+          f"recomputed forward counted) at "
+          f"{step_flops / 1e12:.3f} TFLOP; at the measured "
+          f"{lm_ms:.1f} ms/step that is {step_flops / lm_ms / 1e9:.1f} "
+          f"TFLOP/s, {step_flops / lm_ms * 1e3 / lmesh.PEAK_FLOPS_BF16:.1%}"
+          f" of PEAK_FLOPS_BF16; card: {smi}")
+    print(f"dry-run phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
 
 
 def _rate(table, name, default):
@@ -4404,13 +4635,16 @@ def main() -> int:
     clear_solver_cache()
 
     # -- 8e. LM training ------------------------------------------------------
-    _lm_phase(dev, smi)
+    lm_ms = _lm_phase(dev, smi)
 
     # -- 8f. LM serving -------------------------------------------------------
     _lm_serve_phase(dev, smi)
 
     # -- 8g. LM training on a mesh of four ranks ------------------------------
     _lm_train_mesh_phase(dev, smi)
+
+    # -- 8h. the dry run ------------------------------------------------------
+    _dryrun_phase(dev, smi, run_counted, lm_ms)
 
     # -- 9. replays and times -------------------------------------------------
     def nbytes(t):

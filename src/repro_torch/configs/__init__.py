@@ -1,16 +1,14 @@
 """Architecture registry: ``--arch <id>`` -> config, shapes, applicability.
 
 Counterpart of ``repro.configs``.  The ten LM configs are the reference's,
-field for field.  ``"flups-poisson"`` stays in the registry, but its
-module moves with the dry-run launchers (ROADMAP queue 1 item 4), so
-``get_config("flups-poisson")`` raises ``NotImplementedError``.
+field for field; ``"flups-poisson"`` is the distributed Poisson solve's
+``PoissonArchConfig`` (``configs.flups_poisson``), with the engine names
+mapped to the port's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from importlib import import_module
-
-from repro_torch.models.common import not_ported
 
 _MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
@@ -47,10 +45,6 @@ SHAPES = {
 
 
 def _module(arch: str):
-    if arch == "flups-poisson":
-        raise not_ported("the flups-poisson arch config", 4,
-                         "configs/flups_poisson.py, which moves with the "
-                         "dry-run launchers")
     return import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

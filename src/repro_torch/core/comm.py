@@ -80,6 +80,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import trace as _trace
 from repro_torch.runtime import abft as _abft
 from repro_torch.runtime import faults as _faults
 
@@ -256,10 +257,11 @@ def _wait(work):
 
 
 def _record(send, **extra):
+    nbytes = send.numel() * send.element_size()
     for census in _CENSUSES:
         census.per_collective.append(
-            {"op": "all-to-all", "bytes": send.numel() * send.element_size(),
-             **extra})
+            {"op": "all-to-all", "bytes": nbytes, **extra})
+    _trace.emit("all-to-all", bytes=nbytes, **extra)
 
 
 class _Sidecar:
@@ -425,8 +427,14 @@ class CommStrategy:
         return y, None
 
     @staticmethod
-    def _permute(x, permute):
-        return x if permute is None else x.permute(permute)
+    def _permute(x, permute, into):
+        """``x`` permuted (a view); ``into`` names the side of the switch
+        the relayout folds into, for the trace."""
+        if permute is None:
+            return x
+        if _trace.active() and tuple(permute) != tuple(range(x.ndim)):
+            _trace.emit("transpose", bytes=_trace.nbytes(x), into=into)
+        return x.permute(permute)
 
     def _pack(self, x, split_axis, concat_axis, chunk_axis, permute):
         """Resolve the relayout fold: returns ``(x, split, concat, chunk,
@@ -436,8 +444,8 @@ class CommStrategy:
         if permute is None:
             return x, split_axis, concat_axis, chunk_axis, None
         if self.fold == "pack":
-            return (self._permute(x, permute), split_axis, concat_axis,
-                    chunk_axis, None)
+            return (self._permute(x, permute, "pack"), split_axis,
+                    concat_axis, chunk_axis, None)
         return (x, permute[split_axis], permute[concat_axis],
                 None if chunk_axis is None else permute[chunk_axis],
                 permute)
@@ -505,7 +513,7 @@ class CommStrategy:
         x = self._prepare(x, axis_name, split_axis, valid_extent)
         y = self._switch(x, axis_name, split_axis, concat_axis,
                          chunk_axis=chunk_axis)
-        y = self._permute(y, unpack)
+        y = self._permute(y, unpack, "unpack")
         return post(y) if post is not None else y
 
 
@@ -557,7 +565,7 @@ class OverlapStrategy(PipelinedStrategy):
         if post is None or self.n_chunks <= 1:
             y = self._switch(x, axis_name, split_axis, concat_axis,
                              chunk_axis=chunk_axis)
-            y = self._permute(y, unpack)
+            y = self._permute(y, unpack, "unpack")
             return post(y) if post is not None else y
         ax = self._chunk_axis(x, split_axis, concat_axis, chunk_axis)
         # under fold="unpack" each chunk is permuted as it lands and the
@@ -569,7 +577,8 @@ class OverlapStrategy(PipelinedStrategy):
         def land(sent):
             blocks, work = sent
             _wait(work)
-            return post(self._permute(blocks.flatten(c, c + 1), unpack))
+            return post(self._permute(blocks.flatten(c, c + 1), unpack,
+                                      "unpack"))
 
         outs = []
         inflight = self._collective(chunks[0], axis_name, split_axis,

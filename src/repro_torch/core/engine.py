@@ -48,6 +48,8 @@ import torch
 from repro_torch.runtime import abft as _abft
 from repro_torch.runtime import faults as _faults
 
+from . import trace as _trace
+
 __all__ = ["TransformEngine", "TransformSchedule", "LayoutSchedule",
            "as_engine", "build_schedule", "schedule_layouts", "relayout",
            "on_last_axis", "folded_normfact", "fwd_1d", "bwd_1d",
@@ -112,7 +114,12 @@ def on_last_axis(x, axis, fn):
     afterwards as a view.  The contiguous copy also keeps ``torch.fft``
     bit-identical to the scheduled pipeline: MKL computes a strided last
     axis with other rounding than a contiguous one."""
+    last = axis % x.ndim == x.ndim - 1
+    if _trace.active() and not last:
+        _trace.emit("transpose", bytes=_trace.nbytes(x), into="moveaxis")
     y = fn(torch.movedim(x, axis, -1).contiguous())
+    if _trace.active() and not last:
+        _trace.emit("transpose", bytes=_trace.nbytes(y), into="moveaxis")
     return torch.movedim(y, -1, axis)
 
 
@@ -269,6 +276,8 @@ def relayout(x, src, dst):
         return x
     off = x.ndim - len(src)
     axes = tuple(range(off)) + tuple(off + src.index(d) for d in dst)
+    if _trace.active():
+        _trace.emit("transpose", bytes=_trace.nbytes(x), into="edge")
     return x.permute(axes).contiguous()
 
 
@@ -353,6 +362,8 @@ class TransformSchedule:
             yhat = _faults.taint("green", yhat)
             if self.engine.use_cuda:
                 _faults.fail_point("cuda.green")
+        if _trace.active():
+            _trace.emit("green", bytes=_trace.nbytes(yhat))
         if self.engine.use_cuda:
             from repro_torch.kernels import ops
             return ops.green_multiply(yhat, green)
@@ -399,11 +410,11 @@ class TransformSchedule:
         x = x[..., :n_live]
         pad_to = None if n_live == p.n_fft else p.n_fft
         assert green.shape[-1] == p.n_out, (tuple(green.shape), p.n_out)
-        if p.dft == "r2c":
-            return ops.rfft_green(x, green, pad_to=pad_to,
-                                  max_radix=self.engine.max_radix)
-        return ops.fft1d_green(x, green, pad_to=pad_to,
-                               max_radix=self.engine.max_radix)
+        fused = ops.rfft_green if p.dft == "r2c" else ops.fft1d_green
+        y = fused(x, green, pad_to=pad_to, max_radix=self.engine.max_radix)
+        if _trace.active():
+            _trace.emit("green", bytes=_trace.nbytes(y), fused=True)
+        return y
 
 
 def folded_normfact(plan) -> float:

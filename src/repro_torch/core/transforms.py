@@ -33,6 +33,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import trace as _trace
 from .bc import TransformKind
 
 __all__ = [
@@ -65,18 +66,27 @@ _SCAN_DTYPE = torch.float64
 # engine-aware FFT backends (torch.fft by default, Stockham kernel for cuda)
 # ---------------------------------------------------------------------------
 
+def _traced(kind, x, n, y):
+    """``y``, the ``torch.fft`` transform of ``x`` at length ``n``,
+    recorded in the open traces (``core.trace``)."""
+    if _trace.active():
+        _trace.emit("fft", kind=kind, length=n, rows=x.numel() // x.shape[-1],
+                    out=y.shape[-1], dtype=y.dtype)
+    return y
+
+
 def _rfft(z, engine):
     if _use_cuda(engine) and _pow2(z.shape[-1]):
         from repro_torch.kernels import ops
         return ops.rfft_kernel(z, max_radix=engine.max_radix)
-    return torch.fft.rfft(z, dim=-1)
+    return _traced("rfft", z, z.shape[-1], torch.fft.rfft(z, dim=-1))
 
 
 def _irfft(c, n, engine):
     if _use_cuda(engine) and _pow2(n):
         from repro_torch.kernels import ops
         return ops.irfft_kernel(c, n, max_radix=engine.max_radix)
-    return torch.fft.irfft(c, n=n, dim=-1)
+    return _traced("irfft", c, n, torch.fft.irfft(c, n=n, dim=-1))
 
 
 def _cfft(z, engine, inverse=False):
@@ -86,7 +96,8 @@ def _cfft(z, engine, inverse=False):
     if _use_cuda(engine) and _pow2(z.shape[-1]):
         from repro_torch.kernels import ops
         return ops.fft1d(z, inverse=inverse, max_radix=engine.max_radix)
-    return (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=-1)
+    return _traced("ifft" if inverse else "fft", z, z.shape[-1],
+                   (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -207,12 +218,20 @@ def twiddle_tables(kind: TransformKind, m: int):
     raise ValueError(kind)
 
 
-@lru_cache(maxsize=None)
 def device_tables(kind: TransformKind, m: int, dtype, device):
     """``twiddle_tables(kind, m)`` as ``dtype`` tensors on ``device``, cast
     once and reused (plus ``ones``/``zeros`` of length m, the DCT-I
     post-twiddle, and the complex ``q4_pre``/``q4_post`` of even-M
-    type-IV)."""
+    type-IV).  Under ``FakeTensorMode`` (the dry run) the tables are fake
+    and made anew, so that no fake tensor enters the cache."""
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return _device_tables.__wrapped__(kind, m, dtype, device)
+    return _device_tables(kind, m, dtype, device)
+
+
+@lru_cache(maxsize=None)
+def _device_tables(kind: TransformKind, m: int, dtype, device):
     t = {k: torch.from_numpy(v).to(device=device, dtype=dtype)
          for k, v in twiddle_tables(kind, m).items()}
     if kind == TransformKind.DCT1:

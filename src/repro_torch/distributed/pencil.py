@@ -51,8 +51,12 @@ adjoint over the global grid; on the ``"cuda"`` engine there is none
 (the kernels carry no gradient) and ``verify="abft"`` runs the checked
 pipeline on every solve, as the reference does on ``"pallas"``.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): ``lower``
-(HLO only; queue 1 item 4).
+``lower`` is the dry run of one local solve: the rank's pipeline on fake
+tensors (``FakeTensorMode``; nothing is allocated, no kernel launched,
+the collectives go to whatever process group the mesh holds, the
+``"fake"`` backend's in ``launch.mesh``), recorded as a program-order
+``core.trace.Trace``: the counterpart of the reference's lowered HLO,
+which ``launch.hlo_stats`` reads.
 """
 from __future__ import annotations
 
@@ -83,11 +87,6 @@ __all__ = ["DistributedPoissonSolver"]
 
 def _pad_to(n: int, p: int) -> int:
     return -(-n // p) * p
-
-
-def _not_ported(what: str, item: int, needs: str):
-    return NotImplementedError(f"{what} needs {needs}, not ported yet "
-                               f"(ROADMAP queue 1 item {item})")
 
 
 def _resolve_device(device) -> torch.device:
@@ -446,10 +445,11 @@ class DistributedPoissonSolver:
             x = x.real
         return x.to(self.dtype)
 
-    def _body(self, x, cfg: CommConfig, col=None, tol=None):
+    def _body(self, x, cfg: CommConfig, col=None, tol=None, green=None):
         body = (self._local_solve_scheduled if self.relayout == "scheduled"
                 else self._local_solve)
-        return body(x, self._green_dev, cfg=cfg, col=col, tol=tol)
+        return body(x, self._green_dev if green is None else green, cfg=cfg,
+                    col=col, tol=tol)
 
     def _run_local(self, x, cfg: CommConfig, col=None, tol=None):
         if self._ctor["lazy_green"]:
@@ -747,12 +747,16 @@ class DistributedPoissonSolver:
 
     # -- public API ----------------------------------------------------------
 
-    def solve_local(self, x):
+    def solve_local(self, x, green=None):
         """The local pipeline on this rank's padded pencil ``x`` (shape
         ``local_input_shape``, on the solver's device) under the current
         comm config; returns this rank's output pencil.  Collective: every
-        rank of the mesh calls it.  No ladder, no verify."""
-        return self._run_local(x, self.comm)
+        rank of the mesh calls it.  No ladder, no verify.  ``green``: a
+        Green block of ``lowered_shapes()[1]`` in place of the solver's
+        own (a dry run passes a fake one, as ``lower`` does)."""
+        if green is None:
+            return self._run_local(x, self.comm)
+        return self._body(x, self.comm, green=green)
 
     def solve(self, f, verify=None):
         """f: the global field on every rank, ``(*grid)``, ``(B, *grid)``
@@ -882,9 +886,54 @@ class DistributedPoissonSolver:
         new.stats["degradations"] = list(self.stats["degradations"])
         return new
 
-    # -- not ported ----------------------------------------------------------
+    # -- dry run -------------------------------------------------------------
 
     def lower(self, batch=None, dtype=None, *, local_batch: bool = False):
-        raise _not_ported("lower (an HLO dry run)", 4,
-                          "launch/hlo_stats.py's census")
+        """Trace this rank's local solve on fake tensors (the dry run): a
+        ``core.trace.Trace`` of the all-to-alls, transforms, relayouts,
+        Green multiply and kernel calls in program order, its ``inputs``
+        the pencil's and the Green block's ``(shape, dtype)``.  Every rank
+        of the mesh calls it (the collectives are issued, on fake
+        tensors).
+
+        ``batch`` sizes the leading batch dims as the reference's does: an
+        int for the single one in play (the pod-split dim when
+        ``batch_axis`` is set, else the in-block multi-RHS dim under
+        ``local_batch=True``), or a ``(pod, local)`` pair when both are
+        present; missing leading dims default to the pod axis's size and
+        1.  ``dtype``: the field's, the working precision by default."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.core import trace as _trace
+        dtype = dtype or self.dtype
+        shape, gshape = self.lowered_shapes(batch, local_batch=local_batch)
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                _trace.tracing() as tr:
+            x = torch.empty(shape, dtype=dtype, device=self.device)
+            g = torch.empty(gshape, dtype=self.dtype, device=self.device)
+            y = self.solve_local(x, green=g)
+        tr.inputs = [(shape, dtype), (gshape, self.dtype)]
+        tr.outputs = [(tuple(y.shape), y.dtype)]
+        return tr
+
+    def lowered_shapes(self, batch=None, *, local_batch: bool = False):
+        """``(pencil shape, Green block shape)`` of this rank's local solve
+        for ``lower``'s ``batch`` and ``local_batch``."""
+        defaults = []           # leading dims in order: pod-split, local
+        if self.batch_axis is not None:
+            defaults.append(self._size[self.batch_axis])
+        if local_batch:
+            defaults.append(1)
+        n_lead = len(defaults)
+        lead = () if batch is None else (
+            tuple(batch) if isinstance(batch, (tuple, list)) else (batch,))
+        if len(lead) < n_lead:
+            lead = tuple(defaults[:n_lead - len(lead)]) + lead
+        if len(lead) != n_lead:
+            raise ValueError(f"batch={batch!r} gives {len(lead)} leading "
+                             f"dims; batch_axis={self.batch_axis!r} and "
+                             f"local_batch={local_batch} take {n_lead}")
+        if self.batch_axis is not None:
+            lead = self.local_input_shape(lead[0])[:1] + lead[1:]
+        return (lead + self.local_input_shape(),
+                tuple(self._local_green_shape()[d] for d in self._gperm))
 

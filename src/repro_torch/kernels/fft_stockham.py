@@ -10,7 +10,10 @@ plane (the kernel reads it directly, no zeros plane is materialized).
 
 On a CUDA tensor each wrapper launches its kernel on the current stream
 and counts the launch; on a CPU tensor it runs the plain version in
-``ref``.  Anything else (other devices, dtypes, shapes, strides) raises.
+``ref``; on a fake tensor (``FakeTensorMode``, the dry run) it returns an
+output of the right shape and launches nothing.  Every call is recorded
+in the open ``core.trace`` traces.  Anything else (other devices,
+dtypes, shapes, strides) raises.
 A row takes one of three tiers by its length (``path``): up to
 ``ONE_PASS_N`` points one pass; up to ``CLUSTER_N`` one pass on a
 thread-block cluster of N / ``ONE_PASS_N`` blocks a row; longer rows two
@@ -21,6 +24,9 @@ and a cluster or two-pass call once more in ``CLUSTER`` or ``TWO_PASS``.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.core import trace as _trace
 
 from . import ref
 from ._build import CLUSTER, LAUNCHES, TWO_PASS, check, library
@@ -81,6 +87,17 @@ def path(n):
     return "cluster" if n <= CLUSTER_N else "two_pass"
 
 
+def _traced(kname, x, out, n, inverse=False):
+    """``out``, recorded in the open traces as ``kname``'s call and the
+    FFT it computes."""
+    if _trace.active():
+        _trace.kernel_call(kname, x, out)
+        _trace.emit("fft", kind="ifft" if inverse else
+                    "fft" if x.is_complex() else "rfft", length=n,
+                    rows=x.shape[0], out=out.shape[-1], dtype=out.dtype)
+    return out
+
+
 def _launch(kname, x, out, n, inverse, max_radix, start, k, g=None,
             grows=1, a=None, b=None):
     rows, n_in = x.shape
@@ -139,14 +156,15 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
     k = n if keep is None else keep
     if not 1 <= k <= n:
         raise ValueError(f"keep must be in [1, {n}], got {keep}")
-    if x.device.type == "cpu":
-        return ref.fft_stockham(x, inverse=inverse, pad_to=pad_to,
-                                max_radix=max_radix, keep=keep)
+    if x.device.type == "cpu" and not is_fake(x):
+        return _traced("fft_stockham", x, ref.fft_stockham(
+            x, inverse=inverse, pad_to=pad_to, max_radix=max_radix,
+            keep=keep), n, inverse)
     out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
                       device=x.device)
-    if rows:
+    if rows and not is_fake(x):
         _launch("fft_stockham", x, out, n, inverse, max_radix, 0, k)
-    return out
+    return _traced("fft_stockham", x, out, n, inverse)
 
 
 def fft_stockham_scale(x, g, start=0, pad_to=None, max_radix=4):
@@ -166,15 +184,15 @@ def fft_stockham_scale(x, g, start=0, pad_to=None, max_radix=4):
     if grows < 1 or rows % grows or start < 0 or start + k > n or k < 1:
         raise ValueError(f"fft_stockham_scale: rows={rows}, g={grows}x{k}, "
                          f"start={start}, n_fft={n} do not fit")
-    if x.device.type == "cpu":
-        return ref.fft_stockham_scale(x, g, start=start, pad_to=pad_to,
-                                      max_radix=max_radix)
+    if x.device.type == "cpu" and not is_fake(x):
+        return _traced("fft_stockham_scale", x, ref.fft_stockham_scale(
+            x, g, start=start, pad_to=pad_to, max_radix=max_radix), n)
     out = torch.empty((rows, k), dtype=ref._cdt(ref._rdt(x)),
                       device=x.device)
-    if rows:
+    if rows and not is_fake(x):
         _launch("fft_stockham_scale", x, out, n, False, max_radix, start, k,
                 g=g, grows=grows)
-    return out
+    return _traced("fft_stockham_scale", x, out, n)
 
 
 def fft_stockham_twiddle(x, a, b, start=0, pad_to=None, max_radix=4):
@@ -196,11 +214,11 @@ def fft_stockham_twiddle(x, a, b, start=0, pad_to=None, max_radix=4):
     if k < 1 or start < 0 or start + k > n:
         raise ValueError(f"fft_stockham_twiddle: bins [{start}, "
                          f"{start + k}) do not fit n_fft={n}")
-    if x.device.type == "cpu":
-        return ref.fft_stockham_twiddle(x, a, b, start=start, pad_to=pad_to,
-                                        max_radix=max_radix)
+    if x.device.type == "cpu" and not is_fake(x):
+        return _traced("fft_stockham_twiddle", x, ref.fft_stockham_twiddle(
+            x, a, b, start=start, pad_to=pad_to, max_radix=max_radix), n)
     out = torch.empty((rows, k), dtype=ref._rdt(x), device=x.device)
-    if rows:
+    if rows and not is_fake(x):
         _launch("fft_stockham_twiddle", x, out, n, False, max_radix, start,
                 k, a=a, b=b)
-    return out
+    return _traced("fft_stockham_twiddle", x, out, n)

@@ -7,11 +7,17 @@ interleaved complex tensor.  The batched form (B, rows, lanes) shares one
 (rows, lanes) Green plane across B without broadcasting it into memory.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream and
-counts the launch; on a CPU tensor it runs the plain version in ``ref``.
+counts the launch; on a CPU tensor it runs the plain version in ``ref``;
+on a fake tensor (the dry run) it returns an output of the right shape
+and launches nothing.  Every call is recorded in the open ``core.trace``
+traces.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.core import trace as _trace
 
 from . import ref
 from ._build import LAUNCHES, check, library
@@ -39,11 +45,16 @@ def spectral_scale(x, green, scale: float = 1.0):
                          f"got {tuple(green.shape)} {green.dtype}")
     if green.device != x.device:
         raise ValueError("spectral_scale: green and x on different devices")
-    if x.device.type == "cpu":
-        return ref.spectral_scale(x, green, scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spectral_scale: unsupported device {x.device}")
-    out = torch.empty_like(x)
+    if x.device.type == "cpu" and not is_fake(x):
+        out = ref.spectral_scale(x, green, scale)
+    else:
+        out = torch.empty_like(x)
+    if _trace.active():
+        _trace.kernel_call("spectral_scale", x, out)
+    if x.device.type == "cpu" or is_fake(x):
+        return out
     batch = x.shape[0] if x.ndim == 3 else 1
     plane = green.numel()
     if out.numel():

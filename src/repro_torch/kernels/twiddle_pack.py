@@ -7,11 +7,17 @@ tensor, read in place: its rows may lie at any pitch, so a window
 ``f[:, start:start+k]`` of a contiguous half spectrum needs no copy.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream and
-counts the launch; on a CPU tensor it runs the plain version in ``ref``.
+counts the launch; on a CPU tensor it runs the plain version in ``ref``;
+on a fake tensor (the dry run) it returns an output of the right shape
+and launches nothing.  Every call is recorded in the open ``core.trace``
+traces.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.core import trace as _trace
 
 from . import ref
 from ._build import LAUNCHES, check, library
@@ -49,11 +55,16 @@ def twiddle_pack(x, a, b):
         if t.device != x.device:
             raise ValueError(f"twiddle_pack: {name} and x on different "
                              "devices")
-    if x.device.type == "cpu":
-        return ref.twiddle_pack(x, a, b)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"twiddle_pack: unsupported device {x.device}")
-    out = torch.empty((rows, k), dtype=rdt, device=x.device)
+    if x.device.type == "cpu" and not is_fake(x):
+        out = ref.twiddle_pack(x, a, b)
+    else:
+        out = torch.empty((rows, k), dtype=rdt, device=x.device)
+    if _trace.active():
+        _trace.kernel_call("twiddle_pack", x, out)
+    if x.device.type == "cpu" or is_fake(x):
+        return out
     if out.numel():
         lib = library()
         fn = (lib.repro_twiddle_pack_f64 if rdt == torch.float64

@@ -35,11 +35,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
 
 
-def not_ported(what: str, item, needs: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} needs {needs}, not ported yet "
-                               f"(ROADMAP queue 1 item {item})")
-
-
 @dataclass(frozen=True)
 class MoEConfig:
     n_experts: int

@@ -149,11 +149,18 @@ def test_configs_match_reference():
             assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
 
 
-def test_flups_poisson_and_serving_not_ported():
+def test_flups_poisson_config_and_serving():
+    from repro.configs import get_config as rgc
     from repro_torch.configs import ALL_ARCHS, arch_shapes, get_config as gc
     assert "flups-poisson" in ALL_ARCHS
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gc("flups-poisson")
+    mine, ref = gc("flups-poisson"), rgc("flups-poisson")
+    want = dataclasses.asdict(ref)
+    want["engine"] = {"xla": "torch", "pallas": "cuda"}[want["engine"]]
+    got = dataclasses.asdict(mine)
+    for d in (got, want):          # the enums by name: two packages' enums
+        d["layout"] = d["layout"].name
+        d["bcs"] = tuple(tuple(b.name for b in pair) for pair in d["bcs"])
+    assert got == want
     assert arch_shapes("flups-poisson") == ()
     assert [s.name for s in arch_shapes("mamba2-2.7b")] == [
         "train_4k", "prefill_32k", "decode_32k", "long_500k"]

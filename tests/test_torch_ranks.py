@@ -287,7 +287,7 @@ def scenario_faults(rank, d, params):
     """The ladder on every rank: an armed ``comm.overlap`` and
     ``comm.pipelined`` fault, a NaN at ``green`` under verify="nan",
     transient ``dist.dispatch`` faults, a real (not injected) switch
-    failure, and the not-ported entry point (``lower``)."""
+    failure, and the dry run (``lower``) on the rank group."""
     from repro_torch.core.comm import CommConfig, PipelinedStrategy
     from repro_torch.runtime import SolveError, faults
     f, want = _ref_case(d)
@@ -348,12 +348,16 @@ def scenario_faults(rank, d, params):
                        s.comm.strategy]
     finally:
         PipelinedStrategy._switch = real
-    out["not_ported"] = []
-    for call in (lambda: s.lower(),):
-        try:
-            call()
-        except NotImplementedError as e:
-            out["not_ported"].append(str(e))
+    # the dry run on the gloo ranks: the lowered pipelined:2 solve's
+    # all-to-alls against the byte predictor, and its kernel calls
+    import torch
+    from repro_torch.launch.hlo_stats import comm_bytes_stats
+    from repro_torch.plan.costmodel import predict_bytes
+    lowered = s.lower()
+    out["lowered"] = [
+        [c["bytes"] for c in comm_bytes_stats(lowered)["per_collective"]],
+        predict_bytes(s.plan, 2, 4, torch.float64, s.comm),
+        dict(lowered.kernels), [list(x) for x, _ in lowered.outputs]]
     return out
 
 

@@ -18,19 +18,23 @@ Phases (each raises on failure; nothing is caught):
      batched scale shapes (B in {1, 3} on aligned and ragged planes),
      twiddle_pack on a strided half-spectrum window at the
      (E,E),(O,O),(E,O) 384^3 path's shape; the Stockham kernel's long
-     rows at N in {8192, 16384, 32768} (one pass on a thread-block
-     cluster) and 65536 (two passes): forward, inverse, pruned pad_to,
-     kept bins, the Green epilogue at start 0 and 1 (grows dividing the
-     rows), the DCT-I/DCT-II/DST-II twiddle windows, batch 1 and 13, radix
-     2 and 4, and one row of 2^24 points; float64 rows of 16384 (cluster)
-     and 65536 points (two passes) against torch.fft.fft;
+     rows at N in {8192, 16384, 32768, 65536} (one pass on a thread-block
+     cluster of N / 4096 blocks) and 131072 and 2^20 (two passes; 2^20 in
+     float32 only, at batch 1): forward, inverse, pruned pad_to, kept
+     bins, the Green epilogue at start 0 and 1 (grows dividing the rows),
+     the DCT-I/DCT-II/DST-II twiddle windows, batch 1 and 13, radix 2 and
+     4, and one row of 2^24 points; float64 rows of 16384, 65536
+     (cluster) and 131072 points (two passes) against torch.fft.fft;
   4. the main path: PoissonSolver.solve on the "cuda" engine, CELL, CHAT2,
      float32, for (U,U,U) and (P,P,P) at 256^3, (U,P,U) at 128^3 (its
      host Green assembly at 256^3 costs 10 s), (U,U,U) at 128^3 with B=2, semi-unbounded (U,E),(U,U),(U,U) at 256^3 and
      (U,U),(U,U),(O,U) at 128^3, the wall-bounded (E,E),(O,O),(E,O)
      at 384^3, and the elongated LONG_UUU (U,U,U) 4096x64x64 and
      LONG_SEMI (U,E),(U,U),(U,U) 2048x64x64, whose x direction needs an
-     8192-point FFT (on a cluster), each against the "torch" (cuFFT)
+     8192-point FFT (on a cluster), LONG_XL_UUU (U,U,U) 32768x16x16 (a
+     65536-point forward on a 16-block cluster) and LONG_XXL_UUU (U,U,U)
+     65536x16x16 (a 131072-point forward in two passes), each against the
+     "torch" (cuFFT)
      engine on the card, with the launch counts of all five kernels, and
      of the cluster and two-pass calls, read around each solve;
   5. the analytic checks: NODE (U,U,U) HEJ4 n=64 float64 Gaussian blob
@@ -71,8 +75,8 @@ Phases (each raises on failure; nothing is caught):
      by kernel with the idle share that leaves (marked INCOMPLETE where
      the profiler saw fewer Stockham kernels than the solve's Stockham
      calls: profiles taken after phases 8-8d lose device events), the
-     long rows' cluster and column kernels counted (a profiled LONG
-     solve must show no column pass);
+     long rows' cluster, column and row kernels counted (a profiled solve
+     shows a column pass exactly where it runs a two-pass call);
   8. the pencil-distributed solve (DistributedPoissonSolver over a
      DeviceMesh, CELL, CHAT2, float32 unless marked): DIST1_UUU, (U,U,U)
      at 256^3 on a one-rank NCCL mesh (1, 1) -- the switches' relayouts
@@ -350,6 +354,8 @@ EXPECTED = {
     "LONG_UUU": {"fft_stockham": 8, "fft_stockham_scale": 1},
     "LONG_SEMI": {"fft_stockham": 6, "fft_stockham_scale": 1,
                   "fft_stockham_twiddle": 1},
+    "LONG_XL_UUU": {"fft_stockham": 8, "fft_stockham_scale": 1},
+    "LONG_XXL_UUU": {"fft_stockham": 8, "fft_stockham_scale": 1},
     "NODE_UUU": {"fft_stockham": 6, "spectral_scale": 1},
     "NODE_SEMI_E": {"fft_stockham": 4, "spectral_scale": 1,
                     "fft_stockham_twiddle": 2},
@@ -448,15 +454,20 @@ EXPECTED = {
     "DRY_POISSON": {"fft_stockham": 6, "spectral_scale": 1},
 }
 # of those, the calls whose rows run on a thread-block cluster (8192 to
-# 32768 points): the pruned 8192-point forward of LONG_UUU's x direction;
+# 65536 points): the pruned 8192-point forward of LONG_UUU's x direction;
 # LONG_SEMI's fused DCT-II on the 8192-point extension and the inverse of
-# its DCT-III; and the calls whose rows take two passes (above 32768
-# points): none on the main path
+# its DCT-III; LONG_XL_UUU's pruned 65536-point forward (a 16-block
+# cluster) and the two 32768-point halves of its parity-split inverse;
+# LONG_XXL_UUU's 65536-point inverse halves; and the calls whose rows take
+# two passes (above 65536 points): LONG_XXL_UUU's pruned 131072-point
+# forward
 EXPECTED_CLUSTER = {
     "LONG_UUU": {"fft_stockham": 1},
     "LONG_SEMI": {"fft_stockham": 1, "fft_stockham_twiddle": 1},
+    "LONG_XL_UUU": {"fft_stockham": 3},
+    "LONG_XXL_UUU": {"fft_stockham": 2},
 }
-EXPECTED_TWO_PASS = {}
+EXPECTED_TWO_PASS = {"LONG_XXL_UUU": {"fft_stockham": 1}}
 
 
 def uuu_launches(label: str, ranks: int = 1) -> dict:
@@ -487,8 +498,8 @@ TIMED_ON = {"fft_stockham": "UUU", "fft_stockham_scale": "UUU",
 # other spectral_scale shapes (the checked (U,U,U) solve's among them),
 # the cluster calls, and the checked stages' one-row reference rows
 ALSO_TIMED = {"spectral_scale": ("SYM384", "BS_UUU", "ABFT_UUU/abft-stages"),
-              "fft_stockham": ("LONG_UUU", "LONG_SEMI",
-                               "ABFT_UUU/abft-stages"),
+              "fft_stockham": ("LONG_UUU", "LONG_SEMI", "LONG_XL_UUU",
+                               "LONG_XXL_UUU", "ABFT_UUU/abft-stages"),
               "fft_stockham_twiddle": ("LONG_SEMI", "ABFT_EOP/abft-stages")}
 # a kernel under SHORT_MS per call is timed as LOOP back-to-back calls
 SHORT_MS = 0.1
@@ -3601,10 +3612,15 @@ def main() -> int:
         hold("fft_stockham_twiddle", fft_stockham_twiddle(x, a, b),
              ref.fft_stockham_twiddle(x, a, b), *fft_tol(rdt, 1024))
         checks += 1
-        # rows above ONE_PASS_N points: on a cluster up to 32768, in two
-        # passes above; the largest error per length, against the
-        # spectrum's largest value, and the path each call took
-        for n in (8192, 16384, 32768, 65536):
+        # rows above ONE_PASS_N points: on a cluster up to 65536, in two
+        # passes above (2^20 in float32 at batch 1); the largest error per
+        # length, against the spectrum's largest value, and the path each
+        # call took
+        for n in (8192, 16384, 32768, 65536, 2 ** 17, 2 ** 20):
+            if n == 2 ** 20 and rdt == torch.float64:
+                continue
+            batches = (1,) if n == 2 ** 20 else (1, 13)
+            b = batches[-1]
             rtol, atol = fft_tol(rdt, n)
             worst = [0.0, 0.0]
             t_n = time.perf_counter()
@@ -3615,7 +3631,7 @@ def main() -> int:
                 if d >= worst[0]:
                     worst[:] = [d, want.abs().max().item()]
             for radix in (2, 4):
-                for batch in (1, 13):
+                for batch in batches:
                     cases = [
                         dict(x=randn((batch, n), cdt)),
                         dict(x=randn((batch, n), cdt), inverse=True),
@@ -3633,9 +3649,9 @@ def main() -> int:
                               ref.fft_stockham(x, max_radix=radix, **kw))
                         checks += 1
                 for pad, rows, grows, start, k in (
-                        (None, 26, 13, 0, n), (n, 26, 13, 0, n // 2 + 1),
-                        (None, 13, 1, 1, n - 1),
-                        (n, 13, 13, 1, n // 2 + 1)):
+                        (None, 2 * b, b, 0, n), (n, 2 * b, b, 0, n // 2 + 1),
+                        (None, b, 1, 1, n - 1),
+                        (n, b, b, 1, n // 2 + 1)):
                     x = randn((rows, n // 2 if pad else n), cdt)
                     g = randn((grows, k), rdt)
                     hold2("fft_stockham_scale",
@@ -3647,15 +3663,15 @@ def main() -> int:
                     checks += 1
                 for start, k in ((0, n // 2), (0, n // 2 + 1), (1, n // 2),
                                  (1, n // 2 + 1)):
-                    a, b = randn((k,), rdt), randn((k,), rdt)
+                    ta, tb = randn((k,), rdt), randn((k,), rdt)
                     for pad in (None, n):
-                        for batch in (1, 13):
+                        for batch in batches:
                             x = randn((batch, n // 2 if pad else n), rdt)
                             kw = dict(start=start, pad_to=pad,
                                       max_radix=radix)
                             hold2("fft_stockham_twiddle",
-                                  fft_stockham_twiddle(x, a, b, **kw),
-                                  ref.fft_stockham_twiddle(x, a, b, **kw))
+                                  fft_stockham_twiddle(x, ta, tb, **kw),
+                                  ref.fft_stockham_twiddle(x, ta, tb, **kw))
                             checks += 1
             took = {"cluster": sum(CLUSTER.values()),
                     "two_pass": sum(TWO_PASS.values())}
@@ -3698,7 +3714,7 @@ def main() -> int:
         del half, packs
     # an absolute reference: the cluster and two-pass paths against cuFFT
     # in float64
-    for n in (16384, 65536):
+    for n in (16384, 65536, 2 ** 17):
         x = randn((1, n), torch.complex128)
         d = hold("fft_stockham", fft_stockham(x), torch.fft.fft(x),
                  *fft_tol(torch.float64, n))
@@ -3727,6 +3743,11 @@ def main() -> int:
         # beside it, resolved finely wall-normal
         "LONG_UUU": ((U, U, U), (4096, 64, 64), None),
         "LONG_SEMI": (((BCType.UNB, E), U, U), (2048, 64, 64), None),
+        # longer jets and wakes: x directions of 32768 and 65536 cells,
+        # whose pruned forwards take 65536 points (a 16-block cluster) and
+        # 131072 points (two passes)
+        "LONG_XL_UUU": ((U, U, U), (32768, 16, 16), None),
+        "LONG_XXL_UUU": ((U, U, U), (65536, 16, 16), None),
     }
     rng = np.random.default_rng(0)
     solvers = {}
@@ -4115,7 +4136,8 @@ def main() -> int:
                         for ms, c, k in rows[:6] if ms > 0)
         # the Stockham kernels' instantiations (one per row length) summed,
         # and how many of them ran the long rows' cluster and column passes
-        stock = ("stockham_kernel", "cluster_kernel", "column_kernel")
+        stock = ("stockham_kernel", "cluster_kernel", "column_kernel",
+                 "row_kernel")
         fft = [(ms, c) for ms, c, k in rows if any(s in k for s in stock)]
         tiers = ", ".join(f"{s} x{sum(c for _, c, k in rows if s in k)}"
                           for s in stock[1:])
@@ -4286,10 +4308,15 @@ def main() -> int:
               f"{mem:.3f} GiB above {resident / 2 ** 30:.3f} GiB resident")
         agg = where_the_time_goes(f"{tag} cuda engine", lambda: sc.solve(f),
                                   t_c)
-        # the long rows run on clusters: no column pass, so no scratch
-        if agg and any("column_kernel" in k for k in agg):
-            raise AssertionError(f"{tag}: a column pass ran: "
-                                 f"{[k for k in agg if 'column' in k]}")
+        # a column pass (and its scratch) only where a row takes two
+        # passes
+        case = tag.split()[0]
+        if agg and (any("column_kernel" in k for k in agg)
+                    != bool(EXPECTED_TWO_PASS.get(case))):
+            raise AssertionError(f"{tag}: column passes "
+                                 f"{[k for k in agg if 'column' in k]}, "
+                                 f"two-pass calls expected "
+                                 f"{EXPECTED_TWO_PASS.get(case, {})}")
         where_the_time_goes(f"{tag} torch engine", lambda: st.solve(f), t_t)
 
     # -- 8. the distributed solve --------------------------------------------

@@ -426,8 +426,8 @@ def _resolve_device(device) -> torch.device:
 
 def _check_kernel_lengths(plan):
     """Raise when a direction needs a power-of-two FFT longer than the
-    Stockham kernel takes (``MAX_N`` = 2^24 points, in two passes above
-    4096): the cuda engine sends every power-of-two length to that kernel,
+    Stockham kernel takes (``MAX_N`` = 2^24 points, in the four-step split
+    above 4096): the cuda engine sends every power-of-two length to that kernel,
     and never to ``torch.fft`` behind the caller's back."""
     from repro_torch.kernels.fft_stockham import MAX_N
     for p in plan.dirs:

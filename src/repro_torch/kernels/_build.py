@@ -11,7 +11,7 @@ back: a missing ``nvcc`` or a failed build raises.
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one
 where it launches its kernel and nowhere else (CPU calls run the plain
 version and count nothing).  Of those, ``CLUSTER`` counts the Stockham
-calls whose rows ran on a thread-block cluster (8192 to 32768 points) and
+calls whose rows ran on a thread-block cluster (8192 to 65536 points) and
 ``TWO_PASS`` those whose rows were longer still and took two passes.
 """
 from __future__ import annotations

@@ -91,31 +91,48 @@
 //   X[k1 + N1 k2] = sum_n2 W_N2^(n2 k2) W_N^(n2 k1) sum_n1 x[N2 n1 + n2] W_N1^(n1 k1)
 // the N1-point FFTs down the stride-N2 columns, the inter-pass twiddle
 // W_N^(n2 k1) (n2 k1 < N: no overflow), then the register core above on
-// the rows Z[k1, :] with the table read at stride N1; its epilogue maps
-// kernel row (r, k1) and bin k2 to f = k1 + N1 k2 and keeps the same bin
-// windows, so all three epilogues stay fused.  The pruned input (n < N/2,
-// so n1 < N1/2) is the pruned first stage of the column FFTs.  One table
-// of length N serves both steps (the columns read it at stride N2); only
-// the row step scales the inverse, by 1/N.  Its stores are strided (N1
-// apart); the N1 kernel rows of a caller row fill each sector together.
+// the rows Z[k1, :]; kernel row (r, k1) holds the bins f = k1 + N1 k2 and
+// keeps the same bin windows, so all three epilogues stay fused.  The
+// pruned input (n < N/2, so n1 < N1/2) is the pruned first stage of the
+// column FFTs.  The wrapper's table holds, for N > 4096, three tables one
+// after another, whose values are all the length-N table's, bit for bit:
+// that table (the columns read W_N1 at stride N2), the 4096-point table
+// (the rows read it contiguously: the long table at stride N1) and the
+// inter-pass twiddles laid out as W[k1 N2 + n2] = W_N^(n2 k1), so that
+// neighbouring threads (neighbouring n2) read neighbouring entries rather
+// than entries k1 apart.  Only the row step scales the inverse, by 1/N.
+// A kernel row's bins lie N1 apart in the caller's row, so the rows'
+// stores are strided unless the blocks of G adjacent kernel rows exchange
+// their bins first (exchange_epilogue: block j then holds, for k2 in its
+// 4096 / G, the G bins k1_0 .. k1_0 + G - 1 side by side, and stores runs
+// of G contiguous bins: whole 32-byte sectors from G = 4 in complex64).
 // So the rows take three tiers by length, each bounded by memory:
 // - N <= 4096: one pass, the core alone (one block a row or less).
-// - 4096 < N <= 32768 (N1 = 2, 4, 8): one pass on a thread-block cluster
+// - 4096 < N <= 65536 (N1 = 2 .. 16): one pass on a thread-block cluster
 //   of N1 blocks a row (cluster_kernel).  Block c loads its slice of every
-//   column (N1 contiguous segments of 4096 / N1 >= 512 points), runs
-//   those columns' FFTs in registers (16 / N1 columns a thread), and
-//   stores Z[k1, n2] straight into block k1's shared memory (distributed
-//   shared memory); after the cluster barrier each block runs the core on
-//   its own Z row.  Z never reaches device memory: the call reads its
-//   input once and writes its kept bins once, the bound's bytes.  At most
-//   8 blocks a cluster (the portable limit) keeps N1 <= 8.
-// - N > 32768 (up to 4096^2): two passes.  Pass 1 (column_kernel) runs the
-//   column FFTs, a tile of adjacent columns per block so that each warp
-//   reads whole 128-byte lines, one stage per sweep over ping-pong
-//   shared-memory buffers (stages()), and stores Z[r, k1, n2] to a scratch
-//   buffer; pass 2 is the core over the rows * N1 rows of Z.  Z's round
-//   trip through device memory (rows * N complex values written, then
-//   read) is paid on top of the bound's bytes.
+//   column (N1 contiguous segments of 4096 / N1 >= 256 points), runs
+//   those columns' FFTs in registers (16 / N1 columns a thread, at least
+//   one), and stores Z[k1, n2] straight into block k1's shared memory
+//   (distributed shared memory); after the cluster barrier each block
+//   runs the core on its own Z row.  Z never reaches device memory: the
+//   call reads its input once and writes its kept bins once, the bound's
+//   bytes.  The blocks then exchange their bins (exchange_epilogue, G =
+//   N1), so that block c stores the caller row's bins [4096 c, 4096 c +
+//   4096), except an 8192-point row's post-twiddle, whose real bins the
+//   two blocks store two apart.  A 65536-point row takes 16 blocks, a
+//   non-portable cluster size, which an H100 allows.
+// - N > 65536 (up to 4096^2): two passes through a scratch buffer.  Pass
+//   1 (column_kernel) runs the column FFTs in registers, the core's
+//   passes on columns: a block holds 4096 / N1 adjacent columns (16
+//   points a thread, N1 / 16 threads a column), neighbouring threads on
+//   neighbouring columns, so every load of the input and store of Z is a
+//   run of adjacent columns (whole 128-byte lines up to N1 = 256 in
+//   complex64), and the exchanges between passes go through shared
+//   memory with the columns interleaved.  It stores Z[r, k1, n2] times the
+//   inter-pass twiddle.  Pass 2 (row_kernel) runs the core on the rows *
+//   N1 rows of Z on clusters of G blocks, which exchange their bins.  Z's
+//   round trip through device memory (rows * N complex values written,
+//   then read) is paid on top of the bound's bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -124,15 +141,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxN = 4096;
 // the longest row on one thread-block cluster: kMaxN points a block, at
-// most 8 blocks (the portable cluster size)
-constexpr int kClusterN = 8 * kMaxN;
+// most 16 blocks (the largest cluster an H100 takes, non-portable above 8)
+constexpr int kClusterN = 16 * kMaxN;
+// the cluster rows from which the blocks exchange their bins before they
+// store them (log2 N1), whatever the epilogue: from 16384 points; at 8192
+// only a complex output does (the post-twiddle's 4-byte bins store faster
+// two apart; tools/probe_two_pass_stores.py)
+constexpr int kExchangeLgN1 = 2;
 // points a thread of the register core holds (fewer for rows below 16)
 constexpr int kPoints = 16;
-// the column pass's tiles: at least this many points per block
-constexpr int kMinPointsPerBlock = 2048;
-// dynamic shared memory of the largest column-pass block: two 8192-point
-// complex64 column tiles
-constexpr int kMaxSmem = 2 * kMaxN * 16;
+// log2 of G, the blocks of the row pass's clusters (float32, float64):
+// G adjacent kernel rows exchange their bins, so that each block stores
+// runs of G contiguous bins (tools/probe_two_pass_stores.py times G)
+constexpr int kRowGroupLg[2] = {2, 1};
 // the most dynamic shared memory a block may opt in to on an H100 (the
 // core's largest block takes 134 KB: the exchange buffer of a 4096-point
 // complex128 row and two 32 KB input slots)
@@ -297,6 +318,7 @@ __device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
   return a;
 }
 
+// v to address a (from map_rank) of another block's shared memory
 __device__ __forceinline__ void store_remote(uint32_t a, float2 v) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
                "f"(v.x), "f"(v.y)
@@ -326,97 +348,13 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // ---------------------------------------------------------------------
-// The column pass's stages: one stage per sweep over shared memory.
+// The cluster kernel's column FFTs: one column in registers.
 
-// sample j of a row, the pruned first stage folded in when pruned: x1 ==
-// 0, so the DIF butterfly of index j gives e = x0 and d = x0 * W^j, stored
-// at 2j, 2j+1 (W^j of the row's own length: table index j * tw_stride)
-template <typename T>
-__device__ __forceinline__ void put_first(
-    typename Cplx<T>::type* row, int j, typename Cplx<T>::type v,
-    bool pruned, const typename Cplx<T>::type* __restrict__ tw,
-    int tw_stride, bool inv) {
-  if (pruned) {
-    row[2 * j] = v;
-    row[2 * j + 1] = mul<T>(v, twiddle<T>(tw, j * tw_stride, inv));
-  } else {
-    row[j] = v;
-  }
-}
-
-// The Stockham DIF stages of nrows rows of length n held in shared memory
-// (ping-pong src/dst, swapped after each stage), from sub-transform length
-// m and span l (m = n, l = 1 unpruned; n/2, 2 after the pruned first
-// stage).  The twiddle W_n^t is table entry t * tw_stride.  Returns with
-// the natural-order spectrum in src.
-template <typename T>
-__device__ __forceinline__ void stages(
-    typename Cplx<T>::type*& src, typename Cplx<T>::type*& dst, int nrows,
-    int n, int m, int l, int max_radix,
-    const typename Cplx<T>::type* __restrict__ tw, int tw_stride, bool inv) {
-  using C = typename Cplx<T>::type;
-  while (m > 1) {
-    const int stride = n / m * tw_stride;  // twiddle index step of the stage
-    const int lg_l = __ffs(l) - 1;
-    if (max_radix >= 4 && (m & 3) == 0) {
-      // radix-4 DIF stage: quarters (A, B, C, D) of each length-m
-      // sub-transform; outputs packed [y0 y1 y2 y3] along the l axis
-      const int q = m >> 2;
-      const int per_row = q * l;
-      const int lg_row = __ffs(per_row) - 1;
-      const int total = nrows * per_row;
-      for (int b = threadIdx.x; b < total; b += blockDim.x) {
-        const int r = b >> lg_row;
-        const int rem = b & (per_row - 1);
-        const int j = rem >> lg_l;
-        const int kk = rem & (l - 1);
-        const C* s = src + r * n + kk;
-        const C A = s[j * l], B = s[(j + q) * l];
-        const C Cq = s[(j + 2 * q) * l], D = s[(j + 3 * q) * l];
-        const C t0 = add<T>(A, Cq), t1 = sub<T>(A, Cq);
-        const C t2 = add<T>(B, D), t3 = sub<T>(B, D);
-        // -i t3 forward, +i t3 inverse
-        const C u3 = inv ? mk<T>(-t3.y, t3.x) : mk<T>(t3.y, -t3.x);
-        C* d = dst + r * n + j * 4 * l + kk;
-        d[0] = add<T>(t0, t2);
-        d[l] = mul<T>(add<T>(t1, u3), twiddle<T>(tw, j * stride, inv));
-        d[2 * l] = mul<T>(sub<T>(t0, t2), twiddle<T>(tw, 2 * j * stride, inv));
-        d[3 * l] = mul<T>(sub<T>(t1, u3), twiddle<T>(tw, 3 * j * stride, inv));
-      }
-      m = q;
-      l *= 4;
-    } else {
-      // radix-2 step: the odd log2 factor, or every stage at max_radix 2
-      const int half = m >> 1;
-      const int per_row = half * l;
-      const int lg_row = __ffs(per_row) - 1;
-      const int total = nrows * per_row;
-      for (int b = threadIdx.x; b < total; b += blockDim.x) {
-        const int r = b >> lg_row;
-        const int rem = b & (per_row - 1);
-        const int j = rem >> lg_l;
-        const int kk = rem & (l - 1);
-        const C* s = src + r * n + kk;
-        const C x0 = s[j * l], x1 = s[(j + half) * l];
-        C* d = dst + r * n + j * 2 * l + kk;
-        d[0] = add<T>(x0, x1);
-        d[l] = mul<T>(sub<T>(x0, x1), twiddle<T>(tw, j * stride, inv));
-      }
-      m = half;
-      l *= 2;
-    }
-    __syncthreads();
-    C* t = src;
-    src = dst;
-    dst = t;
-  }
-}
-
-// The same stages on one column of kN <= 8 points held in registers, from
-// sub-transform length kM and span kL: radix-4 stages with one radix-2
-// step (kR4), or radix-2 only.  W_kN^t is table entry t * kMaxN (the table
-// of an N = kN * kMaxN point row).  x holds the column in natural order,
-// and then its spectrum.
+// The Stockham DIF stages (as kernels/ref.py runs them) on one column of
+// kN <= 16 points held in registers, from sub-transform length kM and span
+// kL: radix-4 stages with one radix-2 step (kR4), or radix-2 only.  W_kN^t
+// is table entry t * kMaxN (the table of an N = kN * kMaxN point row).  x
+// holds the column in natural order, and then its spectrum.
 template <typename T, int kN, int kM, int kL, bool kR4>
 __device__ __forceinline__ void column_stages(
     typename Cplx<T>::type (&x)[kN],
@@ -465,8 +403,9 @@ __device__ __forceinline__ void column_stages(
 }
 
 // the N1-point FFT of a column in registers, x[0, kN / 2) its samples when
-// pruned (the zero tail not stored): the pruned first stage (put_first's
-// e = x0, d = x0 W^j at 2j, 2j+1), then the stages
+// pruned (the zero tail not stored): the pruned first stage (x1 == 0, so
+// the DIF butterfly of index j gives e = x0, d = x0 W^j at 2j, 2j+1), then
+// the stages
 template <typename T, int kN>
 __device__ __forceinline__ void column_fft(
     typename Cplx<T>::type (&x)[kN], bool pruned, int max_radix,
@@ -493,7 +432,8 @@ __device__ __forceinline__ void column_fft(
 }
 
 // ---------------------------------------------------------------------
-// The register core (one-pass rows, and pass 2 of long rows).
+// The register core: one-pass rows, the long rows' 4096-point rows (on a
+// cluster, and pass 2) and the two-pass columns (pass 1).
 
 template <int R> struct Radix { static constexpr int value = R; };
 
@@ -511,6 +451,12 @@ struct Shape {
   static constexpr int kRows = kThreads >> kLgT;
   static constexpr int kPad = kN + (kN >> 4);
 };
+
+// bytes of a 4096-point row's exchange buffer (16-byte aligned)
+template <typename T>
+constexpr size_t kZBytes =
+    ((size_t)Shape<12>::kPad * sizeof(typename Cplx<T>::type) + 15) &
+    ~(size_t)15;
 
 // whether a pass of radix R can occur in a row of 2^kLgN points: radix 2
 // (max_radix 2), 16 (two radix-4 stages), and the last pass of the
@@ -584,6 +530,19 @@ struct Core {
 // shared-memory place of point q of a row: one pad point per 16
 __device__ __forceinline__ int padded(int q) { return q + (q >> 4); }
 
+// Where point q of a row lies in the block's exchange buffer, from the
+// row's own place: the rows one after another, one pad point per 16 (the
+// threads of a row are neighbours), or 2^kLgC rows (columns) interleaved,
+// point-major (neighbouring threads hold neighbouring columns).  Both
+// place q + l at q's place plus at(l) when l is a multiple of 16.
+struct Padded {
+  static __device__ __forceinline__ int at(int q) { return padded(q); }
+};
+template <int kLgC>
+struct Interleaved {
+  static __device__ __forceinline__ int at(int q) { return q << kLgC; }
+};
+
 // The butterflies of a radix-R pass from sub-transform length m = 2^lg_m
 // and span 2^lg_l on the P / R groups in v (registers c R .. c R + R - 1
 // hold group g = t + c n / P, point i at g + i n / R)
@@ -643,15 +602,15 @@ __device__ __forceinline__ void butterflies(
 }
 
 // the first pass's input from the row x + base (in the block's input slot
-// in shared memory, or in device memory): point p of the stage input is
-// x[p], or with the pruned stage folded in (fold) x[p / 2], times
-// W^(p / 2) for odd p; points at or past n_in (the zero tail of a pruned
-// 2-point row) are 0.  All loads are issued before the first use, at
-// offsets fixed at compile time.
+// in shared memory, or in device memory), its points xs elements apart (a
+// column's: kMaxN): point p of the stage input is x[p], or with the pruned
+// stage folded in (fold) x[p / 2], times W^(p / 2) for odd p; points at or
+// past n_in (the zero tail of a pruned 2-point row) are 0.  All loads are
+// issued before the first use, at offsets fixed at compile time.
 template <typename T, int kLgN, int R>
 __device__ __forceinline__ void load_input(
     typename Cplx<T>::type (&v)[Shape<kLgN>::kP], const Core<T>& c,
-    const T* x, int x_complex, size_t base, bool live, int n_in,
+    const T* x, int x_complex, size_t base, int xs, bool live, int n_in,
     bool fold) {
   using S = Shape<kLgN>;
   constexpr int kStride = S::kN / R;  // between a group's points
@@ -664,7 +623,7 @@ __device__ __forceinline__ void load_input(
                       : kStride % 2 == 0 ? (g >> 1) + i * (kStride / 2)
                                           : (g + i * kStride) >> 1;
       v[gi * R + i] = (live && src < n_in)
-                          ? load<T>(x, x_complex, base + src)
+                          ? load<T>(x, x_complex, base + (size_t)src * xs)
                           : mk<T>(T(0), T(0));
     }
   }
@@ -683,10 +642,9 @@ __device__ __forceinline__ void load_input(
   }
 }
 
-// a radix-R pass's outputs to the row's shared memory: group g = j l + kk
-// leaves output o at j R l + kk + o l (for l >= 16, padded(q + o l) =
-// padded(q) + o (l + l / 16))
-template <typename T, int kLgN, int R>
+// a radix-R pass's outputs to the row's shared memory (laid out by L):
+// group g = j l + kk leaves output o at j R l + kk + o l
+template <typename T, int kLgN, int R, typename L>
 __device__ __forceinline__ void to_shared(
     const typename Cplx<T>::type (&v)[Shape<kLgN>::kP],
     typename Cplx<T>::type* sm, const Core<T>& c, int lg_l) {
@@ -697,20 +655,20 @@ __device__ __forceinline__ void to_shared(
     const int g = c.t + (gi << S::kLgT);
     const int q0 = ((g >> lg_l) << (lg_l + kLgR)) + (g & ((1 << lg_l) - 1));
     if (lg_l >= 4) {
-      typename Cplx<T>::type* at = sm + padded(q0);
-      const int step = (1 << lg_l) + (1 << (lg_l - 4));
+      typename Cplx<T>::type* at = sm + L::at(q0);
+      const int step = L::at(1 << lg_l);
 #pragma unroll
       for (int r = 0; r < R; ++r) at[out_slot<R>(r) * step] = v[gi * R + r];
     } else {
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        sm[padded(q0 + (out_slot<R>(r) << lg_l))] = v[gi * R + r];
+        sm[L::at(q0 + (out_slot<R>(r) << lg_l))] = v[gi * R + r];
     }
   }
 }
 
 // the next radix-R pass's inputs from the row's shared memory
-template <typename T, int kLgN, int R>
+template <typename T, int kLgN, int R, typename L>
 __device__ __forceinline__ void from_shared(
     typename Cplx<T>::type (&v)[Shape<kLgN>::kP],
     const typename Cplx<T>::type* sm, const Core<T>& c) {
@@ -720,14 +678,13 @@ __device__ __forceinline__ void from_shared(
   for (int gi = 0; gi < S::kP / R; ++gi) {
     const int g = c.t + (gi << S::kLgT);
     if constexpr (kStride % 16 == 0) {
-      const typename Cplx<T>::type* at = sm + padded(g);
+      const typename Cplx<T>::type* at = sm + L::at(g);
 #pragma unroll
-      for (int i = 0; i < R; ++i)
-        v[gi * R + i] = at[i * (kStride + kStride / 16)];
+      for (int i = 0; i < R; ++i) v[gi * R + i] = at[i * L::at(kStride)];
     } else {
 #pragma unroll
       for (int i = 0; i < R; ++i)
-        v[gi * R + i] = sm[padded(g + i * kStride)];
+        v[gi * R + i] = sm[L::at(g + i * kStride)];
     }
   }
 }
@@ -804,10 +761,11 @@ __device__ __forceinline__ void epilogue(
 
 // The passes of a row from sub-transform length 2^lg_m and span 2^lg_l,
 // v holding the first pass's (radix `radix`) inputs: the butterflies in
-// registers, the exchanges through the row's shared memory sm between
-// passes (after the caller's __syncthreads once the first pass's input
-// has been read).  Returns the last pass's radix, v holding the bins.
-template <typename T, int kLgN>
+// registers, the exchanges through the row's shared memory sm (laid out
+// by L) between passes (after the caller's __syncthreads once the first
+// pass's input has been read, where it was read from shared memory).
+// Returns the last pass's radix, v holding the bins.
+template <typename T, int kLgN, typename L = Padded>
 __device__ __forceinline__ int row_passes(
     typename Cplx<T>::type (&v)[Shape<kLgN>::kP], const Core<T>& c,
     typename Cplx<T>::type* sm, int lg_m, int lg_l, int radix,
@@ -820,76 +778,173 @@ __device__ __forceinline__ int row_passes(
     if (lg_m == lg_r) return radix;  // the last pass: its outputs are bins
     if (exchanged) __syncthreads();  // the last exchange has been read
     with_radix<kLgN>(radix, [&](auto r) {
-      to_shared<T, kLgN, decltype(r)::value>(v, sm, c, lg_l);
+      to_shared<T, kLgN, decltype(r)::value, L>(v, sm, c, lg_l);
     });
     __syncthreads();
     lg_m -= lg_r;
     lg_l += lg_r;
     radix = pass_radix<Shape<kLgN>::kP>(1 << lg_m, max_radix);
     with_radix<kLgN>(radix, [&](auto r) {
-      from_shared<T, kLgN, decltype(r)::value>(v, sm, c);
+      from_shared<T, kLgN, decltype(r)::value, L>(v, sm, c);
     });
   }
 }
 
-// The epilogue of kernel row `row`, the bins of the last pass (radix
-// `radix`) in v: the bins [start, start+k) of caller row row >> lg_n1.
-// A long row's kernel row (r, k1 = row % n1), n1 = 2^lg_n1, holds the
-// bins f = k1 + n1 k2; a one-pass row is lg_n1 = 0.
-template <typename T, int kLgN>
-__device__ __forceinline__ void row_epilogue(
-    const typename Cplx<T>::type (&v)[Shape<kLgN>::kP], const Core<T>& c,
-    int radix, typename Cplx<T>::type* out, const T* g, const T* ta,
-    const T* tb, int start, int k, int grows, int row, int lg_n1) {
+// the epilogue's arguments for caller row r of a transform of 2^lg_n
+// points (the inverse's scale 1 / N is exact: N is a power of two)
+template <typename T>
+__device__ __forceinline__ Epilogue<T> epilogue_of(
+    typename Cplx<T>::type* out, const T* g, const T* ta, const T* tb,
+    int start, int k, int grows, int r, bool inv, int lg_n) {
   Epilogue<T> e;
   e.ta = ta;
   e.tb = tb;
   e.start = start;
   e.k = k;
-  e.inv = c.inv;
-  e.lg_n1 = lg_n1;
-  e.k1 = row & ((1 << lg_n1) - 1);
-  const int r = row >> lg_n1;
+  e.inv = inv;
+  e.lg_n1 = 0;
+  e.k1 = 0;
   // a real output (the post-twiddle) or a complex one
   e.out = ta != nullptr
               ? static_cast<void*>(reinterpret_cast<T*>(out) + (size_t)r * k)
               : static_cast<void*>(out + (size_t)r * k);
   e.g = g != nullptr ? g + (size_t)(r % grows) * k : nullptr;
-  e.scale = T(1) / (T(Shape<kLgN>::kN) * T(1 << lg_n1));
+  e.scale = T(1) / T(1 << lg_n);
+  return e;
+}
+
+// The epilogue of kernel row `row`, the bins of the last pass (radix
+// `radix`) in v: the bins [start, start+k) of caller row row >> lg_n1.
+// A long row's kernel row (r, k1 = row % n1), n1 = 2^lg_n1, holds the
+// bins f = k1 + n1 k2, stored n1 apart; a one-pass row is lg_n1 = 0.
+template <typename T, int kLgN>
+__device__ __forceinline__ void row_epilogue(
+    const typename Cplx<T>::type (&v)[Shape<kLgN>::kP], const Core<T>& c,
+    int radix, typename Cplx<T>::type* out, const T* g, const T* ta,
+    const T* tb, int start, int k, int grows, int row, int lg_n1) {
+  Epilogue<T> e = epilogue_of<T>(out, g, ta, tb, start, k, grows,
+                                 row >> lg_n1, c.inv, kLgN + lg_n1);
+  e.lg_n1 = lg_n1;
+  e.k1 = row & ((1 << lg_n1) - 1);
   with_radix<kLgN>(radix, [&](auto rd) {
     epilogue<T, kLgN, decltype(rd)::value>(v, c, e);
   });
 }
 
-// kRowPass false: the whole FFT of rows of length n = 2^kLgN, in one
-// pass.  kRowPass true: pass 2 of the two-pass FFT (n = N2, kernel row R =
-// (r, k1) with n1 = N1, rows = the caller's rows times N1, table of length
-// n * n1 read at stride n1).  Shape<kLgN>: P points a thread, n / P
-// threads a row, kRows rows a row-block.  The blocks are persistent: block
-// b takes row-blocks b, b + gridDim.x, ...  With bulk (the input 16-byte
-// aligned and each row a multiple of 16 bytes) a row-block's input span
-// (contiguous: kRows * n_in elements) arrives by one bulk copy into the
-// block's input slot, and the next row-block's copy is issued as soon as
-// the first pass has read the slot, so it runs under this row-block's
-// later passes and stores; otherwise (an input one element off 16-byte
-// alignment, or a real row of 1 or 2 points) the first pass reads device
-// memory directly.
-template <typename T, bool kRowPass, int kLgN>
+// The epilogue of G = 2^kLgG adjacent kernel rows (r, k1_0 + c), 4096
+// points each, on a cluster of G blocks, block c (its rank) holding row
+// k1_0 + c and its last pass's (radix `radix`) bins k2 in v.  Block c
+// sends its bins k2 in [j W, j W + W) (W = 4096 / G) to block j's buffer
+// `recv`, at point c (W + 1) + k2 - j W: neighbouring threads hold
+// neighbouring k2, so each warp's remote stores are one contiguous run.
+// The buffer is free once every block of the cluster has started (a
+// cluster barrier's wait, its arrive made when the block started), or,
+// with kAliased, where it is the row passes' own exchange buffer, once
+// every block has read it (a whole cluster barrier here).  After the
+// next cluster barrier block j holds bin f = k1_0 + c' + n1 (j W + k2')
+// at point c' (W + 1) + k2', and neighbouring threads store neighbouring
+// bins, runs of G, reading points W + 1 apart (distinct banks), with the
+// epilogue e (the window, the Green row, the post-twiddle or the
+// inverse's scale) as a one-pass row's.
+template <typename T, int kLgG, bool kAliased>
+__device__ __forceinline__ void exchange_epilogue(
+    const typename Cplx<T>::type (&v)[kPoints], const Core<T>& c, int radix,
+    typename Cplx<T>::type* recv, const Epilogue<T>& e, int rank, int k1_0,
+    int lg_n1) {
+  using C = typename Cplx<T>::type;
+  constexpr int kG = 1 << kLgG;
+  constexpr int kLgW = 12 - kLgG;
+  constexpr int kW = 1 << kLgW;
+  static_assert(kLgW >= 8, "a thread's bins k2 = t + a multiple of 256 "
+                           "each go to one block, known at compile time");
+  if constexpr (kAliased) cluster_arrive();
+  cluster_wait();
+  with_radix<12>(radix, [&](auto rd) {
+    constexpr int R = decltype(rd)::value;
+    constexpr int kStride = kMaxN / R;
+#pragma unroll
+    for (int gi = 0; gi < kPoints / R; ++gi) {
+#pragma unroll
+      for (int o = 0; o < R; ++o) {
+        const int off = (gi << 8) + out_slot<R>(o) * kStride;  // k2 - t
+        const int q = rank * (kW + 1) + c.t + (off & (kW - 1));
+        store_remote(map_rank(recv, off >> kLgW) + (uint32_t)(q * sizeof(C)),
+                     v[gi * R + o]);
+      }
+    }
+  });
+  cluster_arrive();
+  cluster_wait();
+  const unsigned k = e.k;
+  const int f0 = k1_0 + (rank << (kLgW + lg_n1)) - e.start;
+  // point i of the caller row's run: its bin less start, and its value
+  auto bin = [&](int i) {
+    return f0 + (i & (kG - 1)) + ((i >> kLgG) << lg_n1);
+  };
+  auto at = [&](int i) {
+    return recv[(i & (kG - 1)) * (kW + 1) + (i >> kLgG)];
+  };
+  if (e.ta != nullptr) {
+    const T* __restrict__ ta = e.ta;
+    const T* __restrict__ tb = e.tb;
+    T* __restrict__ out = static_cast<T*>(e.out);
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+      const int i = threadIdx.x + m * kThreads;
+      const int b = bin(i);
+      const C w = at(i);
+      if ((unsigned)b < k) out[b] = ta[b] * w.x + tb[b] * w.y;
+    }
+  } else if (e.g != nullptr) {
+    const T* __restrict__ g = e.g;
+    C* __restrict__ out = static_cast<C*>(e.out);
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+      const int i = threadIdx.x + m * kThreads;
+      const int b = bin(i);
+      const C w = at(i);
+      if ((unsigned)b < k) out[b] = mk<T>(w.x * g[b], w.y * g[b]);
+    }
+  } else {
+    C* __restrict__ out = static_cast<C*>(e.out);
+    const T s = e.inv ? e.scale : T(1);
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+      const int i = threadIdx.x + m * kThreads;
+      const int b = bin(i);
+      const C w = at(i);
+      if ((unsigned)b < k) out[b] = mk<T>(w.x * s, w.y * s);
+    }
+  }
+}
+
+// The whole FFT of rows of length n = 2^kLgN <= 4096, in one pass.
+// Shape<kLgN>: P points a thread, n / P threads a row, kRows rows a
+// row-block.  The blocks are persistent: block b takes row-blocks b, b +
+// gridDim.x, ...  With bulk (the input 16-byte aligned and each row a
+// multiple of 16 bytes) a row-block's input span (contiguous: kRows *
+// n_in elements) arrives by one bulk copy into the block's input slot,
+// and the next row-block's copy is issued as soon as the first pass has
+// read the slot, so it runs under this row-block's later passes and
+// stores; otherwise (an input one element off 16-byte alignment, or a
+// real row of 1 or 2 points) the first pass reads device memory
+// directly.
+template <typename T, int kLgN>
 __global__ void __launch_bounds__(kThreads, CoreBlocks<T>::value)
 stockham_kernel(const T* __restrict__ x, int x_complex,
                 typename Cplx<T>::type* __restrict__ out,
                 const T* __restrict__ g,
                 const T* __restrict__ ta, const T* __restrict__ tb,
                 const typename Cplx<T>::type* __restrict__ tw,
-                int rows, int n_in, int n1_arg, int inverse, int max_radix,
-                int start, int k, int grows, int bulk) {
+                int rows, int n_in, int inverse, int max_radix, int start,
+                int k, int grows, int bulk) {
   using C = typename Cplx<T>::type;
   using S = Shape<kLgN>;
   constexpr int P = S::kP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Core<T> c;
   c.tw = tw;
-  c.tw_stride = kRowPass ? n1_arg : 1;
+  c.tw_stride = 1;
   c.t = threadIdx.x & ((1 << S::kLgT) - 1);
   c.inv = inverse != 0;
   const int rr = threadIdx.x >> S::kLgT;
@@ -940,10 +995,10 @@ stockham_kernel(const T* __restrict__ x, int x_complex,
       constexpr int R = decltype(r)::value;
       if (bulk)
         load_input<T, kLgN, R>(v, c, reinterpret_cast<const T*>(slot),
-                               x_complex, (size_t)rr * n_in, live, n_in,
+                               x_complex, (size_t)rr * n_in, 1, live, n_in,
                                fold);
       else
-        load_input<T, kLgN, R>(v, c, x, x_complex, (size_t)row * n_in,
+        load_input<T, kLgN, R>(v, c, x, x_complex, (size_t)row * n_in, 1,
                                live, n_in, fold);
     });
     // the slot has been read (and the last row-block's exchanges): refill
@@ -953,74 +1008,87 @@ stockham_kernel(const T* __restrict__ x, int x_complex,
     if (bulk && threadIdx.x == 0 && ahead < row_blocks) fetch(ahead, i_slot);
     radix = row_passes<T, kLgN>(v, c, sm, lg_m, lg_l, radix, max_radix);
     if (!live) continue;
-    // kernel row (r, k1) of a long row holds the bins f = k1 + n1 k2
     row_epilogue<T, kLgN>(v, c, radix, out, g, ta, tb, start, k, grows, row,
-                          kRowPass ? __ffs(n1_arg) - 1 : 0);
+                          0);
   }
 }
 
-// Pass 1 of the two-pass FFT: block (r, tile) runs the n1-point FFTs of
-// the columns [c0, c0 + cols) of row r (column c is x[r, n2 n1' + c0 + c]
-// over n1' < n_in / n2), multiplies bin k1 of column n2 by W_N^(n2 k1) and
-// writes z[(r n1 + k1) n2 + n2'].  Shared memory holds the tile as cols
-// rows of n1 points; neighbouring threads load and store neighbouring
-// columns, so device memory is read and written in whole lines.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Pass 1 of the two-pass FFT: the n1-point FFTs (n1 = 2^kLgN1) of the
+// stride-kMaxN columns, on the register core.  Block (r, tile) takes the
+// C = kRows adjacent columns n2 of row r in its tile; thread (t, cc) holds
+// 16 points of column cc (neighbouring threads: neighbouring columns, the
+// same points), so its loads (x[r, n1' kMaxN + n2] over n1' < n_in /
+// kMaxN) and its stores of Z are runs of C adjacent elements, and the
+// exchanges between passes use the column-interleaved layout.  Bin k1 of
+// column n2, times W_N^(n2 k1) (the inter-pass table's entry k1 kMaxN +
+// n2), goes to z[(r n1 + k1) kMaxN + n2].  The columns' W_n1 is the
+// length-N table's entry at stride kMaxN.
+template <typename T, int kLgN1>
+__global__ void __launch_bounds__(kThreads, CoreBlocks<T>::value)
 column_kernel(const T* __restrict__ x, int x_complex,
               typename Cplx<T>::type* __restrict__ z,
               const typename Cplx<T>::type* __restrict__ tw, int n_in,
-              int n1, int n2, int cols, int inverse, int max_radix) {
+              int inverse, int max_radix) {
   using C = typename Cplx<T>::type;
+  using S = Shape<kLgN1>;
+  static_assert(S::kP == kPoints, "16 points a thread");
+  constexpr int kLgC = ilog2(S::kRows);
+  constexpr int kTiles = kMaxN >> kLgC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  C* src = reinterpret_cast<C*>(smem_raw);
-  C* dst = src + (size_t)cols * n1;
-  const int tiles = n2 / cols;
-  const int r = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x - r * tiles) * cols;
-  const bool inv = inverse != 0;
-  const int lg_cols = __ffs(cols) - 1;
-
-  const int n1_in = n_in / n2;  // n1, or n1 / 2 pruned
-  const bool pruned = n1_in < n1;
-  const int total_in = cols * n1_in;
-  for (int i = threadIdx.x; i < total_in; i += blockDim.x) {
-    const int c = i & (cols - 1);
-    const int j = i >> lg_cols;
-    const size_t gi = (size_t)r * n_in + (size_t)j * n2 + c0 + c;
-    put_first<T>(src + c * n1, j, load<T>(x, x_complex, gi), pruned, tw, n2,
-                 inv);
-  }
-  __syncthreads();
-  stages<T>(src, dst, cols, n1, pruned ? n1 / 2 : n1, pruned ? 2 : 1,
-            max_radix, tw, n2, inv);
-
-  const int total = cols * n1;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & (cols - 1);
-    const int k1 = i >> lg_cols;
-    const C v = src[c * n1 + k1];
-    z[((size_t)r * n1 + k1) * n2 + c0 + c] =
-        mul<T>(v, twiddle<T>(tw, (c0 + c) * k1, inv));
-  }
+  const int cc = threadIdx.x & (S::kRows - 1);
+  C* sm = reinterpret_cast<C*>(smem_raw) + cc;
+  Core<T> c;
+  c.tw = tw;
+  c.tw_stride = kMaxN;
+  c.t = threadIdx.x >> kLgC;
+  c.inv = inverse != 0;
+  const int r = blockIdx.x / kTiles;
+  const int n2 = ((blockIdx.x % kTiles) << kLgC) + cc;
+  const int n1_in = n_in >> 12;  // n1, or n1 / 2 pruned
+  const bool fold = n1_in < S::kN;
+  const int lg_m = fold ? kLgN1 - 1 : kLgN1;
+  int radix = pass_radix<kPoints>(1 << lg_m, max_radix);
+  C v[kPoints];
+  with_radix<kLgN1>(radix, [&](auto rd) {
+    load_input<T, kLgN1, decltype(rd)::value>(
+        v, c, x, x_complex, (size_t)r * n_in + n2, kMaxN, true, n1_in, fold);
+  });
+  radix = row_passes<T, kLgN1, Interleaved<kLgC>>(v, c, sm, lg_m, fold,
+                                                  radix, max_radix);
+  // the inter-pass table, after the length-N and the 4096-point ones
+  const C* tw_ip = tw + ((size_t)1 << (12 + kLgN1)) + kMaxN;
+  with_radix<kLgN1>(radix, [&](auto rd) {
+    constexpr int R = decltype(rd)::value;
+    constexpr int kStride = S::kN / R;
+#pragma unroll
+    for (int gi = 0; gi < kPoints / R; ++gi) {
+#pragma unroll
+      for (int o = 0; o < R; ++o) {
+        const int k1 = c.t + (gi << S::kLgT) + out_slot<R>(o) * kStride;
+        z[(((size_t)r << kLgN1) + k1) * kMaxN + n2] =
+            mul<T>(v[gi * R + o], twiddle<T>(tw_ip, k1 * kMaxN + n2, c.inv));
+      }
+    }
+  });
 }
 
-// A row of N = n1 * kMaxN points (n1 = 2^kLgN1 <= 8) on a cluster of n1
+// A row of N = n1 * kMaxN points (n1 = 2^kLgN1 <= 16) on a cluster of n1
 // blocks, the same four-step split as the two passes: cluster r takes
 // caller row r, and its block c first runs the n1-point FFTs of the
 // columns n2 in [c w, (c + 1) w), w = kMaxN / n1 (each thread w / 256 of
 // them, one column in registers), multiplies bin k1 by W_N^(n2 k1) and
 // stores it at point n2 of block k1's row Z[k1, :] in shared memory.  After
 // the cluster barrier, block c holds Z[c, :] and runs the register core on
-// it as kernel row (r, c) of the row pass (lg_n1 = kLgN1), Z read where
-// the core's first pass reads a bulk-copied slot; its exchange buffer
-// overlays Z, which the first pass has read by its __syncthreads.  The
-// block's input, the n1 (n1 / 2 pruned) segments x[r, j kMaxN + c w ..
-// + w) of w >= 512 elements, is loaded straight into registers, all of it
+// it as kernel row (r, c) of the row pass, Z read where the core's first
+// pass reads a bulk-copied slot; its exchange buffer overlays Z, which
+// the first pass has read by its __syncthreads.  With kExchange the bins
+// are exchanged before they are stored, else stored n1 apart.  The
+// block's input, the n1 (n1 / 2 pruned) segments x[r, j kMaxN + c w .. +
+// w) of w >= 256 elements, is loaded straight into registers, all of it
 // before the first butterfly (neighbouring threads on neighbouring
 // elements): faster than bulk copies into shared memory here, which add
 // the slot's round trip to a block that has nothing to overlap with it.
-template <typename T, int kLgN1>
+template <typename T, int kLgN1, bool kExchange>
 __global__ void __launch_bounds__(kThreads, ClusterBlocks<T>::value)
 cluster_kernel(const T* __restrict__ x, int x_complex,
                typename Cplx<T>::type* __restrict__ out,
@@ -1034,8 +1102,9 @@ cluster_kernel(const T* __restrict__ x, int x_complex,
   constexpr int kW = kMaxN / kN1;
   constexpr int kCols = kW / kThreads;
   static_assert(Shape<kLgN>::kRows == 1, "a block holds one 4096-point row");
+  static_assert(kCols >= 1, "a thread holds at least one column");
   // shared memory: Z[c, :] (kMaxN points), then the core's exchange buffer
-  // over it
+  // over it, and the bins' exchange buffer over that
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* z = reinterpret_cast<C*>(smem_raw);
   const int c = (int)cluster_rank();
@@ -1062,37 +1131,92 @@ cluster_kernel(const T* __restrict__ x, int x_complex,
     column_fft<T, kN1>(v[i], n1_in < kN1, max_radix, tw, inv);
 
   // bin k1 of column n2, times W_N^(n2 k1), to point n2 of block k1's Z
-  uint32_t zr[kN1];
-#pragma unroll
-  for (int j = 0; j < kN1; ++j) zr[j] = map_rank(z, j);
+  const C* tw_ip = tw + (kN1 + 1) * kMaxN;
   cluster_wait();
 #pragma unroll
   for (int i = 0; i < kCols; ++i) {
     const int n2 = c * kW + t + i * kThreads;
 #pragma unroll
     for (int k1 = 0; k1 < kN1; ++k1)
-      store_remote(zr[k1] + n2 * (uint32_t)sizeof(C),
-                   mul<T>(v[i][k1], twiddle<T>(tw, n2 * k1, inv)));
+      store_remote(map_rank(z, k1) + n2 * (uint32_t)sizeof(C),
+                   mul<T>(v[i][k1], twiddle<T>(tw_ip, k1 * kMaxN + n2, inv)));
   }
   cluster_arrive();
   cluster_wait();
 
-  // the row pass on Z[c, :]: kernel row (r, c), the table read at stride n1
+  // the row pass on Z[c, :]: kernel row (r, c), the 4096-point table
+  // stored after the length-N one
   Core<T> cr;
-  cr.tw = tw;
-  cr.tw_stride = kN1;
+  cr.tw = tw + kN1 * kMaxN;
+  cr.tw_stride = 1;
   cr.t = t;
   cr.inv = inv;
   int radix = pass_radix<Shape<kLgN>::kP>(kMaxN, max_radix);
   C u[Shape<kLgN>::kP];
   with_radix<kLgN>(radix, [&](auto rd) {
     load_input<T, kLgN, decltype(rd)::value>(
-        u, cr, reinterpret_cast<const T*>(z), 1, 0, true, kMaxN, false);
+        u, cr, reinterpret_cast<const T*>(z), 1, 0, 1, true, kMaxN, false);
   });
   __syncthreads();
   radix = row_passes<T, kLgN>(u, cr, z, kLgN, 0, radix, max_radix);
-  row_epilogue<T, kLgN>(u, cr, radix, out, g, ta, tb, start, k, grows,
-                        (r << kLgN1) + c, kLgN1);
+  if constexpr (kExchange) {
+    exchange_epilogue<T, kLgN1, true>(
+        u, cr, radix, z,
+        epilogue_of<T>(out, g, ta, tb, start, k, grows, r, inv,
+                       kLgN + kLgN1),
+        c, 0, kLgN1);
+  } else {
+    row_epilogue<T, kLgN>(u, cr, radix, out, g, ta, tb, start, k, grows,
+                          (r << kLgN1) + c, kLgN1);
+  }
+}
+
+// Pass 2 of the two-pass FFT: block b runs the register core on kernel
+// row b = (r, k1) of Z (n1 = 2^lg_n1 kernel rows a caller row), read
+// straight from device memory (neighbouring threads on neighbouring
+// points, all 16 loads of a thread issued before the first butterfly),
+// with the 4096-point table stored after the length-N one; the cluster of
+// G = 2^kLgG blocks holding k1_0 .. k1_0 + G - 1 exchanges the bins
+// through a buffer of their own (exchange_epilogue), so that no block
+// waits for another's passes.
+template <typename T, int kLgG>
+__global__ void __launch_bounds__(kThreads, CoreBlocks<T>::value)
+row_kernel(const typename Cplx<T>::type* __restrict__ z,
+           typename Cplx<T>::type* __restrict__ out,
+           const T* __restrict__ g, const T* __restrict__ ta,
+           const T* __restrict__ tb,
+           const typename Cplx<T>::type* __restrict__ tw, int lg_n1,
+           int inverse, int max_radix, int start, int k, int grows) {
+  using C = typename Cplx<T>::type;
+  constexpr int kLgN = 12;
+  // shared memory: the passes' exchange buffer, then the bins'
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* sm = reinterpret_cast<C*>(smem_raw);
+  C* recv = reinterpret_cast<C*>(smem_raw + kZBytes<T>);
+  // this block has started: the others may store to its bins' buffer
+  // once every block has arrived here
+  cluster_arrive_relaxed();
+  Core<T> c;
+  c.tw = tw + ((size_t)kMaxN << lg_n1);
+  c.tw_stride = 1;
+  c.t = threadIdx.x;
+  c.inv = inverse != 0;
+  const int rank = (int)cluster_rank();
+  const int r = blockIdx.x >> lg_n1;
+  const int k1 = blockIdx.x & ((1 << lg_n1) - 1);
+  int radix = pass_radix<kPoints>(kMaxN, max_radix);
+  C v[kPoints];
+  with_radix<kLgN>(radix, [&](auto rd) {
+    load_input<T, kLgN, decltype(rd)::value>(
+        v, c, reinterpret_cast<const T*>(z), 1, (size_t)blockIdx.x * kMaxN,
+        1, true, kMaxN, false);
+  });
+  radix = row_passes<T, kLgN>(v, c, sm, kLgN, 0, radix, max_radix);
+  exchange_epilogue<T, kLgG, false>(
+      v, c, radix, recv,
+      epilogue_of<T>(out, g, ta, tb, start, k, grows, r, c.inv,
+                     kLgN + lg_n1),
+      rank, k1 - rank, lg_n1);
 }
 
 template <typename KernelPtr>
@@ -1112,13 +1236,12 @@ cudaError_t allow_smem(KernelPtr kernel, size_t smem) {
 // its blocks are persistent, as many as fit on the card at once.  A
 // complex unpruned row (16 loads of 8 or 16 bytes a thread) is loaded
 // directly, one block a row-block.
-template <typename T, bool kRowPass, int kLgN>
+template <typename T, int kLgN>
 cudaError_t launch_core(const T* x, int x_complex,
                         typename Cplx<T>::type* out, const T* g, const T* ta,
                         const T* tb, const typename Cplx<T>::type* tw,
-                        int rows, int n_in, int n1, int inverse,
-                        int max_radix, int start, int k, int grows,
-                        cudaStream_t s) {
+                        int rows, int n_in, int inverse, int max_radix,
+                        int start, int k, int grows, cudaStream_t s) {
   using C = typename Cplx<T>::type;
   using S = Shape<kLgN>;
   const size_t elem = x_complex ? sizeof(C) : sizeof(T);
@@ -1129,7 +1252,7 @@ cudaError_t launch_core(const T* x, int x_complex,
       (((size_t)S::kRows * S::kPad * sizeof(C) + 15) & ~(size_t)15) +
       (bulk ? kSlots * ((size_t)S::kRows * n_in * elem + sizeof(uint64_t))
             : 0);
-  const auto kernel = stockham_kernel<T, kRowPass, kLgN>;
+  const auto kernel = stockham_kernel<T, kLgN>;
   cudaError_t e = allow_smem(kernel, smem);
   int device = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&device);
@@ -1144,7 +1267,7 @@ cudaError_t launch_core(const T* x, int x_complex,
   const int blocks =
       bulk && per_sm * sms < row_blocks ? per_sm * sms : row_blocks;
   kernel<<<blocks, kThreads, smem, s>>>(x, x_complex, out, g, ta, tb, tw,
-                                        rows, n_in, n1, inverse, max_radix,
+                                        rows, n_in, inverse, max_radix,
                                         start, k, grows, bulk);
   return cudaGetLastError();
 }
@@ -1159,9 +1282,9 @@ cudaError_t launch_one_pass(int lg_n, const T* x, int x_complex,
                             int k, int grows, cudaStream_t s) {
   if constexpr (kLgN <= 12) {
     if (lg_n == kLgN)
-      return launch_core<T, false, kLgN>(x, x_complex, out, g, ta, tb, tw,
-                                         rows, n_in, 1, inverse, max_radix,
-                                         start, k, grows, s);
+      return launch_core<T, kLgN>(x, x_complex, out, g, ta, tb, tw, rows,
+                                  n_in, inverse, max_radix, start, k, grows,
+                                  s);
     return launch_one_pass<T, kLgN + 1>(lg_n, x, x_complex, out, g, ta, tb,
                                         tw, rows, n_in, inverse, max_radix,
                                         start, k, grows, s);
@@ -1170,30 +1293,25 @@ cudaError_t launch_one_pass(int lg_n, const T* x, int x_complex,
   }
 }
 
-// a row of 2^(12 + kLgN1) points on a cluster of 2^kLgN1 blocks, one
-// cluster a caller row.  Refused (and not launched) when no such cluster
-// fits on the card.
-template <typename T, int kLgN1>
-cudaError_t launch_cluster(const T* x, int x_complex,
-                           typename Cplx<T>::type* out, const T* g,
-                           const T* ta, const T* tb,
-                           const typename Cplx<T>::type* tw, int rows,
-                           int n_in, int inverse, int max_radix, int start,
-                           int k, int grows, cudaStream_t s) {
-  using C = typename Cplx<T>::type;
-  constexpr int kN1 = 1 << kLgN1;
-  const size_t smem = (size_t)Shape<12>::kPad * sizeof(C);
-  const auto kernel = cluster_kernel<T, kLgN1>;
+// kernel on `blocks` blocks in clusters of `cluster` blocks.  Refused (and
+// not launched) when no such cluster fits on the card; clusters above 8
+// blocks (the portable size) are asked for explicitly.
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, unsigned blocks, int cluster,
+                            size_t smem, cudaStream_t s, Args... args) {
   cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)rows * kN1);
+  cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kN1;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1202,10 +1320,65 @@ cudaError_t launch_cluster(const T* x, int x_complex,
   e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (e != cudaSuccess) return e;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
-  e = cudaLaunchKernelEx(&cfg, kernel, x, x_complex, out, g, ta, tb, tw,
-                         n_in, inverse, max_radix, start, k, grows);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// a row of 2^(12 + lg_n1) points (lg_n1 in [kLgN1, 4]) on a cluster of
+// 2^lg_n1 blocks, one cluster a caller row
+template <typename T, int kLgN1 = 1>
+cudaError_t launch_cluster(int lg_n1, const T* x, int x_complex,
+                           typename Cplx<T>::type* out, const T* g,
+                           const T* ta, const T* tb,
+                           const typename Cplx<T>::type* tw, int rows,
+                           int n_in, int inverse, int max_radix, int start,
+                           int k, int grows, cudaStream_t s) {
+  if constexpr (kLgN1 <= 4) {
+    if (lg_n1 != kLgN1)
+      return launch_cluster<T, kLgN1 + 1>(lg_n1, x, x_complex, out, g, ta,
+                                          tb, tw, rows, n_in, inverse,
+                                          max_radix, start, k, grows, s);
+    auto go = [&](auto kernel) {
+      return launch_clusters(kernel, (unsigned)rows << kLgN1, 1 << kLgN1,
+                             kZBytes<T>, s, x, x_complex, out, g, ta, tb, tw,
+                             n_in, inverse, max_radix, start, k, grows);
+    };
+    // the blocks exchange their bins, but below kExchangeLgN1 for the
+    // post-twiddle's real bins, which they store n1 apart
+    if constexpr (kLgN1 < kExchangeLgN1) {
+      if (ta != nullptr) return go(cluster_kernel<T, kLgN1, false>);
+    }
+    return go(cluster_kernel<T, kLgN1, true>);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// pass 1 for columns of 2^lg_n1 points (lg_n1 in [kLgN1, 12]): 4096 points
+// a block
+template <typename T, int kLgN1 = 4>
+cudaError_t launch_columns(int lg_n1, const T* x, int x_complex,
+                           typename Cplx<T>::type* z,
+                           const typename Cplx<T>::type* tw, int rows,
+                           int n_in, int inverse, int max_radix,
+                           cudaStream_t s) {
+  if constexpr (kLgN1 <= 12) {
+    if (lg_n1 != kLgN1)
+      return launch_columns<T, kLgN1 + 1>(lg_n1, x, x_complex, z, tw, rows,
+                                          n_in, inverse, max_radix, s);
+    using C = typename Cplx<T>::type;
+    const size_t smem = (size_t)kMaxN * sizeof(C);
+    const auto kernel = column_kernel<T, kLgN1>;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const unsigned tiles = kMaxN / Shape<kLgN1>::kRows;
+    kernel<<<(unsigned)rows * tiles, kThreads, smem, s>>>(
+        x, x_complex, z, tw, n_in, inverse, max_radix);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -1224,48 +1397,34 @@ int launch(const void* x, int x_complex, void* out, const void* g,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
+  const T* xt = static_cast<const T*>(x);
+  C* o = static_cast<C*>(out);
+  const T* gt = static_cast<const T*>(g);
+  const T* at = static_cast<const T*>(ta);
+  const T* bt = static_cast<const T*>(tb);
   const C* twc = static_cast<const C*>(tw);
-  if (n <= kMaxN) {
-    int lg_n = 0;
-    while ((1 << lg_n) < n) ++lg_n;
-    return (int)launch_one_pass<T>(
-        lg_n, static_cast<const T*>(x), x_complex, static_cast<C*>(out),
-        static_cast<const T*>(g), static_cast<const T*>(ta),
-        static_cast<const T*>(tb), twc, rows, n_in, inverse, max_radix,
-        start, k, grows, s);
-  }
-  const int n1 = n / kMaxN;
-  if (n <= kClusterN) {
-    const auto cluster = n1 == 2   ? launch_cluster<T, 1>
-                         : n1 == 4 ? launch_cluster<T, 2>
-                                   : launch_cluster<T, 3>;
-    return (int)cluster(static_cast<const T*>(x), x_complex,
-                        static_cast<C*>(out), static_cast<const T*>(g),
-                        static_cast<const T*>(ta), static_cast<const T*>(tb),
-                        twc, rows, n_in, inverse, max_radix, start, k, grows,
-                        s);
-  }
-  // pass 1 into the scratch; pass 2 reads it as rows * n1 full rows
-  const int n2 = kMaxN;
-  int cols = kMinPointsPerBlock / n1 > 16 ? kMinPointsPerBlock / n1 : 16;
-  if (cols > n2) cols = n2;
-  while (cols > 1 && 2 * (size_t)cols * n1 * sizeof(C) > kMaxSmem) {
-    cols /= 2;
-  }
-  const size_t smem = 2 * (size_t)cols * n1 * sizeof(C);
-  cudaError_t e = allow_smem(column_kernel<T>, smem);
+  int lg_n = 0;
+  while ((1 << lg_n) < n) ++lg_n;
+  if (n <= kMaxN)
+    return (int)launch_one_pass<T>(lg_n, xt, x_complex, o, gt, at, bt, twc,
+                                   rows, n_in, inverse, max_radix, start, k,
+                                   grows, s);
+  const int lg_n1 = lg_n - 12;
+  if (n <= kClusterN)
+    return (int)launch_cluster<T>(lg_n1, xt, x_complex, o, gt, at, bt, twc,
+                                  rows, n_in, inverse, max_radix, start, k,
+                                  grows, s);
+  // pass 1 into the scratch; pass 2 reads it as rows * n1 rows
+  C* z = static_cast<C*>(scratch);
+  cudaError_t e = launch_columns<T>(lg_n1, xt, x_complex, z, twc, rows, n_in,
+                                    inverse, max_radix, s);
   if (e != cudaSuccess) return (int)e;
-  column_kernel<T><<<(unsigned)rows * (n2 / cols), kThreads, smem, s>>>(
-      static_cast<const T*>(x), x_complex, static_cast<C*>(scratch), twc,
-      n_in, n1, n2, cols, inverse, max_radix);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  x = scratch;
-  return (int)launch_core<T, true, 12>(
-      static_cast<const T*>(x), 1, static_cast<C*>(out),
-      static_cast<const T*>(g), static_cast<const T*>(ta),
-      static_cast<const T*>(tb), twc, rows * n1, n2, n1, inverse, max_radix,
-      start, k, grows, s);
+  // pass 2: the rows of Z
+  constexpr int kLgG = kRowGroupLg[sizeof(T) == 8];
+  return (int)launch_clusters(row_kernel<T, kLgG>, (unsigned)rows << lg_n1,
+                              1 << kLgG, 2 * kZBytes<T>, s,
+                              static_cast<const C*>(z), o, gt, at, bt, twc,
+                              lg_n1, inverse, max_radix, start, k, grows);
 }
 
 }  // namespace
@@ -1273,8 +1432,9 @@ int launch(const void* x, int x_complex, void* out, const void* g,
 extern "C" {
 
 // out is complex (rows, k), or real (rows, k) when ta and tb are given;
-// tw is the length-n table; scratch (rows * n complex) is needed, and
-// used, only when n > 32768 (it may be null otherwise)
+// tw is the length-n table, followed for n > 4096 by the 4096-point table;
+// scratch (rows * n complex) is needed, and used, only when n > 65536 (it
+// may be null otherwise)
 int repro_fft_stockham_f32(const void* x, int x_complex, void* out,
                            const void* g, const void* ta, const void* tb,
                            const void* tw, void* scratch, int rows, int n_in,

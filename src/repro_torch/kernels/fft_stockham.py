@@ -14,14 +14,18 @@ and counts the launch; on a CPU tensor it runs the plain version in
 output of the right shape and launches nothing.  Every call is recorded
 in the open ``core.trace`` traces.  Anything else (other devices,
 dtypes, shapes, strides) raises.
-A row takes one of three tiers by its length (``path``): up to
-``ONE_PASS_N`` points one pass; up to ``CLUSTER_N`` one pass on a
-thread-block cluster of N / ``ONE_PASS_N`` blocks a row; longer rows two
-passes (a column pass into a scratch buffer the wrapper allocates, then
-the row pass with the epilogue).  Every call counts once in ``LAUNCHES``,
-and a cluster or two-pass call once more in ``CLUSTER`` or ``TWO_PASS``.
+A row takes one of three tiers by its length (``path``), in either
+precision: up to ``ONE_PASS_N`` points one pass; up to ``CLUSTER_N``
+one pass on a thread-block cluster of N / ``ONE_PASS_N`` (at most 16)
+blocks a row; longer rows two passes (a column pass into a scratch
+buffer the wrapper allocates, then the row pass with the epilogue, on
+clusters of blocks that exchange their bins before they store them).
+Every call counts once in ``LAUNCHES``, and a cluster or two-pass call
+once more in ``CLUSTER`` or ``TWO_PASS``.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
@@ -35,11 +39,12 @@ __all__ = ["fft_stockham", "fft_stockham_scale", "fft_stockham_twiddle",
            "path", "MAX_N", "ONE_PASS_N", "CLUSTER_N"]
 
 # Longest row transformed by one block: 256 threads holding 16 points
-# each.  Rows up to 8 times longer run on a cluster of up to 8 blocks (the
-# portable cluster size); longer rows take two passes of at most 4096
-# points each, so the kernel takes up to 4096^2.
+# each.  Rows up to 16 times longer run on a cluster of up to 16 blocks
+# (the largest an H100 takes; above 8 a non-portable size); longer rows
+# take two passes of at most 4096 points each, so the kernel takes up to
+# 4096^2.
 ONE_PASS_N = ref.ONE_PASS_N
-CLUSTER_N = 8 * ONE_PASS_N
+CLUSTER_N = 16 * ONE_PASS_N
 MAX_N = ONE_PASS_N ** 2
 
 _REAL = (torch.float32, torch.float64)
@@ -74,6 +79,25 @@ def _fft_len(n_in, pad_to, inverse, what):
     return n
 
 
+@lru_cache(maxsize=None)
+def kernel_twiddles(n, cdtype, device):
+    """The kernel's twiddle tables for rows of ``n`` points: ``ref``'s
+    length-``n`` table and, above ``ONE_PASS_N`` points, two more after
+    it, whose values are the long table's bit for bit: the
+    ``ONE_PASS_N``-point table, which the 4096-point row FFTs read
+    contiguously (the long table at stride ``n1 = n / ONE_PASS_N``), and
+    the four-step split's inter-pass twiddles ``W[k1 * 4096 + n2] =
+    W_n^(n2 k1)`` (``k1 < n1``, ``n2 < 4096``), which neighbouring columns
+    read contiguously."""
+    tw = ref.twiddles(n, cdtype, device)
+    if n <= ONE_PASS_N:
+        return tw
+    k1 = torch.arange(n // ONE_PASS_N, device=device)[:, None]
+    n2 = torch.arange(ONE_PASS_N, device=device)[None, :]
+    return torch.cat((tw, ref.twiddles(ONE_PASS_N, cdtype, device),
+                      tw[(k1 * n2).reshape(-1)]))
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -105,7 +129,7 @@ def _launch(kname, x, out, n, inverse, max_radix, start, k, g=None,
     fn = (lib.repro_fft_stockham_f64 if ref._rdt(x) == torch.float64
           else lib.repro_fft_stockham_f32)
     cdt = ref._cdt(ref._rdt(x))
-    tw = ref.twiddles(n, cdt, x.device)
+    tw = kernel_twiddles(n, cdt, x.device)
     tier = path(n)
     # the column pass's output, (rows, N1, N2): read by the row pass on the
     # same stream, so the caching allocator may reuse it once this returns

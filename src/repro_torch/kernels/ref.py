@@ -60,8 +60,8 @@ def _minus_i(z, inverse):
     return torch.complex(z.imag, -z.real)
 
 
-# longest row the kernel transforms in one pass (in shared memory); longer
-# rows take two passes, N = N1 * ONE_PASS_N
+# longest row one block of the kernel transforms (in shared memory); longer
+# rows take the four-step split, N = N1 * ONE_PASS_N
 ONE_PASS_N = 4096
 
 
@@ -113,8 +113,9 @@ def fft_stockham(x, inverse=False, pad_to=None, max_radix=4, keep=None):
     the first stage, whose upper operand is zero, becomes a copy and a
     twiddle.  ``keep`` returns only bins ``[0, keep)``.
 
-    Lengths above ``ONE_PASS_N`` take the kernel's two passes, N = N1 N2
-    with N2 = ONE_PASS_N: the N1-point FFTs of the stride-N2 columns (the
+    Lengths above ``ONE_PASS_N`` take the kernel's four-step split (on a
+    thread-block cluster up to 65536 points, in two passes above), N = N1
+    N2 with N2 = ONE_PASS_N: the N1-point FFTs of the stride-N2 columns (the
     pruned first stage on the columns for ``pad_to``), the inter-pass
     twiddle ``W_N^(n2 k1)``, the N2-point FFTs of the rows ``(r, k1)``, and
     bin ``k1 + N1 k2`` read from row ``(r, k1)``, position ``k2``."""

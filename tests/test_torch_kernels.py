@@ -196,18 +196,43 @@ def test_spectral_scale_matches_pallas(shape, dtype):
 
 def test_two_pass_limits():
     assert tk.ONE_PASS_N == tref.ONE_PASS_N == 4096
-    assert tk.CLUSTER_N == 8 * 4096
+    assert tk.CLUSTER_N == 16 * 4096
     assert tk.MAX_N == 2 ** 24
 
 
 @pytest.mark.parametrize("n,tier", [
     (2, "one_pass"), (4096, "one_pass"), (8192, "cluster"),
-    (16384, "cluster"), (32768, "cluster"), (65536, "two_pass"),
-    (2 ** 24, "two_pass")])
+    (16384, "cluster"), (32768, "cluster"), (65536, "cluster"),
+    (131072, "two_pass"), (2 ** 24, "two_pass")])
 def test_fft_stockham_path(n, tier):
-    """The kernel's tier by row length: one block up to 4096 points, a
-    cluster of N / 4096 <= 8 blocks up to 32768, two passes above."""
+    """The kernel's tier by row length, the same in both precisions: one
+    block up to 4096 points, a cluster of N / 4096 <= 16 blocks up to
+    65536, two passes above."""
     assert tk.path(n) == tier
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [2 ** e for e in range(13, 21)])
+def test_row_table_is_the_long_table_at_stride(n, cdtype):
+    """The 4096-point rows of a long row read ``ONE_PASS_N``'s own table,
+    stored after the length-N one; the plain version reads the length-N
+    table at stride N / 4096.  The two agree bit for bit (both are the
+    same float64 quotient scaled by a power of two, then cast once).  The
+    inter-pass twiddles follow, ``W_N^(n2 k1)`` at ``k1 * 4096 + n2``."""
+    cpu = torch.device("cpu")
+    long = tref.twiddles(n, cdtype, cpu)
+    row = tref.twiddles(4096, cdtype, cpu)
+    assert torch.equal(row, long[::n // 4096])
+    table = tk.kernel_twiddles(n, cdtype, cpu)
+    assert table.shape == (2 * n + 4096,)
+    assert torch.equal(table[:n], long)
+    assert torch.equal(table[n:n + 4096], row)
+    n1 = n // 4096
+    inter = table[n + 4096:].reshape(n1, 4096)
+    for k1 in {0, 1, n1 // 2, n1 - 1}:
+        assert torch.equal(inter[k1], long[torch.arange(4096) * k1])
+    assert torch.equal(tk.kernel_twiddles(4096, cdtype, cpu),
+                       tref.twiddles(4096, cdtype, cpu))
 
 
 @pytest.mark.parametrize("dtype,n,mode", [
@@ -282,12 +307,12 @@ def test_fft_stockham_twiddle_two_pass_matches_pallas(n, window):
                                **_tol(np.float64, n))
 
 
-@pytest.mark.parametrize("n", [2 ** 13, 2 ** 14, 2 ** 15, 2 ** 18])
+@pytest.mark.parametrize("n", [2 ** 13, 2 ** 14, 2 ** 15, 2 ** 17, 2 ** 18])
 @pytest.mark.parametrize("radix", [2, 4])
 def test_fft_stockham_two_pass_float64_matches_numpy(n, radix):
     """Forward, inverse and pruned FFTs above 4096 points exact to float64
-    roundoff: every cluster length (N1 = 2, 4, 8 point column FFTs) and
-    two passes up to N1 = 64."""
+    roundoff: cluster lengths (N1 = 2, 4, 8 point column FFTs) and two
+    passes at N1 = 32 and 64."""
     rng = np.random.default_rng(n + radix)
     re, im = _planes(rng, (2, n), np.float64)
     x = re + 1j * im
@@ -337,6 +362,22 @@ def test_cpu_calls_count_no_launch():
     assert LAUNCHES == {"fft_stockham": 0, "fft_stockham_scale": 0,
                         "spectral_scale": 0, "twiddle_pack": 0,
                         "fft_stockham_twiddle": 0}
+    assert not any(CLUSTER.values())
+    assert not any(TWO_PASS.values())
+
+
+@pytest.mark.parametrize("n", [65536, 131072])
+def test_cpu_long_rows_count_no_launch(n):
+    """A 65536-point row (a 16-block cluster on the card) and a
+    131072-point one (two passes) run the plain version on CPU tensors and
+    count nothing, through every wrapper."""
+    reset_launches()
+    x = torch.zeros((1, n // 2), dtype=torch.complex64)
+    tk.fft_stockham(x, pad_to=n)
+    tk.fft_stockham_scale(x, torch.ones((1, n // 2 + 1)), pad_to=n)
+    tk.fft_stockham_twiddle(torch.zeros((1, n // 2)), torch.ones(n // 2),
+                            torch.ones(n // 2), pad_to=n)
+    assert not any(LAUNCHES.values())
     assert not any(CLUSTER.values())
     assert not any(TWO_PASS.values())
 

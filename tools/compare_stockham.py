@@ -14,17 +14,24 @@ real forward, the pruned complex forward, the pruned forward fused with
 the Green multiply, the two inverse shapes) and SEMI_E's fused DCT-II;
 the 8192-point calls of LONG_UUU (the pruned forward, and the same call
 fused with a Green plane, which no solve runs) and LONG_SEMI (the fused
-DCT-II and the inverse), and a 65536-point pruned forward of the same
-bytes as LONG_UUU's; float64, the NODE HEJ4 n=64 calls (the real and
-complex 128-point forwards, the inverse, and the semi-even case's fused
-DCT-I on 256 points).  Each time is the device time of 20 back-to-back
-calls between one event pair after a device sleep; the script prints
-every time, the ratio of the medians and each build's share of the
-call's bound (its input and output bytes once at the HBM rate).  Every
-long-row call is given a scratch buffer, which a tree takes where its
-rows run in two passes.  Both builds' outputs are compared before timing
-(long rows only with a tree whose source takes a scratch pointer).
-Exits 2 without a CUDA device.
+DCT-II and the inverse), pruned forwards of the same bytes as LONG_UUU's
+at 16384 and 32768 points, and the long rows' pruned forward and
+inverse at the same bytes at 65536 (LONG_XL_UUU's forward; 520 and 512
+rows), 131072 (LONG_XXL_UUU's; 260 and 256) and 2^20 points (32 and
+32); float64, the NODE HEJ4 n=64 calls (the real and complex 128-point
+forwards, the inverse, and the semi-even case's fused DCT-I on 256
+points).  Each time is the device time of 20 back-to-back calls between
+one event pair after a device sleep; the script prints every time, the
+ratio of the medians and each build's share of the call's bound (its
+input and output bytes once at the HBM rate), and for the complex calls
+above 32768 points the ``torch.fft`` call of the same transform (cuFFT),
+timed as the kernels are.  Every long-row call is given a scratch buffer,
+which a tree takes where its rows run in two passes, and the wrapper's
+twiddle table (``kernel_twiddles``: the 4096-point table after the
+length-N one, which a tree that reads the long table alone ignores).
+Both builds' outputs are compared before timing (long rows only with a
+tree whose source takes a scratch pointer).  Exits 2 without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ def main() -> int:
         print("compare_stockham.py: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.fft_stockham import kernel_twiddles
 
     out_dir = ROOT / "build" / "compare"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -106,8 +114,21 @@ def main() -> int:
         ("LONG_SEMI fused DCT-II", (4096, 8192), f32, 8192, 0, 4096, 0,
          4096),
         ("LONG_SEMI inverse", (4096, 8192), c64, 8192, 1, 8192, 0, 0),
+        ("16384-point pruned forward", (1040, 8192), c64, 16384, 0, 16384,
+         0, 0),
+        ("32768-point pruned forward", (520, 16384), c64, 32768, 0, 32768,
+         0, 0),
         ("65536-point pruned forward", (520, 32768), c64, 65536, 0, 65536,
          0, 0),
+        ("65536-point inverse", (512, 65536), c64, 65536, 1, 65536, 0, 0),
+        ("131072-point pruned forward", (260, 65536), c64, 2 ** 17, 0,
+         2 ** 17, 0, 0),
+        ("131072-point inverse", (256, 2 ** 17), c64, 2 ** 17, 1, 2 ** 17,
+         0, 0),
+        ("2^20-point pruned forward", (32, 2 ** 19), c64, 2 ** 20, 0,
+         2 ** 20, 0, 0),
+        ("2^20-point inverse", (32, 2 ** 20), c64, 2 ** 20, 1, 2 ** 20, 0,
+         0),
         ("NODE real forward", (4225, 128), f64, 128, 0, 65, 0, 0),
         ("NODE forward", (8320, 128), c128, 128, 0, 128, 0, 0),
         ("NODE inverse", (8320, 128), c128, 128, 1, 128, 0, 0),
@@ -133,7 +154,7 @@ def main() -> int:
         g = (torch.randn((grows, k), dtype=rdt, device=dev) if grows
              else None)
         ab = torch.randn((2, r2r), dtype=rdt, device=dev) if r2r else None
-        tw = ref.twiddles(nf, cdt, dev)
+        tw = kernel_twiddles(nf, cdt, dev)
         scratch = (torch.empty(rows * nf, dtype=cdt, device=dev)
                    if nf > ref.ONE_PASS_N else None)
         if scratch is not None and not all(s for _, s in libs.values()):
@@ -183,6 +204,17 @@ def main() -> int:
               f"this {bound / med['this']:.0%} of it")
         for tag, v in times.items():
             print(f"    {tag:5s} " + " ".join(f"{t:.4f}" for t in v))
+        if nf > 32768 and not grows and not r2r:
+            lib = torch.fft.ifft if inverse else torch.fft.fft
+            t_lib = statistics.median(
+                loop_ms(lambda: lib(x, n=nf)) for _ in range(ROUNDS))
+            # the two-pass floor: the bound plus the scratch buffer of rows
+            # * N complex values written and read once
+            z = 2 * rows * nf * torch.empty(0, dtype=cdt).element_size()
+            print(f"    torch.fft (cuFFT) {t_lib:.4f} ms, {bound / t_lib:.0%}"
+                  f" of the bound; two-pass floor "
+                  f"{(byts + z) / HBM * 1e3:.4f} ms")
+        del scratch, outs
     return 0
 
 

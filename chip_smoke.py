@@ -3612,6 +3612,58 @@ def main() -> int:
         hold("fft_stockham_twiddle", fft_stockham_twiddle(x, a, b),
              ref.fft_stockham_twiddle(x, a, b), *fft_tol(rdt, 1024))
         checks += 1
+        # the short rows (2 to 128 points) on row counts that are no
+        # multiple of a row-block's rows and span many persistent blocks:
+        # every mode, the Green plane of the main path (a row each) and a
+        # shared one, the DCT-II and DST-II windows, radix 2, and inputs
+        # one element off 16-byte alignment (complex64 and real)
+        t_s, checks_s = time.perf_counter(), checks
+        for n in (2, 4, 8, 16, 32, 64, 128):
+            rtol, atol = fft_tol(rdt, n)
+            h = max(n // 2, 1)
+            for rows in (257, 30001):
+                cases = [
+                    dict(x=randn((rows, n), cdt)),
+                    dict(x=randn((rows, n), cdt), inverse=True),
+                    dict(x=randn((rows, h), cdt), pad_to=n),
+                    dict(x=randn((rows, n), cdt), inverse=True, keep=h),
+                    dict(x=randn((rows, h), rdt), pad_to=n, keep=h + 1),
+                    dict(x=randn((rows, n), rdt), keep=h + 1),
+                    dict(x=randn((rows, n), cdt), max_radix=2),
+                    dict(x=randn((rows * h + 1,), rdt)[1:].view(rows, h),
+                         pad_to=n, keep=h + 1),
+                ]
+                if rdt == torch.float32:
+                    cases.append(dict(x=randn((rows * n + 1,), cdt)[1:]
+                                      .view(rows, n)))
+                for kw in cases:
+                    x = kw.pop("x")
+                    hold("fft_stockham", fft_stockham(x, **kw),
+                         ref.fft_stockham(x, **kw), rtol, atol)
+                    checks += 1
+                for pad, grows, start, k in ((n, rows, 0, h + 1),
+                                             (None, 1, 1, n - 1)):
+                    if k < 1:
+                        continue
+                    x = randn((rows, n // 2 if pad else n), cdt)
+                    g = randn((grows, k), rdt)
+                    hold("fft_stockham_scale",
+                         fft_stockham_scale(x, g, start=start, pad_to=pad),
+                         ref.fft_stockham_scale(x, g, start=start,
+                                                pad_to=pad), rtol, atol)
+                    checks += 1
+                for pad, start, k in ((n, 0, h), (None, 1, h)):
+                    a, b = randn((k,), rdt), randn((k,), rdt)
+                    x = randn((rows, n // 2 if pad else n), rdt)
+                    hold("fft_stockham_twiddle",
+                         fft_stockham_twiddle(x, a, b, start=start,
+                                              pad_to=pad),
+                         ref.fft_stockham_twiddle(x, a, b, start=start,
+                                                  pad_to=pad), rtol, atol)
+                    checks += 1
+        print(f"  short rows {rdt}: {checks - checks_s} checks (2 to 128 "
+              f"points, 257 and 30001 rows) in "
+              f"{time.perf_counter() - t_s:.2f} s")
         # rows above ONE_PASS_N points: on a cluster up to 65536, in two
         # passes above (2^20 in float32 at batch 1); the largest error per
         # length, against the spectrum's largest value, and the path each
@@ -4135,9 +4187,10 @@ def main() -> int:
         top = "; ".join(f"{ms:.3f} ms x{c} {k[:60]}"
                         for ms, c, k in rows[:6] if ms > 0)
         # the Stockham kernels' instantiations (one per row length) summed,
-        # and how many of them ran the long rows' cluster and column passes
-        stock = ("stockham_kernel", "cluster_kernel", "column_kernel",
-                 "row_kernel")
+        # and how many of them ran the short tier, and the long rows'
+        # cluster and column passes
+        stock = ("stockham_kernel", "short_kernel", "cluster_kernel",
+                 "column_kernel", "row_kernel")
         fft = [(ms, c) for ms, c, k in rows if any(s in k for s in stock)]
         tiers = ", ".join(f"{s} x{sum(c for _, c, k in rows if s in k)}"
                           for s in stock[1:])

@@ -106,7 +106,29 @@
 // their bins first (exchange_epilogue: block j then holds, for k2 in its
 // 4096 / G, the G bins k1_0 .. k1_0 + G - 1 side by side, and stores runs
 // of G contiguous bins: whole 32-byte sectors from G = 4 in complex64).
-// So the rows take three tiers by length, each bounded by memory:
+// So the rows take four tiers by length, each bounded by memory:
+// - 8 <= N <= 32 in float32, 8 <= N <= 16 in float64: the short tier
+//   (short_kernel), one pass.  There the core's own loads and stores do
+//   not fill a sector: a thread holds a whole row of up to 16 points (two
+//   threads a 32-point row), so a warp load or store of one point a row
+//   touches 32 rows' sectors, 8 or 16 bytes of each.  The short tier
+//   instead moves each row-block's input span and output span (kRows *
+//   n_in and kRows * k contiguous elements) element by element,
+//   neighbouring threads on neighbouring elements, through shared memory:
+//   the input by asynchronous copies (cp.async) into a ring of two slots,
+//   the next row-block in flight while one is transformed, the output
+//   from the bins the core leaves there, through the epilogue.
+//   The rows lie in shared memory at a pitch p = s (mod 2 s) (strip_pitch:
+//   a warp's rows read or write s consecutive elements at a time, and r p
+//   then covers distinct banks), so the core's reads and writes there are
+//   conflict-free and the copies' writes and the stores' reads at most
+//   2-way; the pitch is written by the copies themselves, as a bulk copy
+//   (one contiguous span) cannot pad rows.  Shorter and longer rows run
+//   the core, which ran them faster on an H100 (tools/compare_stockham.py):
+//   below 8 points a row is 16 or 32 bytes, so a thread's few loads cover
+//   its row's sectors back to back, and from 64 points (32 in float64)
+//   the threads of a row load and store whole sectors together, so the
+//   staging's shared-memory round trips cost more than they save.
 // - N <= 4096: one pass, the core alone (one block a row or less).
 // - 4096 < N <= 65536 (N1 = 2 .. 16): one pass on a thread-block cluster
 //   of N1 blocks a row (cluster_kernel).  Block c loads its slice of every
@@ -136,6 +158,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -160,7 +184,8 @@ constexpr int kRowGroupLg[2] = {2, 1};
 constexpr int kSmemOptIn = 232448;
 // blocks of the core per SM that the float32 register budget allows
 // (65536 registers / (2 * 256 threads) = 128 a thread); float64 holds 16
-// complex128 points a thread and takes one block
+// complex128 points a thread and takes one block (the short tier's blocks
+// ask the same: 128 registers a thread, 255 in float64)
 template <typename T> struct CoreBlocks { static constexpr int value = 2; };
 template <> struct CoreBlocks<double> { static constexpr int value = 1; };
 // blocks of the cluster kernel per SM that its register budget asks for:
@@ -172,6 +197,13 @@ template <> struct ClusterBlocks<double> { static constexpr int value = 1; };
 // input slots of a core block's bulk-copy ring: the copy of the next
 // row-block is in flight while one is transformed
 constexpr int kSlots = 2;
+// log2 of the shortest and the longest row of the short tier
+// (short_kernel), float32 and float64: where it beat the register core in
+// tools/compare_stockham.py (shorter and longer rows run the core)
+template <typename T> struct ShortTier {
+  static constexpr int kLo = 3;
+  static constexpr int kHi = sizeof(T) == 8 ? 4 : 5;
+};
 
 template <typename T> struct Cplx;
 template <> struct Cplx<float> { using type = float2; };
@@ -296,6 +328,28 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(shared_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// Asynchronous copies of one element (kBytes = 4, 8 or 16, aligned to
+// its size) from device to shared memory by each thread (cp.async), in
+// groups: commit closes this thread's group; wait<n> returns once at most
+// n of its groups are still in flight (its copies then visible to it; a
+// __syncthreads makes them visible to the block).
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src), "n"(kBytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -451,6 +505,31 @@ struct Shape {
   static constexpr int kRows = kThreads >> kLgT;
   static constexpr int kPad = kN + (kN >> 4);
 };
+
+// x / d for 0 <= x < 2^31, d fixed at launch, by a multiply and a shift:
+// q = umulhi(x, mul) >> shr = x mul / 2^p rounded down, mul = ceil(2^p /
+// d), p = 31 + ceil(log2 d) (the rounding error x (mul d - 2^p) / (d
+// 2^p) < 1 / d never reaches the next integer)
+struct Divmod {
+  int d;
+  unsigned mul;
+  int shr;
+};
+
+Divmod make_divmod(int d) {
+  Divmod m{d, 0u, 0};
+  if (d > 1) {
+    int lg = 0;
+    while ((1 << lg) < d) ++lg;
+    m.mul = (unsigned)(((1ull << (31 + lg)) + (unsigned)d - 1) / (unsigned)d);
+    m.shr = lg - 1;
+  }
+  return m;
+}
+
+__device__ __forceinline__ int quotient(const Divmod& m, int x) {
+  return m.d == 1 ? x : (int)(__umulhi((unsigned)x, m.mul) >> m.shr);
+}
 
 // bytes of a 4096-point row's exchange buffer (16-byte aligned)
 template <typename T>
@@ -1013,6 +1092,260 @@ stockham_kernel(const T* __restrict__ x, int x_complex,
   }
 }
 
+// The short tier's block: kThr threads (256, 128 in float64) running the
+// register core's Shape on rows of 2^kLgN points, each thread taking kF
+// rows (kF > 1 below 16 points), so that a row-block holds kRows rows,
+// kThr * kPoints points: 32 KB of complex input whatever the length and
+// precision
+template <typename T, int kLgN>
+struct ShortShape {
+  using S = Shape<kLgN>;
+  static constexpr int kThr = sizeof(T) == 8 ? kThreads / 2 : kThreads;
+  static constexpr int kF = S::kN < kPoints ? kPoints / S::kN : 1;
+  static constexpr int kCoreRows = kThr >> S::kLgT;
+  static constexpr int kRows = kCoreRows * kF;
+};
+
+// Where a short block's shared memory holds what: two input slots (a
+// row-block's rows of x, row r at r * ipitch elements) and, with a Green
+// plane, two slots of its values (element i of the output span at i),
+// then the exchange rows (kPad points a core row) and over them the bins
+// (row r at r * opitch points)
+struct ShortStage {
+  size_t in, green, xo;  // bytes of an input slot, a Green slot, the rest
+  size_t bytes() const { return 2 * (in + green) + xo; }
+};
+
+// a row-block's copies, as one group of this thread's asynchronous
+// copies: the input span (count elements of x, rows of 2^lg_in) into
+// `in`, row r at r * pitch, and the Green values of the output span
+// (nrows * k elements from caller row row0 on; row r's bin b at r k + b,
+// from Green row (row0 + r) % grows) into `green`.  Element e = threadIdx.x
+// + j kThr: neighbouring threads copy neighbouring elements (each warp's
+// copies whole sectors, at any alignment).
+template <int kThr, typename E>
+__device__ __forceinline__ void fetch_span(const E* __restrict__ src,
+                                           int count, int lg_in, int pitch,
+                                           E* in) {
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    const int e = threadIdx.x + j * kThr;
+    if (e < count)
+      copy_async<sizeof(E)>(
+          in + (e >> lg_in) * pitch + (e & ((1 << lg_in) - 1)), src + e);
+  }
+}
+
+template <int kThr, typename T>
+__device__ __forceinline__ void fetch_green(const T* __restrict__ g,
+                                            int row0, int nrows, int k,
+                                            const Divmod& kdiv,
+                                            const Divmod& gdiv, T* green) {
+  const int count = nrows * k;
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    const int i = threadIdx.x + j * kThr;
+    if (i < count) {
+      const int r = quotient(kdiv, i);
+      const int gr = row0 + r - quotient(gdiv, row0 + r) * gdiv.d;
+      copy_async<sizeof(T)>(green + i, g + (size_t)gr * k + (i - r * k));
+    }
+  }
+}
+
+// the kept bins of the last pass (radix R, bin k2 = g + o n / R of group
+// g in register out_slot^-1(o)) to the row's stage row, bin b at b - start
+template <typename T, int kLgN, int R>
+__device__ __forceinline__ void stage_bins(
+    const typename Cplx<T>::type (&v)[Shape<kLgN>::kP], const Core<T>& c,
+    typename Cplx<T>::type* row, int start, int k) {
+  using S = Shape<kLgN>;
+  constexpr int kStride = S::kN / R;
+#pragma unroll
+  for (int gi = 0; gi < S::kP / R; ++gi) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int b = c.t + (gi << S::kLgT) + out_slot<R>(r) * kStride - start;
+      if ((unsigned)b < (unsigned)k) row[b] = v[gi * R + r];
+    }
+  }
+}
+
+// the row-block's output span (nrows * k elements from caller row row0 on)
+// from the bins (row r's at r * pitch) through the epilogue e (the Green
+// values `green`, the post-twiddle or the inverse's scale; its out is
+// caller row 0): element i = threadIdx.x + j kThr, neighbouring threads
+// storing neighbouring elements (each warp's stores whole sectors)
+template <int kThr, typename T>
+__device__ __forceinline__ void store_span(const typename Cplx<T>::type* bins,
+                                           int pitch, const T* green,
+                                           int row0, int nrows,
+                                           const Divmod& kdiv,
+                                           const Epilogue<T>& e) {
+  using C = typename Cplx<T>::type;
+  const int k = e.k;
+  const int count = nrows * k;
+  const size_t base = (size_t)row0 * k;
+  if (e.ta != nullptr) {
+    const T* __restrict__ ta = e.ta;
+    const T* __restrict__ tb = e.tb;
+    T* __restrict__ out = static_cast<T*>(e.out) + base;
+#pragma unroll
+    for (int j = 0; j < kPoints; ++j) {
+      const int i = threadIdx.x + j * kThr;
+      if (i < count) {
+        const int r = quotient(kdiv, i);
+        const int b = i - r * k;
+        const C w = bins[r * pitch + b];
+        out[i] = ta[b] * w.x + tb[b] * w.y;
+      }
+    }
+  } else {
+    C* __restrict__ out = static_cast<C*>(e.out) + base;
+    const T s = e.inv ? e.scale : T(1);
+#pragma unroll
+    for (int j = 0; j < kPoints; ++j) {
+      const int i = threadIdx.x + j * kThr;
+      if (i < count) {
+        const int r = quotient(kdiv, i);
+        const C w = bins[r * pitch + i - r * k];
+        if (green != nullptr)
+          out[i] = mk<T>(w.x * green[i], w.y * green[i]);
+        else
+          out[i] = mk<T>(w.x * s, w.y * s);
+      }
+    }
+  }
+}
+
+// The rows of the short tier (n = 2^kLgN points), in one pass on
+// persistent blocks, block b taking row-blocks b, b + gridDim.x, ...
+// (kRows rows each).  For each row-block:
+// 1. its input span (kRows * n_in contiguous elements of x), and with a
+//    Green plane the Green values of its output span, arrive by
+//    asynchronous element copies (cp.async: neighbouring threads on
+//    neighbouring elements, whole sectors of each warp's copies, at any
+//    alignment) in a slot of a two-slot ring, row r at r * ipitch: the
+//    copies of the next row-block are issued before this one is
+//    transformed, so they run under its passes and stores;
+// 2. thread (rr, t) of the register core reads its rows' points from the
+//    slot into registers (the first pass's load_input, the pruned stage
+//    folded in) and runs the passes, exchanging through the exchange rows
+//    where a row's passes exchange;
+// 3. the kept bins go to shared memory over the exchange rows, row r at r
+//    * opitch (stage_bins);
+// 4. the block stores the output span (kRows * k contiguous elements)
+//    through the epilogue (store_span).
+// The pitches are chosen at launch so that the register core's reads of
+// the slot and writes of the bins fall on distinct banks, and the copies'
+// writes and the stores' reads on at most two a bank (launch_short).
+template <typename T, int kLgN>
+__global__ void __launch_bounds__(ShortShape<T, kLgN>::kThr,
+                                  CoreBlocks<T>::value)
+short_kernel(const T* __restrict__ x, int x_complex,
+             typename Cplx<T>::type* __restrict__ out,
+             const T* __restrict__ g, const T* __restrict__ ta,
+             const T* __restrict__ tb,
+             const typename Cplx<T>::type* __restrict__ tw, int rows,
+             int n_in, int inverse, int max_radix, int start, int k,
+             int grows, int ipitch, int opitch, ShortStage st, Divmod kdiv,
+             Divmod gdiv) {
+  using C = typename Cplx<T>::type;
+  using S = Shape<kLgN>;
+  using SS = ShortShape<T, kLgN>;
+  constexpr int P = S::kP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* xo = reinterpret_cast<C*>(smem_raw + 2 * (st.in + st.green));
+  unsigned char* greens = smem_raw + 2 * st.in;
+  Core<T> c;
+  c.tw = tw;
+  c.tw_stride = 1;
+  c.t = threadIdx.x & ((1 << S::kLgT) - 1);
+  c.inv = inverse != 0;
+  const int rr = threadIdx.x >> S::kLgT;
+  // the pruned first stage is folded into the loads (a pruned 2-point
+  // row instead reads its zero tail as 0 and runs the radix-2 pass)
+  const bool fold = n_in < S::kN && S::kN > 2;
+  const int lg_in = n_in < S::kN ? kLgN - 1 : kLgN;
+  const int lg_m0 = fold ? kLgN - 1 : kLgN;
+  const int radix0 = pass_radix<P>(1 << lg_m0, max_radix);
+  // whether a row's passes exchange
+  const bool exchanges = (1 << lg_m0) != radix0;
+  const Epilogue<T> e = epilogue_of<T>(out, g, ta, tb, start, k, grows, 0,
+                                       c.inv, kLgN);
+  const int row_blocks = (rows + SS::kRows - 1) / SS::kRows;
+  // row-block rb's copies into slot i, as one group
+  auto fetch = [&](int rb, int i) {
+    if (rb < row_blocks) {
+      const int row0 = rb * SS::kRows;
+      const int nrows = min(SS::kRows, rows - row0);
+      unsigned char* in = smem_raw + i * st.in;
+      if (x_complex)
+        fetch_span<SS::kThr>(
+            reinterpret_cast<const C*>(x) + ((size_t)row0 << lg_in),
+            nrows << lg_in, lg_in, ipitch, reinterpret_cast<C*>(in));
+      else
+        fetch_span<SS::kThr>(x + ((size_t)row0 << lg_in), nrows << lg_in,
+                             lg_in, ipitch, reinterpret_cast<T*>(in));
+      if (g != nullptr)
+        fetch_green<SS::kThr>(g, row0, nrows, k, kdiv, gdiv,
+                              reinterpret_cast<T*>(greens + i * st.green));
+    }
+    copy_commit();
+  };
+  fetch(blockIdx.x, 0);
+  for (int rb = blockIdx.x, it = 0; rb < row_blocks;
+       rb += gridDim.x, ++it) {
+    const int row0 = rb * SS::kRows;
+    const int nrows = min(SS::kRows, rows - row0);
+    const int slot = it & 1;
+    // the next row-block's copies (into the slot the last one read), then
+    // this one's complete
+    fetch(rb + gridDim.x, slot ^ 1);
+    copy_wait<1>();
+    __syncthreads();
+    const T* in = reinterpret_cast<const T*>(smem_raw + slot * st.in);
+    // row f * SS::kCoreRows + rr of the row-block in v[f]
+    C v[SS::kF][P];
+#pragma unroll
+    for (int f = 0; f < SS::kF; ++f) {
+      with_radix<kLgN>(radix0, [&](auto r) {
+        const int row = f * SS::kCoreRows + rr;
+        load_input<T, kLgN, decltype(r)::value>(v[f], c, in, x_complex,
+                                                (size_t)row * ipitch, 1,
+                                                row < nrows, n_in, fold);
+      });
+    }
+    // (a thread of kF > 1 rows holds each whole and exchanges in its own
+    // kPad points only)
+    int radix = radix0;
+#pragma unroll
+    for (int f = 0; f < SS::kF; ++f)
+      radix = row_passes<T, kLgN>(v[f], c, xo + rr * S::kPad, lg_m0,
+                                  fold ? 1 : 0, radix0, max_radix);
+    // the last exchange has been read
+    if (exchanges) __syncthreads();
+#pragma unroll
+    for (int f = 0; f < SS::kF; ++f) {
+      const int row = f * SS::kCoreRows + rr;
+      if (row < nrows)
+        with_radix<kLgN>(radix, [&](auto r) {
+          stage_bins<T, kLgN, decltype(r)::value>(v[f], c, xo + row * opitch,
+                                                  start, k);
+        });
+    }
+    __syncthreads();
+    store_span<SS::kThr>(
+        xo, opitch,
+        g != nullptr ? reinterpret_cast<const T*>(greens + slot * st.green)
+                     : nullptr,
+        row0, nrows, kdiv, e);
+    // the bins and this slot have been read: the next exchanges may
+    // start, and the slot take the next row-block's copies
+    __syncthreads();
+  }
+}
+
 // Pass 1 of the two-pass FFT: the n1-point FFTs (n1 = 2^kLgN1) of the
 // stride-kMaxN columns, on the register core.  Block (r, tile) takes the
 // C = kRows adjacent columns n2 of row r in its tile; thread (t, cc) holds
@@ -1272,7 +1605,67 @@ cudaError_t launch_core(const T* x, int x_complex,
   return cudaGetLastError();
 }
 
-// launch_core for a one-pass row of 2^lg_n points (lg_n in [kLgN, 12])
+// the least pitch p >= n with p = s (mod 2 s): rows r at r p, read or
+// written s consecutive elements a row at a time by the rows of a warp,
+// then fall on distinct banks (r p mod the elements a bank sweep holds,
+// a power of two, are distinct multiples of s: p is s times an odd
+// number)
+int strip_pitch(int n, int s) {
+  const int p = n / (2 * s) * (2 * s) + s;
+  return p < n ? p + 2 * s : p;
+}
+
+// short_kernel for rows of 2^kLgN points: the pitches (a row's T = 2^kLgT
+// threads read T consecutive points of a slot at a time, T / 2 of a
+// pruned row, and write T consecutive bins), the shared memory (two input
+// slots, two Green slots, the larger of the exchange rows and the bins),
+// as many persistent blocks as fit on the card at once
+template <typename T, int kLgN>
+cudaError_t launch_short(const T* x, int x_complex,
+                         typename Cplx<T>::type* out, const T* g,
+                         const T* ta, const T* tb,
+                         const typename Cplx<T>::type* tw, int rows,
+                         int n_in, int inverse, int max_radix, int start,
+                         int k, int grows, cudaStream_t s) {
+  using C = typename Cplx<T>::type;
+  using S = Shape<kLgN>;
+  using SS = ShortShape<T, kLgN>;
+  constexpr int kT = 1 << S::kLgT;
+  const bool fold = n_in < S::kN && S::kN > 2;
+  const int ipitch = strip_pitch(n_in, fold && kT > 1 ? kT / 2 : kT);
+  const int opitch = strip_pitch(k, kT);
+  auto align = [](size_t b) { return (b + 15) & ~(size_t)15; };
+  ShortStage st;
+  st.in = align((size_t)SS::kRows * ipitch *
+                (x_complex ? sizeof(C) : sizeof(T)));
+  st.green = g != nullptr ? align((size_t)SS::kRows * k * sizeof(T)) : 0;
+  st.xo = align(std::max((size_t)SS::kCoreRows * S::kPad,
+                         (size_t)SS::kRows * opitch) *
+                sizeof(C));
+  const size_t smem = st.bytes();
+  const auto kernel = short_kernel<T, kLgN>;
+  cudaError_t e = allow_smem(kernel, smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      SS::kThr, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int row_blocks = (rows + SS::kRows - 1) / SS::kRows;
+  const int blocks = std::min(row_blocks, per_sm * sms);
+  kernel<<<blocks, SS::kThr, smem, s>>>(
+      x, x_complex, out, g, ta, tb, tw, rows, n_in, inverse, max_radix,
+      start, k, grows, ipitch, opitch, st, make_divmod(k),
+      make_divmod(grows));
+  return cudaGetLastError();
+}
+
+// a one-pass row of 2^lg_n points (lg_n in [kLgN, 12]): short_kernel on
+// the short tier's lengths, the register core's stockham_kernel on the
+// others
 template <typename T, int kLgN = 1>
 cudaError_t launch_one_pass(int lg_n, const T* x, int x_complex,
                             typename Cplx<T>::type* out, const T* g,
@@ -1280,7 +1673,15 @@ cudaError_t launch_one_pass(int lg_n, const T* x, int x_complex,
                             const typename Cplx<T>::type* tw, int rows,
                             int n_in, int inverse, int max_radix, int start,
                             int k, int grows, cudaStream_t s) {
-  if constexpr (kLgN <= 12) {
+  if constexpr (kLgN >= ShortTier<T>::kLo && kLgN <= ShortTier<T>::kHi) {
+    if (lg_n == kLgN)
+      return launch_short<T, kLgN>(x, x_complex, out, g, ta, tb, tw, rows,
+                                   n_in, inverse, max_radix, start, k,
+                                   grows, s);
+    return launch_one_pass<T, kLgN + 1>(lg_n, x, x_complex, out, g, ta, tb,
+                                        tw, rows, n_in, inverse, max_radix,
+                                        start, k, grows, s);
+  } else if constexpr (kLgN <= 12) {
     if (lg_n == kLgN)
       return launch_core<T, kLgN>(x, x_complex, out, g, ta, tb, tw, rows,
                                   n_in, inverse, max_radix, start, k, grows,

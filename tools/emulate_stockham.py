@@ -131,6 +131,18 @@ thread_local EmuCluster emu_cl;
 thread_local int emu_rank;
 thread_local std::optional<std::barrier<>::arrival_token> emu_token;
 
+// cp.async: a thread's element copies: those of its open group, then its committed
+// groups in order; a group's copies are made when a wait retires it, so
+// a read of the destination before the wait sees the old bytes
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  uint32_t bytes;
+};
+thread_local std::vector<EmuCopy> emu_open;
+thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+
+
 static void emu_fail(const char* what) {
   std::fprintf(stderr, "emulation: %s (block %u thread %u)\n", what,
                blockIdx.x, threadIdx.x);
@@ -140,6 +152,9 @@ inline unsigned char* emu_smem() { return emu_blk->smem; }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 using std::min;
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -187,6 +202,8 @@ void* emu_thread_main(void* arg) {
   emu_cl = a->cl;
   emu_rank = a->rank;
   emu_token.reset();
+  emu_open.clear();
+  emu_groups.clear();
   (*a->f)();
   if (emu_token) emu_fail("exit with a cluster arrive pending");
   return nullptr;
@@ -316,6 +333,27 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
     emu_fail("wait on a phase no copy completes");
 }
 
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  shared_addr(static_cast<unsigned char*>(dst) + kBytes - 1);
+  if ((uintptr_t)src % kBytes || shared_addr(dst) % kBytes)
+    emu_fail("cp.async not aligned to its size");
+  emu_open.push_back({dst, src, (uint32_t)kBytes});
+}
+
+__device__ __forceinline__ void copy_commit() {
+  emu_groups.push_back(std::move(emu_open));
+  emu_open.clear();
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  while ((int)emu_groups.size() > kPending) {
+    for (auto& c : emu_groups.front()) std::memcpy(c.dst, c.src, c.bytes);
+    emu_groups.erase(emu_groups.begin());
+  }
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() { return emu_rank; }
 
 __device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
@@ -386,6 +424,146 @@ def build(out_dir: Path) -> Path:
     return so
 
 
+# the short tier's lengths and the other tiers' default lengths
+SHORT_LENGTHS = (2, 4, 8, 16, 32, 64, 128)
+LONG_LENGTHS = (4096, 8192, 16384, 32768, 65536, 2 ** 17, 2 ** 18, 2 ** 20)
+# rows of a short-row case (257, or 3000 and at most 48000 points): no
+# multiple of a row-block's rows, and more row-blocks than the emulated
+# card's persistent blocks
+SHORT_ROWS = (257, 3000)
+SHORT_POINTS = 48000
+
+
+def bind(so: Path):
+    """The built library's two entry points, by real dtype."""
+    import torch
+    from repro_torch.kernels import _build
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for dt, name in ((torch.float32, "repro_fft_stockham_f32"),
+                     (torch.float64, "repro_fft_stockham_f64")):
+        fn = getattr(lib, name)
+        fn.argtypes = _build._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        fns[dt] = fn
+    return fns
+
+
+def cases(n: int, rdt, rng):
+    """(label, keyword arguments) of every case of transform length ``n``
+    in precision ``rdt``: x (rows, n or n / 2 pruned), and pad_to,
+    inverse, keep, max_radix as ``ref.fft_stockham`` takes them, or g
+    (grows, k) and start (the Green epilogue), or ab = (start, k) (the
+    twiddle epilogue).  Short lengths (up to 128 points) take 257 rows
+    or 3000 (at most 48000 points) and add the radix-2 forward,
+    the real input with ``keep`` and inputs one element off 16-byte
+    alignment; longer ones take 3, 2 or 1 rows."""
+    import torch
+    from repro_torch.kernels import ref
+    cdt = ref._cdt(rdt)
+    short = n <= SHORT_LENGTHS[-1]
+
+    def rnd(shape, dtype, misaligned=False):
+        if misaligned:
+            numel = 1
+            for s in shape:
+                numel *= s
+            return rnd((numel + 1,), dtype)[1:].view(shape)
+        if dtype.is_complex:
+            return torch.complex(*(torch.from_numpy(
+                rng.standard_normal(shape)).to(rdt) for _ in range(2)))
+        return torch.from_numpy(rng.standard_normal(shape)).to(rdt)
+    h = max(n // 2, 1)
+    out = []
+    for i, (label, make) in enumerate([
+        ("pruned forward", lambda r: dict(x=rnd((r, h), cdt), pad_to=n)),
+        ("forward", lambda r: dict(x=rnd((r, n), cdt))),
+        ("inverse", lambda r: dict(x=rnd((r, n), cdt), inverse=True)),
+        ("pruned inverse keep", lambda r: dict(x=rnd((r, n), cdt),
+                                               inverse=True, keep=h)),
+        ("real pruned keep", lambda r: dict(x=rnd((r, h), rdt), pad_to=n,
+                                            keep=h + 1)),
+        ("real keep", lambda r: dict(x=rnd((r, n), rdt), keep=h + 1)),
+        ("pruned forward radix 2", lambda r: dict(x=rnd((r, h), cdt),
+                                                  pad_to=n, max_radix=2)),
+        ("forward radix 2", lambda r: dict(x=rnd((r, n), cdt),
+                                           max_radix=2)),
+        ("Green, pruned, start 0", lambda r: dict(
+            x=rnd((2 * r, h), cdt), pad_to=n, g=rnd((r, h + 1), rdt),
+            start=0)),
+        ("Green, start 1", lambda r: dict(x=rnd((r, n), cdt),
+                                          g=rnd((1, n - 1), rdt), start=1)),
+        ("twiddle DCT-II, pruned", lambda r: dict(x=rnd((r, h), rdt),
+                                                  pad_to=n, ab=(0, h))),
+        ("twiddle DCT-I", lambda r: dict(x=rnd((r, n), rdt), ab=(0, h + 1))),
+        ("twiddle DST-II", lambda r: dict(x=rnd((r, n), rdt), ab=(1, h))),
+        ("misaligned forward", lambda r: dict(
+            x=rnd((r, n), cdt, True))),
+        ("misaligned real pruned keep", lambda r: dict(
+            x=rnd((r, h), rdt, True), pad_to=n, keep=h + 1)),
+    ]):
+        if ("radix 2" in label and n == 2
+                or label == "misaligned forward" and rdt == torch.float64
+                or not short and (
+                "misaligned" in label or label == "forward radix 2"
+                or label == "real keep")):
+            continue
+        if short:
+            rows = min(SHORT_ROWS[i % 2], SHORT_POINTS // n)
+        else:
+            rows = 3 if n <= 2 ** 17 else 2 if n <= 2 ** 18 else 1
+        kw = make(rows)
+        if "ab" in kw:
+            start, k = kw["ab"]
+            kw["ab"] = (start, rnd((k,), rdt), rnd((k,), rdt))
+        out.append((label, kw))
+    return out
+
+
+def run_case(fns, n: int, kw: dict):
+    """The kernel's output for case ``kw`` (see ``cases``) against
+    ``kernels/ref.py``'s: (bit-equal, error code, max |difference|)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fft_stockham import kernel_twiddles
+    kw = dict(kw)
+    x = kw.pop("x")
+    pad = kw.get("pad_to")
+    g = kw.pop("g", None)
+    start = kw.pop("start", 0)
+    ab = kw.pop("ab", None)
+    radix = kw.get("max_radix", 4)
+    rdt = ref._rdt(x)
+    cdt = ref._cdt(rdt)
+    a = b = None
+    if g is not None:
+        want = ref.fft_stockham_scale(x, g, start=start, pad_to=pad,
+                                      max_radix=radix)
+        k, grows = g.shape[1], g.shape[0]
+    elif ab is not None:
+        start, a, b = ab
+        k = a.shape[0]
+        want = ref.fft_stockham_twiddle(x, a, b, start=start, pad_to=pad,
+                                        max_radix=radix)
+        grows = 1
+    else:
+        want = ref.fft_stockham(x, **kw)
+        k, grows = want.shape[1], 1
+    out = torch.empty(want.shape, dtype=want.dtype)
+    tw = kernel_twiddles(n, cdt, torch.device("cpu"))
+    scratch = torch.empty(x.shape[0] * n if n > 65536 else 1, dtype=cdt)
+    err = fns[rdt](
+        x.data_ptr(), int(x.is_complex()), out.data_ptr(),
+        None if g is None else g.data_ptr(),
+        None if a is None else a.data_ptr(),
+        None if b is None else b.data_ptr(), tw.data_ptr(),
+        scratch.data_ptr(), x.shape[0], x.shape[1], n,
+        int(kw.get("inverse", False)), radix, start, k, grows, None)
+    same = err == 0 and torch.equal(out, want)
+    d = (out - want).abs().max().item() if err == 0 else float("nan")
+    return same, err, d
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -395,101 +573,23 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.fft_stockham import kernel_twiddles
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(build(Path(tmp))))
+        fns = bind(build(Path(tmp)))
         print(f"built in {time.perf_counter() - t0:.1f} s")
-        fns = {}
-        for dt, name in ((torch.float32, "repro_fft_stockham_f32"),
-                         (torch.float64, "repro_fft_stockham_f64")):
-            fn = getattr(lib, name)
-            fn.argtypes = _build._SIGNATURES[name]
-            fn.restype = ctypes.c_int
-            fns[dt] = fn
         rng = np.random.default_rng(0)
-        cpu = torch.device("cpu")
-        lengths = args.lengths or [16, 4096, 8192, 16384, 32768, 65536,
-                                   2 ** 17, 2 ** 18, 2 ** 20]
+        lengths = args.lengths or SHORT_LENGTHS + LONG_LENGTHS
         n_cases = 0
         for rdt in (torch.float32, torch.float64):
-            cdt = ref._cdt(rdt)
             for n in lengths:
-                rows = 3 if n <= 2 ** 17 else 2 if n <= 2 ** 18 else 1
-
-                def rnd(shape, dtype):
-                    if dtype.is_complex:
-                        return torch.complex(*(torch.from_numpy(
-                            rng.standard_normal(shape)).to(rdt)
-                            for _ in range(2)))
-                    return torch.from_numpy(
-                        rng.standard_normal(shape)).to(rdt)
-                h = n // 2
-                cases = [
-                    ("pruned forward", dict(x=rnd((rows, h), cdt),
-                                            pad_to=n)),
-                    ("forward", dict(x=rnd((rows, n), cdt))),
-                    ("inverse", dict(x=rnd((rows, n), cdt), inverse=True)),
-                    ("pruned inverse keep", dict(x=rnd((rows, n), cdt),
-                                                 inverse=True, keep=h)),
-                    ("real pruned keep", dict(x=rnd((rows, h), rdt),
-                                              pad_to=n, keep=h + 1)),
-                    ("pruned forward radix 2", dict(x=rnd((rows, h), cdt),
-                                                    pad_to=n, max_radix=2)),
-                    ("Green, pruned, start 0", dict(
-                        x=rnd((2 * rows, h), cdt), pad_to=n,
-                        g=rnd((rows, h + 1), rdt), start=0)),
-                    ("Green, start 1", dict(x=rnd((rows, n), cdt),
-                                            g=rnd((1, n - 1), rdt),
-                                            start=1)),
-                    ("twiddle DCT-II, pruned", dict(
-                        x=rnd((rows, h), rdt), pad_to=n, ab=(0, h))),
-                    ("twiddle DCT-I", dict(x=rnd((rows, n), rdt),
-                                           ab=(0, h + 1))),
-                    ("twiddle DST-II", dict(x=rnd((rows, n), rdt),
-                                            ab=(1, h))),
-                ]
+                todo = cases(n, rdt, rng)
                 if args.quick:
-                    cases = cases[:1]
-                for label, kw in cases:
-                    x = kw.pop("x")
-                    pad = kw.get("pad_to")
-                    g = kw.pop("g", None)
-                    start = kw.pop("start", 0)
-                    ab = kw.pop("ab", None)
-                    radix = kw.get("max_radix", 4)
-                    if g is not None:
-                        want = ref.fft_stockham_scale(x, g, start=start,
-                                                      pad_to=pad)
-                        k, grows = g.shape[1], g.shape[0]
-                    elif ab is not None:
-                        start, k = ab
-                        a, b = rnd((k,), rdt), rnd((k,), rdt)
-                        want = ref.fft_stockham_twiddle(x, a, b, start=start,
-                                                        pad_to=pad)
-                        grows = 1
-                    else:
-                        want = ref.fft_stockham(x, **kw)
-                        k, grows = want.shape[1], 1
-                    out = torch.empty(want.shape, dtype=want.dtype)
-                    tw = kernel_twiddles(n, cdt, cpu)
-                    scratch = torch.empty(x.shape[0] * n, dtype=cdt)
+                    todo = todo[:1]
+                for label, kw in todo:
                     t1 = time.perf_counter()
-                    err = fns[rdt](
-                        x.data_ptr(), int(x.is_complex()), out.data_ptr(),
-                        None if g is None else g.data_ptr(),
-                        None if ab is None else a.data_ptr(),
-                        None if ab is None else b.data_ptr(), tw.data_ptr(),
-                        scratch.data_ptr(), x.shape[0], x.shape[1], n,
-                        int(kw.get("inverse", False)), radix, start, k,
-                        grows, None)
-                    same = err == 0 and torch.equal(out, want)
-                    d = ((out - want).abs().max().item() if err == 0
-                         else float("nan"))
-                    print(f"{rdt} N={n} {label}: rows {x.shape[0]}, bins "
-                          f"[{start}, {start + k}): "
+                    same, err, d = run_case(fns, n, kw)
+                    print(f"{rdt} N={n} {label}: rows {kw['x'].shape[0]}: "
                           f"{'bit-equal' if same else 'DIFFERS'} "
                           f"(err {err}, max |d| {d:.3e}) in "
                           f"{time.perf_counter() - t1:.1f} s", flush=True)

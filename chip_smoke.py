@@ -237,22 +237,31 @@ Phases (each raises on failure; nothing is caught):
   8g. LM training on a mesh (repro_torch.training.train_step_fn(mesh=);
      no kernel of this script), four gloo ranks spawned on the card,
      float32 compute, TF32 off, after a memory reckoning per rank and
-     for the four against the card: qwen3-0.6b at full width cut to 4
-     layers with attn_ring, global batch 4 x 2048, two steps on mesh
-     (2, 2), a checkpoint saved whole from rank 0, a restore onto mesh
-     (1, 4) and a third step, against three one-process steps on the
-     same batches; moonshot-v1-16b-a3b at full width cut to 1 layer,
-     each rank holding its own 16 of the 64 experts, capacity factor
-     E / k, global batch 2 x 1024, two steps on mesh (1, 4), against one
+     for the four against the card, every state held by the layout rule
+     (train_step.shard_state_: the rank's block of every parameter and
+     both moments over "data", FSDP, its own experts over "model"; the
+     blocks gathered per block where used, their gradients
+     reduce-scattered): qwen3-0.6b at full width cut to 4 layers with
+     attn_ring, global batch 4 x 2048, two steps on mesh (2, 2), a
+     checkpoint saved whole from rank 0, a restore onto mesh (4, 1) as
+     each rank's blocks and a third step, another checkpoint, a restore
+     onto (1, 4) ("data" 1: the state whole) and a fourth step, against
+     four one-process steps on the same batches; moonshot-v1-16b-a3b at
+     full width cut to 1 layer, each rank holding its own 32 of the 64
+     experts with d_model split over "data", capacity factor E / k,
+     global batch 2 x 1024, two steps on mesh (2, 2), against one
      process holding all 64 (run first and freed before the ranks
      spawn).  Each batch's second half masks its last 256 positions.
      Held: losses within 1e-5 relative, the first step's reduced
-     gradients within 1e-4 of each leaf's largest, the dense model's
-     last parameters within 2e-5 |p| + 2e-6, every rank's parameters
-     (but its own experts) bit-equal; printed: ms a step on the mesh
-     and on one process, the gloo gradient reduction's share, each
-     rank's peak memory_allocated, the checkpoint's save and restore
-     seconds;
+     gradients (a rank's blocks against the matching slices) within
+     1e-4 of each leaf's largest, the dense model's last parameters
+     within 2e-5 |p| + 2e-6, the ranks on one "data" coordinate
+     bit-equal (but their own experts), the gathered parameters
+     bit-equal on every rank; printed: the state's bytes a rank against
+     whole, ms a step on the mesh and on one process, the seconds of
+     the FSDP all-gathers and reduce-scatters and their share of the
+     step, the gloo gradient reduction's share, each rank's peak
+     memory_allocated, the checkpoints' save and restore seconds;
   8h. the dry run (repro_torch.launch.dryrun, cells, flops_probe,
      hlo_stats, mesh; DistributedPoissonSolver.lower): the CLI in
      subprocesses on fake ranks (a "fake" process group, fake tensors
@@ -2047,9 +2056,10 @@ def _lm_phase(dev, smi):
         residual stream, and each position's logit of its own input
         token is about sqrt(d) |e| ~ 0.018 d."""
         with torch.no_grad():
-            x, _ = tf._embed_in(model, cfg, batch["inputs"],
+            x, _ = tf._embed_in(model.embed, cfg, batch["inputs"],
                                 batch.get("frontend"))
-            logits = tf._logits(model, cfg, x)[:, -batch["labels"].shape[1]:]
+            logits = tf._logits(model, cfg, x, getattr(
+                model, tf._head(cfg)))[:, -batch["labels"].shape[1]:]
             gold = logits.gather(-1, batch["labels"][..., None].long())
             return float((logits.logsumexp(-1) - gold[..., 0]).mean())
 
@@ -2450,7 +2460,7 @@ def _lm_serve_phase(dev, smi):
     # the prompt zero
     err_kv, pad_nonzero = 0.0, 0
     with torch.no_grad():
-        x = tf._embed(model, cfg, prompt)
+        x = tf._embed(model.embed, cfg, prompt)
         positions = torch.arange(s, device=dev).expand(b, s)
         for blk, c in zip(model.layers, caches["layers"], strict=True):
             _, (k_want, v_want) = attn.attention(
@@ -2773,30 +2783,35 @@ def _lm_serve_phase(dev, smi):
 
 
 # the LM training-on-a-mesh phase (8g): four gloo ranks on the one card,
-# float32 compute, TF32 off.  (arch, config overrides, global batch, seq,
-# the cut as printed); the dense model takes two steps on the first mesh,
-# a checkpoint, and one step on the second; the MoE model, each rank
-# holding its own E / 4 experts, at a capacity factor of E / k, takes
-# LM_TM_MOE_STEPS steps on its mesh.  The second half of each batch drops
-# its last LM_TM_MASKED positions from the mask, so that the shards' masks
-# differ (the loss is over the global mask sum)
+# float32 compute, TF32 off, every state held by the layout rule
+# (train_step.shard_state_: FSDP over "data", the MoE's own experts over
+# "model").  (arch, config overrides, global batch, seq, the cut as
+# printed); the dense model takes two steps on the first mesh, a
+# checkpoint, a step on the second, a checkpoint and a step on the third
+# ("data" 1: the state whole again); the MoE model, at a capacity factor
+# of E / k, takes LM_TM_MOE_STEPS steps on its mesh.  The second half of
+# each batch drops its last LM_TM_MASKED positions from the mask, so that
+# the shards' masks differ (the loss is over the global mask sum)
 LM_TM_DENSE = ("qwen3-0.6b", {"n_layers": 4, "attn_ring": True}, 4, 2048,
                "28 -> 4 layers")
-LM_TM_DENSE_MESHES = ((2, 2), (1, 4))
+LM_TM_DENSE_MESHES = ((2, 2), (4, 1), (1, 4))
+# the dense steps on each mesh, in order
+LM_TM_DENSE_STEPS = (2, 1, 1)
 LM_TM_MOE = ("moonshot-v1-16b-a3b", {"n_layers": 1}, 2, 1024,
              "48 -> 1 layer")
-LM_TM_MOE_MESH = (1, 4)
+LM_TM_MOE_MESH = (2, 2)
 LM_TM_MOE_STEPS = 2
 LM_TM_MASKED = 256
 LM_TM_SEEDS = {"dense": 91, "moe": 92, "batch": 93}
 # held: each loss within LM_TM_LOSS_TOL relative of the one process's;
-# each leaf of the first step's reduced gradient within LM_TM_GRAD_TOL of
-# the leaf's largest value; the dense parameters after the last step
-# elementwise within LM_TM_RTOL |p| + LM_TM_ATOL, the reference elastic
-# test's bound (with warmup=100 the three steps' learning rates sum to
-# 1.8e-5: the bound holds each update's direction wherever the gradient
-# is more than rounding); every rank's parameters (but its own experts)
-# bit-equal
+# each leaf of the first step's reduced gradient (a rank's block against
+# the matching slice) within LM_TM_GRAD_TOL of the leaf's largest value;
+# the dense parameters after the last step elementwise within
+# LM_TM_RTOL |p| + LM_TM_ATOL, the reference elastic test's bound (with
+# warmup=100 the four steps' learning rates sum to 3e-5: the bound holds
+# each update's direction wherever the gradient is more than rounding);
+# the ranks on one "data" coordinate bit-equal (but their own experts),
+# the gathered parameters bit-equal on every rank
 LM_TM_LOSS_TOL = 1e-5
 LM_TM_GRAD_TOL = 1e-4
 LM_TM_RTOL, LM_TM_ATOL = 2e-5, 2e-6
@@ -2832,12 +2847,13 @@ def _lm_tm_batches(cfg, n, batch, seq, dev):
     return out
 
 
-def _lm_tm_checksum(model, skip=()) -> int:
-    """An integer of every bit of ``model``'s parameters (but ``skip``):
-    each leaf's float32 words as integers, weighted by their position."""
+def _lm_tm_checksum(named, skip=()) -> int:
+    """An integer of every bit of the tensors ``named`` ({name: tensor},
+    but ``skip``): each leaf's float32 words as integers, weighted by
+    their position."""
     import torch
     total, chunk = 0, 1 << 24
-    for name, p in model.named_parameters():
+    for name, p in named.items():
         if name in skip:
             continue
         w = p.detach().reshape(-1).view(torch.int32)
@@ -2846,6 +2862,26 @@ def _lm_tm_checksum(model, skip=()) -> int:
             idx = torch.arange(i, i + c.numel(), device=c.device) % 65521
             total += int((c * (idx + 1)).sum())
     return total
+
+
+def _lm_tm_whole_checksum(model, cfg, mesh) -> int:
+    """``_lm_tm_checksum`` of the model's parameters gathered whole
+    (``convert._whole``, a leaf at a time; every rank calls it)."""
+    from repro_torch.models import convert
+    total = 0
+    for name, p in model.named_parameters():
+        total += _lm_tm_checksum(convert._whole({name: p.detach()}, cfg,
+                                                mesh))
+    return total
+
+
+def _lm_tm_state_bytes(state) -> int:
+    """Bytes of the state a rank holds: parameters, both moments and the
+    error feedback."""
+    trees = [dict(state.params.named_parameters()), state.opt_state["m"],
+             state.opt_state["v"], state.err_fb or {}]
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree.values())
 
 
 def _lm_tm_leaf_diff(got, want, rtol=None, atol=None):
@@ -2868,23 +2904,25 @@ def _lm_tm_leaf_diff(got, want, rtol=None, atol=None):
     return (diff, top) if rtol is None else (diff, top, excess)
 
 
-def _lm_tm_grad_check(model, cfg, mesh, want, out):
+def _lm_tm_grad_check(model, mesh, want, out):
     """An ``on_grads`` hook for the first mesh step: its reduced
     gradients against the one process's ``want`` ({name: tensor}),
-    ``out`` given (largest relative error of a leaf, that leaf).  A
-    rank's own experts are held against their rows."""
-    from repro_torch.training import train_step as ts
+    ``out`` given (largest error of a leaf relative to the leaf's largest
+    value, that leaf, the check's ms).  A rank's block of a leaf (its
+    "data" block, its own experts) is held against the matching slice."""
+    from repro_torch.models import transformer as tf
 
     def check(grads):
         t = time.perf_counter()
-        r = mesh.get_local_rank("model")
-        params = dict(model.named_parameters())
+        held = tf.held_axes(model)
         worst = (0.0, "")
         for n, g in grads.items():
             w = want[n]
-            if ts.expert_block(n, params[n], cfg):
-                w = w[r * g.shape[0]:(r + 1) * g.shape[0]]
-            diff, top = _lm_tm_leaf_diff(g, w)
+            for axis, k in held.get(n, {}).items():
+                size = g.shape[k]
+                w = w.narrow(k, mesh.get_local_rank(axis) * size, size)
+            diff, _ = _lm_tm_leaf_diff(g, w)
+            top = float(want[n].abs().max())
             worst = max(worst, (diff / max(top, 1e-30), n))
         out.extend(worst + ((time.perf_counter() - t) * 1e3,))
     return check
@@ -2892,10 +2930,11 @@ def _lm_tm_grad_check(model, cfg, mesh, want, out):
 
 def _lm_train_mesh_rank(rank, world, d, refs):
     """One of phase 8g's four gloo ranks on the one card: the dense model
-    on LM_TM_DENSE_MESHES with the checkpoint between them, then the MoE
-    model on LM_TM_MOE_MESH, against the one process's ``refs`` (its
-    first gradients and the dense model's last parameters, on the card,
-    shared by CUDA IPC).  Writes ``<d>/rank<rank>.json``."""
+    on LM_TM_DENSE_MESHES from a sharded state, a checkpoint between two
+    meshes, then the MoE model on LM_TM_MOE_MESH, against the one
+    process's ``refs`` (its first gradients and the dense model's last
+    parameters, on the card, shared by CUDA IPC).  Writes
+    ``<d>/rank<rank>.json``."""
     import os
     sys.path.insert(0, str(ROOT / "src"))
     # four ranks' states share the card: segments that grow in place
@@ -2905,7 +2944,7 @@ def _lm_train_mesh_rank(rank, world, d, refs):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.ckpt import checkpoint as ck
-    from repro_torch.models import convert, moe
+    from repro_torch.models import convert
     from repro_torch.models import transformer as tf
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train_step as ts
@@ -2930,83 +2969,106 @@ def _lm_train_mesh_rank(rank, world, d, refs):
     dense, moe_cfg = _lm_tm_cfgs()
     out = {}
 
-    def run(state, cfg, mesh, batches, rec, skip=(), on_grads=None):
+    def own(state, cfg):
+        """The rank's own experts' leaves (they differ over "model")."""
+        return {n for n, p in state.params.named_parameters()
+                if ts.expert_block(n, p, cfg)}
+
+    def leg(state, cfg, mesh, batches, rec, on_grads=None):
+        """Steps on ``batches`` from ``state`` on ``mesh``; records each
+        step's loss, ms, reduction and FSDP ms, checksum of the held
+        parameters (but the own experts) and "data" coordinate, then the
+        held state's bytes, the peak memory_allocated of the steps and
+        the gathered parameters' checksum."""
+        rec["held_bytes"].append(_lm_tm_state_bytes(state))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         for i, b in enumerate(batches):
             step = ts.train_step_fn(cfg, mesh=mesh,
                                     on_grads=on_grads if i == 0 else None)
             sync()
             t = time.perf_counter()
-            state, m = step(state, ts.data_shard(b, mesh))
+            with tf.fsdp_timing() as fsdp_s:
+                state, m = step(state, ts.data_shard(b, mesh))
             rec["loss"].append(float(m["loss"]))
             rec["ms"].append((time.perf_counter() - t) * 1e3)
-            rec["reduce_ms"].append(float(m["grad_reduce_s"]) * 1e3)
-            rec["sum"].append(_lm_tm_checksum(state.params, skip))
+            rec["grad_reduce_ms"].append(float(m["grad_reduce_s"]) * 1e3)
+            for k, secs in fsdp_s.items():
+                rec[k + "_ms"].append(secs * 1e3)
+            rec["sum"].append(_lm_tm_checksum(
+                dict(state.params.named_parameters()), own(state, cfg)))
+            rec["data"].append(mesh.get_local_rank("data"))
+        rec["peak_gib"].append(peak())
+        rec["whole_sum"].append(_lm_tm_whole_checksum(state.params, cfg,
+                                                      mesh))
         return state
 
-    # -- the dense model: two steps, a checkpoint, a restore, one step ----
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    def record():
+        return {k: [] for k in ("loss", "ms", "grad_reduce_ms", "gather_ms",
+                                "reduce_scatter_ms", "sum", "data",
+                                "held_bytes", "peak_gib", "whole_sum")}
+
+    # -- the dense model: a leg a mesh, a checkpoint between two ---------
     gb, seq = LM_TM_DENSE[2:4]
-    batches = _lm_tm_batches(dense, 3, gb, seq, dev)
-    mesh_a = init_device_mesh(dev.type, LM_TM_DENSE_MESHES[0],
-                              mesh_dim_names=names)
-    state = ts.make_train_state(
-        torch.Generator(dev).manual_seed(LM_TM_SEEDS["dense"]), dense)
+    batches = _lm_tm_batches(dense, sum(LM_TM_DENSE_STEPS), gb, seq, dev)
+    meshes = [init_device_mesh(dev.type, shape, mesh_dim_names=names)
+              for shape in LM_TM_DENSE_MESHES]
+    state = ts.shard_state_(ts.make_train_state(
+        torch.Generator(dev).manual_seed(LM_TM_SEEDS["dense"]), dense),
+        meshes[0])
     out["dense_grad"] = []
-    rec = out["dense"] = {"loss": [], "ms": [], "reduce_ms": [], "sum": []}
-    state = run(state, dense, mesh_a, batches[:2], rec,
-                on_grads=_lm_tm_grad_check(state.params, dense, mesh_a,
-                                           refs["dense_grads"],
-                                           out["dense_grad"]))
-    sync()
-    t = time.perf_counter()
-    ck.save(d / "ckpt", 2, convert.to_reference(state, mesh_a), mesh=mesh_a)
-    out["save_s"] = time.perf_counter() - t
-    del state
-    gc.collect()
-    mesh_b = init_device_mesh(dev.type, LM_TM_DENSE_MESHES[1],
-                              mesh_dim_names=names)
-    t = time.perf_counter()
-    tree = ck.restore(d / "ckpt", 2, convert.reference_like(dense),
-                      mesh=mesh_b, specs=ts.state_specs(
-                          dense, dict(zip(names, LM_TM_DENSE_MESHES[1]))))
-    state = convert.from_reference(tree, dense, dev)
-    sync()
-    out["restore_s"] = time.perf_counter() - t
-    del tree
-    state = run(state, dense, mesh_b, batches[2:], rec)
+    rec = out["dense"] = record()
+    out["save_s"], out["restore_s"] = [], []
+    first = 0
+    for i, (mesh, n) in enumerate(zip(meshes, LM_TM_DENSE_STEPS)):
+        if i:
+            sync()
+            t = time.perf_counter()
+            ck.save(d / "ckpt", first, convert.to_reference(
+                state, meshes[i - 1]), mesh=meshes[i - 1])
+            out["save_s"].append(time.perf_counter() - t)
+            del state
+            gc.collect()
+            t = time.perf_counter()
+            tree = ck.restore(d / "ckpt", first, ts.held_like(dense, mesh),
+                              mesh=mesh, specs=ts.held_specs(
+                                  dense, dict(zip(names, mesh.shape))))
+            state = convert.from_reference(tree, dense, dev)
+            sync()
+            out["restore_s"].append(time.perf_counter() - t)
+            del tree
+        state = leg(state, dense, mesh, batches[first:first + n], rec,
+                    _lm_tm_grad_check(state.params, mesh,
+                                      refs["dense_grads"], out["dense_grad"])
+                    if i == 0 else None)
+        first += n
     want = refs["dense_params"]
     worst, diff = 0.0, 0.0
     for n, p in state.params.named_parameters():
         d_n, _, excess = _lm_tm_leaf_diff(p, want[n], LM_TM_RTOL, LM_TM_ATOL)
         worst, diff = max(worst, excess), max(diff, d_n)
     out["dense_param_excess"], out["dense_param_diff"] = worst, diff
-    out["dense_peak_gib"] = peak()
     del state, want, batches
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
 
-    # -- the MoE model, each rank holding its own experts ------------------
+    # -- the MoE model, each rank holding its blocks ------------------------
     gb, seq = LM_TM_MOE[2:4]
     batches = _lm_tm_batches(moe_cfg, LM_TM_MOE_STEPS, gb, seq, dev)
     mesh_m = init_device_mesh(dev.type, LM_TM_MOE_MESH, mesh_dim_names=names)
-    n_model = LM_TM_MOE_MESH[1]
-    model = tf.init_params(torch.Generator(dev).manual_seed(
-        LM_TM_SEEDS["moe"]), moe_cfg)
-    moe.own_experts_(model, n_model, mesh_m.get_local_rank("model"))
+    # cut before the moments are made: four whole states would not fit
+    model = ts.shard_params_(tf.init_params(torch.Generator(dev).manual_seed(
+        LM_TM_SEEDS["moe"]), moe_cfg), mesh_m)
     named = dict(model.named_parameters())
     state = ts.TrainState(model, opt.init_opt_state(named), None)
-    own = {n for n, p in named.items() if ts.expert_block(n, p, moe_cfg)}
-    out["moe_rows"] = sorted({named[n].shape[0] for n in own})
+    out["moe_rows"] = sorted({named[n].shape[0]
+                              for n in own(state, moe_cfg)})
     out["moe_grad"] = []
-    rec = out["moe"] = {"loss": [], "ms": [], "reduce_ms": [], "sum": []}
-    state = run(state, moe_cfg, mesh_m, batches, rec, skip=own,
-                on_grads=_lm_tm_grad_check(model, moe_cfg, mesh_m,
-                                           refs["moe_grads"],
-                                           out["moe_grad"]))
-    out["moe_peak_gib"] = peak()
+    rec = out["moe"] = record()
+    state = leg(state, moe_cfg, mesh_m, batches, rec,
+                _lm_tm_grad_check(model, mesh_m, refs["moe_grads"],
+                                  out["moe_grad"]))
     with open(d / f"rank{rank}.json", "w") as fh:
         json.dump(out, fh)
     # the shared references go back before the producer frees them
@@ -3048,6 +3110,41 @@ def _lm_tm_reference(cfg, batches, gen, keep_params):
     return losses, ms, peak, grads, params
 
 
+def _lm_tm_held(cfg, shape):
+    """(parameters a rank holds on a mesh of ``shape`` by the layout rule,
+    the largest group of weights one all-gather makes whole: a block's
+    or a top-level leaf's)."""
+    import torch
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import train_step as ts
+    held = ts.held_shapes(cfg, dict(zip(("data", "model"), shape)))
+    full = convert.logical_shapes(cfg)
+    with torch.device("meta"):
+        model = tf.Transformer(cfg)
+
+    def block(n):
+        """The module a forward calls with ``n`` among its weights (the
+        first below the layer containers), or ``n`` at the top."""
+        parts = n.split(".")
+        for i in range(1, len(parts)):
+            if not isinstance(model.get_submodule(".".join(parts[:i])),
+                              (torch.nn.ModuleList, torch.nn.ModuleDict)):
+                return ".".join(parts[:i])
+        return n
+    groups = collections.Counter()
+    for n, s in held.items():
+        # whole on the dimension split over "data"; an expert weight keeps
+        # the rank's own experts
+        split = [k for k in range(len(s)) if s[k] != full[n][k]
+                 and not (k == 0 and convert.expert_weight(n))]
+        if split:
+            groups[block(n)] += math.prod(
+                full[n][k] if k in split else s[k] for k in range(len(s)))
+    return (sum(math.prod(s) for s in held.values()),
+            max(groups.values(), default=0))
+
+
 def _lm_train_mesh_phase(dev, smi):
     """Phase 8g: LM training on a mesh of four gloo ranks on the one card,
     as the module docstring lists it.  Raises on the first failed check;
@@ -3065,37 +3162,38 @@ def _lm_train_mesh_phase(dev, smi):
     card = torch.cuda.get_device_properties(dev).total_memory
     dense, moe_cfg = _lm_tm_cfgs()
 
-    # the memory reckoning, before anything is spawned
+    # the memory reckoning, before anything is spawned: a rank's blocks x
+    # 16 B (weights, gradients, two moments), the largest whole weight
+    # group and its gradient x 8 B, its float32 logits; at least the
+    # state made whole before it is cut (the dense model's 12 B a
+    # parameter, the MoE's weights 4 B)
     n_dense = dense.n_params()
-    e = moe_cfg.moe.n_experts
     n_moe = moe_cfg.n_params()
-    expert = moe_cfg.n_layers * e * moe_cfg.d_model * moe_cfg.d_ff * 3
-    n_moe_rank = n_moe - expert + expert // LM_TM_MOE_MESH[1]
     gb, seq = LM_TM_DENSE[2:4]
-    rows = max(gb // m[0] for m in LM_TM_DENSE_MESHES)
-    act_dense = LM_TM_LOGIT_COPIES * rows * seq * dense.vocab * 4
     gb_m, seq_m = LM_TM_MOE[2:4]
-    act_moe = (LM_TM_LOGIT_COPIES * gb_m // LM_TM_MOE_MESH[0] * seq_m
-               * moe_cfg.vocab * 4)
-    per_dense = 16 * n_dense + act_dense
-    per_moe = 16 * n_moe_rank + act_moe
-    worst = max(per_dense, per_moe)
+    lines, worst = [], 0
+    for part, cfg, shape, batch, s in (
+            [("dense", dense, m, gb, seq) for m in LM_TM_DENSE_MESHES]
+            + [("moe", moe_cfg, LM_TM_MOE_MESH, gb_m, seq_m)]):
+        held, group = _lm_tm_held(cfg, shape)
+        act = LM_TM_LOGIT_COPIES * batch // shape[0] * s * cfg.vocab * 4
+        per = max(16 * held + 8 * group + act,
+                  (12 if part == "dense" else 4) * cfg.n_params())
+        worst = max(worst, per)
+        lines.append(f"{part} {shape}: {held} parameters held x 16 B "
+                     f"{gib(16 * held):.2f} GiB + a gathered group of "
+                     f"{group} x 8 B {gib(8 * group):.2f} GiB + logits "
+                     f"{gib(act):.2f} GiB = {gib(per):.2f} GiB")
     # kept here for the ranks: the one process's first gradients of both
     # models and the dense model's last parameters, float32
     kept = 4 * (2 * n_dense + n_moe)
-    print(f"LM_TRAIN_MESH reckoning: dense {LM_TM_DENSE[0]} "
-          f"({LM_TM_DENSE[4]}) {n_dense} parameters x 16 B (weights, "
-          f"gradients, two moments) = {gib(16 * n_dense):.2f} GiB a rank "
-          f"+ {LM_TM_LOGIT_COPIES} x its float32 logits ({rows} x {seq} x "
-          f"{dense.vocab}) {gib(act_dense):.2f} GiB = {gib(per_dense):.2f} "
-          f"GiB; MoE {LM_TM_MOE[0]} ({LM_TM_MOE[4]}) {n_moe_rank} "
-          f"parameters a rank ({e // LM_TM_MOE_MESH[1]} of {e} experts) x "
-          f"16 B = {gib(16 * n_moe_rank):.2f} GiB + logits "
-          f"{gib(act_moe):.2f} GiB = {gib(per_moe):.2f} GiB; four ranks "
-          f"{gib(4 * worst):.2f} GiB + {gib(resident):.2f} GiB resident "
-          f"here + {gib(kept):.2f} GiB of the one process's gradients and "
-          f"parameters kept for the ranks, against the card's "
-          f"{gib(card):.2f} GiB; card: {smi}")
+    print(f"LM_TRAIN_MESH reckoning a rank (sharded states): dense "
+          f"{LM_TM_DENSE[0]} ({LM_TM_DENSE[4]}, {n_dense} parameters), "
+          f"MoE {LM_TM_MOE[0]} ({LM_TM_MOE[4]}, {n_moe} parameters): "
+          f"{'; '.join(lines)}; four ranks {gib(4 * worst):.2f} GiB + "
+          f"{gib(resident):.2f} GiB resident here + {gib(kept):.2f} GiB of "
+          f"the one process's gradients and parameters kept for the ranks, "
+          f"against the card's {gib(card):.2f} GiB; card: {smi}")
     if 4 * worst + resident + kept > card:
         raise AssertionError("LM_TRAIN_MESH: the reckoning does not fit")
 
@@ -3105,7 +3203,8 @@ def _lm_train_mesh_phase(dev, smi):
         ref = {}
         gen = torch.Generator(dev).manual_seed(LM_TM_SEEDS["dense"])
         ref["dense"] = _lm_tm_reference(
-            dense, _lm_tm_batches(dense, 3, gb, seq, dev), gen, True)
+            dense, _lm_tm_batches(dense, sum(LM_TM_DENSE_STEPS), gb, seq,
+                                  dev), gen, True)
         # the one process keeps all of the MoE's experts
         gen = torch.Generator(dev).manual_seed(LM_TM_SEEDS["moe"])
         ref["moe"] = _lm_tm_reference(
@@ -3131,7 +3230,8 @@ def _lm_train_mesh_phase(dev, smi):
     for part in ("dense", "moe"):
         want = ref[part][0]
         for r, res in enumerate(ranks):
-            got = res[part]["loss"]
+            rec = res[part]
+            got = rec["loss"]
             errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
             if len(got) != len(want) or max(errs) > LM_TM_LOSS_TOL or \
                     not all(math.isfinite(g) for g in got):
@@ -3142,9 +3242,17 @@ def _lm_train_mesh_phase(dev, smi):
                                      f"first step's gradient of "
                                      f"{res[f'{part}_grad'][1]} "
                                      f"{res[f'{part}_grad'][0]:.2e} off")
-            if res[part]["sum"] != ranks[0][part]["sum"]:
+            for i, (s, c) in enumerate(zip(rec["sum"], rec["data"])):
+                peer = next(p[part] for p in ranks if p[part]["data"][i] == c)
+                if s != peer["sum"][i]:
+                    raise AssertionError(
+                        f"LM_TRAIN_MESH {part} rank {r} step {i}: its "
+                        f"blocks differ from those of its \"data\" "
+                        f"coordinate's ranks")
+            if rec["whole_sum"] != ranks[0][part]["whole_sum"]:
                 raise AssertionError(f"LM_TRAIN_MESH {part} rank {r}: its "
-                                     f"parameters differ from rank 0's")
+                                     f"gathered parameters differ from "
+                                     f"rank 0's")
     for r, res in enumerate(ranks):
         if res["dense_param_excess"] > 1.0:
             raise AssertionError(f"LM_TRAIN_MESH dense rank {r}: the last "
@@ -3155,44 +3263,63 @@ def _lm_train_mesh_phase(dev, smi):
             raise AssertionError(f"LM_TRAIN_MESH moe rank {r}: expert rows "
                                  f"{res['moe_rows']}")
     top = lambda k: max(res[k] for res in ranks)
-    for part, spec, meshes in (
+    for part, spec, meshes, cfg in (
             ("dense", LM_TM_DENSE,
-             " then ".join(map(str, LM_TM_DENSE_MESHES))),
-            ("moe", LM_TM_MOE, str(LM_TM_MOE_MESH))):
-        ms = [max(res[part]["ms"][i] for res in ranks)
-              for i in range(len(ranks[0][part]["ms"]))]
-        red = [max(res[part]["reduce_ms"][i] for res in ranks)
-               for i in range(len(ms))]
+             " then ".join(f"{m} x{n}" for m, n in
+                           zip(LM_TM_DENSE_MESHES, LM_TM_DENSE_STEPS)),
+             dense),
+            ("moe", LM_TM_MOE, str(LM_TM_MOE_MESH), moe_cfg)):
+        col = lambda k: [max(res[part][k][i] for res in ranks)
+                         for i in range(len(ranks[0][part][k]))]
+        ms, red = col("ms"), col("grad_reduce_ms")
+        fsdp = [a + b for a, b in zip(col("gather_ms"),
+                                      col("reduce_scatter_ms"))]
         losses, ref_ms, ref_peak = ref[part][:3]
+        whole = 12 * cfg.n_params()
         print(f"LM_TRAIN_MESH {part} {spec[0]} ({spec[4]}, full width), "
               f"float32, global batch {spec[2]} x seq {spec[3]}, mesh "
-              f"{meshes}: losses {[round(x, 6) for x in ranks[0][part]['loss']]}"
-              f" within {max(abs(g - w) / abs(w) for g, w in zip(ranks[0][part]['loss'], losses)):.2e}"
+              f"{meshes}, sharded states: losses "
+              f"{[round(x, 6) for x in ranks[0][part]['loss']]} within "
+              f"{max(abs(g - w) / abs(w) for g, w in zip(ranks[0][part]['loss'], losses)):.2e}"
               f" of the one process's {[round(x, 6) for x in losses]} "
               f"(tolerance {LM_TM_LOSS_TOL:.0e}); the first step's reduced "
               f"gradients within {top(part + '_grad')[0]:.2e} of the one "
               f"process's (worst leaf {max(r[part + '_grad'] for r in ranks)[1]},"
-              f" tolerance {LM_TM_GRAD_TOL:.0e}); ranks bit-equal; ms a step "
-              f"on the mesh {[round(x, 1) for x in ms]} (the slowest rank; "
-              f"the first with its gradient check) against one process "
+              f" tolerance {LM_TM_GRAD_TOL:.0e}); ranks on one \"data\" "
+              f"coordinate bit-equal, the gathered parameters bit-equal "
+              f"on every rank; state held a rank (parameters, two moments) "
+              f"{[round(gib(b), 3) for b in ranks[0][part]['held_bytes']]} "
+              f"GiB a mesh against {gib(whole):.3f} GiB whole; ms a step on "
+              f"the mesh {[round(x, 1) for x in ms]} (the slowest rank; the "
+              f"first with its gradient check) against one process "
               f"{[round(x, 1) for x in ref_ms]} (the first keeping its "
               f"gradients); the check took "
               f"{max(r[part + '_grad'][2] for r in ranks):.1f} ms of the "
-              f"first mesh step; the "
-              f"gradient reduction (gloo, host-staged) "
+              f"first mesh step; the FSDP all-gathers "
+              f"{[round(x, 1) for x in col('gather_ms')]} ms and "
+              f"reduce-scatters "
+              f"{[round(x, 1) for x in col('reduce_scatter_ms')]} ms (gloo, "
+              f"host-staged, timed with the card synchronised around "
+              f"each), together "
+              f"{[f'{a / b:.1%}' for a, b in zip(fsdp, ms)]} of the step; "
+              f"the gradient reduction after the backward "
               f"{[round(x, 1) for x in red]} ms, "
-              f"{[f'{a / b:.1%}' for a, b in zip(red, ms)]} of the step; "
-              f"peak memory_allocated a rank "
-              f"{[round(r[part + '_peak_gib'], 3) for r in ranks]} GiB, one "
-              f"process {ref_peak:.3f} GiB; card: {smi}")
-    print(f"LM_TRAIN_MESH checkpoint: saved on mesh "
-          f"{LM_TM_DENSE_MESHES[0]} in {top('save_s'):.2f} s (gathered, "
-          f"written once by rank 0), restored onto "
-          f"{LM_TM_DENSE_MESHES[1]} in {top('restore_s'):.2f} s; the last "
-          f"parameters within {top('dense_param_diff'):.2e} of the one "
-          f"process's ({top('dense_param_excess'):.3f} x the bound "
-          f"{LM_TM_RTOL:.0e} |p| + {LM_TM_ATOL:.0e}); the MoE ranks hold "
-          f"{ranks[0]['moe_rows'][0]} experts each; ranks {t_ranks:.1f} s")
+              f"{[f'{a / b:.1%}' for a, b in zip(red, ms)]}; peak "
+              f"memory_allocated of a rank's steps "
+              f"{[round(x, 3) for x in col('peak_gib')]} GiB a mesh (the "
+              f"largest rank), one process {ref_peak:.3f} GiB; card: {smi}")
+    print(f"LM_TRAIN_MESH checkpoints: saved on "
+          f"{' and '.join(map(str, LM_TM_DENSE_MESHES[:-1]))} in "
+          f"{[round(max(r['save_s'][i] for r in ranks), 2) for i in range(len(ranks[0]['save_s']))]}"
+          f" s (gathered, written once by rank 0), restored onto "
+          f"{' and '.join(map(str, LM_TM_DENSE_MESHES[1:]))} as each "
+          f"rank's blocks in "
+          f"{[round(max(r['restore_s'][i] for r in ranks), 2) for i in range(len(ranks[0]['restore_s']))]}"
+          f" s; the last parameters within {top('dense_param_diff'):.2e} "
+          f"of the one process's ({top('dense_param_excess'):.3f} x the "
+          f"bound {LM_TM_RTOL:.0e} |p| + {LM_TM_ATOL:.0e}); the MoE ranks "
+          f"hold {ranks[0]['moe_rows'][0]} experts each; ranks "
+          f"{t_ranks:.1f} s")
     print(f"LM train mesh phase: {time.perf_counter() - t0:.1f} s; card: "
           f"{smi}")
 

@@ -26,17 +26,18 @@ saved from its host copy; a restored leaf comes back on its like-leaf's
 device and in its dtype (a numpy like-leaf as numpy).
 
 A training state on a mesh is saved whole: ``models.convert.to_reference(
-state, mesh)`` gathers the leaves a rank holds a block of (its own
-``E / n`` experts' rows) over ``"model"``, and ``save(..., mesh=mesh)``
-writes each leaf's full logical array once, from the mesh's lowest rank,
-every rank returning once it is committed.  ``restore(..., mesh=mesh,
-specs=specs)`` is the counterpart of the reference's ``shardings=``: a
-like-leaf shorter than the stored leaf on a dimension gets the rank's
-block there, over the mesh axes its spec (``train_step.state_specs``,
-``convert.local_spec``'s tree) names, major first; every other leaf
-comes back whole, as the port holds it (parameters whole over the data
-axes).  A rank of ``DistributedPoissonSolver`` holds the global field,
-so a solver's checkpoint restores onto any mesh as it is.
+state, mesh)`` gathers the leaves a rank holds a block of (its
+``"data"`` blocks, its own ``E / n`` experts' rows over ``"model"``),
+and ``save(..., mesh=mesh)`` writes each leaf's full logical array once,
+from the mesh's lowest rank, every rank returning once it is committed.
+``restore(..., mesh=mesh, specs=specs)`` is the counterpart of the
+reference's ``shardings=``: a like-leaf shorter than the stored leaf on
+a dimension gets the rank's block there, over the mesh axes its spec
+(``train_step.state_specs``, ``convert.local_spec``'s tree) names, major
+first (``models.common.block_of``); every other leaf comes back whole.
+``train_step.held_like(cfg, mesh)`` is the like-tree of the layout the
+port holds on a mesh.  A rank of ``DistributedPoissonSolver`` holds the
+global field, so a solver's checkpoint restores onto any mesh as it is.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ import zlib
 import numpy as np
 import torch
 
-from repro_torch.models.common import P, mesh_coord
+from repro_torch.models.common import P, block_of
 from repro_torch.runtime import faults as _faults
 
 __all__ = ["CheckpointError", "save", "all_steps", "latest_step",
@@ -271,22 +272,12 @@ def _is_spec(s) -> bool:
 
 
 def _block(arr, shape, spec, mesh, i):
-    """The rank's block of ``arr`` for a like-leaf of ``shape``: on each
-    dimension where ``shape`` is shorter, the block at the rank's
-    coordinate over the mesh axes ``spec`` names there (major first)."""
-    for k, (want, have) in enumerate(zip(shape, arr.shape)):
-        if want == have:
-            continue
-        entry = () if spec is None or k >= len(spec) or spec[k] is None \
-            else spec[k] if isinstance(spec[k], tuple) else (spec[k],)
-        idx, count = mesh_coord(mesh, entry)
-        if want * count != have:
-            raise CheckpointError(
-                f"leaf {i}: checkpoint shape {tuple(arr.shape)} has no "
-                f"block of {tuple(shape)} over the mesh axes {entry} on "
-                f"dimension {k}", leaf=i)
-        arr = np.take(arr, range(idx * want, (idx + 1) * want), axis=k)
-    return arr
+    """The rank's block of ``arr`` for a like-leaf of ``shape``
+    (``models.common.block_of``)."""
+    try:
+        return block_of(arr, shape, spec, mesh)
+    except ValueError as e:
+        raise CheckpointError(f"leaf {i}: checkpoint {e}", leaf=i) from e
 
 
 def restore(directory, step, like_tree, mesh=None, specs=None):

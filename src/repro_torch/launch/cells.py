@@ -9,11 +9,15 @@ materialised; ``launch.flops_probe.measure`` runs the step under the
 counters.  The mesh's process group is the ``"fake"`` one of
 ``launch.mesh`` (or any other: every rank would run the same step).
 
-The rank holds what the port's step holds: the whole model (the MoE's
-own ``E / n`` experts on a train cell: ``training.train_step.own_experts_``),
-its data shard of the batch, its caches.  The reference shards the
-parameters over ``"data"`` too (FSDP); ``Cell.spec_bytes`` gives the
-bytes of the reference's layout (the spec trees' local shapes, what its
+The rank holds what the port's step holds: its data shard of the batch,
+its caches, and on a train cell its block of the state by the layout
+rule (``training.train_step.shard_state_``: parameters, both moments
+and the error feedback over ``"data"`` where ``state_specs`` names it,
+the MoE's own ``E / n`` experts over ``"model"``); a prefill or decode
+cell holds the whole model.  The reference also shards the dense
+weights over ``"model"`` (tensor parallelism, which the port does not
+run); ``Cell.spec_bytes`` gives the bytes of the reference's layout (the
+spec trees' local shapes, what its
 ``memory_analysis().argument_size_in_bytes`` measures), beside the
 port's ``launch.flops_probe.held_bytes(*cell.args)``.
 """
@@ -34,7 +38,7 @@ from repro_torch.models import convert
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import DATA_AXES, ModelConfig
 from repro_torch.training import optimizer as opt
-from repro_torch.training.train_step import (TrainState, own_experts_,
+from repro_torch.training.train_step import (TrainState, shard_state_,
                                              state_specs, train_step_fn)
 
 __all__ = ["Cell", "build_cell", "model_flops", "spec_bytes"]
@@ -175,8 +179,8 @@ def build_cell(arch: str, shape_name: str, mesh,
                        + _named_leaves(named, sspecs["v"], ms,
                                        torch.float32))
             leaves.append(((), torch.int32, None))           # the step
-            if cfg.family == "moe" and "model" in ms:
-                own_experts_(state, mesh)
+            if mesh is not None:
+                shard_state_(state, mesh)
             batch = {"inputs": tok(S), "labels": tok(S),
                      "mask": torch.zeros((b, S))}
             leaves += [inputs[0], inputs[0], ((B, S), torch.float32, dspec)]

@@ -176,6 +176,35 @@ def mesh_coord(mesh, axes):
     return idx, count
 
 
+def spec_entry(spec, k) -> tuple:
+    """The mesh axes ``spec`` names on dimension ``k`` (``()`` where it
+    names none or ``spec`` is None)."""
+    if spec is None or k >= len(spec) or spec[k] is None:
+        return ()
+    return spec[k] if isinstance(spec[k], tuple) else (spec[k],)
+
+
+def block_of(a, shape, spec, mesh):
+    """This rank's block of ``a`` (a tensor, as a view, or a numpy array)
+    for a block of ``shape``: on each dimension where ``shape`` is
+    shorter, the block at the rank's coordinate over the mesh axes
+    ``spec`` names there (``mesh_coord``, the major axis first).  Raises
+    ``ValueError`` where ``a``'s extent is not ``shape``'s times the
+    number of blocks."""
+    for k, (want, have) in enumerate(zip(shape, a.shape)):
+        if want == have:
+            continue
+        entry = spec_entry(spec, k)
+        idx, count = mesh_coord(mesh, entry)
+        if want * count != have:
+            raise ValueError(f"shape {tuple(a.shape)} has no block of "
+                             f"{tuple(shape)} over the mesh axes {entry} on "
+                             f"dimension {k}")
+        a = (a.narrow(k, idx * want, want) if isinstance(a, torch.Tensor)
+             else np.take(a, range(idx * want, (idx + 1) * want), axis=k))
+    return a
+
+
 def spec_placements(spec, mesh):
     """The ``torch.distributed.tensor`` placements (one per mesh
     dimension) that lay a tensor out as ``spec`` says on ``mesh`` (a
@@ -347,6 +376,15 @@ def initialise(module, gen):
         if hasattr(m, "init_weights"):
             m.init_weights(gen)
     return module
+
+
+def replace_param_(model, name, t):
+    """Sets ``model``'s parameter ``name`` (dotted) to a new parameter
+    holding ``t``, and drops the blocks ``transformer.held_axes`` kept on
+    ``model`` (``t`` may be of another shape)."""
+    prefix, _, attr = name.rpartition(".")
+    setattr(model.get_submodule(prefix), attr, nn.Parameter(t))
+    model.__dict__.pop("_held_axes", None)
 
 
 def const_init_(p, values):

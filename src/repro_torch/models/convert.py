@@ -22,20 +22,26 @@ order and shapes and either package's launcher resumes the other's
 checkpoint.  ``reference_like`` is that tuple's shapes and dtypes, with
 no data behind them, to restore into.
 
-On a mesh a rank may hold a block of a leaf: its own ``E / n`` experts'
-rows (``models.moe.own_experts_``).  ``to_reference(obj, mesh)`` gathers
-such a leaf over the axis its ``param_specs`` entry names, so that every
-rank gets the whole logical tree; ``reference_like(model)`` gives the
-rank's own shapes, and ``from_reference`` loads a tree whose expert
-leaves hold ``E / n`` rows into a model laid out so.
+On a mesh a rank may hold a block of a leaf: its ``"data"`` block
+(FSDP, ``training.train_step.shard_state_``) and, on an MoE expert
+weight, its own ``E / n`` experts' rows.  ``to_reference(obj, mesh)``
+gathers such a leaf over the axes its ``param_specs`` entry names, so
+that every rank gets the whole logical tree; ``reference_like(model)``
+gives the rank's own shapes, and ``from_reference`` loads a tree of
+blocks into a model whose parameters have the blocks' shapes.
+``logical_shapes(cfg)`` gives each parameter's whole shape, against
+which a block is recognised.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 __all__ = ["ref_path", "from_reference", "to_reference", "reference_like",
-           "caches_to_reference", "caches_from_reference", "local_spec"]
+           "caches_to_reference", "caches_from_reference", "local_spec",
+           "logical_shapes", "expert_weight"]
 
 
 def ref_path(name: str):
@@ -45,6 +51,22 @@ def ref_path(name: str):
     idx = [int(p) for p in parts if p.isdigit()]
     return tuple(p for p in parts if not p.isdigit()), \
         (idx[0] if idx else None)
+
+
+def expert_weight(name: str) -> bool:
+    """Whether dotted ``name`` is an MoE expert weight (rows by expert)."""
+    path = ref_path(name)[0]
+    return path[-2:-1] == ("moe",) and path[-1] != "router"
+
+
+@functools.lru_cache(maxsize=16)
+def logical_shapes(cfg) -> dict:
+    """``{dotted name: shape}`` of every parameter of ``Transformer(cfg)``,
+    whole (built on the ``meta`` device)."""
+    from .transformer import Transformer
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
 
 
 def _layout(model):
@@ -127,23 +149,21 @@ def _unstack_named(model, tree, device) -> dict:
     return out
 
 
-def _expert_rows(cfg, tree):
-    """The expert rows the tree's MoE leaves hold (``E`` or ``E / n``),
-    or None without experts."""
-    for path, leaf in _flat(tree).items():
-        if cfg.moe is not None and path[-2:] == ("moe", "w_in"):
-            return np.shape(leaf)[0 if path[0] == "rem" else 1]
-    return None
-
-
 def _model(cfg, tree, device):
-    from .moe import own_experts_
+    """A ``Transformer(cfg)`` on ``device`` holding ``tree``'s values, each
+    parameter of the shape of its leaf in ``tree`` (a rank's block where
+    the tree holds one)."""
+    from .common import replace_param_
     from .transformer import Transformer
+    flat = _flat(tree)
     with torch.device("meta"):
         model = Transformer(cfg)
-        rows = _expert_rows(cfg, tree)
-        if rows is not None and rows != cfg.moe.n_experts:
-            own_experts_(model, cfg.moe.n_experts // rows, 0)
+        for name, p in list(model.named_parameters()):
+            path, i = ref_path(name)
+            shape = np.shape(flat[path])[0 if i is None else 1:]
+            if tuple(shape) != tuple(p.shape):
+                replace_param_(model, name, torch.empty(shape,
+                                                        dtype=p.dtype))
     model = model.to_empty(device=device)
     values = _unstack_named(model, tree, device)
     with torch.no_grad():
@@ -180,16 +200,15 @@ def _whole(named: dict, cfg, mesh) -> dict:
     it is shorter than the logical leaf (every rank of ``mesh`` calls
     it)."""
     import torch.distributed as dist
-    from .transformer import Transformer, param_specs
-    with torch.device("meta"):
-        full = dict(Transformer(cfg).named_parameters())
+    from .transformer import param_specs
+    full = logical_shapes(cfg)
     dims = tuple(mesh.mesh_dim_names)
     specs = param_specs(cfg, dict(zip(dims, mesh.shape)))
     out = {}
     for name, t in named.items():
         spec = local_spec(specs, name)
         for k in range(t.ndim):
-            if t.shape[k] == full[name].shape[k]:
+            if t.shape[k] == full[name][k]:
                 continue
             entry = spec[k] if isinstance(spec[k], tuple) else (spec[k],)
             for axis in reversed([a for a in entry if a in dims]):
@@ -198,11 +217,10 @@ def _whole(named: dict, cfg, mesh) -> dict:
                          for _ in range(dist.get_world_size(group))]
                 dist.all_gather(parts, t.contiguous(), group=group)
                 t = torch.cat(parts, dim=k)
-            if t.shape[k] != full[name].shape[k]:
+            if t.shape[k] != full[name][k]:
                 raise ValueError(f"{name}: a block of {t.shape[k]} on "
                                  f"dimension {k} after gathering over "
-                                 f"{entry}; the leaf has "
-                                 f"{full[name].shape[k]}")
+                                 f"{entry}; the leaf has {full[name][k]}")
         out[name] = t
     return out
 

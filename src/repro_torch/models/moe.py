@@ -128,22 +128,6 @@ def _local_experts(p, m, n, r):
             p.w_out[experts])
 
 
-def own_experts_(model, n: int, r: int):
-    """Replaces each MoE module's expert weights in ``model`` by rank
-    ``r``'s ``E / n`` rows of them, the layout ``param_specs`` gives
-    (experts over a ``"model"`` axis of ``n`` ranks); on the ``meta``
-    device only the shapes change.  Returns ``model``."""
-    for mod in model.modules():
-        if isinstance(mod, MoE):
-            e_loc = mod.w_in.shape[0] // n
-            for name in ("w_in", "w_gate", "w_out"):
-                if hasattr(mod, name):
-                    w = getattr(mod, name).detach()
-                    setattr(mod, name, nn.Parameter(
-                        w[r * e_loc:(r + 1) * e_loc].clone()))
-    return model
-
-
 class _Switch(torch.autograd.Function):
     """``topology_switch`` over ``"model"`` (split ``split``, gather
     ``concat``); its backward is the switch back (split ``concat``,
@@ -167,8 +151,10 @@ def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
     """One rank's share of the expert-parallel MoE: ``x`` is its token
     block, its experts the ``"model"`` coordinate's ``E / n``
     (``_local_experts``; the router and each expert's d_model axis
-    whole).  Returns (out, the drop fraction's mean over every rank of
-    the mesh, outside the autograd graph)."""
+    whole: a rank holding a ``"data"`` block of them runs on them
+    gathered, ``transformer._DataBlocks``).  Returns (out, the drop
+    fraction's mean over every rank of the mesh, outside the autograd
+    graph)."""
     m = cfg.moe
     group = mesh.get_group("model")
     n, r = dist.get_world_size(group), dist.get_rank(group)

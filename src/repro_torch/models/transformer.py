@@ -45,6 +45,19 @@ switches' backward passes are in ``attention`` and ``moe``.
 ``training.train_step`` sums the weight gradients over the axis where
 the sharded region used them.
 
+A model may hold blocks of its weights over ``"data"`` (FSDP,
+``training.train_step.shard_state_``), recognised by their shapes
+against the logical leaves (``held_axes``).  ``forward`` then gathers
+each block's weights whole inside its checkpointed region, one
+all-gather a block, and calls the block on them through
+``torch.func.functional_call`` (every parameter keeps its dotted
+name); the embedding and ``lm_head`` are gathered where they are used
+(a tied embedding at each of its two uses).  The gather's backward
+reduce-scatters the gradients over ``"data"`` (``_GatherData``).
+Every rank issues the gathers in the same order, forward and
+recomputation alike.  ``fsdp_timing`` times the gathers and
+reduce-scatters where asked.
+
 ``param_specs`` and ``cache_specs`` give the reference's partition-spec
 trees (``common.P``; stacked stacks with a leading ``None``);
 ``convert.local_spec`` looks up a port tensor's spec in them and
@@ -52,7 +65,9 @@ trees (``common.P``; stacked stacks with a leading ``None``);
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 
 import torch
 import torch.distributed as dist
@@ -341,7 +356,7 @@ def _hybrid_layout(cfg: ModelConfig):
     return n_groups, tuple(pat[:rem])
 
 
-def _run_block(cfg, block, x, **kw):
+def _run_block(cfg, block, x, fsdp, **kw):
     """One block, recomputed in the backward pass unless ``cfg.remat`` is
     ``"none"``.  The recomputation runs the block's forward to its end
     (early stop off), where autograd first unpacks one of the block's
@@ -349,22 +364,195 @@ def _run_block(cfg, block, x, **kw):
     in step: every rank records the same graph, autograd walks it in the
     same order on each, so each rank re-issues the same ring shifts,
     switches and gathers, in the forward's order, at the same point of
-    its backward."""
+    its backward.  Where the rank holds ``"data"`` blocks of the block's
+    weights (``fsdp``, a ``_DataBlocks``), the block runs on them
+    gathered whole, inside the recomputed region, so the recomputation
+    gathers them again."""
+    fn = block if not fsdp.dims else \
+        lambda x, **kw: fsdp.call(block, x, **kw)
     if cfg.remat == "none" or not torch.is_grad_enabled():
-        return block(x, **kw)
-    return checkpoint(block, x, use_reentrant=False, early_stop=False, **kw)
+        return fn(x, **kw)
+    return checkpoint(fn, x, use_reentrant=False, early_stop=False, **kw)
 
 
-def _run_stack(cfg, blocks, x, **kw):
+def _run_stack(cfg, blocks, x, fsdp, **kw):
     """The blocks in order; the mean of their aux and, when collecting,
     their caches (else None)."""
     auxs, caches = [], []
     for block in blocks:
-        x, aux, cache = _run_block(cfg, block, x, **kw)
+        x, aux, cache = _run_block(cfg, block, x, fsdp, **kw)
         auxs.append(aux)
         caches.append(cache)
     return x, torch.stack(auxs).mean(), \
         caches if kw.get("collect") else None
+
+
+# ---------------------------------------------------------------------------
+# FSDP: the rank's "data" blocks of the weights, gathered where used
+# ---------------------------------------------------------------------------
+
+# {"gather": s, "reduce_scatter": s} while ``fsdp_timing`` is on, else
+# None: the FSDP collectives are then not timed
+_FSDP_SECONDS = None
+
+
+@contextlib.contextmanager
+def fsdp_timing():
+    """Within: the seconds of the FSDP all-gathers (forward and
+    recomputation) and reduce-scatters (backward) made in this process,
+    the card synchronised around each; yields ``{"gather": s,
+    "reduce_scatter": s}``, their sums.  Off by default: the
+    synchronisations cost."""
+    global _FSDP_SECONDS
+    outer, _FSDP_SECONDS = _FSDP_SECONDS, {"gather": 0.0,
+                                           "reduce_scatter": 0.0}
+    try:
+        yield _FSDP_SECONDS
+    finally:
+        _FSDP_SECONDS = outer
+
+
+def _timed(key, t, fn, *args, **kw):
+    """``fn(*args, **kw)``; within ``fsdp_timing`` its seconds are added
+    to the key ``key``, the card synchronised before and after where
+    ``t`` is on it."""
+    secs = _FSDP_SECONDS
+    if secs is None:
+        fn(*args, **kw)
+        return
+    sync = torch.cuda.synchronize if t.is_cuda else lambda: None
+    sync()
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    sync()
+    secs[key] += time.perf_counter() - t0
+
+
+def _join(part, shape, k, n):
+    """``(n, numel)`` blocks of ``shape``, one a rank in rank order -> the
+    whole tensor, the blocks joined on dimension ``k``."""
+    whole = list(shape)
+    whole[k] *= n
+    return part.reshape(n, *shape).movedim(0, k).reshape(whole)
+
+
+def _cut(g, shape, k, n):
+    """The inverse of ``_join``: the whole ``g`` -> its ``(n, numel)``
+    blocks of ``shape`` on dimension ``k``, one a rank."""
+    return g.reshape(*shape[:k], n, *shape[k:]).movedim(k, 0).reshape(n, -1)
+
+
+class _GatherData(torch.autograd.Function):
+    """The whole weights of this rank's ``"data"`` blocks ``blocks`` (each
+    a block on its dimension ``dims[i]``): one all-gather over the data
+    axis's ``group`` of the blocks' flat concatenation; backward: the
+    whole weights' gradients summed over the axis and cut back to this
+    rank's blocks, one reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, group, dims, *blocks):
+        if len({b.dtype for b in blocks}) != 1:
+            raise ValueError("FSDP: the blocks gathered at once must share "
+                             "a dtype")
+        n = dist.get_world_size(group)
+        ctx.group, ctx.dims = group, dims
+        ctx.shapes = [tuple(b.shape) for b in blocks]
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        out = flat.new_empty(n * flat.numel())
+        _timed("gather", flat, dist.all_gather_into_tensor, out, flat,
+               group=group)
+        parts = out.view(n, -1).split([b.numel() for b in blocks], dim=1)
+        return tuple(_join(p, s, k, n)
+                     for p, s, k in zip(parts, ctx.shapes, dims))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = dist.get_world_size(ctx.group)
+        flat = torch.cat([_cut(g, s, k, n) for g, s, k in
+                          zip(grads, ctx.shapes, ctx.dims)], dim=1)
+        out = flat.new_empty(flat.shape[1])
+        _timed("reduce_scatter", flat, dist.reduce_scatter_tensor, out,
+               flat.reshape(-1), group=ctx.group)
+        sizes = [math.prod(s) for s in ctx.shapes]
+        return (None, None) + tuple(
+            g.view(s) for g, s in zip(out.split(sizes), ctx.shapes))
+
+
+def block_axes(name, shape, cfg: ModelConfig) -> dict:
+    """``{mesh axis: dimension}`` on which a parameter ``name`` of
+    ``shape`` is a block of its logical leaf (``convert.logical_shapes``):
+    an MoE expert weight's first dimension is its block over ``"model"``
+    (the rank's own ``E / n`` experts), any other shorter dimension its
+    block over ``"data"`` (FSDP, ``training.train_step.shard_state_``).
+    Empty for a whole leaf."""
+    full = convert.logical_shapes(cfg)[name]
+    dims = [k for k, (a, b) in enumerate(zip(shape, full)) if a != b]
+    axes = {}
+    if dims and dims[0] == 0 and convert.expert_weight(name):
+        axes["model"] = dims.pop(0)
+    if len(dims) > 1:
+        raise ValueError(f"{name}: a block of {tuple(shape)} of the leaf "
+                         f"{full} on more than one dimension over \"data\"")
+    if dims:
+        axes["data"] = dims[0]
+    return axes
+
+
+def held_axes(model) -> dict:
+    """``{dotted name: block_axes}`` of the parameters of ``model`` (a
+    ``Transformer``) of which this rank holds a block, read from their
+    shapes once and kept on the model; ``common.replace_param_``, which
+    changes a parameter's shape, drops what was kept."""
+    held = model.__dict__.get("_held_axes")
+    if held is None:
+        held = {}
+        for name, p in model.named_parameters():
+            axes = block_axes(name, p.shape, model.cfg)
+            if axes:
+                held[name] = axes
+        model.__dict__["_held_axes"] = held
+    return held
+
+
+class _DataBlocks:
+    """One forward's FSDP plan: ``dims`` maps each parameter of which this
+    rank holds a ``"data"`` block to the dimension of the block.  Empty
+    where the rank holds none: every module then runs on its own
+    parameters, as without FSDP."""
+
+    def __init__(self, model, mesh):
+        self.dims = {model.get_parameter(n): a["data"]
+                     for n, a in held_axes(model).items() if "data" in a}
+        if not self.dims:
+            return
+        if "data" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+            raise ValueError("the model holds \"data\" blocks of its "
+                             "weights (FSDP): its forward needs the mesh "
+                             "they were cut on")
+        self.group = mesh.get_group("data")
+
+    def _gather(self, named) -> dict:
+        """``{name: whole tensor}`` of the held blocks among ``named``
+        (``(name, parameter)`` pairs), gathered in one all-gather."""
+        held = [(n, p) for n, p in named if p in self.dims]
+        if not held:
+            return {}
+        return dict(zip((n for n, _ in held), _GatherData.apply(
+            self.group, tuple(self.dims[p] for _, p in held),
+            *(p for _, p in held))))
+
+    def weight(self, model, name):
+        """Top-level leaf ``name`` of ``model``, gathered where held."""
+        p = getattr(model, name)
+        return self._gather([(name, p)]).get(name, p)
+
+    def call(self, block, x, **kw):
+        """``block(x, **kw)`` on its held weights gathered whole (its
+        parameters keep their names: ``torch.func.functional_call``)."""
+        whole = self._gather(block.named_parameters())
+        if not whole:
+            return block(x, **kw)
+        return torch.func.functional_call(block, whole, (x,), kw)
 
 
 # ---------------------------------------------------------------------------
@@ -416,9 +604,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
         return initialise(Transformer(cfg), gen)
 
 
-def _embed(p, cfg, tokens):
+def _embed(embed, cfg, tokens):
     cd = cfg.cdtype()
-    x = p.embed[tokens].to(cd)
+    x = embed[tokens].to(cd)
     if cfg.scale_embed:
         # the factor is cast to the compute dtype before the product
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=cd,
@@ -426,8 +614,8 @@ def _embed(p, cfg, tokens):
     return x
 
 
-def _embed_in(p, cfg, tokens, frontend):
-    x = _embed(p, cfg, tokens)
+def _embed_in(embed, cfg, tokens, frontend):
+    x = _embed(embed, cfg, tokens)
     prefix_len = 0
     if frontend is not None and cfg.family != "encdec":
         x = torch.cat([frontend.to(cfg.cdtype()), x], dim=1)
@@ -435,31 +623,40 @@ def _embed_in(p, cfg, tokens, frontend):
     return x, prefix_len
 
 
-def _logits(p, cfg, x):
+def _head(cfg) -> str:
+    """The name of the output projection's leaf."""
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
+def _logits(p, cfg, x, head):
+    """Logits of the final norm of ``x`` against ``head`` (the leaf
+    ``_head`` names, gathered where the rank holds a block of it)."""
     x = p.ln_f(x)
     if cfg.tie_embeddings:
-        out = torch.einsum("bsd,vd->bsv", x, p.embed.to(cfg.cdtype()))
+        out = torch.einsum("bsd,vd->bsv", x, head.to(cfg.cdtype()))
     else:
-        out = torch.einsum("bsd,dv->bsv", x, p.lm_head.to(cfg.cdtype()))
+        out = torch.einsum("bsd,dv->bsv", x, head.to(cfg.cdtype()))
     return out.float()
 
 
-def _encode(p, cfg, frontend):
+def _encode(p, cfg, frontend, fsdp):
     """Whisper encoder over stubbed frame embeddings (non-causal)."""
     cd = cfg.cdtype()
     x = frontend.to(cd)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(cd)[None]
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-    x, _, _ = _run_stack(cfg, p.enc, x, positions=positions, causal=False,
-                         rope=False)
+    x, _, _ = _run_stack(cfg, p.enc, x, fsdp, positions=positions,
+                         causal=False, rope=False)
     return p.ln_enc(x)
 
 
 def _forward_impl(model, tokens, frontend, comm, mesh, collect):
     """(logits, {"moe_drop"}, caches in the per-layer layout or None)."""
     cfg = model.cfg
-    x, prefix_len = _embed_in(model, cfg, tokens, frontend)
+    fsdp = _DataBlocks(model, mesh)
+    x, prefix_len = _embed_in(fsdp.weight(model, "embed"), cfg, tokens,
+                              frontend)
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     kw = dict(positions=positions, comm=comm, mesh=mesh, collect=collect)
     caches = None
@@ -472,7 +669,7 @@ def _forward_impl(model, tokens, frontend, comm, mesh, collect):
             a = _zero(x)
             for i, kind in enumerate(pat):
                 x, ai, c = _run_block(cfg, model.groups[kind + str(i)][g], x,
-                                      **kw)
+                                      fsdp, **kw)
                 a = a + ai
                 gcaches[kind + str(i)].append(c)
             auxs.append(a)
@@ -480,22 +677,23 @@ def _forward_impl(model, tokens, frontend, comm, mesh, collect):
         rem_caches = {}
         for i, kind in enumerate(rem):       # no share in the aux
             x, _, rem_caches[kind + str(i)] = _run_block(
-                cfg, model.rem[kind + str(i)], x, **kw)
+                cfg, model.rem[kind + str(i)], x, fsdp, **kw)
         if collect:
             caches = {"groups": gcaches, "rem": rem_caches}
     elif cfg.family == "encdec":
-        x_enc = _encode(model, cfg, frontend)
+        x_enc = _encode(model, cfg, frontend, fsdp)
         pos_dec = sinusoidal_positions(tokens.shape[1], cfg.d_model,
                                        x.device).to(cfg.cdtype())
         x = x + pos_dec[None]
-        x, aux, layers = _run_stack(cfg, model.layers, x, x_enc=x_enc,
+        x, aux, layers = _run_stack(cfg, model.layers, x, fsdp, x_enc=x_enc,
                                     rope=False, **kw)
         caches = {"layers": layers} if collect else None
     else:
-        x, aux, layers = _run_stack(cfg, model.layers, x,
+        x, aux, layers = _run_stack(cfg, model.layers, x, fsdp,
                                     prefix_len=prefix_len, **kw)
         caches = {"layers": layers} if collect else None
-    return _logits(model, cfg, x), {"moe_drop": aux}, caches
+    head = fsdp.weight(model, _head(cfg))
+    return _logits(model, cfg, x, head), {"moe_drop": aux}, caches
 
 
 def forward(model: Transformer, tokens, frontend=None, comm=None,
@@ -609,7 +807,11 @@ def decode_step(model: Transformer, token, caches, pos: int, comm=None,
     float32, caches).  ``comm`` and ``mesh`` are taken as the reference
     takes them and unused: decode runs the local paths (the MoE's too)."""
     cfg = model.cfg
-    x = _embed(model, cfg, token)
+    if held_axes(model):
+        raise NotImplementedError("decode_step: the model holds blocks of "
+                                  "its weights (a mesh's layout); decode "
+                                  "runs on whole weights")
+    x = _embed(model.embed, cfg, token)
     if cfg.family == "encdec":
         if not 0 <= pos < _SINUSOID_ROWS:
             raise IndexError(f"decode_step: position {pos} is past the "
@@ -629,7 +831,7 @@ def decode_step(model: Transformer, token, caches, pos: int, comm=None,
     else:
         for block, cache in zip(model.layers, caches["layers"], strict=True):
             x = block.decode(x, cache, pos)
-    return _logits(model, cfg, x), caches
+    return _logits(model, cfg, x, getattr(model, _head(cfg))), caches
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +852,8 @@ def param_specs(cfg: ModelConfig, mesh_shape: dict):
     TP/EP over "model"; ZeRO/FSDP over "data": every weight's d_model axis
     is additionally sharded over the data axis (when divisible) so params +
     optimizer state scale down with the FULL mesh, not just the model axis.
+    (The port holds the "data" entries and the experts' "model" entry:
+    ``training.train_step.held_shapes``.)
     """
     tp = mesh_shape.get("model", 1)
     fs = mesh_shape.get("data", 1)

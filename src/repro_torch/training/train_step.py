@@ -12,26 +12,37 @@ after.
 On a mesh (``train_step_fn(..., mesh=mesh)``, a ``DeviceMesh`` with axes
 ``"data"`` and ``"model"``, and ``"pod"`` where given) every rank of the
 mesh calls the step with its data shard of the global batch
-(``data_shard``) and holds the whole model (its own ``E / n`` experts'
-rows where ``own_experts_`` made it so; the reference's FSDP over
-``"data"`` is not run).  The loss is each rank's summed NLL over the
-global mask sum; the gradients are reduced by ``grad_reduction`` (one
-rule, by dotted name); compression, the global-norm clip and AdamW then
-run as on one process, so every rank holds the same bits.
+(``data_shard``).  A rank holds the whole model, or after
+``shard_state_`` its block of every parameter, both moments and the
+error feedback by ``state_specs`` (the layout rule, ``held_shapes``):
+over ``"data"`` wherever the spec names it (FSDP), and over ``"model"``
+only on an MoE expert weight's experts (``own_experts_`` cuts those
+alone); the spec's other ``"model"`` entries, the reference's tensor
+parallelism, stay whole.  The forward gathers each block's weights
+where they are used and the backward reduce-scatters their gradients
+over ``"data"`` (``models.transformer``).  The loss is each rank's
+summed NLL over the global mask sum; the gradients are reduced by
+``grad_reduction`` (one rule, by dotted name); compression, the
+global-norm clip and AdamW then run as on one process, on the rank's
+blocks, so ranks on the same ``"data"`` coordinate hold the same bits
+(and every rank the same bits of a leaf it holds whole).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import DATA_AXES, P, ModelConfig, mesh_coord
-from repro_torch.models.convert import ref_path
+from repro_torch.models import convert
+from repro_torch.models.common import (DATA_AXES, P, ModelConfig, block_of,
+                                       mesh_coord, replace_param_,
+                                       spec_entry)
+from repro_torch.models.convert import expert_weight, ref_path
 from . import optimizer as opt
 
 
@@ -143,22 +154,18 @@ def loss_fn(model, cfg: ModelConfig, batch, comm=None, mesh=None):
     return loss, aux
 
 
-def _expert_weight(name) -> bool:
-    """Whether dotted ``name`` is an MoE expert weight (rows by expert)."""
-    path = ref_path(name)[0]
-    return path[-2:-1] == ("moe",) and path[-1] != "router"
-
-
 def expert_block(name, p, cfg: ModelConfig) -> bool:
-    """Whether ``p`` is a block of its logical leaf: an expert weight of
-    which this rank holds its own ``E / n`` rows."""
-    return (cfg.moe is not None and _expert_weight(name)
-            and p.shape[0] != cfg.moe.n_experts)
+    """Whether ``p`` is a block of its logical leaf over ``"model"``: an
+    expert weight of which this rank holds its own ``E / n`` rows
+    (``models.transformer.block_axes``)."""
+    return "model" in tf.block_axes(name, p.shape, cfg)
 
 
 def grad_reduction(name, p, cfg: ModelConfig, ring: bool) -> str:
     """How a mesh step reduces parameter ``name``'s gradient over the
-    ``"model"`` axis (over the data axes it is always summed): ``"sum"``,
+    ``"model"`` axis (over the data axes it is always summed, by the
+    backward's reduce-scatter where the rank holds a ``"data"`` block of
+    it): ``"sum"``,
     ``"first"`` (the axis's first rank's gradient, broadcast) or
     ``"own"`` (a block of the leaf, each rank's its own).
 
@@ -215,12 +222,20 @@ def _bucketed_(tensors, fn):
             off += t.numel()
 
 
-def reduce_grads_(grads, params, cfg: ModelConfig, mesh, ring: bool):
-    """Reduces ``grads`` ({name: tensor}) in place on ``mesh`` as
-    ``grad_reduction`` says: a sum over the data axes, then over
-    ``"model"`` a sum, the first rank's, or nothing for a block."""
-    data = _axes(mesh, DATA_AXES)
-    _bucketed_(list(grads.values()), lambda t: _sum_(t, data))
+def reduce_grads_(grads, model, mesh, ring: bool):
+    """Reduces ``grads`` ({name: tensor} of ``model``'s parameters) in
+    place on ``mesh`` as ``grad_reduction`` says: a sum over the data
+    axes (over ``"pod"`` only for a ``"data"`` block, whose
+    reduce-scatter summed it over ``"data"``), then over ``"model"`` a
+    sum, the first rank's, or nothing for an expert block."""
+    cfg, params = model.cfg, dict(model.named_parameters())
+    sharded = {n for n, axes in tf.held_axes(model).items()
+               if "data" in axes}
+    data, pod = _axes(mesh, DATA_AXES), _axes(mesh, ("pod",))
+    _bucketed_([g for n, g in grads.items() if n not in sharded],
+               lambda t: _sum_(t, data))
+    _bucketed_([g for n, g in grads.items() if n in sharded],
+               lambda t: _sum_(t, pod))
     model = _axes(mesh, ("model",))
     if not model:
         return
@@ -242,47 +257,137 @@ def _seq_len(cfg: ModelConfig, batch) -> int:
     return s
 
 
-def own_experts_(state: TrainState, mesh) -> TrainState:
-    """Makes each rank of ``mesh`` hold only its own ``E / n`` experts'
-    rows (over the ``"model"`` axis, as ``param_specs`` lays them out):
-    the parameters, both moments and the error feedback, in place.
+# the mesh axes over which a rank holds blocks of the state (the layout
+# rule): "data" wherever ``state_specs`` names it (FSDP); "model" only on
+# an MoE expert weight's expert dimension
+HELD_AXES = ("data", "model")
+
+
+def held_shapes(cfg: ModelConfig, mesh_shape: dict,
+                axes=HELD_AXES) -> dict:
+    """``{dotted name: shape}`` of the rank's block of each parameter on a
+    mesh of axis sizes ``mesh_shape``, by the layout rule: each dimension
+    split over the axes among ``axes`` that its ``param_specs`` entry
+    names and the port holds blocks over -- ``"data"``, and ``"model"``
+    only on an MoE expert weight's first (expert) dimension, the spec's
+    other ``"model"`` entries being the reference's tensor parallelism,
+    which the port does not run; a dimension they do not divide stays
+    whole (``param_specs``' ``dd``).  ``"pod"`` splits no parameter."""
+    specs = tf.param_specs(cfg, mesh_shape)
+    out = {}
+    for name, shape in convert.logical_shapes(cfg).items():
+        spec = convert.local_spec(specs, name)
+        block = []
+        for k, d in enumerate(shape):
+            count = math.prod(
+                mesh_shape.get(a, 1) for a in spec_entry(spec, k)
+                if a in axes
+                and (a == "data" or (k == 0 and expert_weight(name))))
+            block.append(d // count if d % count == 0 else d)
+        out[name] = tuple(block)
+    return out
+
+
+def _cut_(model, trees, mesh, axes):
+    """Cuts ``model``'s parameters and the same-named leaves of ``trees``
+    (dicts keyed by dotted name) to the rank's blocks by ``held_shapes``
+    over ``axes``, in place (a leaf already cut is left as it is)."""
+    cfg = model.cfg
+    ms = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    specs = tf.param_specs(cfg, ms)
+    want = held_shapes(cfg, ms, axes)
+    for name, p in list(model.named_parameters()):
+        shape = tuple(min(a, b) for a, b in zip(want[name], p.shape))
+        if shape == tuple(p.shape):
+            continue
+        spec = convert.local_spec(specs, name)
+
+        def cut(t):
+            return block_of(t.detach(), shape, spec, mesh).clone(
+                memory_format=torch.contiguous_format)
+        replace_param_(model, name, cut(p))
+        for tree in trees:
+            tree[name] = cut(tree[name])
+
+
+def shard_params_(model, mesh, axes=HELD_AXES):
+    """``shard_state_`` (over ``axes``, ``("model",)`` for
+    ``own_experts_``) of the parameters alone: a model whose optimizer
+    state is made after the cut, or a restore target on the ``meta``
+    device.  Returns ``model``."""
+    _cut_(model, [], mesh, axes)
+    return model
+
+
+def shard_state_(state: TrainState, mesh) -> TrainState:
+    """Makes each rank of ``mesh`` hold only its block of the state by the
+    layout rule (``held_shapes``): the parameters, both moments and the
+    error feedback, in place, as the reference lays its state out by
+    ``state_specs``.  A mesh step gathers the blocks where they are used.
     Returns ``state``."""
-    n, r = mesh.shape[mesh.mesh_dim_names.index("model")], \
-        mesh.get_local_rank("model")
-    cfg = state.params.cfg
-    e_loc = cfg.moe.n_experts // n
-    names = [k for k, _ in state.params.named_parameters()
-             if _expert_weight(k)]
-    moe_mod.own_experts_(state.params, n, r)
+    return _cut_state_(state, mesh, HELD_AXES)
+
+
+def own_experts_(state: TrainState, mesh) -> TrainState:
+    """``shard_state_`` over ``"model"`` alone: each rank of ``mesh`` holds
+    only its own ``E / n`` experts' rows of the expert weights, every
+    other leaf whole.  Returns ``state``."""
+    return _cut_state_(state, mesh, ("model",))
+
+
+def _cut_state_(state, mesh, axes):
     trees = [state.opt_state["m"], state.opt_state["v"]]
-    for tree in trees + ([state.err_fb] if state.err_fb else []):
-        for k in names:
-            tree[k] = tree[k][r * e_loc:(r + 1) * e_loc].clone()
+    _cut_(state.params, trees + ([state.err_fb] if state.err_fb else []),
+          mesh, axes)
     return state
 
 
-def _mesh_norm_and_amax(cfg, params, grads, mesh):
+def held_like(cfg: ModelConfig, mesh, compress: bool = False):
+    """``convert.reference_like`` (with the error feedback where
+    ``compress``) of the state a rank of ``mesh`` holds after
+    ``shard_state_``: a ``checkpoint.restore`` target for the rank's
+    blocks, restored with ``specs=held_specs(...)``."""
+    with torch.device("meta"):
+        model = shard_params_(tf.Transformer(cfg), mesh)
+    return convert.reference_like(model, compress)
+
+
+def held_specs(cfg: ModelConfig, mesh_shape: dict):
+    """``state_specs`` with the error feedback laid out as the parameters,
+    as the port holds it after ``shard_state_`` (the reference keeps it
+    whole: its spec None): the ``specs`` of a ``checkpoint.restore`` of
+    the rank's blocks."""
+    return dataclasses.replace(state_specs(cfg, mesh_shape),
+                               err_fb=tf.param_specs(cfg, mesh_shape))
+
+
+def _mesh_norm_and_amax(model, grads, mesh):
     """The global norm of ``grads`` and the compression's ``amax_fn`` on
     ``mesh``: the leaves of which this rank holds a block enter through
-    a sum (the norm) and a max (the amax) over ``"model"``."""
-    block = {n for n in grads if expert_block(n, params[n], cfg)}
-    model = _axes(mesh, ("model",))
+    a sum (the norm) and a max (the amax) over the axes of their blocks
+    (``models.transformer.held_axes``)."""
+    # the axes of each block, in HELD_AXES' order
+    over = {n: tuple(a for a in HELD_AXES if a in axes)
+            for n, axes in tf.held_axes(model).items()}
 
     def norm(g):
+        dev = next(iter(g.values())).device
         sq = lambda names: sum((g[n].float().square().sum() for n in names),
-                               torch.zeros((), device=next(iter(
-                                   g.values())).device))
-        rep = sq([n for n in g if n not in block])
-        held = sq(sorted(block))
-        if block:
-            _sum_(held, model)
-        return torch.sqrt(rep + held)
+                               torch.zeros((), device=dev))
+        total = sq([n for n in g if n not in over])
+        # the same order on every rank: a float sum's bits depend on it
+        for axes in sorted(set(over.values())):
+            part = sq(sorted(n for n in over if over[n] == axes))
+            for axis in axes:
+                _sum_(part, _axes(mesh, (axis,)))
+            total = total + part
+        return torch.sqrt(total)
 
-    paths = {ref_path(n)[0] for n in block}
+    paths = {ref_path(n)[0]: axes for n, axes in over.items()}
 
     def amax_fn(path, amax):
-        if path in paths:
-            for _, grp in model:
+        for axis in paths.get(path, ()):
+            for _, grp in _axes(mesh, (axis,)):
                 dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=grp)
         return amax
     return norm, amax_fn
@@ -299,7 +404,9 @@ def train_step_fn(cfg: ModelConfig, adam: opt.AdamWConfig | None = None,
     (``data_shard``) and gets the global batch's loss; the ring attention
     (where ``cfg.attn_ring``) and the expert-parallel MoE run over
     ``"model"``; metrics also hold ``grad_reduce_s``, the seconds of the
-    gradient reduction (the device synchronised around it)."""
+    gradient reduction after the backward (the device synchronised around
+    it; ``models.transformer.fsdp_timing`` times the FSDP all-gathers
+    and reduce-scatters)."""
     adam = adam or opt.AdamWConfig()
 
     def step(state: TrainState, batch):
@@ -322,12 +429,12 @@ def train_step_fn(cfg: ModelConfig, adam: opt.AdamWConfig | None = None,
                         else lambda: None)
                 sync()
                 t0 = time.perf_counter()
-                reduce_grads_(grads, params, cfg, mesh,
+                reduce_grads_(grads, model, mesh,
                               tf.on_ring(cfg, mesh, _seq_len(cfg, batch)))
                 sync()
                 extra["grad_reduce_s"] = torch.tensor(
                     time.perf_counter() - t0, dtype=torch.float64)
-                norm, amax_fn = _mesh_norm_and_amax(cfg, params, grads, mesh)
+                norm, amax_fn = _mesh_norm_and_amax(model, grads, mesh)
             if on_grads is not None:
                 on_grads(grads)
             grads, new_err = opt.apply_compression(adam, grads, state.err_fb,

@@ -130,6 +130,23 @@ for name, c in SPEC["census"].items():
 for name in SPEC["fft"]:
     ds = solver(16, (2, 4), solver_kw(*SPEC["census"][name]))
     out["fft"][name] = hlo_stats.fft_flops(ds.lower().compile().as_text())
+def rule_bytes(path, a):
+    # the port's layout rule: the spec's axes but "model" on a weight
+    # other than an MoE expert weight (tensor parallelism, held whole); a
+    # dimension the axes do not divide whole
+    keys = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
+    expert = "moe" in keys and keys[-1] in ("w_in", "w_gate", "w_out")
+    spec = () if a.sharding is None else tuple(a.sharding.spec)
+    sizes = {} if a.sharding is None else dict(a.sharding.mesh.shape)
+    n = 1
+    for k, d in enumerate(a.shape):
+        e = spec[k] if k < len(spec) else None
+        axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+        c = int(np.prod([sizes[x] for x in axes if x != "model" or expert]))
+        n *= d // c if d % c == 0 else d
+    return n * np.dtype(a.dtype).itemsize
+
+out["rule"] = {}
 for arch in LM_ARCHS:
     for sh in arch_shapes(arch):
         cell = build_cell(arch, sh.name, mesh((2, 4)),
@@ -138,6 +155,10 @@ for arch in LM_ARCHS:
             int(np.prod(a.shape if a.sharding is None
                         else a.sharding.shard_shape(a.shape)))
             * np.dtype(a.dtype).itemsize for a in jax.tree.leaves(cell.args))
+        if sh.kind == "train":
+            out["rule"][f"{arch}/{sh.name}"] = sum(
+                rule_bytes(path, a) for path, a in
+                jax.tree_util.tree_flatten_with_path(cell.args)[0])
 print("RESULT " + json.dumps(out))
 """
 
@@ -155,7 +176,9 @@ from repro_torch.launch import hlo_stats
 from repro_torch.launch.cells import build_cell
 from repro_torch.launch.flops_probe import held_bytes, measure
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import convert
 from repro_torch.plan.costmodel import predict_bytes
+import math
 """ + _COMMON + r"""
 meshes = {}
 def mesh(ms):
@@ -217,7 +240,9 @@ for L in (1, 2, 3):
     model = cell.args[0].params
     cfg = model.cfg
     b, s = cell.args[1]["inputs"].shape
-    n = sum(p.numel() for p in model.parameters() if p.ndim >= 2)
+    # the matmul parameters of the whole model (the rank holds blocks)
+    n = sum(math.prod(s) for s in convert.logical_shapes(cfg).values()
+            if len(s) >= 2)
     out["flops"][L] = [m.flops, 6 * n * b * s + 12 * L * b * s * s
                        * cfg.n_heads * cfg.d_head]
 print("RESULT " + json.dumps(out))
@@ -377,13 +402,28 @@ def test_cell_argument_bytes_match_reference(runs):
     trees' local shapes give the reference's argument bytes exactly (its
     arguments' shard shapes: what ``memory_analysis`` reports; its smoke
     cells do not compile on 8 host devices, a ``DuplicateSpecError`` in
-    its lowering).  The port's rank holds more: whole parameters and
-    caches whole over "model" (README, deliberate differences)."""
+    its lowering).  The port's rank holds more: the dense weights whole
+    over "model" (no tensor parallelism), a serving cell's parameters
+    whole over "data" and its caches over "model" (README, deliberate
+    differences)."""
     ref, port = runs["ref"]["args"], runs["port"]["args"]
     assert set(port) == set(ref) and len(ref) == 32
     for key in ref:
         assert port[key] == ref[key], key
         assert runs["port"]["held"][key] >= ref[key], key
+
+
+def test_train_cell_state_bytes_match_the_layout_rule(runs):
+    """Every train cell on the fake (2, 4) mesh holds exactly the layout
+    rule's bytes (``train_step.shard_state_``): the reference's argument
+    shard shapes with ``param_specs``' tensor-parallel "model" entries
+    taken whole, the MoE experts split over "model", every "data" entry
+    kept; the batch its data shard."""
+    rule, held = runs["ref"]["rule"], runs["port"]["held"]
+    assert rule and len(rule) == sum(k.endswith("train_4k") for k in held)
+    for key in rule:
+        assert held[key] == rule[key], (key, held[key], rule[key])
+        assert held[key] >= runs["ref"]["args"][key], key
 
 
 # -- (8) the CLI ------------------------------------------------------------

@@ -1237,13 +1237,22 @@ def scenario_train_mesh(rank, d, params):
     """Eight ranks: the gradients of ring attention and of the
     expert-parallel MoE on mesh (2, 4) (each rank's input gradient block,
     the weight gradients summed over "model"); the mesh train step of
-    ``params["steps"]``' cases on (2, 4), each rank on its data shard;
-    the elastic rescale, two steps on (2, 4), a checkpoint, a restore
-    onto (4, 2) and two more steps; a MoE state holding the rank's own
-    experts saved on (2, 4) and restored onto (4, 2).  Arrays go to
-    ``<d>/rank<r>.npz`` (``<d>/rank<r>_<case>.npz`` for the states, rank
-    0's only); the JSON holds the losses and per-step parameter CRCs."""
+    ``params["steps"]``' cases on (2, 4) (or the case's ``"mesh"``), each
+    rank on its data shard;
+    the same from a state cut by ``shard_state_`` (FSDP) on each of
+    ``params["fsdp"]``' meshes, each rank's first-step gradient blocks
+    and held shapes recorded, and the state of ``params["int8_ckpt"]``'s
+    case saved and restored onto (4, 2) as the rank's blocks (error
+    feedback included); the elastic rescale, two steps on (2, 4),
+    a checkpoint, a restore onto (4, 2) and two more steps, from a whole
+    state and from a sharded one (its restored blocks recorded, its save
+    compared byte for byte with that of the same state held whole); a
+    MoE state holding the rank's own experts saved on (2, 4) and
+    restored onto (4, 2).  Arrays go to ``<d>/rank<r>.npz``
+    (``<d>/rank<r>_<case>.npz`` for the states, rank 0's only); the JSON
+    holds the losses and per-step parameter CRCs."""
     import copy
+    import zlib
 
     import torch
     import torch.distributed as dist
@@ -1251,6 +1260,7 @@ def scenario_train_mesh(rank, d, params):
     from repro_torch.core.comm import label_to_cfg
     from repro_torch.models import attention as attn
     from repro_torch.models import convert, moe
+    from repro_torch.models.common import replace_param_
     from repro_torch.models.transformer import Transformer
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train_step as ts
@@ -1296,7 +1306,10 @@ def scenario_train_mesh(rank, d, params):
         for layout in ("all", "own"):
             m = copy.deepcopy(model.layers[0].moe)
             if layout == "own":
-                moe.own_experts_(m, 4, mr)
+                for name in ("w_in", "w_gate", "w_out"):
+                    if hasattr(m, name):
+                        replace_param_(m, name, getattr(m, name).detach()[
+                            mr * e_loc:(mr + 1) * e_loc].clone())
             x = x0.clone().requires_grad_()
             o, _ = moe.moe_block(m, cfg, x, label_to_cfg(label), mesh)
             (o * ct).sum().backward()
@@ -1327,9 +1340,10 @@ def scenario_train_mesh(rank, d, params):
         return {n for n, p in state.params.named_parameters()
                 if ts.expert_block(n, p, state.params.cfg)}
 
-    def run(state, cfg, adam, on, batches, rec):
-        step = ts.train_step_fn(cfg, adam, mesh=on)
-        for name in batches:
+    def run(state, cfg, adam, on, batches, rec, on_grads=None):
+        for i, name in enumerate(batches):
+            step = ts.train_step_fn(cfg, adam, mesh=on,
+                                    on_grads=on_grads if i == 0 else None)
             state, met = step(state, ts.data_shard(batch(name), on))
             rec["loss"].append(float(met["loss"]))
             rec["crc"].append(_params_crc(state.params, blocks_of(state)))
@@ -1340,15 +1354,66 @@ def scenario_train_mesh(rank, d, params):
             np.savez(os.path.join(d, f"rank0_{case}.npz"), **_flat_tree(
                 {"params": tree[0], "m": tree[1]["m"], "v": tree[1]["v"]}))
 
+    meshes = {(2, 4): mesh, (4, 2): _mesh((4, 2), ("data", "model")),
+              (2, 2, 2): _mesh((2, 2, 2), ("pod", "data", "model"))}
+    mesh_b = meshes[(4, 2)]
+    shape_b = {"data": 4, "model": 2}
     for case, spec in params["steps"].items():
+        on = meshes[tuple(spec.get("mesh", (2, 4)))]
         cfg, state = state_of(spec["model"], spec["compress"])
-        if spec.get("own"):
-            ts.own_experts_(state, mesh)
         adam = opt.AdamWConfig(grad_compress="int8" if spec["compress"]
                                else "none")
         rec = out["steps"][case] = {"loss": [], "crc": []}
-        state = run(state, cfg, adam, mesh, spec["batches"], rec)
-        save_rank0(case, convert.to_reference(state, mesh))
+        state = run(state, cfg, adam, on, spec["batches"], rec)
+        save_rank0(case, convert.to_reference(state, on))
+
+    # FSDP: the same steps from a state of the rank's blocks
+    out["fsdp"] = {}
+    for case, spec in params["fsdp"].items():
+        on = meshes[tuple(spec["mesh"])]
+        cfg, state = state_of(spec["model"], spec["compress"])
+        ts.shard_state_(state, on)
+        rec = out["fsdp"][case] = {
+            "loss": [], "crc": [], "data": on.get_local_rank("data"),
+            "model": on.get_local_rank("model"),
+            "held": {key: {n: list(t.shape) for n, t in tree.items()}
+                     for key, tree in (
+                         ("params", dict(state.params.named_parameters())),
+                         ("m", state.opt_state["m"]),
+                         ("v", state.opt_state["v"]),
+                         ("err_fb", state.err_fb or {}))}}
+
+        def keep(grads, case=case):
+            for n, g in grads.items():
+                arrays[f"{case}/{n}"] = g.numpy().copy()
+        adam = opt.AdamWConfig(grad_compress="int8" if spec["compress"]
+                               else "none")
+        state = run(state, cfg, adam, on, spec["batches"], rec, keep)
+        whole = convert.to_reference(state, on)
+        rec["whole_crc"] = zlib.crc32(b"".join(
+            a.tobytes() for a in _flat_tree(
+                {"params": whole[0], "m": whole[1]["m"],
+                 "v": whole[1]["v"]}).values()))
+        save_rank0(case, whole)
+        if case == params["int8_ckpt"]:
+            # the sharded state, error feedback and all, saved and
+            # restored onto (4, 2) as the rank's blocks
+            ck_dir = os.path.join(d, "int8_ck")
+            ck.save(ck_dir, 3, whole, mesh=on)
+            if rank == 0:
+                np.savez(os.path.join(d, "rank0_int8_ckpt.npz"),
+                         **_flat_tree({"err_fb": whole[2]}))
+            tree = ck.restore(ck_dir, 3, ts.held_like(cfg, mesh_b, True),
+                              mesh=mesh_b, specs=ts.held_specs(cfg, shape_b))
+            restored = convert.from_reference(tree, cfg)
+            out["int8_ckpt"] = {key: {n: list(t.shape) for n, t in held}
+                                for key, held in (
+                ("params", restored.params.named_parameters()),
+                ("err_fb", restored.err_fb.items()))}
+            for key, t in (("params", tree[0]), ("m", tree[1]["m"]),
+                           ("v", tree[1]["v"]), ("err_fb", tree[2])):
+                for k, a in _flat_tree(t).items():
+                    arrays[f"int8_ckpt/{key}/{k}"] = a
 
     # the elastic rescale: (2, 4) -> checkpoint -> (4, 2)
     el = params["elastic"]
@@ -1358,13 +1423,44 @@ def scenario_train_mesh(rank, d, params):
     state = run(state, cfg, adam, mesh, el["batches"][:2], rec)
     ck_dir = os.path.join(d, "elastic_ck")
     ck.save(ck_dir, 2, convert.to_reference(state, mesh), mesh=mesh)
-    mesh_b = _mesh((4, 2), ("data", "model"))
-    shape_b = {"data": 4, "model": 2}
     tree = ck.restore(ck_dir, 2, convert.reference_like(cfg), mesh=mesh_b,
                       specs=ts.state_specs(cfg, shape_b))
     state = run(convert.from_reference(tree, cfg), cfg, adam, mesh_b,
                 el["batches"][2:], rec)
     save_rank0("elastic", convert.to_reference(state, mesh_b))
+
+    # the same from a sharded state, restored onto (4, 2) as the rank's
+    # blocks; its save against a save of the same state held whole
+    cfg, state = state_of(el["model"], False)
+    ts.shard_state_(state, mesh)
+    rec = out["elastic_fsdp"] = {"loss": [], "crc": []}
+    state = run(state, cfg, adam, mesh, el["batches"][:2], rec)
+    tree = convert.to_reference(state, mesh)
+    ck_dir = os.path.join(d, "elastic_fsdp_ck")
+    ck.save(ck_dir, 2, tree, mesh=mesh)
+    save_rank0("elastic_fsdp_saved", tree)
+    if rank == 0:
+        whole_dir = os.path.join(d, "elastic_whole_ck")
+        ck.save(whole_dir, 2, convert.to_reference(
+            convert.from_reference(tree, cfg)))
+        files = sorted(os.listdir(os.path.join(ck_dir, "step_2")))
+        rec["files"] = len(files)
+        rec["save_identical"] = files == sorted(os.listdir(os.path.join(
+            whole_dir, "step_2"))) and all(
+            open(os.path.join(ck_dir, "step_2", f), "rb").read()
+            == open(os.path.join(whole_dir, "step_2", f), "rb").read()
+            for f in files)
+    tree = ck.restore(ck_dir, 2, ts.held_like(cfg, mesh_b), mesh=mesh_b,
+                      specs=ts.held_specs(cfg, shape_b))
+    for key, t in (("params", tree[0]), ("m", tree[1]["m"]),
+                   ("v", tree[1]["v"])):
+        for k, a in _flat_tree(t).items():
+            arrays[f"elastic_fsdp/{key}/{k}"] = a
+    state = run(convert.from_reference(tree, cfg), cfg, adam, mesh_b,
+                el["batches"][2:], rec)
+    rec["held"] = {n: list(p.shape)
+                   for n, p in state.params.named_parameters()}
+    save_rank0("elastic_fsdp", convert.to_reference(state, mesh_b))
 
     # a state holding the rank's own experts: saved on (2, 4), restored
     # onto (4, 2), each rank given its new experts' rows
@@ -1378,8 +1474,7 @@ def scenario_train_mesh(rank, d, params):
     ck.save(ck_dir, 1, whole, mesh=mesh)
     save_rank0("own_ckpt", whole)
     with torch.device("meta"):
-        like = moe.own_experts_(Transformer(cfg), 2,
-                                mesh_b.get_local_rank("model"))
+        like = ts.shard_params_(Transformer(cfg), mesh_b, ("model",))
     tree = ck.restore(ck_dir, 1, convert.reference_like(like), mesh=mesh_b,
                       specs=ts.state_specs(cfg, shape_b))
     restored = convert.from_reference(tree, cfg)

@@ -233,7 +233,21 @@ Phases (each raises on failure; nothing is caught):
      expert-parallel MoE (moonshot-v1-16b-a3b's layer at full width, 16
      experts a rank) against _moe_local on each rank's tokens, float32,
      1e-4, its drop the blocks' mean, and the same from a module holding
-     only the rank's 16 experts (1e-4 of the first);
+     only the rank's 16 experts (1e-4 of the first); then the same four
+     ranks serve from sharded states (train_step.shard_params_: each
+     rank's block of every parameter over "data", its own experts over
+     "model"; prefill and decode_step on the mesh, each block gathered
+     whole for its step, one all-gather a block): qwen3-0.6b at full
+     width cut to 4 layers, float32, 4 x 512 prompts and 4 greedy decode
+     steps on mesh (2, 2) and on (4, 1), and moonshot-v1-16b-a3b at
+     full width cut to 1 layer, 32 own experts a rank, capacity factor
+     E / k, 4 x 256 prompts and 2 decode steps on (2, 2), each rank's
+     rows of every call's logits and of the last caches within 1e-4 of
+     the same model served whole on one process on the card (run first
+     and fed the same tokens), the ranks on one "data" coordinate
+     bit-equal; printed: the parameter bytes a rank against whole, the
+     prefill ms and decode ms a step, and the FSDP all-gathers' share
+     of each (timed with the card synchronised around each);
   8g. LM training on a mesh (repro_torch.training.train_step_fn(mesh=);
      no kernel of this script), four gloo ranks spawned on the card,
      float32 compute, TF32 off, after a memory reckoning per rank and
@@ -2306,6 +2320,19 @@ LM_SERVE_MOE_STRAY = 0.1
 # float32, on four gloo ranks, mesh (1, 4)
 LM_MESH_RING = (1, 4096)
 LM_MESH_MOE = (2, 2048)
+# the sharded serving legs on the same four ranks: (arch, config
+# overrides, global batch, prompt tokens, decode steps, the cut as
+# printed, the meshes); float32 compute, the MoE at a capacity factor of
+# E / k (a rank routes its data shard's tokens, one process all of
+# them).  Each leg's seed makes its weights on every rank and on the
+# one process that serves the model whole
+LM_SHARD_LEGS = (
+    ("qwen3-0.6b", {"n_layers": 4}, 4, 512, 4, "28 -> 4 layers",
+     ((2, 2), (4, 1))),
+    ("moonshot-v1-16b-a3b", {"n_layers": 1}, 4, 256, 2, "48 -> 1 layer",
+     ((2, 2),)),
+)
+LM_SHARD_SEEDS = (84, 85)
 
 
 def _rel(got, want) -> float:
@@ -2314,12 +2341,122 @@ def _rel(got, want) -> float:
                  / want.double().abs().max().clamp_min(1e-30))
 
 
-def _lm_mesh_rank(rank, world, d):
+def _lm_shard_cfg(leg):
+    """A sharded serving leg's config: float32 compute, an MoE at a
+    capacity factor of E / k."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, over = LM_SHARD_LEGS[leg][:2]
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                              **over)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def _lm_shard_whole(leg, dev):
+    """Leg ``leg`` served whole on one process: the prompt, prefill and
+    its decode steps, each step fed the greedy token of the call before.
+    Returns {"prompt", "tokens" (each step's input), "logits" (each
+    call's), "caches" (after the last step, {dotted name: tensor}),
+    "prefill_ms", "decode_ms"}, on the card."""
+    import torch
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    cfg = _lm_shard_cfg(leg)
+    b, p, n = LM_SHARD_LEGS[leg][2:5]
+    gen = torch.Generator(dev).manual_seed(LM_SHARD_SEEDS[leg])
+    model = tf.init_params(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    sync = torch.cuda.synchronize
+    sync()
+    t = time.perf_counter()
+    logits, caches = tf.prefill(model, prompt, max_len=p + n)
+    sync()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    out = {"prompt": prompt, "tokens": [], "logits": [logits]}
+    t = time.perf_counter()
+    for j in range(n):
+        tok = out["logits"][-1][:, -1:].argmax(dim=-1)
+        lg, caches = tf.decode_step(model, tok, caches, p + j)
+        out["tokens"].append(tok)
+        out["logits"].append(lg)
+    sync()
+    out["decode_ms"] = (time.perf_counter() - t) * 1e3 / n
+    out["prefill_ms"] = prefill_ms
+    out["caches"] = convert._dotted(caches)
+    del model
+    return out
+
+
+def _lm_shard_leg(leg, mesh, ref, dev, sync):
+    """Leg ``leg`` served on ``mesh`` from this rank's blocks
+    (``shard_params_``), fed the one process's tokens (``ref``), with the
+    FSDP collectives timed.  Returns the leg's record: its errors
+    against ``ref`` on the rank's rows, the logits' checksum, the held
+    and whole parameter bytes, ms and gather ms of prefill and of the
+    decode steps, and how many greedy tokens agree with ``ref``'s."""
+    import torch
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import DATA_AXES, mesh_coord
+    from repro_torch.training import train_step as ts
+    cfg = _lm_shard_cfg(leg)
+    b, p, n = LM_SHARD_LEGS[leg][2:5]
+    model = ts.shard_params_(tf.init_params(torch.Generator(dev).manual_seed(
+        LM_SHARD_SEEDS[leg]), cfg), mesh)
+    idx, count = mesh_coord(mesh, DATA_AXES)
+    rows = slice(idx * (b // count), (idx + 1) * (b // count))
+    rec = {"data": idx, "held_bytes": sum(
+        q.numel() * q.element_size() for q in model.parameters()),
+        "whole_bytes": 4 * sum(math.prod(s) for s in
+                               convert.logical_shapes(cfg).values()),
+        "blocks": len(tf.held_axes(
+            model)), "decode_ms": [], "decode_gather_ms": []}
+    got = []
+    with tf.fsdp_timing() as secs:
+        sync()
+        t = time.perf_counter()
+        logits, caches = tf.prefill(model, ref["prompt"][rows], mesh=mesh,
+                                    max_len=p + n)
+        sync()
+        rec["prefill_ms"] = (time.perf_counter() - t) * 1e3
+        rec["prefill_gather_ms"] = secs["gather"] * 1e3
+        got.append(logits)
+        for j in range(n):
+            g0 = secs["gather"]
+            sync()
+            t = time.perf_counter()
+            lg, caches = tf.decode_step(model, ref["tokens"][j][rows],
+                                        caches, p + j, mesh=mesh)
+            sync()
+            rec["decode_ms"].append((time.perf_counter() - t) * 1e3)
+            rec["decode_gather_ms"].append((secs["gather"] - g0) * 1e3)
+            got.append(lg)
+    rec["logit_err"] = max(_rel(g, w[rows]) for g, w in
+                           zip(got, ref["logits"], strict=True))
+    rec["finite"] = all(bool(torch.isfinite(g).all()) for g in got)
+    mine = convert._dotted(caches)
+    rec["cache_err"] = max(_rel(mine[k], w[rows])
+                           for k, w in ref["caches"].items())
+    rec["same_keys"] = set(mine) == set(ref["caches"])
+    rec["argmax_agree"] = sum(
+        int((g[:, -1:].argmax(dim=-1) == t[rows]).sum())
+        for g, t in zip(got, ref["tokens"]))
+    rec["sum"] = _lm_tm_checksum({str(j): g for j, g in enumerate(got)})
+    del model, caches, got
+    return rec
+
+
+def _lm_mesh_rank(rank, world, d, refs):
     """One of phase 8f's four gloo ranks on the one card, mesh (1, 4):
     ring attention on the rank's sequence block and the expert-parallel
     MoE on its token block, each beside the single-process path on the
-    same inputs (the whole attention; ``_moe_local`` on the block).
-    Writes ``<d>/rank<rank>.json``."""
+    same inputs (the whole attention; ``_moe_local`` on the block); then
+    each sharded serving leg (``LM_SHARD_LEGS``) on each of its meshes
+    against the one process's ``refs`` (shared by CUDA IPC).  Writes
+    ``<d>/rank<rank>.json``."""
     sys.path.insert(0, str(ROOT / "src"))
     import dataclasses
     import torch
@@ -2394,8 +2531,25 @@ def _lm_mesh_rank(rank, world, d):
         out["own_err"] = _rel(moe.moe_block(own, mcfg, x, None, mesh)[0],
                               got)
         out["ep_drop"], out["local_drop"] = float(drop), float(wdrop)
+    del m, own, x, got, want
+    gc.collect()
+
+    # serving from sharded states
+    out["shard"] = {}
+    for leg, spec in enumerate(LM_SHARD_LEGS):
+        for shape in spec[6]:
+            smesh = init_device_mesh(dev.type, shape,
+                                     mesh_dim_names=("data", "model"))
+            out["shard"][f"{leg}/{shape}"] = _lm_shard_leg(
+                leg, smesh, refs[leg], dev, sync)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     with open(Path(d) / f"rank{rank}.json", "w") as fh:
         json.dump(out, fh)
+    # the shared references go back before the producer frees them
+    refs.clear()
+    gc.collect()
     dist.barrier()
     dist.destroy_process_group()
 
@@ -2736,13 +2890,21 @@ def _lm_serve_phase(dev, smi):
     # -- 4. ring attention and the expert-parallel MoE on four ranks -------
     gc.collect()
     torch.cuda.empty_cache()
+    # the sharded serving legs' models served whole on this process
+    whole = [_lm_shard_whole(leg, dev) for leg in range(len(LM_SHARD_LEGS))]
+    refs = [{k: v for k, v in w.items() if not k.endswith("_ms")}
+            for w in whole]
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         with open(Path(d) / "params.json", "w") as fh:
             json.dump({"device": str(dev), "ring": LM_MESH_RING,
                        "moe": LM_MESH_MOE}, fh)
         t1 = time.perf_counter()
-        mp.start_processes(_lm_mesh_rank, args=(4, d), nprocs=4,
+        mp.start_processes(_lm_mesh_rank, args=(4, d, refs), nprocs=4,
                            start_method=DIST_START)
+        del refs
+        torch.cuda.ipc_collect()
         ranks = []
         for r in range(4):
             # written by this phase's own ranks just above
@@ -2779,6 +2941,49 @@ def _lm_serve_phase(dev, smi):
           f"{top('single_ms'):.1f}, expert-parallel {top('ep_ms'):.1f} "
           f"/ local {top('local_ms'):.1f} (gloo stages through the host: "
           f"no communication figure); ranks {t_ranks:.1f} s; card: {smi}")
+    for leg, spec in enumerate(LM_SHARD_LEGS):
+        arch, _, b, p, n, cut, shapes = spec
+        w = whole[leg]
+        for shape in shapes:
+            res = [r["shard"][f"{leg}/{shape}"] for r in ranks]
+            for r, rec in enumerate(res):
+                peer = next(q for q in res if q["data"] == rec["data"])
+                if not (rec["finite"] and rec["same_keys"]
+                        and rec["blocks"] > 0) \
+                        or rec["logit_err"] > LM_CARD_TOL \
+                        or rec["cache_err"] > LM_CARD_TOL \
+                        or rec["sum"] != peer["sum"]:
+                    raise AssertionError(f"LM_SERVE_SHARDED {arch} {shape} "
+                                         f"rank {r}: {rec}")
+            top = lambda k: max(rec[k] for rec in res)
+            dec = [max(rec["decode_ms"][j] for rec in res) for j in range(n)]
+            gat = [max(rec["decode_gather_ms"][j] for rec in res)
+                   for j in range(n)]
+            print(f"LM_SERVE_SHARDED {arch} ({cut}, full width, float32"
+                  + (", capacity factor E / k" if "moonshot" in arch else "")
+                  + f"), {b} x {p} prompts and {n} greedy decode steps on "
+                  f"mesh {shape}, four gloo ranks, each holding its blocks "
+                  f"by the layout rule: parameters "
+                  f"{top('held_bytes') / 2 ** 30:.3f} GiB a rank (the "
+                  f"largest) against "
+                  f"{res[0]['whole_bytes'] / 2 ** 30:.3f} GiB whole; every "
+                  f"call's logits within {top('logit_err'):.2e} and the "
+                  f"last caches within {top('cache_err'):.2e} of the model "
+                  f"served whole on one process (tolerance "
+                  f"{LM_CARD_TOL:.0e}), greedy tokens agreeing "
+                  f"{min(rec['argmax_agree'] for rec in res)} of "
+                  f"{n * b // shape[0]} a rank, ranks on one \"data\" "
+                  f"coordinate bit-equal; prefill {top('prefill_ms'):.1f} ms "
+                  f"(FSDP all-gathers {top('prefill_gather_ms'):.1f} ms, "
+                  f"{top('prefill_gather_ms') / top('prefill_ms'):.1%}) "
+                  f"against {w['prefill_ms']:.1f} ms whole; decode ms a step "
+                  f"{[round(x, 1) for x in dec]} (all-gathers "
+                  f"{[round(x, 1) for x in gat]} ms, "
+                  f"{sum(gat) / sum(dec):.1%}) against "
+                  f"{w['decode_ms']:.2f} ms whole (the slowest rank; gloo "
+                  f"through the host, timed with the card synchronised "
+                  f"around each gather); card: {smi}")
+    del whole
     print(f"LM serve phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
 
 

@@ -36,7 +36,10 @@ a dimension gets the rank's block there, over the mesh axes its spec
 (``train_step.state_specs``, ``convert.local_spec``'s tree) names, major
 first (``models.common.block_of``); every other leaf comes back whole.
 ``train_step.held_like(cfg, mesh)`` is the like-tree of the layout the
-port holds on a mesh.  A rank of ``DistributedPoissonSolver`` holds the
+port holds on a mesh, ``train_step.held_params_like(cfg, mesh)`` that
+of the parameters alone, which a rank serves from: it restores the
+parameters of a training state's checkpoint, saved by the FSDP trainer
+or whole.  A rank of ``DistributedPoissonSolver`` holds the
 global field, so a solver's checkpoint restores onto any mesh as it is.
 """
 from __future__ import annotations
@@ -280,11 +283,24 @@ def _block(arr, shape, spec, mesh, i):
         raise CheckpointError(f"leaf {i}: checkpoint {e}", leaf=i) from e
 
 
+def _params_first(stored: str, like: str) -> bool:
+    """Whether a checkpoint's tree (its manifest's ``treedef``) begins
+    with the tree ``like`` describes (a dict: a model's parameters), as
+    a training state does in either package's layout (its first field is
+    the parameters), so that ``like``'s leaves are its first leaves."""
+    inner = like[len("PyTreeDef("):-1]
+    at = stored.find("{")
+    return inner.startswith("{") and at >= 0 and stored.startswith(inner, at)
+
+
 def restore(directory, step, like_tree, mesh=None, specs=None):
     """Restore into the structure of ``like_tree``: each leaf on its
     like-leaf's device and in its dtype (a numpy like-leaf as numpy).
     With ``mesh`` and ``specs`` a like-leaf may be a block of the stored
-    leaf: the rank gets its block (``_block``).
+    leaf: the rank gets its block (``_block``).  A ``like_tree`` of a
+    model's parameters alone (``train_step.held_params_like`` to serve
+    from blocks) also restores from a checkpoint of a training state,
+    whose parameters it takes (``_params_first``).
 
     The manifest is validated against both the on-disk arrays and
     ``like_tree`` (leaf count, per-leaf shape) before anything is loaded;
@@ -292,10 +308,12 @@ def restore(directory, step, like_tree, mesh=None, specs=None):
     does a leaf whose bytes no longer match their digest."""
     path = os.path.join(directory, f"step_{step}")
     manifest = _validate_step(path)
-    leaves, _ = _flatten(like_tree)
+    leaves, treedef = _flatten(like_tree)
     spec_of = (_leaf_specs(like_tree, specs) if mesh is not None
                else [None] * len(leaves))
-    if manifest["n_leaves"] != len(leaves):
+    if manifest["n_leaves"] != len(leaves) and not (
+            manifest["n_leaves"] > len(leaves)
+            and _params_first(manifest["treedef"], treedef)):
         raise CheckpointError(
             f"tree structure changed: checkpoint has "
             f"{manifest['n_leaves']} leaves, restore target has "

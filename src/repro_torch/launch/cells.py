@@ -9,15 +9,16 @@ materialised; ``launch.flops_probe.measure`` runs the step under the
 counters.  The mesh's process group is the ``"fake"`` one of
 ``launch.mesh`` (or any other: every rank would run the same step).
 
-The rank holds what the port's step holds: its data shard of the batch,
-its caches, and on a train cell its block of the state by the layout
-rule (``training.train_step.shard_state_``: parameters, both moments
-and the error feedback over ``"data"`` where ``state_specs`` names it,
-the MoE's own ``E / n`` experts over ``"model"``); a prefill or decode
-cell holds the whole model.  The reference also shards the dense
-weights over ``"model"`` (tensor parallelism, which the port does not
-run); ``Cell.spec_bytes`` gives the bytes of the reference's layout (the
-spec trees' local shapes, what its
+The rank holds what the port's step holds: its data shard of the batch
+(and of a decode cell's caches), and its block of the state by the
+layout rule: on a train cell ``training.train_step.shard_state_``
+(parameters, both moments and the error feedback over ``"data"`` where
+``state_specs`` names it, the MoE's own ``E / n`` experts over
+``"model"``), on a prefill or decode cell ``shard_params_``, the same
+cut of the parameters alone.  The reference also shards the dense
+weights and the caches' kv heads over ``"model"`` (tensor parallelism,
+which the port does not run); ``Cell.spec_bytes`` gives the bytes of
+the reference's layout (the spec trees' local shapes, what its
 ``memory_analysis().argument_size_in_bytes`` measures), beside the
 port's ``launch.flops_probe.held_bytes(*cell.args)``.
 """
@@ -38,8 +39,9 @@ from repro_torch.models import convert
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import DATA_AXES, ModelConfig
 from repro_torch.training import optimizer as opt
-from repro_torch.training.train_step import (TrainState, shard_state_,
-                                             state_specs, train_step_fn)
+from repro_torch.training.train_step import (TrainState, shard_params_,
+                                             shard_state_, state_specs,
+                                             train_step_fn)
 
 __all__ = ["Cell", "build_cell", "model_flops", "spec_bytes"]
 
@@ -190,6 +192,8 @@ def build_cell(arch: str, shape_name: str, mesh,
             fn = train_step_fn(cfg, adam=adam, comm=comm, mesh=mesh)
             args = (state, batch)
         elif sh.kind == "prefill":
+            if mesh is not None:
+                shard_params_(model, mesh)
             leaves += inputs
             args = (model, tok(S)) + ((frontend,) if frontend is not None
                                       else ())
@@ -199,6 +203,8 @@ def build_cell(arch: str, shape_name: str, mesh,
                 return tf.forward(m, t, f, comm, mesh)
         else:
             # decode: one new token with caches of length S
+            if mesh is not None:
+                shard_params_(model, mesh)
             caches = tf.init_caches(cfg, b, S, device=device)
             whole = tf.init_caches(cfg, B, S, device="meta")   # global
             cspecs = tf.cache_specs(cfg, ms, whole, dp=dp)

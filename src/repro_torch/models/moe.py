@@ -20,6 +20,13 @@ autograd Function whose backward is the reverse switch under the same
 ``all_to_all``), so the path has gradients: the input's, the router's
 (this rank's tokens' share) and the experts' (every token routed to the
 rank's experts).
+
+A decode step's MoE (``moe_decode``) keeps its tokens on the rank: a
+module of the rank's own experts runs their slots and the outputs are
+summed over ``"model"``.  Its capacity comes from the rank's tokens, its
+data shard of the batch, where the reference's decode on a mesh routes
+the global batch: the two drop the same tokens only where no slot binds
+(a capacity factor of ``E / k``).
 """
 from __future__ import annotations
 
@@ -181,8 +188,8 @@ def _moe_shard(p, cfg: ModelConfig, x, comm, mesh):
 
 
 def _moe_local(p, cfg: ModelConfig, x):
-    """Single-device / decode MoE: returns (out (B, S, D), drop
-    fraction)."""
+    """Single-device MoE (and decode's, ``moe_decode``): returns (out
+    (B, S, D), drop fraction)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -194,6 +201,41 @@ def _moe_local(p, cfg: ModelConfig, x):
     out = _combine_local(y, book, gate, t, m.top_k)
     drop = 1.0 - book[1].float().mean()
     return out.reshape(b, s, d).to(x.dtype), drop
+
+
+def moe_decode(p, cfg: ModelConfig, x, mesh=None):
+    """The decode step's MoE: ``_moe_local``'s output on the rank's tokens
+    ``x`` (B, S, D), every rank of the ``"model"`` axis passing the same.
+    A module of all ``E`` experts runs ``_moe_local``.  One holding only
+    the rank's own ``E / n`` (``_local_experts``; the layout rule on a
+    mesh) routes and dispatches every token to all ``E`` experts' slots
+    as ``_moe_local`` does, runs its own experts' slots alone, combines
+    them (the other experts' slots zero) and sums the ``n`` ranks'
+    combined outputs over the axis: ``_moe_local``'s numbers at the same
+    capacity, summed in another order.  The capacity comes from the
+    rank's token count, as in ``_moe_local``."""
+    m = cfg.moe
+    if p.w_in.shape[0] == m.n_experts:
+        return _moe_local(p, cfg, x)[0]
+    if "model" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+        raise ValueError(f"moe_decode: the module holds "
+                         f"{p.w_in.shape[0]} of {m.n_experts} experts; "
+                         "decoding them needs the mesh's \"model\" axis")
+    group = mesh.get_group("model")
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    w_in, w_gate, w_out = _local_experts(p, m, n, r)
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    gate, idx = _route(p, m, xf)
+    capacity = int(t * m.top_k / m.n_experts * m.capacity_factor) + 1
+    buf, book = _dispatch_local(xf, idx, m.n_experts, capacity)
+    own = slice(r * w_in.shape[0], (r + 1) * w_in.shape[0])
+    y = torch.zeros_like(buf)
+    y[own] = _expert_ffn(cfg, buf[own], w_in, w_gate, w_out)
+    out = _combine_local(y, book, gate, t, m.top_k)
+    dist.all_reduce(out, group=group)
+    return out.reshape(b, s, d).to(x.dtype)
 
 
 def moe_block(p, cfg: ModelConfig, x, comm=None, mesh=None):

@@ -46,17 +46,24 @@ switches' backward passes are in ``attention`` and ``moe``.
 the sharded region used them.
 
 A model may hold blocks of its weights over ``"data"`` (FSDP,
-``training.train_step.shard_state_``), recognised by their shapes
-against the logical leaves (``held_axes``).  ``forward`` then gathers
-each block's weights whole inside its checkpointed region, one
-all-gather a block, and calls the block on them through
+``training.train_step.shard_state_`` or, for serving,
+``shard_params_``), recognised by their shapes against the logical
+leaves (``held_axes``).  ``forward`` and ``prefill`` then gather each
+block's weights whole inside its checkpointed region, one all-gather a
+block, and call the block on them through
 ``torch.func.functional_call`` (every parameter keeps its dotted
 name); the embedding and ``lm_head`` are gathered where they are used
 (a tied embedding at each of its two uses).  The gather's backward
 reduce-scatters the gradients over ``"data"`` (``_GatherData``).
-Every rank issues the gathers in the same order, forward and
+``decode_step`` gathers the same way, a block at a time, and runs the
+block's ``decode`` on its gathered weights; an MoE holding only its own
+experts decodes them and sums over ``"model"`` (``moe.moe_decode``).
+Every rank issues the gathers in the same order, forward, decode and
 recomputation alike.  ``fsdp_timing`` times the gathers and
-reduce-scatters where asked.
+reduce-scatters where asked.  A rank's caches are those of its data
+shard of the batch, every kv head whole (the reference splits the kv
+heads over ``"model"``, its tensor parallelism, which the port does
+not run).
 
 ``param_specs`` and ``cache_specs`` give the reference's partition-spec
 trees (``common.P``; stacked stacks with a leading ``None``);
@@ -81,7 +88,7 @@ from .attention import Attention
 from .common import (DATA_AXES, ModelConfig, Norm, P, act_fn, dense_init_,
                      embed_init_, initialise, is_gated, param,
                      sinusoidal_positions)
-from .moe import MoE, _moe_local, moe_block
+from .moe import MoE, moe_block, moe_decode
 from .rglru import RGLRU, init_rglru_cache, rglru_block, rglru_decode
 from .ssm import SSM, init_ssm_cache, ssm_block, ssm_decode
 
@@ -117,7 +124,8 @@ def _mlp(p, cfg, x):
 
 # ---------------------------------------------------------------------------
 # blocks: forward(x, positions, causal, prefix_len, x_enc, rope, comm, mesh,
-# collect) -> (x, aux, cache or None); decode(x, cache, pos) -> x
+# collect) -> (x, aux, cache or None); decode(x, cache, pos) -> x (the MoE
+# block's also takes the mesh)
 # ---------------------------------------------------------------------------
 
 def _zero(x):
@@ -262,9 +270,9 @@ class MoEBlock(nn.Module):
             out = _GatherSeq.apply(out, group)
         return x + out, aux.float(), cache
 
-    def decode(self, x, cache, pos):
+    def decode(self, x, cache, pos, mesh=None):
         x = _attend_decode(self, x, cache, pos)
-        return x + _moe_local(self.moe, self.cfg, self.ln2(x))[0]
+        return x + moe_decode(self.moe, self.cfg, self.ln2(x), mesh)
 
 
 class CrossBlock(nn.Module):
@@ -554,6 +562,30 @@ class _DataBlocks:
             return block(x, **kw)
         return torch.func.functional_call(block, whole, (x,), kw)
 
+    def decode(self, block, x, cache, pos, **kw):
+        """``block.decode(x, cache, pos, **kw)`` on its held weights
+        gathered whole, as ``call``: through ``_Decode``, whose forward
+        is the block's ``decode``, so that every parameter keeps its
+        dotted name and nothing is written back into the held block."""
+        whole = self._gather(block.named_parameters())
+        if not whole:
+            return block.decode(x, cache, pos, **kw)
+        return torch.func.functional_call(
+            _Decode(block), {"block." + n: t for n, t in whole.items()},
+            (x, cache, pos), kw)
+
+
+class _Decode(nn.Module):
+    """``block`` with its ``decode`` as the forward
+    (``torch.func.functional_call`` calls a module's forward)."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x, cache, pos, **kw):
+        return self.block.decode(x, cache, pos, **kw)
+
 
 # ---------------------------------------------------------------------------
 # top level
@@ -708,7 +740,9 @@ def prefill(model: Transformer, tokens, frontend=None, comm=None, mesh=None,
             max_len=None):
     """Prompt pass: logits + decode caches for ``max_len`` positions (the
     prompt's length by default), laid out as ``init_caches`` lays them
-    out, on the model's device."""
+    out, on the model's device.  On a mesh, ``tokens`` (and
+    ``frontend``) are the rank's data shard and the caches are that
+    shard's rows, as ``decode_step`` on the mesh takes them."""
     logits, _, caches = _forward_impl(model, tokens, frontend, comm, mesh,
                                       collect=True)
     s = logits.shape[1]
@@ -804,34 +838,43 @@ def decode_step(model: Transformer, token, caches, pos: int, comm=None,
                 mesh=None):
     """One serving step.  token: (B, 1) int; pos: the 0-based index of
     this token.  Updates ``caches`` in place and returns (logits (B, 1, V)
-    float32, caches).  ``comm`` and ``mesh`` are taken as the reference
-    takes them and unused: decode runs the local paths (the MoE's too)."""
+    float32, caches).  ``comm`` is taken as the reference takes it and
+    unused: decode runs the local paths.
+
+    On a mesh every rank passes its data shard of the tokens and its
+    caches for those rows (``prefill(mesh=)`` gives them).  Where the
+    model holds ``"data"`` blocks of its weights (FSDP), each block runs
+    on its weights gathered whole, one all-gather a block a step, every
+    rank in the same order, and the embedding and ``lm_head`` are
+    gathered where they are used, as in ``forward``; an MoE holding its
+    own ``E / n`` experts over ``"model"`` runs them on every token of
+    the rank and sums the experts' outputs over the axis
+    (``moe.moe_decode``)."""
     cfg = model.cfg
-    if held_axes(model):
-        raise NotImplementedError("decode_step: the model holds blocks of "
-                                  "its weights (a mesh's layout); decode "
-                                  "runs on whole weights")
-    x = _embed(model.embed, cfg, token)
+    fsdp = _DataBlocks(model, mesh)
+    x = _embed(fsdp.weight(model, "embed"), cfg, token)
     if cfg.family == "encdec":
         if not 0 <= pos < _SINUSOID_ROWS:
             raise IndexError(f"decode_step: position {pos} is past the "
                              f"{_SINUSOID_ROWS}-row sinusoidal table")
         x = x + sinusoidal_positions(1, cfg.d_model, x.device,
                                      start=pos).to(cfg.cdtype())[None]
+    kw = {"mesh": mesh} if cfg.family == "moe" else {}
     if cfg.family == "hybrid":
         n_groups, rem = _hybrid_layout(cfg)
         for g in range(n_groups):
             for i, kind in enumerate(cfg.hybrid.pattern):
                 key = kind + str(i)
-                x = model.groups[key][g].decode(x, caches["groups"][key][g],
-                                                pos)
+                x = fsdp.decode(model.groups[key][g], x,
+                                caches["groups"][key][g], pos)
         for i, kind in enumerate(rem):
             key = kind + str(i)
-            x = model.rem[key].decode(x, caches["rem"][key], pos)
+            x = fsdp.decode(model.rem[key], x, caches["rem"][key], pos)
     else:
         for block, cache in zip(model.layers, caches["layers"], strict=True):
-            x = block.decode(x, cache, pos)
-    return _logits(model, cfg, x, getattr(model, _head(cfg))), caches
+            x = fsdp.decode(block, x, cache, pos, **kw)
+    head = fsdp.weight(model, _head(cfg))
+    return _logits(model, cfg, x, head), caches
 
 
 # ---------------------------------------------------------------------------

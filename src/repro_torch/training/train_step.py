@@ -312,9 +312,11 @@ def _cut_(model, trees, mesh, axes):
 
 def shard_params_(model, mesh, axes=HELD_AXES):
     """``shard_state_`` (over ``axes``, ``("model",)`` for
-    ``own_experts_``) of the parameters alone: a model whose optimizer
-    state is made after the cut, or a restore target on the ``meta``
-    device.  Returns ``model``."""
+    ``own_experts_``) of the parameters alone, with no ``TrainState``
+    and no moments: a model to serve from its blocks
+    (``models.transformer.prefill`` and ``decode_step`` on ``mesh``), a
+    model whose optimizer state is made after the cut, or a restore
+    target on the ``meta`` device.  Returns ``model``."""
     _cut_(model, [], mesh, axes)
     return model
 
@@ -359,6 +361,16 @@ def held_specs(cfg: ModelConfig, mesh_shape: dict):
     the rank's blocks."""
     return dataclasses.replace(state_specs(cfg, mesh_shape),
                                err_fb=tf.param_specs(cfg, mesh_shape))
+
+
+def held_params_like(cfg: ModelConfig, mesh):
+    """The parameters alone of ``held_like``: a ``checkpoint.restore``
+    target for the blocks a rank serves from, with
+    ``specs=models.transformer.param_specs(cfg, mesh_shape)`` (the
+    parameters' entry of ``held_specs``), restored from a checkpoint of a
+    training state (the FSDP trainer's, or one saved whole) or of the
+    parameters alone."""
+    return held_like(cfg, mesh)[0]
 
 
 def _mesh_norm_and_amax(model, grads, mesh):

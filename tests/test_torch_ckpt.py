@@ -186,3 +186,36 @@ def test_checkpoints_cross_between_the_packages(tmp_path, kind):
     got = rck.restore(d_port, 4, _mixed_tree("numpy"))
     for g, want in zip(_flat_like(got), _flat_like(ref_tree)):
         assert _equal(np.asarray(g), want)
+
+
+@pytest.mark.parametrize("saver", ["port", "reference"])
+def test_parameters_restore_from_a_training_state(tmp_path, saver):
+    """A like-tree of a model's parameters alone (what a server restores)
+    takes the parameters of a training state's checkpoint, the port's
+    ``(params, {"m", "step", "v"}, err_fb)`` or the reference's
+    ``TrainState``, bit-equal; a like-tree that does not head the saved
+    tree still raises."""
+    import dataclasses
+    import jax
+    from repro.configs import get_smoke as rget_smoke
+    from repro.training import train_step as rts
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import convert
+    arch = "qwen3-0.6b"
+    rcfg = dataclasses.replace(rget_smoke(arch), compute_dtype="float32")
+    state = rts.make_train_state(jax.random.PRNGKey(0), rcfg)
+    state = jax.tree.map(np.asarray, state)
+    d = str(tmp_path)
+    if saver == "port":
+        ck.save(d, 2, (state.params, state.opt_state, state.err_fb))
+    else:
+        rck.save(d, 2, state)
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+    like = convert.reference_like(cfg)[0]
+    got = ck.restore(d, 2, like)
+    want = ck._flatten(state.params)[0]
+    assert len(want) > 2
+    for g, w in zip(ck._flatten(got)[0], want, strict=True):
+        assert _equal(g, w)
+    with pytest.raises(ck.CheckpointError, match="leaves"):
+        ck.restore(d, 2, {"w": np.zeros((4, 3))})

@@ -146,7 +146,7 @@ def rule_bytes(path, a):
         n *= d // c if d % c == 0 else d
     return n * np.dtype(a.dtype).itemsize
 
-out["rule"] = {}
+out["rule"], out["serve_rule"] = {}, {}
 for arch in LM_ARCHS:
     for sh in arch_shapes(arch):
         cell = build_cell(arch, sh.name, mesh((2, 4)),
@@ -159,6 +159,13 @@ for arch in LM_ARCHS:
             out["rule"][f"{arch}/{sh.name}"] = sum(
                 rule_bytes(path, a) for path, a in
                 jax.tree_util.tree_flatten_with_path(cell.args)[0])
+        else:
+            # a serving cell's parameters, tokens (frontend) and caches;
+            # the decode position is a Python int in the port's cell
+            args = cell.args[:3] if sh.kind == "decode" else cell.args
+            out["serve_rule"][f"{arch}/{sh.name}"] = sum(
+                rule_bytes(path, a) for path, a in
+                jax.tree_util.tree_flatten_with_path(args)[0])
 print("RESULT " + json.dumps(out))
 """
 
@@ -403,9 +410,8 @@ def test_cell_argument_bytes_match_reference(runs):
     arguments' shard shapes: what ``memory_analysis`` reports; its smoke
     cells do not compile on 8 host devices, a ``DuplicateSpecError`` in
     its lowering).  The port's rank holds more: the dense weights whole
-    over "model" (no tensor parallelism), a serving cell's parameters
-    whole over "data" and its caches over "model" (README, deliberate
-    differences)."""
+    over "model" (no tensor parallelism), and a decode cell's caches'
+    kv heads whole over "model" (README, deliberate differences)."""
     ref, port = runs["ref"]["args"], runs["port"]["args"]
     assert set(port) == set(ref) and len(ref) == 32
     for key in ref:
@@ -421,6 +427,22 @@ def test_train_cell_state_bytes_match_the_layout_rule(runs):
     kept; the batch its data shard."""
     rule, held = runs["ref"]["rule"], runs["port"]["held"]
     assert rule and len(rule) == sum(k.endswith("train_4k") for k in held)
+    for key in rule:
+        assert held[key] == rule[key], (key, held[key], rule[key])
+        assert held[key] >= runs["ref"]["args"][key], key
+
+
+def test_serving_cell_bytes_match_the_layout_rule(runs):
+    """Every prefill and decode cell on the fake (2, 4) mesh holds exactly
+    the layout rule's bytes (``train_step.shard_params_``): the
+    reference's parameter shard shapes with ``param_specs``'
+    tensor-parallel "model" entries taken whole, the MoE experts split
+    over "model", every "data" entry kept; the tokens (and frontend) its
+    data shard; a decode cell's caches its data shard of the batch, the
+    kv heads whole over "model"."""
+    rule, held = runs["ref"]["serve_rule"], runs["port"]["held"]
+    assert rule and set(rule) == {k for k in held
+                                  if not k.endswith("train_4k")}
     for key in rule:
         assert held[key] == rule[key], (key, held[key], rule[key])
         assert held[key] >= runs["ref"]["args"][key], key

@@ -1492,6 +1492,97 @@ def scenario_train_mesh(rank, d, params):
     return out
 
 
+def scenario_serve_sharded(rank, d, params):
+    """Eight ranks: each model of ``params["models"]`` served from its
+    blocks by the layout rule (``shard_params_``) on each mesh of
+    ``params["meshes"]``: ``prefill`` of the rank's data shard of the
+    prompt (and frontend) on the mesh, then ``decode_step`` on each of
+    the step tokens' shards; the logits of each call, the caches after
+    prefill and after the last step (the reference's layout), the number
+    of parameters held as blocks and a CRC of the logits go to
+    ``<d>/rank<r>.npz`` and the JSON.  Then the serving restore: an FSDP
+    train state of ``params["restore"]["model"]`` takes one step on
+    (2, 4) and is saved, and its parameters are saved alone; each
+    checkpoint is restored onto (4, 2) as serving blocks
+    (``held_params_like``, ``param_specs``) and served as above,
+    beside the same trained parameters cut there by ``shard_params_``."""
+    import zlib
+
+    import torch
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import DATA_AXES, mesh_coord
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    meshes = {tuple(m): _mesh(m, ("data", "model"))
+              for m in params["meshes"]}
+    arrays, out = {}, {}
+
+    def load(name):
+        f = np.load(os.path.join(d, name + ".npz"))
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+    def serve(model, case, mesh, key):
+        """Prefill and the decode steps on ``mesh``; records under
+        ``key``."""
+        inp = ts.data_shard(load(case["prompt"]), mesh)
+        logits, caches = tf.prefill(model, inp["tokens"], inp.get("frontend"),
+                                    mesh=mesh, max_len=case["max_len"])
+        got = [logits]
+        for k, a in _flat_tree(convert.caches_to_reference(caches)).items():
+            arrays[f"{key}/caches_prefill/{k}"] = a
+        n = logits.shape[1]
+        for j, name in enumerate(case["steps"]):
+            tok = ts.data_shard(load(name), mesh)["token"]
+            lg, caches = tf.decode_step(model, tok, caches, n + j, mesh=mesh)
+            got.append(lg)
+        for k, a in _flat_tree(convert.caches_to_reference(caches)).items():
+            arrays[f"{key}/caches/{k}"] = a
+        crc = 0
+        for j, lg in enumerate(got):
+            arrays[f"{key}/logits{j}"] = lg.numpy()
+            crc = zlib.crc32(lg.numpy().tobytes(), crc)
+        out[key] = {"data": mesh_coord(mesh, DATA_AXES)[0], "crc": crc,
+                    "blocks": len(tf.held_axes(model)),
+                    "held": {name: list(p.shape)
+                             for name, p in model.named_parameters()}}
+
+    with torch.no_grad():
+        for tag, spec in params["models"].items():
+            for shape, mesh in meshes.items():
+                cfg, model = _lm_model(d, tag, spec)
+                ts.shard_params_(model, mesh)
+                serve(model, params["cases"][tag], mesh,
+                      f"{tag}-{'x'.join(map(str, shape))}")
+
+    # the serving restore: (2, 4) FSDP training -> checkpoint -> (4, 2)
+    rs = params["restore"]
+    tag, on, to = rs["model"], meshes[(2, 4)], meshes[(4, 2)]
+    cfg, model = _lm_model(d, tag, params["models"][tag])
+    named = dict(model.named_parameters())
+    state = ts.shard_state_(ts.TrainState(model, opt.init_opt_state(named),
+                                          None), on)
+    state, _ = ts.train_step_fn(cfg, mesh=on)(state, ts.data_shard(
+        load(rs["batch"]), on))
+    whole = convert.to_reference(state, on)
+    ck.save(os.path.join(d, "state_ck"), 1, whole, mesh=on)
+    ck.save(os.path.join(d, "params_ck"), 1, whole[0], mesh=on)
+    shape_to = {"data": 4, "model": 2}
+    with torch.no_grad():
+        for name in ("state_ck", "params_ck"):
+            tree = ck.restore(os.path.join(d, name), 1,
+                              ts.held_params_like(cfg, to), mesh=to,
+                              specs=tf.param_specs(cfg, shape_to))
+            serve(convert.from_reference(tree, cfg), params["cases"][tag],
+                  to, f"restore-{name}")
+        serve(ts.shard_params_(convert.from_reference(whole[0], cfg), to),
+              params["cases"][tag], to, "restore-cut")
+    np.savez(os.path.join(d, f"rank{rank}.npz"), **arrays)
+    return out
+
+
 def _run_rank(rank, scenario, d, world):
     import torch
     import torch.distributed as dist

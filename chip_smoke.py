@@ -251,29 +251,42 @@ Phases (each raises on failure; nothing is caught):
   8g. LM training on a mesh (repro_torch.training.train_step_fn(mesh=);
      no kernel of this script), four gloo ranks spawned on the card,
      float32 compute, TF32 off, after a memory reckoning per rank and
-     for the four against the card, every state held by the layout rule
-     (train_step.shard_state_: the rank's block of every parameter and
-     both moments over "data", FSDP, its own experts over "model"; the
-     blocks gathered per block where used, their gradients
-     reduce-scattered): qwen3-0.6b at full width cut to 4 layers with
-     attn_ring, global batch 4 x 2048, two steps on mesh (2, 2), a
-     checkpoint saved whole from rank 0, a restore onto mesh (4, 1) as
-     each rank's blocks and a third step, another checkpoint, a restore
-     onto (1, 4) ("data" 1: the state whole) and a fourth step, against
-     four one-process steps on the same batches; moonshot-v1-16b-a3b at
-     full width cut to 1 layer, each rank holding its own 32 of the 64
-     experts with d_model split over "data", capacity factor E / k,
-     global batch 2 x 1024, two steps on mesh (2, 2), against one
-     process holding all 64 (run first and freed before the ranks
-     spawn).  Each batch's second half masks its last 256 positions.
-     Held: losses within 1e-5 relative, the first step's reduced
-     gradients (a rank's blocks against the matching slices) within
-     1e-4 of each leaf's largest, the dense model's last parameters
-     within 2e-5 |p| + 2e-6, the ranks on one "data" coordinate
-     bit-equal (but their own experts), the gathered parameters
-     bit-equal on every rank; printed: the state's bytes a rank against
-     whole, ms a step on the mesh and on one process, the seconds of
-     the FSDP all-gathers and reduce-scatters and their share of the
+     for the four against the card, every state held by the training
+     layout rule (train_step.shard_state_: the rank's block of every
+     parameter and both moments over "data", FSDP, and over "model" its
+     own experts and its tensor-parallel blocks of the attention heads,
+     the MLP's d_ff and the vocabulary; the "data" blocks gathered per
+     block where used, their gradients reduce-scattered, the "model"
+     blocks run Megatron-style, one all-reduce a region each way, the
+     ring's attention blocks gathered whole over "model"): qwen3-0.6b
+     at full width cut to 4 layers with attn_ring, global batch 4 x
+     2048, two steps on mesh (2, 2), a checkpoint saved whole from rank
+     0, a restore onto mesh (4, 1) as each rank's blocks and a third
+     step, another checkpoint, a restore onto (1, 4) and a fourth step,
+     against four one-process steps on the same batches; the same model
+     without attn_ring, a fresh state cut on (1, 4) and on (2, 2), two
+     steps each on the first two batches (the tensor-parallel leg, its
+     all-reduces timed), against the same one-process steps;
+     moonshot-v1-16b-a3b at full width cut to 1 layer, each rank
+     holding its own 32 of the 64 experts and its blocks of the
+     attention heads and the vocabulary, d_model split over "data",
+     capacity factor E / k, global batch 2 x 1024, two steps on mesh
+     (2, 2), against one process holding all 64 (run first and freed
+     before the ranks spawn).  Each batch's second half masks its last
+     256 positions.  Held: losses within 1e-5 relative, the first
+     step's reduced gradients (a rank's blocks against the matching
+     slices) within 1e-4 of each leaf's largest, the dense model's last
+     parameters (and the tensor-parallel leg's after its two steps)
+     within 2e-5 |p| + 2e-6, the tensor-parallel leg's state bytes a
+     rank within 0.0005 GiB of the prediction from the reference's
+     layout (LM_TM_TP_PREDICTED_GIB), the ranks on one "data"
+     coordinate bit-equal (but their blocks over "model"), the gathered
+     parameters bit-equal on every rank; printed: the state's bytes a
+     rank against whole, ms a step on the mesh and on one process, the
+     seconds of the FSDP all-gathers and reduce-scatters over "data"
+     and of the tensor-parallel collectives over "model" (the regions'
+     all-reduces, the ring's gathers of the attention's blocks and
+     reduce-scatters of their gradients), each with its share of the
      step, the gloo gradient reduction's share, each rank's peak
      memory_allocated, the checkpoints' save and restore seconds;
   8h. the dry run (repro_torch.launch.dryrun, cells, flops_probe,
@@ -2413,7 +2426,7 @@ def _lm_shard_leg(leg, mesh, ref, dev, sync):
         "whole_bytes": 4 * sum(math.prod(s) for s in
                                convert.logical_shapes(cfg).values()),
         "blocks": len(tf.held_axes(
-            model)), "decode_ms": [], "decode_gather_ms": []}
+            model, mesh)), "decode_ms": [], "decode_gather_ms": []}
     got = []
     with tf.fsdp_timing() as secs:
         sync()
@@ -2988,12 +3001,12 @@ def _lm_serve_phase(dev, smi):
 
 
 # the LM training-on-a-mesh phase (8g): four gloo ranks on the one card,
-# float32 compute, TF32 off, every state held by the layout rule
-# (train_step.shard_state_: FSDP over "data", the MoE's own experts over
-# "model").  (arch, config overrides, global batch, seq, the cut as
-# printed); the dense model takes two steps on the first mesh, a
-# checkpoint, a step on the second, a checkpoint and a step on the third
-# ("data" 1: the state whole again); the MoE model, at a capacity factor
+# float32 compute, TF32 off, every state held by the training layout
+# rule (train_step.shard_state_: FSDP over "data"; the MoE's own experts
+# and the tensor-parallel blocks over "model").  (arch, config
+# overrides, global batch, seq, the cut as printed); the dense model
+# takes two steps on the first mesh, a checkpoint, a step on the second,
+# a checkpoint and a step on the third; the MoE model, at a capacity factor
 # of E / k, takes LM_TM_MOE_STEPS steps on its mesh.  The second half of
 # each batch drops its last LM_TM_MASKED positions from the mask, so that
 # the shards' masks differ (the loss is over the global mask sum)
@@ -3006,6 +3019,20 @@ LM_TM_MOE = ("moonshot-v1-16b-a3b", {"n_layers": 1}, 2, 1024,
              "48 -> 1 layer")
 LM_TM_MOE_MESH = (2, 2)
 LM_TM_MOE_STEPS = 2
+# the tensor-parallel leg: the dense model without attn_ring, a fresh
+# state cut by the layout rule on each mesh, LM_TM_TP_STEPS steps on the
+# dense leg's first batches (the one process's run of the dense model
+# serves both legs: the ring changes none of its numbers), with its
+# tensor-parallel all-reduces timed (transformer.tp_timing)
+LM_TM_TP_MESHES = ((1, 4), (2, 2))
+LM_TM_TP_STEPS = 2
+# the state a rank of the tensor-parallel leg holds (parameters and two
+# moments, float32), predicted from the reference's layout (its
+# state_specs' local shapes) before the first run: GiB a mesh, held to
+# half of its last digit.  (The CPU test test_held_shapes_match_state_specs
+# in tests/test_torch_train_tp.py holds the port's rule against
+# state_specs leaf by leaf; this figure does not come from the port.)
+LM_TM_TP_PREDICTED_GIB = {(1, 4): 0.611, (2, 2): 0.611}
 LM_TM_MASKED = 256
 LM_TM_SEEDS = {"dense": 91, "moe": 92, "batch": 93}
 # held: each loss within LM_TM_LOSS_TOL relative of the one process's;
@@ -3015,14 +3042,16 @@ LM_TM_SEEDS = {"dense": 91, "moe": 92, "batch": 93}
 # LM_TM_RTOL |p| + LM_TM_ATOL, the reference elastic test's bound (with
 # warmup=100 the four steps' learning rates sum to 3e-5: the bound holds
 # each update's direction wherever the gradient is more than rounding);
-# the ranks on one "data" coordinate bit-equal (but their own experts),
-# the gathered parameters bit-equal on every rank
+# the ranks on one "data" coordinate bit-equal (but their blocks over
+# "model"), the gathered parameters bit-equal on every rank; the
+# tensor-parallel leg's parameters after its steps as the dense ones
 LM_TM_LOSS_TOL = 1e-5
 LM_TM_GRAD_TOL = 1e-4
 LM_TM_RTOL, LM_TM_ATOL = 2e-5, 2e-6
-# per rank, the float32 logits' bytes times this many in the reckoning:
-# the logits and their gradient (train_step._MaskedNLL writes the
-# gradient into one buffer, chunk by chunk)
+# per rank, the float32 logits' bytes (its block of the vocabulary)
+# times this many in the reckoning: the logits and their gradient
+# (train_step._MaskedNLL writes the gradient into one buffer, chunk by
+# chunk)
 LM_TM_LOGIT_COPIES = 2
 
 
@@ -3119,7 +3148,7 @@ def _lm_tm_grad_check(model, mesh, want, out):
 
     def check(grads):
         t = time.perf_counter()
-        held = tf.held_axes(model)
+        held = tf.held_axes(model, mesh)
         worst = (0.0, "")
         for n, g in grads.items():
             w = want[n]
@@ -3145,6 +3174,8 @@ def _lm_train_mesh_rank(rank, world, d, refs):
     # four ranks' states share the card: segments that grow in place
     # leave less of it reserved and unused between the two models
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import dataclasses
+
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -3174,17 +3205,16 @@ def _lm_train_mesh_rank(rank, world, d, refs):
     dense, moe_cfg = _lm_tm_cfgs()
     out = {}
 
-    def own(state, cfg):
-        """The rank's own experts' leaves (they differ over "model")."""
-        return {n for n, p in state.params.named_parameters()
-                if ts.expert_block(n, p, cfg)}
-
     def leg(state, cfg, mesh, batches, rec, on_grads=None):
         """Steps on ``batches`` from ``state`` on ``mesh``; records each
-        step's loss, ms, reduction and FSDP ms, checksum of the held
-        parameters (but the own experts) and "data" coordinate, then the
-        held state's bytes, the peak memory_allocated of the steps and
-        the gathered parameters' checksum."""
+        step's loss, ms, reduction ms, the ms of its FSDP collectives over
+        "data" and of its tensor-parallel ones over "model" (the regions'
+        all-reduces, the ring's gathers of the attention's blocks and
+        reduce-scatters of their gradients), checksum of the held
+        parameters (but the blocks over "model", which differ over the
+        axis) and "data" coordinate, then the held state's bytes, the
+        peak memory_allocated of the steps and the gathered parameters'
+        checksum."""
         rec["held_bytes"].append(_lm_tm_state_bytes(state))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -3193,15 +3223,18 @@ def _lm_train_mesh_rank(rank, world, d, refs):
                                     on_grads=on_grads if i == 0 else None)
             sync()
             t = time.perf_counter()
-            with tf.fsdp_timing() as fsdp_s:
+            with tf.fsdp_timing() as fsdp_s, tf.tp_timing() as tp_s:
                 state, m = step(state, ts.data_shard(b, mesh))
             rec["loss"].append(float(m["loss"]))
             rec["ms"].append((time.perf_counter() - t) * 1e3)
             rec["grad_reduce_ms"].append(float(m["grad_reduce_s"]) * 1e3)
             for k, secs in fsdp_s.items():
                 rec[k + "_ms"].append(secs * 1e3)
+            for k, secs in tp_s.items():
+                rec["tp_" + k + "_ms"].append(secs * 1e3)
             rec["sum"].append(_lm_tm_checksum(
-                dict(state.params.named_parameters()), own(state, cfg)))
+                dict(state.params.named_parameters()),
+                ts.model_blocks(state.params, mesh)))
             rec["data"].append(mesh.get_local_rank("data"))
         rec["peak_gib"].append(peak())
         rec["whole_sum"].append(_lm_tm_whole_checksum(state.params, cfg,
@@ -3210,8 +3243,26 @@ def _lm_train_mesh_rank(rank, world, d, refs):
 
     def record():
         return {k: [] for k in ("loss", "ms", "grad_reduce_ms", "gather_ms",
-                                "reduce_scatter_ms", "sum", "data",
-                                "held_bytes", "peak_gib", "whole_sum")}
+                                "reduce_scatter_ms", "tp_all_reduce_ms",
+                                "tp_gather_ms", "tp_reduce_scatter_ms",
+                                "sum", "data", "held_bytes", "peak_gib",
+                                "whole_sum")}
+
+    def param_diff(state, mesh, want):
+        """(largest |p - want| over the leaves, its largest share of the
+        bound LM_TM_RTOL |p| + LM_TM_ATOL), a rank's blocks on ``mesh``
+        against the matching slices of ``want`` (whole leaves on the
+        card)."""
+        held = tf.held_axes(state.params, mesh)
+        worst = diff = 0.0
+        for n, p in state.params.named_parameters():
+            w = want[n]
+            for axis, k in held.get(n, {}).items():
+                w = w.narrow(k, mesh.get_local_rank(axis) * p.shape[k],
+                             p.shape[k])
+            d_n, _, excess = _lm_tm_leaf_diff(p, w, LM_TM_RTOL, LM_TM_ATOL)
+            worst, diff = max(worst, excess), max(diff, d_n)
+        return diff, worst
 
     # -- the dense model: a leg a mesh, a checkpoint between two ---------
     gb, seq = LM_TM_DENSE[2:4]
@@ -3247,16 +3298,36 @@ def _lm_train_mesh_rank(rank, world, d, refs):
                                       refs["dense_grads"], out["dense_grad"])
                     if i == 0 else None)
         first += n
-    want = refs["dense_params"]
-    worst, diff = 0.0, 0.0
-    for n, p in state.params.named_parameters():
-        d_n, _, excess = _lm_tm_leaf_diff(p, want[n], LM_TM_RTOL, LM_TM_ATOL)
-        worst, diff = max(worst, excess), max(diff, d_n)
-    out["dense_param_excess"], out["dense_param_diff"] = worst, diff
-    del state, want, batches
+    out["dense_param_diff"], out["dense_param_excess"] = param_diff(
+        state, mesh, refs["dense_params"])
+    del state
+    batches = batches[:LM_TM_TP_STEPS]
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+    # -- the tensor-parallel leg: the dense model off the ring -------------
+    tp_cfg = dataclasses.replace(dense, attn_ring=False)
+    out["tp"] = {}
+    for shape in LM_TM_TP_MESHES:
+        mesh = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+        state = ts.shard_state_(ts.make_train_state(
+            torch.Generator(dev).manual_seed(LM_TM_SEEDS["dense"]), tp_cfg),
+            mesh)
+        key = "x".join(map(str, shape))
+        rec = out["tp"][key] = record()
+        rec["grad"] = []
+        rec["blocks"] = len(ts.model_blocks(state.params, mesh))
+        state = leg(state, tp_cfg, mesh, batches, rec,
+                    _lm_tm_grad_check(state.params, mesh,
+                                      refs["dense_grads"], rec["grad"]))
+        rec["param_diff"], rec["param_excess"] = param_diff(
+            state, mesh, refs["tp_params"])
+        del state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    del batches
 
     # -- the MoE model, each rank holding its blocks ------------------------
     gb, seq = LM_TM_MOE[2:4]
@@ -3264,11 +3335,12 @@ def _lm_train_mesh_rank(rank, world, d, refs):
     mesh_m = init_device_mesh(dev.type, LM_TM_MOE_MESH, mesh_dim_names=names)
     # cut before the moments are made: four whole states would not fit
     model = ts.shard_params_(tf.init_params(torch.Generator(dev).manual_seed(
-        LM_TM_SEEDS["moe"]), moe_cfg), mesh_m)
+        LM_TM_SEEDS["moe"]), moe_cfg), mesh_m, "train")
     named = dict(model.named_parameters())
     state = ts.TrainState(model, opt.init_opt_state(named), None)
     out["moe_rows"] = sorted({named[n].shape[0]
-                              for n in own(state, moe_cfg)})
+                              for n in ts.model_blocks(model, mesh_m)
+                              if convert.expert_weight(n)})
     out["moe_grad"] = []
     rec = out["moe"] = record()
     state = leg(state, moe_cfg, mesh_m, batches, rec,
@@ -3284,11 +3356,11 @@ def _lm_train_mesh_rank(rank, world, d, refs):
     dist.destroy_process_group()
 
 
-def _lm_tm_reference(cfg, batches, gen, keep_params):
+def _lm_tm_reference(cfg, batches, gen, keep_after=()):
     """The one-process run, a step on each batch.  Returns (losses, ms
-    per step, peak GiB, the first step's gradients, the last parameters
-    where ``keep_params``), the last two on the card, and frees the
-    state."""
+    per step, peak GiB, the first step's gradients, ``{k: the parameters
+    after step k}`` for each ``k`` of ``keep_after``), the last two on
+    the card, and frees the state."""
     import torch
     from repro_torch.training import train_step as ts
     torch.cuda.reset_peak_memory_stats()
@@ -3297,7 +3369,7 @@ def _lm_tm_reference(cfg, batches, gen, keep_params):
 
     def keep(g):
         grads.update({n: t.clone() for n, t in g.items()})
-    losses, ms = [], []
+    losses, ms, params = [], [], {}
     for i, b in enumerate(batches):
         step = ts.train_step_fn(cfg, on_grads=keep if i == 0 else None)
         torch.cuda.synchronize()
@@ -3305,9 +3377,9 @@ def _lm_tm_reference(cfg, batches, gen, keep_params):
         state, m = step(state, b)
         losses.append(float(m["loss"]))
         ms.append((time.perf_counter() - t) * 1e3)
-    params = ({n: p.detach().clone()
-               for n, p in state.params.named_parameters()}
-              if keep_params else None)
+        if i + 1 in keep_after:
+            params[i + 1] = {n: p.detach().clone()
+                             for n, p in state.params.named_parameters()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del state, step
     gc.collect()
@@ -3316,15 +3388,15 @@ def _lm_tm_reference(cfg, batches, gen, keep_params):
 
 
 def _lm_tm_held(cfg, shape):
-    """(parameters a rank holds on a mesh of ``shape`` by the layout rule,
-    the largest group of weights one all-gather makes whole: a block's
-    or a top-level leaf's)."""
+    """(parameters a rank holds on a mesh of ``shape`` by the training
+    layout rule, the largest group of weights one all-gather over
+    "data" makes whole: a block's or a top-level leaf's, its blocks over
+    "model" staying blocks)."""
     import torch
-    from repro_torch.models import convert
     from repro_torch.models import transformer as tf
     from repro_torch.training import train_step as ts
-    held = ts.held_shapes(cfg, dict(zip(("data", "model"), shape)))
-    full = convert.logical_shapes(cfg)
+    sizes = dict(zip(("data", "model"), shape))
+    held = ts.held_shapes(cfg, sizes)
     with torch.device("meta"):
         model = tf.Transformer(cfg)
 
@@ -3339,13 +3411,8 @@ def _lm_tm_held(cfg, shape):
         return n
     groups = collections.Counter()
     for n, s in held.items():
-        # whole on the dimension split over "data"; an expert weight keeps
-        # the rank's own experts
-        split = [k for k in range(len(s)) if s[k] != full[n][k]
-                 and not (k == 0 and convert.expert_weight(n))]
-        if split:
-            groups[block(n)] += math.prod(
-                full[n][k] if k in split else s[k] for k in range(len(s)))
+        if "data" in tf.block_axes(n, s, cfg, sizes):
+            groups[block(n)] += math.prod(s) * sizes["data"]
     return (sum(math.prod(s) for s in held.values()),
             max(groups.values(), default=0))
 
@@ -3379,19 +3446,23 @@ def _lm_train_mesh_phase(dev, smi):
     lines, worst = [], 0
     for part, cfg, shape, batch, s in (
             [("dense", dense, m, gb, seq) for m in LM_TM_DENSE_MESHES]
+            + [("tp", dense, m, gb, seq) for m in LM_TM_TP_MESHES]
             + [("moe", moe_cfg, LM_TM_MOE_MESH, gb_m, seq_m)]):
         held, group = _lm_tm_held(cfg, shape)
-        act = LM_TM_LOGIT_COPIES * batch // shape[0] * s * cfg.vocab * 4
+        vocab = (cfg.vocab // shape[1] if cfg.vocab % shape[1] == 0
+                 else cfg.vocab)
+        act = LM_TM_LOGIT_COPIES * batch // shape[0] * s * vocab * 4
         per = max(16 * held + 8 * group + act,
-                  (12 if part == "dense" else 4) * cfg.n_params())
+                  (4 if part == "moe" else 12) * cfg.n_params())
         worst = max(worst, per)
         lines.append(f"{part} {shape}: {held} parameters held x 16 B "
                      f"{gib(16 * held):.2f} GiB + a gathered group of "
                      f"{group} x 8 B {gib(8 * group):.2f} GiB + logits "
                      f"{gib(act):.2f} GiB = {gib(per):.2f} GiB")
     # kept here for the ranks: the one process's first gradients of both
-    # models and the dense model's last parameters, float32
-    kept = 4 * (2 * n_dense + n_moe)
+    # models and the dense model's parameters after the tensor-parallel
+    # leg's steps and after the last, float32
+    kept = 4 * (3 * n_dense + n_moe)
     print(f"LM_TRAIN_MESH reckoning a rank (sharded states): dense "
           f"{LM_TM_DENSE[0]} ({LM_TM_DENSE[4]}, {n_dense} parameters), "
           f"MoE {LM_TM_MOE[0]} ({LM_TM_MOE[4]}, {n_moe} parameters): "
@@ -3409,14 +3480,16 @@ def _lm_train_mesh_phase(dev, smi):
         gen = torch.Generator(dev).manual_seed(LM_TM_SEEDS["dense"])
         ref["dense"] = _lm_tm_reference(
             dense, _lm_tm_batches(dense, sum(LM_TM_DENSE_STEPS), gb, seq,
-                                  dev), gen, True)
+                                  dev), gen,
+            (LM_TM_TP_STEPS, sum(LM_TM_DENSE_STEPS)))
         # the one process keeps all of the MoE's experts
         gen = torch.Generator(dev).manual_seed(LM_TM_SEEDS["moe"])
         ref["moe"] = _lm_tm_reference(
             moe_cfg, _lm_tm_batches(moe_cfg, LM_TM_MOE_STEPS, gb_m, seq_m,
-                                    dev), gen, False)
+                                    dev), gen)
         refs = {"dense_grads": ref["dense"][3],
-                "dense_params": ref["dense"][4],
+                "dense_params": ref["dense"][4][sum(LM_TM_DENSE_STEPS)],
+                "tp_params": ref["dense"][4][LM_TM_TP_STEPS],
                 "moe_grads": ref["moe"][3]}
         with open(d / "params.json", "w") as fh:
             json.dump({"device": str(dev)}, fh)
@@ -3479,6 +3552,9 @@ def _lm_train_mesh_phase(dev, smi):
         ms, red = col("ms"), col("grad_reduce_ms")
         fsdp = [a + b for a, b in zip(col("gather_ms"),
                                       col("reduce_scatter_ms"))]
+        tp = [a + b + c for a, b, c in zip(col("tp_all_reduce_ms"),
+                                           col("tp_gather_ms"),
+                                           col("tp_reduce_scatter_ms"))]
         losses, ref_ms, ref_peak = ref[part][:3]
         whole = 12 * cfg.n_params()
         print(f"LM_TRAIN_MESH {part} {spec[0]} ({spec[4]}, full width), "
@@ -3500,13 +3576,21 @@ def _lm_train_mesh_phase(dev, smi):
               f"{[round(x, 1) for x in ref_ms]} (the first keeping its "
               f"gradients); the check took "
               f"{max(r[part + '_grad'][2] for r in ranks):.1f} ms of the "
-              f"first mesh step; the FSDP all-gathers "
+              f"first mesh step; the FSDP all-gathers over \"data\" "
               f"{[round(x, 1) for x in col('gather_ms')]} ms and "
               f"reduce-scatters "
               f"{[round(x, 1) for x in col('reduce_scatter_ms')]} ms (gloo, "
               f"host-staged, timed with the card synchronised around "
               f"each), together "
               f"{[f'{a / b:.1%}' for a, b in zip(fsdp, ms)]} of the step; "
+              f"the tensor-parallel collectives over \"model\": "
+              f"all-reduces {[round(x, 1) for x in col('tp_all_reduce_ms')]}"
+              f" ms, the ring's gathers of the attention's blocks "
+              f"{[round(x, 1) for x in col('tp_gather_ms')]} ms and "
+              f"reduce-scatters of their gradients "
+              f"{[round(x, 1) for x in col('tp_reduce_scatter_ms')]} ms "
+              f"(timed alike), together "
+              f"{[f'{a / b:.1%}' for a, b in zip(tp, ms)]} of the step; "
               f"the gradient reduction after the backward "
               f"{[round(x, 1) for x in red]} ms, "
               f"{[f'{a / b:.1%}' for a, b in zip(red, ms)]}; peak "
@@ -3525,8 +3609,90 @@ def _lm_train_mesh_phase(dev, smi):
           f"bound {LM_TM_RTOL:.0e} |p| + {LM_TM_ATOL:.0e}); the MoE ranks "
           f"hold {ranks[0]['moe_rows'][0]} experts each; ranks "
           f"{t_ranks:.1f} s")
+    _lm_tm_tp_report(ranks, ref["dense"], dense, smi)
     print(f"LM train mesh phase: {time.perf_counter() - t0:.1f} s; card: "
           f"{smi}")
+
+
+def _lm_tm_tp_report(ranks, ref, cfg, smi):
+    """Phase 8g's tensor-parallel leg: its checks against the one process
+    (``ref``, ``_lm_tm_reference``'s of the dense model) and its line a
+    mesh.  Raises on the first failed check."""
+    gib = lambda b: b / 2 ** 30
+    losses, ref_ms, ref_peak = ref[0][:LM_TM_TP_STEPS], ref[1], ref[2]
+    for shape in LM_TM_TP_MESHES:
+        key = "x".join(map(str, shape))
+        res = [r["tp"][key] for r in ranks]
+        predicted = LM_TM_TP_PREDICTED_GIB[shape]
+        for r, rec in enumerate(res):
+            errs = [abs(g - w) / abs(w) for g, w in zip(rec["loss"], losses)]
+            if len(rec["loss"]) != len(losses) or \
+                    not all(math.isfinite(g) for g in rec["loss"]) or \
+                    max(errs) > LM_TM_LOSS_TOL:
+                raise AssertionError(f"LM_TRAIN_TP {key} rank {r}: losses "
+                                     f"{rec['loss']} against {losses}")
+            if rec["grad"][0] > LM_TM_GRAD_TOL:
+                raise AssertionError(f"LM_TRAIN_TP {key} rank {r}: the first "
+                                     f"step's gradient of {rec['grad'][1]} "
+                                     f"{rec['grad'][0]:.2e} off")
+            if rec["param_excess"] > 1.0:
+                raise AssertionError(f"LM_TRAIN_TP {key} rank {r}: the "
+                                     f"parameters {rec['param_diff']:.2e} "
+                                     f"off, {rec['param_excess']:.2f} x the "
+                                     f"bound")
+            if len(rec["held_bytes"]) != 1 or \
+                    abs(gib(rec["held_bytes"][0]) - predicted) > 5e-4 or \
+                    not rec["blocks"]:
+                raise AssertionError(f"LM_TRAIN_TP {key} rank {r}: state "
+                                     f"{rec['held_bytes']} B, predicted "
+                                     f"{predicted} GiB; {rec['blocks']} "
+                                     f"blocks")
+            for i, (c, peer) in enumerate(zip(rec["data"], rec["sum"])):
+                first = next(p for p in res if p["data"][i] == c)
+                if peer != first["sum"][i]:
+                    raise AssertionError(f"LM_TRAIN_TP {key} rank {r} step "
+                                         f"{i}: its whole leaves differ "
+                                         f"from its \"data\" coordinate's")
+            if rec["whole_sum"] != res[0]["whole_sum"]:
+                raise AssertionError(f"LM_TRAIN_TP {key} rank {r}: its "
+                                     f"gathered parameters differ")
+        col = lambda k: [max(rec[k][i] for rec in res)
+                         for i in range(len(res[0][k]))]
+        ms, tp_ms = col("ms"), col("tp_all_reduce_ms")
+        print(f"LM_TRAIN_TP {LM_TM_DENSE[0]} "
+              f"({LM_TM_DENSE[4]}, full width, attn_ring off), float32, "
+              f"global batch {LM_TM_DENSE[2]} x seq {LM_TM_DENSE[3]}, mesh "
+              f"{shape} (\"data\", \"model\"), {res[0]['blocks']} leaves "
+              f"held as blocks over \"model\" (heads, d_ff, vocabulary): "
+              f"state a rank (parameters, two moments) "
+              f"{gib(res[0]['held_bytes'][0]):.6f} GiB against the "
+              f"prediction {predicted:.3f} GiB (the reference layout's), "
+              f"whole "
+              f"{gib(12 * cfg.n_params()):.3f} GiB; losses "
+              f"{[round(x, 6) for x in res[0]['loss']]} within "
+              f"{max(abs(g - w) / abs(w) for g, w in zip(res[0]['loss'], losses)):.2e}"
+              f" of the one process's (tolerance {LM_TM_LOSS_TOL:.0e}); "
+              f"the first step's gradient blocks within "
+              f"{max(rec['grad'][0] for rec in res):.2e} (worst leaf "
+              f"{max(rec['grad'] for rec in res)[1]}, tolerance "
+              f"{LM_TM_GRAD_TOL:.0e}); the parameters after "
+              f"{LM_TM_TP_STEPS} steps within "
+              f"{max(rec['param_diff'] for rec in res):.2e} "
+              f"({max(rec['param_excess'] for rec in res):.3f} x the bound "
+              f"{LM_TM_RTOL:.0e} |p| + {LM_TM_ATOL:.0e}); ms a step "
+              f"{[round(x, 1) for x in ms]} (the slowest rank; the first "
+              f"with its gradient check, {max(rec['grad'][2] for rec in res):.1f}"
+              f" ms) against one process "
+              f"{[round(x, 1) for x in ref_ms[:LM_TM_TP_STEPS]]}; the "
+              f"tensor-parallel all-reduces {[round(x, 1) for x in tp_ms]} "
+              f"ms (gloo, host-staged, the card synchronised around each), "
+              f"{[f'{a / b:.1%}' for a, b in zip(tp_ms, ms)]} of the step; "
+              f"the FSDP gathers and reduce-scatters "
+              f"{[round(a + b, 1) for a, b in zip(col('gather_ms'), col('reduce_scatter_ms'))]}"
+              f" ms; the gradient reduction "
+              f"{[round(x, 1) for x in col('grad_reduce_ms')]} ms; peak "
+              f"memory_allocated {max(col('peak_gib')):.3f} GiB (the "
+              f"largest rank), one process {ref_peak:.3f} GiB; card: {smi}")
 
 
 # the dry-run phase (8h): the CLI's cells on fake ranks, and the

@@ -27,7 +27,8 @@ device and in its dtype (a numpy like-leaf as numpy).
 
 A training state on a mesh is saved whole: ``models.convert.to_reference(
 state, mesh)`` gathers the leaves a rank holds a block of (its
-``"data"`` blocks, its own ``E / n`` experts' rows over ``"model"``),
+``"data"`` blocks, its own ``E / n`` experts' rows and its
+tensor-parallel blocks over ``"model"``),
 and ``save(..., mesh=mesh)`` writes each leaf's full logical array once,
 from the mesh's lowest rank, every rank returning once it is committed.
 ``restore(..., mesh=mesh, specs=specs)`` is the counterpart of the

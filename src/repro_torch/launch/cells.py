@@ -13,12 +13,15 @@ The rank holds what the port's step holds: its data shard of the batch
 (and of a decode cell's caches), and its block of the state by the
 layout rule: on a train cell ``training.train_step.shard_state_``
 (parameters, both moments and the error feedback over ``"data"`` where
-``state_specs`` names it, the MoE's own ``E / n`` experts over
-``"model"``), on a prefill or decode cell ``shard_params_``, the same
-cut of the parameters alone.  The reference also shards the dense
-weights and the caches' kv heads over ``"model"`` (tensor parallelism,
-which the port does not run); ``Cell.spec_bytes`` gives the bytes of
-the reference's layout (the spec trees' local shapes, what its
+``state_specs`` names it; over ``"model"`` the MoE's own ``E / n``
+experts and the tensor-parallel blocks of the attention heads, the
+MLP's ``d_ff`` and the vocabulary, the SSM's and the RG-LRU's entries
+whole, ROADMAP item 6d), on a prefill or decode cell ``shard_params_``
+by the ``"fsdp"`` layout, the parameters alone with the tensor-parallel
+entries and the caches' kv heads whole over ``"model"`` (ROADMAP item
+6c).
+``Cell.spec_bytes`` gives the bytes of the reference's layout (the spec
+trees' local shapes, what its
 ``memory_analysis().argument_size_in_bytes`` measures), beside the
 port's ``launch.flops_probe.held_bytes(*cell.args)``.
 """

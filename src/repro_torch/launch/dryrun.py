@@ -35,11 +35,14 @@ from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16, link_bandwidth,
                                      make_production_mesh)
 
 MEMORY_NOTE = ("eager torch, no generated code; argument: the bytes this "
-               "rank holds (its state by the layout rule: FSDP over data, "
-               "the dense weights and the caches' kv heads whole over "
-               "model; a serving cell's parameters alone), spec_argument: "
-               "the reference's sharded layout; temp: the peak of the "
-               "live bytes the step allocates, less its outputs")
+               "rank holds (a train cell's state by the training layout "
+               "rule: FSDP over data, tensor and expert parallelism over "
+               "model, the SSM's and RG-LRU's model entries whole; a "
+               "serving cell's parameters by the fsdp layout, the dense "
+               "weights and the caches' kv heads whole over model), "
+               "spec_argument: the reference's sharded layout; temp: the "
+               "peak of the live bytes the step allocates, less its "
+               "outputs")
 
 
 def roofline_terms(flops, bytes_acc, coll_bytes, n_chips, link_bw):

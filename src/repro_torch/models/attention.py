@@ -9,7 +9,10 @@ the cache is not copied each step.  ``attention_ring`` runs over the
 ``"model"`` axis of a ``DeviceMesh`` with point-to-point sends, each ring
 shift a pair of autograd Functions whose backward sends the gradient
 round the ring the other way (the transpose JAX derives for the
-reference's ``ppermute``).
+reference's ``ppermute``).  Under tensor parallelism ``attention`` and
+``attention_cross`` run on a module holding the rank's block of the
+heads and return its share of the output (``models.transformer`` sums
+it over ``"model"``); the ring takes the weights whole.
 """
 from __future__ import annotations
 
@@ -80,13 +83,20 @@ def _qkv(p, cfg: ModelConfig, x, positions, rope=True):
     return q, k, v
 
 
-def _sdpa(cfg: ModelConfig, q, k, v, mask):
+def _sdpa(cfg: ModelConfig, q, k, v, mask, q0=0):
     """q: (b,sq,h,dh), k/v: (b,sk,hkv,dh) -> (b,sq,h,dh).  Query head h
     reads kv head h // g; the softmax runs in float32 and its weights are
-    cast back to q's dtype."""
+    cast back to q's dtype.  Where ``q`` holds a block of the query heads
+    (tensor parallelism) whose groups the kv heads ``k``/``v`` do not
+    match, the kv heads whole, query head ``q0 + i`` reads kv head
+    ``(q0 + i) // g``, one kv head taken for each."""
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
-    g = h // hkv
+    g = cfg.n_heads // cfg.n_kv
+    if hkv * g != h:
+        idx = torch.arange(q0, q0 + h, device=q.device) // g
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+        hkv, g = h, 1
     qg = q.reshape(b, sq, hkv, g, dh)
     logits = torch.einsum("bqhgk,bshk->bhgqs", qg, k).float()
     logits = logits / math.sqrt(dh) + mask[:, None, None]
@@ -101,7 +111,7 @@ def _prefix(mask, k_pos, prefix_len):
 
 
 def _sdpa_chunked(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal,
-                  prefix_len=0):
+                  prefix_len=0, q0=0):
     """Exact chunked attention: a loop over static q blocks, each attending
     a static KV slice (causal upper bound / sliding window)."""
     b, s, h, dh = q.shape
@@ -119,23 +129,26 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal,
         if prefix_len:
             mask = _prefix(mask, k_pos[:, k_lo:k_hi], prefix_len)
         outs.append(_sdpa(cfg, q[:, lo:hi], k[:, k_lo:k_hi],
-                          v[:, k_lo:k_hi], mask))
+                          v[:, k_lo:k_hi], mask, q0))
     return torch.cat(outs, dim=1)
 
 
 def attention(p, cfg: ModelConfig, x, positions, causal=True, rope=True,
-              prefix_len=0, return_kv=False):
+              prefix_len=0, return_kv=False, q0=0):
     """Full (training / prefill) attention. x: (B, S, D).  With
-    ``return_kv`` also the post-RoPE ``(k, v)`` in the compute dtype."""
+    ``return_kv`` also the post-RoPE ``(k, v)`` in the compute dtype.
+    Where ``p`` holds a block of the heads (tensor parallelism; ``q0``
+    the global index of its first query head), the rank's heads' share of
+    the output, which the caller sums over ``"model"``."""
     q, k, v = _qkv(p, cfg, x, positions, rope)
     if cfg.attn_block and x.shape[1] > cfg.attn_block:
         o = _sdpa_chunked(cfg, q, k, v, positions, positions, causal,
-                          prefix_len)
+                          prefix_len, q0)
     else:
         mask = _mask(cfg, positions, positions, causal)
         if prefix_len:
             mask = _prefix(mask, positions, prefix_len)
-        o = _sdpa(cfg, q, k, v, mask)
+        o = _sdpa(cfg, q, k, v, mask, q0)
     out = torch.einsum("bshk,hkd->bsd", o, p.wo.to(cfg.cdtype()))
     return (out, (k, v)) if return_kv else out
 
@@ -286,8 +299,9 @@ def attention_ring(p, cfg: ModelConfig, x, mesh, causal=True, rope=True,
                         p.wo.to(cfg.cdtype()))
 
 
-def attention_cross(p, cfg: ModelConfig, x, kv):
-    """Cross-attention against precomputed encoder K/V (whisper decoder)."""
+def attention_cross(p, cfg: ModelConfig, x, kv, q0=0):
+    """Cross-attention against precomputed encoder K/V (whisper decoder);
+    ``q0`` as in ``attention``."""
     cd = cfg.cdtype()
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(cd))
     if cfg.qk_norm:
@@ -296,7 +310,7 @@ def attention_cross(p, cfg: ModelConfig, x, kv):
     b, sq = q.shape[:2]
     mask = torch.zeros((b, sq, k.shape[1]), dtype=torch.float32,
                        device=q.device)
-    o = _sdpa(cfg, q, k, v, mask)
+    o = _sdpa(cfg, q, k, v, mask, q0)
     return torch.einsum("bshk,hkd->bsd", o, p.wo.to(cd))
 
 

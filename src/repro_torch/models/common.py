@@ -176,6 +176,13 @@ def mesh_coord(mesh, axes):
     return idx, count
 
 
+def mesh_sizes(mesh) -> dict:
+    """``{axis name: size}`` of ``mesh`` (``{}`` for None)."""
+    if mesh is None:
+        return {}
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
 def spec_entry(spec, k) -> tuple:
     """The mesh axes ``spec`` names on dimension ``k`` (``()`` where it
     names none or ``spec`` is None)."""

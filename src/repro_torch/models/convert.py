@@ -23,8 +23,10 @@ checkpoint.  ``reference_like`` is that tuple's shapes and dtypes, with
 no data behind them, to restore into.
 
 On a mesh a rank may hold a block of a leaf: its ``"data"`` block
-(FSDP, ``training.train_step.shard_state_``) and, on an MoE expert
-weight, its own ``E / n`` experts' rows.  ``to_reference(obj, mesh)``
+(FSDP, ``training.train_step.shard_state_``) and over ``"model"`` its
+own ``E / n`` experts' rows of an MoE expert weight or its
+tensor-parallel block of an attention's heads, an MLP's ``d_ff`` or the
+vocabulary.  ``to_reference(obj, mesh)``
 gathers such a leaf over the axes its ``param_specs`` entry names, so
 that every rank gets the whole logical tree; ``reference_like(model)``
 gives the rank's own shapes, and ``from_reference`` loads a tree of

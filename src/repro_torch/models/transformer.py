@@ -45,13 +45,13 @@ switches' backward passes are in ``attention`` and ``moe``.
 ``training.train_step`` sums the weight gradients over the axis where
 the sharded region used them.
 
-A model may hold blocks of its weights over ``"data"`` (FSDP,
-``training.train_step.shard_state_`` or, for serving,
-``shard_params_``), recognised by their shapes against the logical
-leaves (``held_axes``).  ``forward`` and ``prefill`` then gather each
-block's weights whole inside its checkpointed region, one all-gather a
-block, and call the block on them through
-``torch.func.functional_call`` (every parameter keeps its dotted
+A model may hold blocks of its weights (``training.train_step.
+shard_state_``, or for serving ``shard_params_``), recognised by their
+shapes against the logical leaves and the axes their ``param_specs``
+entries name (``block_axes``, ``held_axes``).  Over ``"data"`` (FSDP)
+``forward`` and ``prefill`` gather each block's weights whole inside its
+checkpointed region, one all-gather a block, and call the block on them
+through ``torch.func.functional_call`` (every parameter keeps its dotted
 name); the embedding and ``lm_head`` are gathered where they are used
 (a tied embedding at each of its two uses).  The gather's backward
 reduce-scatters the gradients over ``"data"`` (``_GatherData``).
@@ -61,9 +61,30 @@ experts decodes them and sums over ``"model"`` (``moe.moe_decode``).
 Every rank issues the gathers in the same order, forward, decode and
 recomputation alike.  ``fsdp_timing`` times the gathers and
 reduce-scatters where asked.  A rank's caches are those of its data
-shard of the batch, every kv head whole (the reference splits the kv
-heads over ``"model"``, its tensor parallelism, which the port does
-not run).
+shard of the batch, every kv head whole.
+
+Over ``"model"`` (tensor parallelism, the training layout) a rank holds
+its block of the attention heads (``wq``, ``wo``, and ``wk``/``wv`` where
+the kv heads divide over the axis), of the MLP's ``d_ff`` and of the
+vocabulary (``embed``, ``lm_head``), and ``forward`` runs the Megatron
+pattern on them: each tensor-parallel region (an attention, an MLP)
+takes its replicated input through ``_CopyToModel`` (identity; its
+backward sums the input's gradient over the axis), computes the rank's
+heads or ``d_ff`` columns and sums its output over the axis in
+``_SumOverModel`` (its backward the identity), so each region costs one
+all-reduce forward and one backward.  A rank's query heads read the kv
+heads of their group whole where the kv heads do not divide
+(``attention._sdpa``'s ``q0``).  The embedding looks up the rank's rows
+(zero for the other ranks' ids) and sums over the axis; the head is
+column-parallel, each rank computing its block of the logits, which the
+training loss reads in place (``forward_local``; ``training.train_step``'s
+vocab-parallel NLL) and ``forward`` gathers whole.  On the ring the
+attention's blocks are gathered whole over ``"model"`` first (the
+reference's ring takes the weights whole) and their gradients
+reduce-scattered back.  ``tp_timing`` times these collectives over
+``"model"``, ``fsdp_timing`` those over ``"data"``.
+``prefill`` and ``decode_step`` raise on a model holding tensor-parallel
+blocks (ROADMAP item 6c).
 
 ``param_specs`` and ``cache_specs`` give the reference's partition-spec
 trees (``common.P``; stacked stacks with a leading ``None``);
@@ -73,8 +94,10 @@ trees (``common.P``; stacked stacks with a leading ``None``);
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import time
+import types
 
 import torch
 import torch.distributed as dist
@@ -86,8 +109,8 @@ from . import attention as attn
 from . import convert
 from .attention import Attention
 from .common import (DATA_AXES, ModelConfig, Norm, P, act_fn, dense_init_,
-                     embed_init_, initialise, is_gated, param,
-                     sinusoidal_positions)
+                     embed_init_, initialise, is_gated, mesh_sizes, param,
+                     sinusoidal_positions, spec_entry)
 from .moe import MoE, moe_block, moe_decode
 from .rglru import RGLRU, init_rglru_cache, rglru_block, rglru_decode
 from .ssm import SSM, init_ssm_cache, ssm_block, ssm_decode
@@ -122,6 +145,17 @@ def _mlp(p, cfg, x):
     return torch.einsum("bsf,fd->bsd", h, p.w_out.to(cd))
 
 
+def _ffn(p, cfg, x, mesh):
+    """The MLP ``p`` of ``x``; where ``p`` holds a block of ``d_ff``, its
+    columns of ``w_in``/``w_gate`` and rows of ``w_out`` (column- then
+    row-parallel), summed over ``"model"``."""
+    group = _tp_group(p, "w_in", mesh)
+    if group is None:
+        return _mlp(p, cfg, x)
+    return _SumOverModel.apply(
+        _mlp(p, cfg, _CopyToModel.apply(x, group)), group)
+
+
 # ---------------------------------------------------------------------------
 # blocks: forward(x, positions, causal, prefix_len, x_enc, rope, comm, mesh,
 # collect) -> (x, aux, cache or None); decode(x, cache, pos) -> x (the MoE
@@ -139,6 +173,53 @@ def _model_group(mesh):
     return mesh.get_group("model")
 
 
+def _model_dims(module) -> dict:
+    """``{leaf: dimension}`` of ``module``'s own parameters of which this
+    rank holds a block over ``"model"`` (set by ``held_axes``, which every
+    forward reads first)."""
+    return module.__dict__.get("_model_dims", {})
+
+
+def _tp_group(module, leaf, mesh):
+    """The ``"model"`` group of ``mesh`` where ``module``'s parameter
+    ``leaf`` is this rank's block over the axis, else None."""
+    return _model_group(mesh) if leaf in _model_dims(module) else None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The entry of a tensor-parallel region: ``x`` as it is; backward:
+    its gradient summed over the ``"model"`` axis (each rank's is its
+    heads' or columns' share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        _timed("model", "all_reduce", g, dist.all_reduce, g,
+               group=ctx.group)
+        return g, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The exit of a tensor-parallel region: the ranks' partial outputs
+    summed over the ``"model"`` axis; backward: the identity (every rank
+    of the axis computes the same loss)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.clone(memory_format=torch.contiguous_format)
+        _timed("model", "all_reduce", y, dist.all_reduce, y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _SeqBlock(torch.autograd.Function):
     """This rank's block of ``x``'s sequence; backward: the model axis's
     block gradients all-gathered, so the replicated input's gradient is
@@ -154,30 +235,31 @@ class _SeqBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather_seq(g, ctx.group), None
+        return _all_gather(g, ctx.group, 1), None
 
 
-class _GatherSeq(torch.autograd.Function):
-    """The model axis's sequence blocks in rank order; backward: this
+class _Gather(torch.autograd.Function):
+    """The model axis's blocks of ``y`` on dimension ``dim`` in rank order
+    (the sequence's, or the vocabulary's of the logits); backward: this
     rank's block of the gradient (every rank of the axis holds the whole
     gradient of the same loss, so nothing is summed)."""
 
     @staticmethod
-    def forward(ctx, y, group):
-        ctx.group = group
-        return _all_gather_seq(y, group)
+    def forward(ctx, y, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(y, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
-        s = g.shape[1] // n
-        return g[:, r * s:(r + 1) * s], None
+        s = g.shape[ctx.dim] // n
+        return g.narrow(ctx.dim, r * s, s), None, None
 
 
-def _all_gather_seq(y, group):
+def _all_gather(y, group, dim):
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, y.contiguous(), group=group)
-    return torch.cat(parts, dim=1)
+    return torch.cat(parts, dim=dim)
 
 
 def _seq_block(x, group):
@@ -198,17 +280,40 @@ def on_ring(cfg: ModelConfig, mesh, seq: int) -> bool:
                 and seq % dist.get_world_size(group) == 0)
 
 
+def _whole_heads(p, group):
+    """The attention ``p`` with its blocks over ``"model"`` gathered whole
+    over ``group`` (``_GatherData``: its backward reduce-scatters their
+    gradients back to the blocks), for the ring, which takes the weights
+    whole; ``p`` itself where it holds none."""
+    dims = _model_dims(p)
+    if not dims:
+        return p
+    whole = _GatherData.apply(group, "model", tuple(dims.values()),
+                              *(getattr(p, n) for n in dims))
+    return types.SimpleNamespace(
+        **dict(p.named_children()),
+        **(dict(p.named_parameters(recurse=False)) | dict(zip(dims, whole))))
+
+
 def _attend(blk, x, positions, causal, prefix_len, rope, mesh, collect):
     """x + self-attention; with ``collect`` also the layer's
-    ``{"sa": {"k", "v"}}`` cache (ring attention only without it)."""
+    ``{"sa": {"k", "v"}}`` cache (ring attention only without it, and
+    where the block may run on the ring, ``blk.ring``)."""
     cfg = blk.cfg
     h = blk.ln1(x)
-    if not collect and on_ring(cfg, mesh, x.shape[1]):
+    if blk.ring and not collect and on_ring(cfg, mesh, x.shape[1]):
         group = _model_group(mesh)
-        a = attn.attention_ring(blk.attn, cfg, _seq_block(h, group), mesh,
-                                causal=causal, rope=rope,
-                                prefix_len=prefix_len)
-        return x + _GatherSeq.apply(a, group), None
+        a = attn.attention_ring(_whole_heads(blk.attn, group), cfg,
+                                _seq_block(h, group), mesh, causal=causal,
+                                rope=rope, prefix_len=prefix_len)
+        return x + _Gather.apply(a, group, 1), None
+    group = _tp_group(blk.attn, "wq", mesh)
+    if group is not None:
+        q0 = dist.get_rank(group) * blk.attn.wq.shape[1]
+        a = attn.attention(blk.attn, cfg, _CopyToModel.apply(h, group),
+                           positions, causal=causal, rope=rope,
+                           prefix_len=prefix_len, q0=q0)
+        return x + _SumOverModel.apply(a, group), None
     if collect:
         a, (k, v) = attn.attention(blk.attn, cfg, h, positions,
                                    causal=causal, rope=rope,
@@ -226,7 +331,10 @@ def _attend_decode(blk, x, cache, pos, rope=True):
 
 class DenseBlock(nn.Module):
     """Self-attention + MLP (dense, vlm, the hybrid's ``attn``, whisper's
-    encoder)."""
+    encoder, whose blocks never run on the ring, as the reference's:
+    ``ring`` False)."""
+
+    ring = True
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -240,7 +348,8 @@ class DenseBlock(nn.Module):
                 rope=True, comm=None, mesh=None, collect=False):
         x, cache = _attend(self, x, positions, causal, prefix_len, rope,
                            mesh, collect)
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x), cache
+        return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh), _zero(x), \
+            cache
 
     def decode(self, x, cache, pos):
         x = _attend_decode(self, x, cache, pos)
@@ -248,6 +357,8 @@ class DenseBlock(nn.Module):
 
 
 class MoEBlock(nn.Module):
+    ring = True
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -267,7 +378,7 @@ class MoEBlock(nn.Module):
         else:
             out, aux = moe_block(self.moe, self.cfg, _seq_block(h, group),
                                  comm, mesh)
-            out = _GatherSeq.apply(out, group)
+            out = _Gather.apply(out, group, 1)
         return x + out, aux.float(), cache
 
     def decode(self, x, cache, pos, mesh=None):
@@ -278,6 +389,8 @@ class MoEBlock(nn.Module):
 class CrossBlock(nn.Module):
     """Whisper's decoder block: self-attention, cross-attention against
     the encoder output, MLP."""
+
+    ring = True
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -293,11 +406,22 @@ class CrossBlock(nn.Module):
                 rope=True, comm=None, mesh=None, collect=False):
         x, cache = _attend(self, x, positions, causal, prefix_len, rope,
                            mesh, collect)
-        kv_x = attn.encode_kv(self.xattn, self.cfg, x_enc)
-        x = x + attn.attention_cross(self.xattn, self.cfg, self.lnx(x), kv_x)
+        cfg, h = self.cfg, self.lnx(x)
+        group = _tp_group(self.xattn, "wq", mesh)
+        if group is None:
+            kv_x = attn.encode_kv(self.xattn, cfg, x_enc)
+            x = x + attn.attention_cross(self.xattn, cfg, h, kv_x)
+        else:
+            # the rank's heads against its kv heads of the encoder output
+            kv_x = attn.encode_kv(self.xattn, cfg,
+                                  _CopyToModel.apply(x_enc, group))
+            a = attn.attention_cross(
+                self.xattn, cfg, _CopyToModel.apply(h, group), kv_x,
+                q0=dist.get_rank(group) * self.xattn.wq.shape[1])
+            x = x + _SumOverModel.apply(a, group)
         if collect:
             cache["xk"], cache["xv"] = kv_x
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x), cache
+        return x + _ffn(self.mlp, cfg, self.ln2(x), mesh), _zero(x), cache
 
     def decode(self, x, cache, pos):
         # no RoPE: the decoder's forward has none (whisper's positions are
@@ -343,7 +467,8 @@ class RecBlock(nn.Module):
                                      return_tail=collect)
         cache = {"state": state, "conv": tail} if collect else None
         x = x + h
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x)), _zero(x), cache
+        return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh), _zero(x), \
+            cache
 
     def decode(self, x, cache, pos):
         h, new = rglru_decode(self.rec, self.cfg, self.ln1(x), cache)
@@ -371,8 +496,9 @@ def _run_block(cfg, block, x, fsdp, **kw):
     saved tensors.  On a mesh that is what keeps the ranks' collectives
     in step: every rank records the same graph, autograd walks it in the
     same order on each, so each rank re-issues the same ring shifts,
-    switches and gathers, in the forward's order, at the same point of
-    its backward.  Where the rank holds ``"data"`` blocks of the block's
+    switches, gathers and tensor-parallel all-reduces
+    (``_SumOverModel``), in the forward's order, at the same point of its
+    backward.  Where the rank holds ``"data"`` blocks of the block's
     weights (``fsdp``, a ``_DataBlocks``), the block runs on them
     gathered whole, inside the recomputed region, so the recomputation
     gathers them again."""
@@ -399,33 +525,49 @@ def _run_stack(cfg, blocks, x, fsdp, **kw):
 # FSDP: the rank's "data" blocks of the weights, gathered where used
 # ---------------------------------------------------------------------------
 
-# {"gather": s, "reduce_scatter": s} while ``fsdp_timing`` is on, else
-# None: the FSDP collectives are then not timed
-_FSDP_SECONDS = None
+# the timing contexts now open, ``(mesh axis, {key: seconds})``
+# (``fsdp_timing``, ``tp_timing``): a collective is timed only where one
+# asks for its axis and key
+_TIMERS = []
 
 
 @contextlib.contextmanager
-def fsdp_timing():
-    """Within: the seconds of the FSDP all-gathers (forward and
-    recomputation) and reduce-scatters (backward) made in this process,
-    the card synchronised around each; yields ``{"gather": s,
-    "reduce_scatter": s}``, their sums.  Off by default: the
-    synchronisations cost."""
-    global _FSDP_SECONDS
-    outer, _FSDP_SECONDS = _FSDP_SECONDS, {"gather": 0.0,
-                                           "reduce_scatter": 0.0}
+def _timing(axis, keys):
+    secs = dict.fromkeys(keys, 0.0)
+    _TIMERS.append((axis, secs))
     try:
-        yield _FSDP_SECONDS
+        yield secs
     finally:
-        _FSDP_SECONDS = outer
+        _TIMERS.remove((axis, secs))
 
 
-def _timed(key, t, fn, *args, **kw):
-    """``fn(*args, **kw)``; within ``fsdp_timing`` its seconds are added
-    to the key ``key``, the card synchronised before and after where
-    ``t`` is on it."""
-    secs = _FSDP_SECONDS
-    if secs is None:
+def fsdp_timing():
+    """Within: the seconds of the FSDP all-gathers over ``"data"``
+    (forward and recomputation) and reduce-scatters (backward) made in
+    this process, the card synchronised around each; yields ``{"gather":
+    s, "reduce_scatter": s}``, their sums.  Off by default: the
+    synchronisations cost."""
+    return _timing("data", ("gather", "reduce_scatter"))
+
+
+def tp_timing():
+    """Within: the seconds of the tensor-parallel collectives over
+    ``"model"`` made in this process, timed as ``fsdp_timing`` times its
+    own; yields ``{"all_reduce": s, "gather": s, "reduce_scatter": s}``:
+    the regions' all-reduces (``_SumOverModel`` forward and
+    recomputation, ``_CopyToModel`` backward, the vocab-parallel loss's),
+    and the ring's gathers of the attention's blocks (forward and
+    recomputation) and reduce-scatters of their gradients."""
+    return _timing("model", ("all_reduce", "gather", "reduce_scatter"))
+
+
+def _timed(axis, key, t, fn, *args, **kw):
+    """``fn(*args, **kw)``, a collective over ``axis``; within a timing
+    context asking for ``axis`` and ``key`` its seconds are added there,
+    the card synchronised before and after where ``t`` is on it."""
+    timers = [secs for over, secs in _TIMERS
+              if over == axis and key in secs]
+    if not timers:
         fn(*args, **kw)
         return
     sync = torch.cuda.synchronize if t.is_cuda else lambda: None
@@ -433,7 +575,8 @@ def _timed(key, t, fn, *args, **kw):
     t0 = time.perf_counter()
     fn(*args, **kw)
     sync()
-    secs[key] += time.perf_counter() - t0
+    for secs in timers:
+        secs[key] += time.perf_counter() - t0
 
 
 def _join(part, shape, k, n):
@@ -451,23 +594,24 @@ def _cut(g, shape, k, n):
 
 
 class _GatherData(torch.autograd.Function):
-    """The whole weights of this rank's ``"data"`` blocks ``blocks`` (each
-    a block on its dimension ``dims[i]``): one all-gather over the data
-    axis's ``group`` of the blocks' flat concatenation; backward: the
-    whole weights' gradients summed over the axis and cut back to this
-    rank's blocks, one reduce-scatter."""
+    """The whole weights of this rank's blocks ``blocks`` over ``axis``
+    (``"data"``: FSDP; ``"model"``: the ring's attention), each a block
+    on its dimension ``dims[i]``: one all-gather over the axis's
+    ``group`` of the blocks' flat concatenation; backward: the whole
+    weights' gradients summed over the axis and cut back to this rank's
+    blocks, one reduce-scatter."""
 
     @staticmethod
-    def forward(ctx, group, dims, *blocks):
+    def forward(ctx, group, axis, dims, *blocks):
         if len({b.dtype for b in blocks}) != 1:
             raise ValueError("FSDP: the blocks gathered at once must share "
                              "a dtype")
         n = dist.get_world_size(group)
-        ctx.group, ctx.dims = group, dims
+        ctx.group, ctx.axis, ctx.dims = group, axis, dims
         ctx.shapes = [tuple(b.shape) for b in blocks]
         flat = torch.cat([b.reshape(-1) for b in blocks])
         out = flat.new_empty(n * flat.numel())
-        _timed("gather", flat, dist.all_gather_into_tensor, out, flat,
+        _timed(axis, "gather", flat, dist.all_gather_into_tensor, out, flat,
                group=group)
         parts = out.view(n, -1).split([b.numel() for b in blocks], dim=1)
         return tuple(_join(p, s, k, n)
@@ -479,47 +623,80 @@ class _GatherData(torch.autograd.Function):
         flat = torch.cat([_cut(g, s, k, n) for g, s, k in
                           zip(grads, ctx.shapes, ctx.dims)], dim=1)
         out = flat.new_empty(flat.shape[1])
-        _timed("reduce_scatter", flat, dist.reduce_scatter_tensor, out,
-               flat.reshape(-1), group=ctx.group)
+        _timed(ctx.axis, "reduce_scatter", flat, dist.reduce_scatter_tensor,
+               out, flat.reshape(-1), group=ctx.group)
         sizes = [math.prod(s) for s in ctx.shapes]
-        return (None, None) + tuple(
+        return (None, None, None) + tuple(
             g.view(s) for g, s in zip(out.split(sizes), ctx.shapes))
 
 
-def block_axes(name, shape, cfg: ModelConfig) -> dict:
+@functools.lru_cache(maxsize=64)
+def _specs(cfg, sizes):
+    return param_specs(cfg, dict(sizes))
+
+
+def block_axes(name, shape, cfg: ModelConfig, mesh_shape: dict) -> dict:
     """``{mesh axis: dimension}`` on which a parameter ``name`` of
-    ``shape`` is a block of its logical leaf (``convert.logical_shapes``):
-    an MoE expert weight's first dimension is its block over ``"model"``
-    (the rank's own ``E / n`` experts), any other shorter dimension its
-    block over ``"data"`` (FSDP, ``training.train_step.shard_state_``).
-    Empty for a whole leaf."""
+    ``shape`` is a block of its logical leaf (``convert.logical_shapes``)
+    on a mesh of axis sizes ``mesh_shape``: each dimension shorter than
+    the leaf's is its block over the one axis of the mesh that the leaf's
+    ``param_specs`` entry names there (``"data"``: FSDP; ``"model"``: an
+    MoE expert weight's own experts, or a tensor-parallel block).  Empty
+    for a whole leaf; raises where a shorter dimension is no such
+    block."""
     full = convert.logical_shapes(cfg)[name]
-    dims = [k for k, (a, b) in enumerate(zip(shape, full)) if a != b]
+    spec = convert.local_spec(
+        _specs(cfg, tuple(sorted(mesh_shape.items()))), name)
     axes = {}
-    if dims and dims[0] == 0 and convert.expert_weight(name):
-        axes["model"] = dims.pop(0)
-    if len(dims) > 1:
-        raise ValueError(f"{name}: a block of {tuple(shape)} of the leaf "
-                         f"{full} on more than one dimension over \"data\"")
-    if dims:
-        axes["data"] = dims[0]
+    for k, (a, b) in enumerate(zip(shape, full)):
+        if a == b:
+            continue
+        over = [x for x in spec_entry(spec, k) if mesh_shape.get(x, 1) > 1]
+        if len(over) != 1 or a * mesh_shape[over[0]] != b:
+            raise ValueError(f"{name}: a block of {tuple(shape)} of the leaf "
+                             f"{full} is no block over the axes {over} its "
+                             f"spec {spec} names on dimension {k} of a mesh "
+                             f"{mesh_shape}")
+        axes[over[0]] = k
     return axes
 
 
-def held_axes(model) -> dict:
+def held_axes(model, mesh) -> dict:
     """``{dotted name: block_axes}`` of the parameters of ``model`` (a
-    ``Transformer``) of which this rank holds a block, read from their
-    shapes once and kept on the model; ``common.replace_param_``, which
-    changes a parameter's shape, drops what was kept."""
-    held = model.__dict__.get("_held_axes")
-    if held is None:
+    ``Transformer``) of which this rank holds a block on ``mesh`` (None:
+    no mesh), read from their shapes and kept on the model for the mesh's
+    sizes, each module given its own blocks over ``"model"``
+    (``_model_dims``, which the tensor-parallel forward reads);
+    ``common.replace_param_``, which changes a parameter's shape, drops
+    what was kept."""
+    sizes = mesh_sizes(mesh)
+    kept = model.__dict__.get("_held_axes")
+    if kept is None or kept[0] != sizes:
         held = {}
         for name, p in model.named_parameters():
-            axes = block_axes(name, p.shape, model.cfg)
+            axes = block_axes(name, p.shape, model.cfg, sizes)
             if axes:
                 held[name] = axes
-        model.__dict__["_held_axes"] = held
-    return held
+        for module in model.modules():
+            module.__dict__["_model_dims"] = {}
+        for name, axes in held.items():
+            if "model" in axes:
+                prefix, _, leaf = name.rpartition(".")
+                _model_dims(model.get_submodule(prefix))[leaf] = axes["model"]
+        kept = model.__dict__["_held_axes"] = (sizes, held)
+    return kept[1]
+
+
+def _check_serving(model, mesh, fn):
+    """Raises where ``model`` holds tensor-parallel blocks on ``mesh``:
+    serving from them is not ported (ROADMAP item 6c)."""
+    tp = [n for n, axes in held_axes(model, mesh).items()
+          if "model" in axes and not convert.expert_weight(n)]
+    if tp:
+        raise ValueError(f"{fn}: the model holds tensor-parallel blocks over "
+                         f"\"model\" ({tp[0]}, ...); serving from them is "
+                         "ROADMAP item 6c, not ported: cut the parameters "
+                         "to serve with training.train_step.shard_params_")
 
 
 class _DataBlocks:
@@ -530,14 +707,10 @@ class _DataBlocks:
 
     def __init__(self, model, mesh):
         self.dims = {model.get_parameter(n): a["data"]
-                     for n, a in held_axes(model).items() if "data" in a}
-        if not self.dims:
-            return
-        if "data" not in (getattr(mesh, "mesh_dim_names", None) or ()):
-            raise ValueError("the model holds \"data\" blocks of its "
-                             "weights (FSDP): its forward needs the mesh "
-                             "they were cut on")
-        self.group = mesh.get_group("data")
+                     for n, a in held_axes(model, mesh).items()
+                     if "data" in a}
+        if self.dims:
+            self.group = mesh.get_group("data")
 
     def _gather(self, named) -> dict:
         """``{name: whole tensor}`` of the held blocks among ``named``
@@ -546,7 +719,7 @@ class _DataBlocks:
         if not held:
             return {}
         return dict(zip((n for n, _ in held), _GatherData.apply(
-            self.group, tuple(self.dims[p] for _, p in held),
+            self.group, "data", tuple(self.dims[p] for _, p in held),
             *(p for _, p in held))))
 
     def weight(self, model, name):
@@ -611,6 +784,8 @@ class Transformer(nn.Module):
                                       for i, kind in enumerate(rem)})
         elif cfg.family == "encdec":
             self.enc = stack("dense", cfg.n_enc_layers)
+            for blk in self.enc:
+                blk.ring = False
             self.ln_enc = Norm(cfg, d)
             self.layers = stack("cross", cfg.n_layers)
         else:
@@ -625,8 +800,10 @@ class Transformer(nn.Module):
     def forward(self, tokens, frontend=None, comm=None, mesh=None):
         """tokens: (B, S) int.  Returns (logits (B, S_total, V) float32,
         {"moe_drop": the MoE layers' mean drop fraction (0 elsewhere)})."""
-        logits, aux, _ = _forward_impl(self, tokens, frontend, comm, mesh,
-                                       collect=False)
+        logits, aux, _, vocab = _forward_impl(self, tokens, frontend, comm,
+                                              mesh, collect=False)
+        if vocab is not None:
+            logits = _Gather.apply(logits, vocab, logits.ndim - 1)
         return logits, aux
 
 
@@ -636,9 +813,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
         return initialise(Transformer(cfg), gen)
 
 
-def _embed(embed, cfg, tokens):
+def _embed(embed, cfg, tokens, group=None):
+    """The embedding of ``tokens``; with ``group`` (where ``embed`` is the
+    rank's block of the vocabulary), its rows' (zero for the other ranks'
+    ids) summed over ``"model"`` (one rank's nonzero: exact)."""
     cd = cfg.cdtype()
-    x = embed[tokens].to(cd)
+    if group is None:
+        x = embed[tokens].to(cd)
+    else:
+        v_loc = embed.shape[0]
+        local = tokens - dist.get_rank(group) * v_loc
+        own = (local >= 0) & (local < v_loc)
+        x = torch.where(own[..., None], embed[torch.where(own, local, 0)],
+                        0.0).to(cd)
+        x = _SumOverModel.apply(x, group)
     if cfg.scale_embed:
         # the factor is cast to the compute dtype before the product
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=cd,
@@ -646,8 +834,8 @@ def _embed(embed, cfg, tokens):
     return x
 
 
-def _embed_in(embed, cfg, tokens, frontend):
-    x = _embed(embed, cfg, tokens)
+def _embed_in(embed, cfg, tokens, frontend, group=None):
+    x = _embed(embed, cfg, tokens, group)
     prefix_len = 0
     if frontend is not None and cfg.family != "encdec":
         x = torch.cat([frontend.to(cfg.cdtype()), x], dim=1)
@@ -660,10 +848,14 @@ def _head(cfg) -> str:
     return "embed" if cfg.tie_embeddings else "lm_head"
 
 
-def _logits(p, cfg, x, head):
+def _logits(p, cfg, x, head, group=None):
     """Logits of the final norm of ``x`` against ``head`` (the leaf
-    ``_head`` names, gathered where the rank holds a block of it)."""
+    ``_head`` names, gathered where the rank holds a ``"data"`` block of
+    it); with ``group`` (where the rank holds a block of the vocabulary),
+    the rank's block of the logits (column-parallel)."""
     x = p.ln_f(x)
+    if group is not None:
+        x = _CopyToModel.apply(x, group)
     if cfg.tie_embeddings:
         out = torch.einsum("bsd,vd->bsv", x, head.to(cfg.cdtype()))
     else:
@@ -671,24 +863,28 @@ def _logits(p, cfg, x, head):
     return out.float()
 
 
-def _encode(p, cfg, frontend, fsdp):
-    """Whisper encoder over stubbed frame embeddings (non-causal)."""
+def _encode(p, cfg, frontend, fsdp, mesh):
+    """Whisper encoder over stubbed frame embeddings (non-causal; its
+    blocks never on the ring, ``DenseBlock.ring``, but tensor-parallel on
+    ``mesh``)."""
     cd = cfg.cdtype()
     x = frontend.to(cd)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(cd)[None]
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     x, _, _ = _run_stack(cfg, p.enc, x, fsdp, positions=positions,
-                         causal=False, rope=False)
+                         causal=False, rope=False, mesh=mesh)
     return p.ln_enc(x)
 
 
 def _forward_impl(model, tokens, frontend, comm, mesh, collect):
-    """(logits, {"moe_drop"}, caches in the per-layer layout or None)."""
+    """(logits, {"moe_drop"}, caches in the per-layer layout or None, the
+    ``"model"`` group where the logits are the rank's block of the
+    vocabulary, else None)."""
     cfg = model.cfg
     fsdp = _DataBlocks(model, mesh)
     x, prefix_len = _embed_in(fsdp.weight(model, "embed"), cfg, tokens,
-                              frontend)
+                              frontend, _tp_group(model, "embed", mesh))
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     kw = dict(positions=positions, comm=comm, mesh=mesh, collect=collect)
     caches = None
@@ -713,7 +909,7 @@ def _forward_impl(model, tokens, frontend, comm, mesh, collect):
         if collect:
             caches = {"groups": gcaches, "rem": rem_caches}
     elif cfg.family == "encdec":
-        x_enc = _encode(model, cfg, frontend, fsdp)
+        x_enc = _encode(model, cfg, frontend, fsdp, mesh)
         pos_dec = sinusoidal_positions(tokens.shape[1], cfg.d_model,
                                        x.device).to(cfg.cdtype())
         x = x + pos_dec[None]
@@ -725,7 +921,9 @@ def _forward_impl(model, tokens, frontend, comm, mesh, collect):
                                     prefix_len=prefix_len, **kw)
         caches = {"layers": layers} if collect else None
     head = fsdp.weight(model, _head(cfg))
-    return _logits(model, cfg, x, head), {"moe_drop": aux}, caches
+    vocab = _tp_group(model, _head(cfg), mesh)
+    return _logits(model, cfg, x, head, vocab), {"moe_drop": aux}, caches, \
+        vocab
 
 
 def forward(model: Transformer, tokens, frontend=None, comm=None,
@@ -735,6 +933,17 @@ def forward(model: Transformer, tokens, frontend=None, comm=None,
     return model(tokens, frontend, comm, mesh)
 
 
+def forward_local(model: Transformer, tokens, frontend=None, comm=None,
+                  mesh=None):
+    """``forward`` without the logits' gather: ``(logits, aux, group)``,
+    the logits the rank's block of the vocabulary ``(B, S_total, V / n)``
+    and ``group`` the ``"model"`` group where it holds the vocabulary's
+    blocks (tensor parallelism), else the whole logits and None."""
+    logits, aux, _, vocab = _forward_impl(model, tokens, frontend, comm,
+                                          mesh, collect=False)
+    return logits, aux, vocab
+
+
 @torch.no_grad()
 def prefill(model: Transformer, tokens, frontend=None, comm=None, mesh=None,
             max_len=None):
@@ -742,9 +951,11 @@ def prefill(model: Transformer, tokens, frontend=None, comm=None, mesh=None,
     prompt's length by default), laid out as ``init_caches`` lays them
     out, on the model's device.  On a mesh, ``tokens`` (and
     ``frontend``) are the rank's data shard and the caches are that
-    shard's rows, as ``decode_step`` on the mesh takes them."""
-    logits, _, caches = _forward_impl(model, tokens, frontend, comm, mesh,
-                                      collect=True)
+    shard's rows, as ``decode_step`` on the mesh takes them.  Raises on a
+    model holding tensor-parallel blocks (ROADMAP item 6c)."""
+    _check_serving(model, mesh, "prefill")
+    logits, _, caches, _ = _forward_impl(model, tokens, frontend, comm, mesh,
+                                         collect=True)
     s = logits.shape[1]
     return logits, _finalize_caches(model.cfg, caches, s, max_len or s)
 
@@ -849,7 +1060,9 @@ def decode_step(model: Transformer, token, caches, pos: int, comm=None,
     gathered where they are used, as in ``forward``; an MoE holding its
     own ``E / n`` experts over ``"model"`` runs them on every token of
     the rank and sums the experts' outputs over the axis
-    (``moe.moe_decode``)."""
+    (``moe.moe_decode``).  Raises on a model holding tensor-parallel
+    blocks (ROADMAP item 6c)."""
+    _check_serving(model, mesh, "decode_step")
     cfg = model.cfg
     fsdp = _DataBlocks(model, mesh)
     x = _embed(fsdp.weight(model, "embed"), cfg, token)
@@ -895,7 +1108,7 @@ def param_specs(cfg: ModelConfig, mesh_shape: dict):
     TP/EP over "model"; ZeRO/FSDP over "data": every weight's d_model axis
     is additionally sharded over the data axis (when divisible) so params +
     optimizer state scale down with the FULL mesh, not just the model axis.
-    (The port holds the "data" entries and the experts' "model" entry:
+    (Which entries a rank of the port holds as blocks is its layout rule:
     ``training.train_step.held_shapes``.)
     """
     tp = mesh_shape.get("model", 1)

@@ -14,18 +14,23 @@ On a mesh (``train_step_fn(..., mesh=mesh)``, a ``DeviceMesh`` with axes
 mesh calls the step with its data shard of the global batch
 (``data_shard``).  A rank holds the whole model, or after
 ``shard_state_`` its block of every parameter, both moments and the
-error feedback by ``state_specs`` (the layout rule, ``held_shapes``):
-over ``"data"`` wherever the spec names it (FSDP), and over ``"model"``
-only on an MoE expert weight's experts (``own_experts_`` cuts those
-alone); the spec's other ``"model"`` entries, the reference's tensor
-parallelism, stay whole.  The forward gathers each block's weights
-where they are used and the backward reduce-scatters their gradients
-over ``"data"`` (``models.transformer``).  The loss is each rank's
-summed NLL over the global mask sum; the gradients are reduced by
-``grad_reduction`` (one rule, by dotted name); compression, the
-global-norm clip and AdamW then run as on one process, on the rank's
-blocks, so ranks on the same ``"data"`` coordinate hold the same bits
-(and every rank the same bits of a leaf it holds whole).
+error feedback by ``state_specs`` (the training layout rule,
+``held_shapes``): over ``"data"`` wherever the spec names it (FSDP),
+and over ``"model"`` on an MoE expert weight's experts (expert
+parallelism; ``own_experts_`` cuts those alone) and on the attention
+heads, the MLP's ``d_ff`` and the vocabulary (tensor parallelism); the
+SSM's and the RG-LRU's ``"model"`` entries stay whole (ROADMAP item
+6d).  The forward gathers each ``"data"`` block's weights where they
+are used and the backward reduce-scatters their gradients over
+``"data"``; the tensor-parallel blocks run the Megatron pattern
+(``models.transformer``).  The loss is each rank's summed NLL over the
+global mask sum, vocab-parallel where the rank holds a block of the
+vocabulary (``_MaskedNLL``); the gradients are reduced by
+``grad_reduction`` (one rule, by dotted name and the blocks held);
+compression, the global-norm clip and AdamW then run as on one process,
+on the rank's blocks, so ranks on the same ``"data"`` coordinate hold
+the same bits of the leaves they hold alike (and every rank the same
+bits of a leaf it holds whole).
 """
 from __future__ import annotations
 
@@ -40,8 +45,8 @@ import torch.distributed as dist
 from repro_torch.models import transformer as tf
 from repro_torch.models import convert
 from repro_torch.models.common import (DATA_AXES, P, ModelConfig, block_of,
-                                       mesh_coord, replace_param_,
-                                       spec_entry)
+                                       mesh_coord, mesh_sizes,
+                                       replace_param_, spec_entry)
 from repro_torch.models.convert import expert_weight, ref_path
 from . import optimizer as opt
 
@@ -101,22 +106,56 @@ def data_shard(batch, mesh):
 _NLL_CHUNK = 1 << 26
 
 
+def _labels(labels, v, group):
+    """``(labels as (N, 1) indices into the rank's block of v words,
+    (N, 1) whether the label is in it)``: every label and all True
+    without ``group``."""
+    lab = labels.reshape(-1, 1).long()
+    if group is None:
+        return lab, torch.ones_like(lab, dtype=torch.bool)
+    lab = lab - dist.get_rank(group) * v
+    own = (lab >= 0) & (lab < v)
+    return torch.where(own, lab, 0), own
+
+
 class _MaskedNLL(torch.autograd.Function):
     """``sum(mask * (logsumexp(logits) - logits[label]))`` over the
     positions, float32.  Its backward writes ``(softmax(logits) -
     onehot(label)) * mask * g`` into one buffer, a chunk of rows at a
     time, so that the logits' gradient costs one copy of the logits (the
     autograd of ``logsumexp`` and ``gather`` holds about three at once:
-    at 4 x 2048 tokens and a 151936-word vocabulary, 4.98 GB each)."""
+    at 4 x 2048 tokens and a 151936-word vocabulary, 4.98 GB each).
+
+    With ``group`` (the ``"model"`` axis; tensor parallelism) the logits
+    are the rank's block of the vocabulary, and the whole logits are
+    never built: each row's max is all-reduced (max) over the axis, then
+    its exp sum and gold logit (sum; the gold from the one rank holding
+    the label), so every rank of the axis computes the same loss, and the
+    backward writes the rank's block of the gradient."""
 
     @staticmethod
-    def forward(ctx, logits, labels, mask):
+    def forward(ctx, logits, labels, mask, group=None):
         v = logits.shape[-1]
-        x, lab = logits.reshape(-1, v), labels.reshape(-1, 1).long()
+        x = logits.reshape(-1, v)
+        lab, own = _labels(labels, v, group)
         rows = max(1, _NLL_CHUNK // v)
-        lse = torch.cat([torch.logsumexp(x[i:i + rows], dim=-1)
-                         for i in range(0, x.shape[0], rows)])
-        gold = x.gather(-1, lab)[:, 0]
+        chunks = range(0, x.shape[0], rows)
+        if group is None:
+            lse = torch.cat([torch.logsumexp(x[i:i + rows], dim=-1)
+                             for i in chunks])
+            gold = x.gather(-1, lab)[:, 0]
+        else:
+            top = torch.cat([x[i:i + rows].amax(dim=-1) for i in chunks])
+            tf._timed("model", "all_reduce", top, dist.all_reduce, top,
+                      op=dist.ReduceOp.MAX, group=group)
+            sums = torch.stack([
+                torch.cat([torch.exp(x[i:i + rows] - top[i:i + rows, None])
+                           .sum(dim=-1) for i in chunks]),
+                torch.where(own, x.gather(-1, lab), 0.0)[:, 0]])
+            tf._timed("model", "all_reduce", sums, dist.all_reduce, sums,
+                      group=group)
+            lse, gold = top + torch.log(sums[0]), sums[1]
+        ctx.group = group
         ctx.save_for_backward(logits, labels, mask, lse)
         return ((lse - gold) * mask.reshape(-1)).sum()
 
@@ -124,7 +163,8 @@ class _MaskedNLL(torch.autograd.Function):
     def backward(ctx, g):
         logits, labels, mask, lse = ctx.saved_tensors
         v = logits.shape[-1]
-        x, lab = logits.reshape(-1, v), labels.reshape(-1, 1).long()
+        x = logits.reshape(-1, v)
+        lab, own = _labels(labels, v, ctx.group)
         scale = (mask.reshape(-1) * g).to(logits.dtype)
         grad = torch.empty_like(x)
         rows = max(1, _NLL_CHUNK // v)
@@ -132,62 +172,78 @@ class _MaskedNLL(torch.autograd.Function):
             gi = grad[i:i + rows]
             torch.exp(x[i:i + rows] - lse[i:i + rows, None], out=gi)
             gi.scatter_add_(-1, lab[i:i + rows],
-                            torch.full_like(lab[i:i + rows], -1,
-                                            dtype=gi.dtype))
+                            -own[i:i + rows].to(gi.dtype))
             gi.mul_(scale[i:i + rows, None])
-        return grad.view_as(logits), None, None
+        return grad.view_as(logits), None, None, None
 
 
 def loss_fn(model, cfg: ModelConfig, batch, comm=None, mesh=None):
     """Masked mean next-token NLL and the forward's aux.  On a mesh,
     ``batch`` is the rank's data shard and the loss its summed NLL over
     the mask summed over the data axes (not the mean of the shards'
-    means, which differ where the shards' masks do)."""
-    logits, aux = model(batch["inputs"], batch.get("frontend"), comm, mesh)
+    means, which differ where the shards' masks do); where the rank holds
+    a block of the vocabulary, the NLL is vocab-parallel
+    (``_MaskedNLL``)."""
+    logits, aux, vocab = tf.forward_local(model, batch["inputs"],
+                                          batch.get("frontend"), comm, mesh)
     labels = batch["labels"]
     mask = batch["mask"]
     if logits.shape[1] != labels.shape[1]:       # vlm prefix tokens
         logits = logits[:, -labels.shape[1]:]
     count = _sum_(mask.sum().detach(), _axes(mesh, DATA_AXES))
-    loss = _MaskedNLL.apply(logits, labels, mask) / torch.clamp_min(count,
-                                                                   1.0)
+    loss = _MaskedNLL.apply(logits, labels, mask, vocab) / torch.clamp_min(
+        count, 1.0)
     return loss, aux
 
 
-def expert_block(name, p, cfg: ModelConfig) -> bool:
-    """Whether ``p`` is a block of its logical leaf over ``"model"``: an
-    expert weight of which this rank holds its own ``E / n`` rows
-    (``models.transformer.block_axes``)."""
-    return "model" in tf.block_axes(name, p.shape, cfg)
+def model_blocks(model, mesh) -> set:
+    """The names of ``model``'s parameters of which this rank holds a
+    block over ``"model"`` on ``mesh`` (its own experts, its
+    tensor-parallel blocks): the leaves that differ between the ranks of
+    the axis (``models.transformer.held_axes``)."""
+    return {n for n, axes in tf.held_axes(model, mesh).items()
+            if "model" in axes}
 
 
-def grad_reduction(name, p, cfg: ModelConfig, ring: bool) -> str:
+def grad_reduction(name, cfg: ModelConfig, held: dict, ring: bool) -> str:
     """How a mesh step reduces parameter ``name``'s gradient over the
     ``"model"`` axis (over the data axes it is always summed, by the
     backward's reduce-scatter where the rank holds a ``"data"`` block of
-    it): ``"sum"``,
-    ``"first"`` (the axis's first rank's gradient, broadcast) or
-    ``"own"`` (a block of the leaf, each rank's its own).
+    it), given the blocks the rank holds (``held``,
+    ``models.transformer.held_axes``): ``"sum"``, ``"first"`` (the axis's
+    first rank's gradient, broadcast) or ``"own"`` (a block of the leaf,
+    each rank's its own).
 
     Every rank of the model axis holds the same data shard and computes
-    the same loss, so a gradient is summed over the axis only where the
-    parameter is replicated over it and used inside the sequence-sharded
-    region, each rank seeing its own tokens: the router; the experts
-    where the rank holds all ``E`` (the rows of other ranks' experts are
-    zero here); the self-attention weights (qk norms included) when the
-    attention runs on the ring (``ring``, ``transformer.on_ring``).  The
-    rank's own ``E / n`` experts see every token routed to them on this
-    rank, and the parameters used only in replicated compute (the
-    embeddings, norms outside the sharded blocks, MLPs, SSM and RG-LRU
-    layers, whisper's encoder and cross-attention) have the whole
+    the same loss.  A block over ``"model"`` -- the rank's own ``E / n``
+    experts, which see every token routed to them on this rank, and a
+    tensor-parallel block, whose gradient is its heads', columns' or
+    words' whole (the ring's gathered blocks' reduce-scattered) -- is
+    ``"own"``.  A gradient is summed over the axis where the parameter is
+    whole and each rank uses it for its own share: the router and the
+    experts where the rank holds all ``E`` (used inside the
+    sequence-sharded region, the rows of other ranks' experts zero here);
+    a whole leaf of a module that holds blocks over ``"model"`` (the
+    router beside the own experts; in a tensor-parallel attention the kv
+    heads that do not divide and the qk norms, each rank's query heads
+    reading them); the self-attention weights on the ring (``ring``,
+    ``transformer.on_ring``).  The parameters used only in replicated
+    compute (the norms outside those regions, the SSM and RG-LRU layers,
+    and every weight of a model held whole but the above) have the whole
     gradient on every rank: the axis's first rank's is taken, so that
     the ranks stay bit-equal where a kernel's float atomics order a sum
-    differently.  (``param_specs``' ``"model"`` entries describe the
-    reference's tensor parallelism, which the port does not run; the
-    rule follows where a parameter is used.)"""
+    differently."""
+    if "model" in held.get(name, {}):
+        return "own"
     path = ref_path(name)[0]
     if cfg.moe is not None and path[-2:-1] == ("moe",):
-        return "own" if expert_block(name, p, cfg) else "sum"
+        return "sum"
+    # the modules below the model that hold a block over "model": a
+    # whole leaf inside one is read by every rank's share of its region
+    regions = {n.rpartition(".")[0] for n, axes in held.items()
+               if "model" in axes} - {""}
+    if any(name.startswith(r + ".") for r in regions):
+        return "sum"
     if ring and path[0] != "enc" and "attn" in path:
         return "sum"
     return "first"
@@ -227,10 +283,9 @@ def reduce_grads_(grads, model, mesh, ring: bool):
     place on ``mesh`` as ``grad_reduction`` says: a sum over the data
     axes (over ``"pod"`` only for a ``"data"`` block, whose
     reduce-scatter summed it over ``"data"``), then over ``"model"`` a
-    sum, the first rank's, or nothing for an expert block."""
-    cfg, params = model.cfg, dict(model.named_parameters())
-    sharded = {n for n, axes in tf.held_axes(model).items()
-               if "data" in axes}
+    sum, the first rank's, or nothing for a block over the axis."""
+    cfg, held = model.cfg, tf.held_axes(model, mesh)
+    sharded = {n for n, axes in held.items() if "data" in axes}
     data, pod = _axes(mesh, DATA_AXES), _axes(mesh, ("pod",))
     _bucketed_([g for n, g in grads.items() if n not in sharded],
                lambda t: _sum_(t, data))
@@ -240,7 +295,7 @@ def reduce_grads_(grads, model, mesh, ring: bool):
     if not model:
         return
     group = model[0][1]
-    how = {n: grad_reduction(n, params[n], cfg, ring) for n in grads}
+    how = {n: grad_reduction(n, cfg, held, ring) for n in grads}
     _bucketed_([g for n, g in grads.items() if how[n] == "sum"],
                lambda t: dist.all_reduce(t, group=group))
     src = dist.get_global_rank(group, 0)
@@ -257,22 +312,39 @@ def _seq_len(cfg: ModelConfig, batch) -> int:
     return s
 
 
-# the mesh axes over which a rank holds blocks of the state (the layout
-# rule): "data" wherever ``state_specs`` names it (FSDP); "model" only on
-# an MoE expert weight's expert dimension
-HELD_AXES = ("data", "model")
+# the layout rules: which of ``param_specs``' entries a rank holds as
+# blocks.  "train": every entry but the SSM's and the RG-LRU's over
+# "model" (ROADMAP item 6d): FSDP over "data", over "model" the MoE
+# experts (expert parallelism) and the attention heads, the MLP's d_ff
+# and the vocabulary (tensor parallelism).  "fsdp": every "data" entry
+# and the experts' "model" entry, no tensor parallelism (the serving
+# layout until serving from tensor-parallel blocks is ported, ROADMAP
+# item 6c).  "experts": the experts' "model" entry alone
+LAYOUTS = ("train", "fsdp", "experts")
+
+
+def _held_over(name, axis, layout) -> bool:
+    """Whether the rule ``layout`` holds ``name``'s ``param_specs``
+    entries over ``axis`` as blocks."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: not one of {LAYOUTS}")
+    if axis == "data":
+        return layout != "experts"
+    if axis != "model":
+        return False
+    if layout == "train":
+        return not {"ssm", "rec"} & set(ref_path(name)[0])
+    return expert_weight(name)
 
 
 def held_shapes(cfg: ModelConfig, mesh_shape: dict,
-                axes=HELD_AXES) -> dict:
+                layout: str = "train") -> dict:
     """``{dotted name: shape}`` of the rank's block of each parameter on a
-    mesh of axis sizes ``mesh_shape``, by the layout rule: each dimension
-    split over the axes among ``axes`` that its ``param_specs`` entry
-    names and the port holds blocks over -- ``"data"``, and ``"model"``
-    only on an MoE expert weight's first (expert) dimension, the spec's
-    other ``"model"`` entries being the reference's tensor parallelism,
-    which the port does not run; a dimension they do not divide stays
-    whole (``param_specs``' ``dd``).  ``"pod"`` splits no parameter."""
+    mesh of axis sizes ``mesh_shape``, by the layout rule ``layout``
+    (``LAYOUTS``): each dimension split over the axes its
+    ``param_specs`` entry names and the rule holds blocks over; a
+    dimension they do not divide stays whole (``param_specs``' ``dd``).
+    ``"pod"`` splits no parameter."""
     specs = tf.param_specs(cfg, mesh_shape)
     out = {}
     for name, shape in convert.logical_shapes(cfg).items():
@@ -281,21 +353,20 @@ def held_shapes(cfg: ModelConfig, mesh_shape: dict,
         for k, d in enumerate(shape):
             count = math.prod(
                 mesh_shape.get(a, 1) for a in spec_entry(spec, k)
-                if a in axes
-                and (a == "data" or (k == 0 and expert_weight(name))))
+                if _held_over(name, a, layout))
             block.append(d // count if d % count == 0 else d)
         out[name] = tuple(block)
     return out
 
 
-def _cut_(model, trees, mesh, axes):
+def _cut_(model, trees, mesh, layout):
     """Cuts ``model``'s parameters and the same-named leaves of ``trees``
     (dicts keyed by dotted name) to the rank's blocks by ``held_shapes``
-    over ``axes``, in place (a leaf already cut is left as it is)."""
+    under ``layout``, in place (a leaf already cut is left as it is)."""
     cfg = model.cfg
-    ms = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    ms = mesh_sizes(mesh)
     specs = tf.param_specs(cfg, ms)
-    want = held_shapes(cfg, ms, axes)
+    want = held_shapes(cfg, ms, layout)
     for name, p in list(model.named_parameters()):
         shape = tuple(min(a, b) for a, b in zip(want[name], p.shape))
         if shape == tuple(p.shape):
@@ -310,47 +381,53 @@ def _cut_(model, trees, mesh, axes):
             tree[name] = cut(tree[name])
 
 
-def shard_params_(model, mesh, axes=HELD_AXES):
-    """``shard_state_`` (over ``axes``, ``("model",)`` for
-    ``own_experts_``) of the parameters alone, with no ``TrainState``
-    and no moments: a model to serve from its blocks
-    (``models.transformer.prefill`` and ``decode_step`` on ``mesh``), a
-    model whose optimizer state is made after the cut, or a restore
-    target on the ``meta`` device.  Returns ``model``."""
-    _cut_(model, [], mesh, axes)
+def shard_params_(model, mesh, layout="fsdp"):
+    """The cut of ``shard_state_`` (by the rule ``layout``, ``LAYOUTS``:
+    ``"fsdp"``, ``"train"``, or ``"experts"`` for ``own_experts_``) of
+    the parameters alone, with no ``TrainState`` and no moments: a model
+    to serve from its blocks (``models.transformer.prefill`` and
+    ``decode_step`` on ``mesh``, by ``"fsdp"``, which keeps the
+    tensor-parallel entries whole, ROADMAP item 6c), a model whose
+    optimizer state is made after the cut, or a restore target on the
+    ``meta`` device.  Returns ``model``."""
+    _cut_(model, [], mesh, layout)
     return model
 
 
-def shard_state_(state: TrainState, mesh) -> TrainState:
+def shard_state_(state: TrainState, mesh, layout="train") -> TrainState:
     """Makes each rank of ``mesh`` hold only its block of the state by the
-    layout rule (``held_shapes``): the parameters, both moments and the
-    error feedback, in place, as the reference lays its state out by
-    ``state_specs``.  A mesh step gathers the blocks where they are used.
-    Returns ``state``."""
-    return _cut_state_(state, mesh, HELD_AXES)
+    layout rule ``layout`` (``held_shapes``; by ``"train"``, as the
+    reference lays its state out by ``state_specs``, but the SSM's and
+    the RG-LRU's ``"model"`` entries, held whole; ``"fsdp"`` keeps every
+    tensor-parallel entry whole): the parameters, both moments and the
+    error feedback, in place.  A mesh step gathers the ``"data"`` blocks
+    where they are used and runs the ``"model"`` blocks tensor- and
+    expert-parallel.  Returns ``state``."""
+    return _cut_state_(state, mesh, layout)
 
 
 def own_experts_(state: TrainState, mesh) -> TrainState:
     """``shard_state_`` over ``"model"`` alone: each rank of ``mesh`` holds
     only its own ``E / n`` experts' rows of the expert weights, every
     other leaf whole.  Returns ``state``."""
-    return _cut_state_(state, mesh, ("model",))
+    return _cut_state_(state, mesh, "experts")
 
 
-def _cut_state_(state, mesh, axes):
+def _cut_state_(state, mesh, layout):
     trees = [state.opt_state["m"], state.opt_state["v"]]
     _cut_(state.params, trees + ([state.err_fb] if state.err_fb else []),
-          mesh, axes)
+          mesh, layout)
     return state
 
 
-def held_like(cfg: ModelConfig, mesh, compress: bool = False):
+def held_like(cfg: ModelConfig, mesh, compress: bool = False,
+              layout: str = "train"):
     """``convert.reference_like`` (with the error feedback where
     ``compress``) of the state a rank of ``mesh`` holds after
-    ``shard_state_``: a ``checkpoint.restore`` target for the rank's
-    blocks, restored with ``specs=held_specs(...)``."""
+    ``shard_state_`` by ``layout``: a ``checkpoint.restore`` target for
+    the rank's blocks, restored with ``specs=held_specs(...)``."""
     with torch.device("meta"):
-        model = shard_params_(tf.Transformer(cfg), mesh)
+        model = shard_params_(tf.Transformer(cfg), mesh, layout)
     return convert.reference_like(model, compress)
 
 
@@ -364,13 +441,16 @@ def held_specs(cfg: ModelConfig, mesh_shape: dict):
 
 
 def held_params_like(cfg: ModelConfig, mesh):
-    """The parameters alone of ``held_like``: a ``checkpoint.restore``
-    target for the blocks a rank serves from, with
+    """The parameters a rank serves from (``shard_params_`` by
+    ``"fsdp"``), as ``convert.reference_like`` gives them: a
+    ``checkpoint.restore`` target for those blocks, with
     ``specs=models.transformer.param_specs(cfg, mesh_shape)`` (the
     parameters' entry of ``held_specs``), restored from a checkpoint of a
-    training state (the FSDP trainer's, or one saved whole) or of the
+    training state (the trainer's, or one saved whole) or of the
     parameters alone."""
-    return held_like(cfg, mesh)[0]
+    with torch.device("meta"):
+        model = shard_params_(tf.Transformer(cfg), mesh)
+    return convert.reference_like(model)[0]
 
 
 def _mesh_norm_and_amax(model, grads, mesh):
@@ -378,9 +458,9 @@ def _mesh_norm_and_amax(model, grads, mesh):
     ``mesh``: the leaves of which this rank holds a block enter through
     a sum (the norm) and a max (the amax) over the axes of their blocks
     (``models.transformer.held_axes``)."""
-    # the axes of each block, in HELD_AXES' order
-    over = {n: tuple(a for a in HELD_AXES if a in axes)
-            for n, axes in tf.held_axes(model).items()}
+    # the axes of each block, "data" first
+    over = {n: tuple(a for a in ("data", "model") if a in axes)
+            for n, axes in tf.held_axes(model, mesh).items()}
 
     def norm(g):
         dev = next(iter(g.values())).device
@@ -415,10 +495,12 @@ def train_step_fn(cfg: ModelConfig, adam: opt.AdamWConfig | None = None,
     With ``mesh``, every rank of it calls ``step`` with its data shard
     (``data_shard``) and gets the global batch's loss; the ring attention
     (where ``cfg.attn_ring``) and the expert-parallel MoE run over
-    ``"model"``; metrics also hold ``grad_reduce_s``, the seconds of the
-    gradient reduction after the backward (the device synchronised around
-    it; ``models.transformer.fsdp_timing`` times the FSDP all-gathers
-    and reduce-scatters)."""
+    ``"model"``, and the blocks the rank holds over ``"model"``
+    tensor-parallel; metrics also hold ``grad_reduce_s``, the seconds of
+    the gradient reduction after the backward (the device synchronised
+    around it; ``models.transformer.fsdp_timing`` times the FSDP
+    collectives over ``"data"``, ``tp_timing`` the tensor-parallel ones
+    over ``"model"``)."""
     adam = adam or opt.AdamWConfig()
 
     def step(state: TrainState, batch):

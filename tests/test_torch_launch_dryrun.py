@@ -130,19 +130,20 @@ for name, c in SPEC["census"].items():
 for name in SPEC["fft"]:
     ds = solver(16, (2, 4), solver_kw(*SPEC["census"][name]))
     out["fft"][name] = hlo_stats.fft_flops(ds.lower().compile().as_text())
-def rule_bytes(path, a):
-    # the port's layout rule: the spec's axes but "model" on a weight
-    # other than an MoE expert weight (tensor parallelism, held whole); a
-    # dimension the axes do not divide whole
+def rule_bytes(path, a, train=False):
+    # the port's layout rules: the spec's axes, but "model" only on an
+    # MoE expert weight (serving) or on every leaf but the SSM's and the
+    # RG-LRU's (training); a dimension the axes do not divide whole
     keys = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
     expert = "moe" in keys and keys[-1] in ("w_in", "w_gate", "w_out")
+    held = expert or (train and not {"ssm", "rec"} & set(keys))
     spec = () if a.sharding is None else tuple(a.sharding.spec)
     sizes = {} if a.sharding is None else dict(a.sharding.mesh.shape)
     n = 1
     for k, d in enumerate(a.shape):
         e = spec[k] if k < len(spec) else None
         axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
-        c = int(np.prod([sizes[x] for x in axes if x != "model" or expert]))
+        c = int(np.prod([sizes[x] for x in axes if x != "model" or held]))
         n *= d // c if d % c == 0 else d
     return n * np.dtype(a.dtype).itemsize
 
@@ -157,7 +158,7 @@ for arch in LM_ARCHS:
             * np.dtype(a.dtype).itemsize for a in jax.tree.leaves(cell.args))
         if sh.kind == "train":
             out["rule"][f"{arch}/{sh.name}"] = sum(
-                rule_bytes(path, a) for path, a in
+                rule_bytes(path, a, train=True) for path, a in
                 jax.tree_util.tree_flatten_with_path(cell.args)[0])
         else:
             # a serving cell's parameters, tokens (frontend) and caches;
@@ -166,6 +167,31 @@ for arch in LM_ARCHS:
             out["serve_rule"][f"{arch}/{sh.name}"] = sum(
                 rule_bytes(path, a) for path, a in
                 jax.tree_util.tree_flatten_with_path(args)[0])
+# the dense smoke config at 1, 2 and 3 layers on (2, 4): the matmul
+# parameters of a rank's "model" blocks by param_specs (its "data" blocks
+# gathered whole), the tied embedding once, and its query heads
+from jax.sharding import PartitionSpec
+from repro.models import transformer as rtf
+out["tp_share"] = {}
+for L in (1, 2, 3):
+    cfg = dataclasses.replace(get_smoke("qwen3-0.6b"), n_layers=L)
+    shapes = jax.eval_shape(
+        lambda: rtf.init_params(jax.random.PRNGKey(0), cfg))
+    specs = {jax.tree_util.keystr(p): v for p, v in
+             jax.tree_util.tree_flatten_with_path(
+                 rtf.param_specs(cfg, {"data": 2, "model": 4}),
+                 is_leaf=lambda x: isinstance(x, PartitionSpec))[0]}
+    n, heads = 0, None
+    for p, a in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        key = jax.tree_util.keystr(p)
+        local = [d // 4 if k < len(specs[key]) and "model" in (
+            (specs[key][k],) if isinstance(specs[key][k], str)
+            else specs[key][k] or ()) else d for k, d in enumerate(a.shape)]
+        if len(a.shape) - key.startswith("['layers']") >= 2:
+            n += int(np.prod(local))
+        if key == "['layers']['attn']['wq']":
+            heads = local[-2]
+    out["tp_share"][L] = [n, heads, cfg.d_head]
 print("RESULT " + json.dumps(out))
 """
 
@@ -183,7 +209,6 @@ from repro_torch.launch import hlo_stats
 from repro_torch.launch.cells import build_cell
 from repro_torch.launch.flops_probe import held_bytes, measure
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models import convert
 from repro_torch.plan.costmodel import predict_bytes
 import math
 """ + _COMMON + r"""
@@ -244,14 +269,8 @@ for L in (1, 2, 3):
                       extra_cfg=dict(extra, n_layers=L), device="cpu")
     with cell.mode:
         m = measure(cell.fn, *cell.args)
-    model = cell.args[0].params
-    cfg = model.cfg
     b, s = cell.args[1]["inputs"].shape
-    # the matmul parameters of the whole model (the rank holds blocks)
-    n = sum(math.prod(s) for s in convert.logical_shapes(cfg).values()
-            if len(s) >= 2)
-    out["flops"][L] = [m.flops, 6 * n * b * s + 12 * L * b * s * s
-                       * cfg.n_heads * cfg.d_head]
+    out["flops"][L] = [m.flops, b, s]
 print("RESULT " + json.dumps(out))
 """.replace("_U3", repr(_U3))
 
@@ -394,11 +413,16 @@ def test_counted_train_flops_affine_in_layers_and_near_6nt(runs):
     """The counterpart of ``test_cost_analysis_undercounts_scan``: the
     port's layers run in a Python loop, so one traced step counts every
     layer -- the count is affine in the layer count, exactly -- and
-    within 2% of 6 N T + 12 L B S^2 H d_h (N the matmul parameters, the
-    tied embedding once; the norms, softmax and loss are not matmuls)."""
+    within 2% of 6 N T + 12 L B S^2 H d_h on the rank's share of the
+    fake (2, 4) mesh (N the matmul parameters of its blocks over "model"
+    by the reference's ``param_specs``, the tied embedding once, H its
+    query heads there, B its data shard; the norms, softmax and loss are
+    not matmuls)."""
     f = {int(k): v for k, v in runs["port"]["flops"].items()}
     assert f[3][0] - f[2][0] == f[2][0] - f[1][0] > 0
-    for counted, formula in f.values():
+    for L, (counted, b, s) in f.items():
+        n, h, d_head = runs["ref"]["tp_share"][str(L)]
+        formula = 6 * n * b * s + 12 * L * b * s * s * h * d_head
         assert abs(counted / formula - 1.0) < 0.02, (counted, formula)
 
 
@@ -409,9 +433,11 @@ def test_cell_argument_bytes_match_reference(runs):
     trees' local shapes give the reference's argument bytes exactly (its
     arguments' shard shapes: what ``memory_analysis`` reports; its smoke
     cells do not compile on 8 host devices, a ``DuplicateSpecError`` in
-    its lowering).  The port's rank holds more: the dense weights whole
-    over "model" (no tensor parallelism), and a decode cell's caches'
-    kv heads whole over "model" (README, deliberate differences)."""
+    its lowering).  The port's rank holds as much or more: a train cell
+    the SSM's and the RG-LRU's "model" entries whole (ROADMAP item 6d),
+    a serving cell the dense weights whole over "model" (ROADMAP item
+    6c), and a decode cell's caches' kv heads whole over "model"
+    (README, deliberate differences)."""
     ref, port = runs["ref"]["args"], runs["port"]["args"]
     assert set(port) == set(ref) and len(ref) == 32
     for key in ref:
@@ -420,11 +446,12 @@ def test_cell_argument_bytes_match_reference(runs):
 
 
 def test_train_cell_state_bytes_match_the_layout_rule(runs):
-    """Every train cell on the fake (2, 4) mesh holds exactly the layout
-    rule's bytes (``train_step.shard_state_``): the reference's argument
-    shard shapes with ``param_specs``' tensor-parallel "model" entries
-    taken whole, the MoE experts split over "model", every "data" entry
-    kept; the batch its data shard."""
+    """Every train cell on the fake (2, 4) mesh holds exactly the training
+    layout rule's bytes (``train_step.shard_state_``): the reference's
+    argument shard shapes, every "data" entry kept and the "model"
+    entries of the MoE experts, the attention heads, the MLP's d_ff and
+    the vocabulary, the SSM's and the RG-LRU's "model" entries taken
+    whole; the batch its data shard."""
     rule, held = runs["ref"]["rule"], runs["port"]["held"]
     assert rule and len(rule) == sum(k.endswith("train_4k") for k in held)
     for key in rule:

@@ -1239,7 +1239,8 @@ def scenario_train_mesh(rank, d, params):
     the weight gradients summed over "model"); the mesh train step of
     ``params["steps"]``' cases on (2, 4) (or the case's ``"mesh"``), each
     rank on its data shard;
-    the same from a state cut by ``shard_state_`` (FSDP) on each of
+    the same from a state cut by ``shard_state_`` by the ``"fsdp"``
+    layout (FSDP and the own experts, no tensor parallelism) on each of
     ``params["fsdp"]``' meshes, each rank's first-step gradient blocks
     and held shapes recorded, and the state of ``params["int8_ckpt"]``'s
     case saved and restored onto (4, 2) as the rank's blocks (error
@@ -1336,17 +1337,14 @@ def scenario_train_mesh(rank, d, params):
         f = np.load(os.path.join(d, name + ".npz"))
         return {k: torch.from_numpy(f[k]) for k in f.files}
 
-    def blocks_of(state):
-        return {n for n, p in state.params.named_parameters()
-                if ts.expert_block(n, p, state.params.cfg)}
-
     def run(state, cfg, adam, on, batches, rec, on_grads=None):
         for i, name in enumerate(batches):
             step = ts.train_step_fn(cfg, adam, mesh=on,
                                     on_grads=on_grads if i == 0 else None)
             state, met = step(state, ts.data_shard(batch(name), on))
             rec["loss"].append(float(met["loss"]))
-            rec["crc"].append(_params_crc(state.params, blocks_of(state)))
+            rec["crc"].append(_params_crc(
+                state.params, ts.model_blocks(state.params, on)))
         return state
 
     def save_rank0(case, tree):
@@ -1372,7 +1370,7 @@ def scenario_train_mesh(rank, d, params):
     for case, spec in params["fsdp"].items():
         on = meshes[tuple(spec["mesh"])]
         cfg, state = state_of(spec["model"], spec["compress"])
-        ts.shard_state_(state, on)
+        ts.shard_state_(state, on, "fsdp")
         rec = out["fsdp"][case] = {
             "loss": [], "crc": [], "data": on.get_local_rank("data"),
             "model": on.get_local_rank("model"),
@@ -1403,7 +1401,8 @@ def scenario_train_mesh(rank, d, params):
             if rank == 0:
                 np.savez(os.path.join(d, "rank0_int8_ckpt.npz"),
                          **_flat_tree({"err_fb": whole[2]}))
-            tree = ck.restore(ck_dir, 3, ts.held_like(cfg, mesh_b, True),
+            tree = ck.restore(ck_dir, 3,
+                              ts.held_like(cfg, mesh_b, True, "fsdp"),
                               mesh=mesh_b, specs=ts.held_specs(cfg, shape_b))
             restored = convert.from_reference(tree, cfg)
             out["int8_ckpt"] = {key: {n: list(t.shape) for n, t in held}
@@ -1432,7 +1431,7 @@ def scenario_train_mesh(rank, d, params):
     # the same from a sharded state, restored onto (4, 2) as the rank's
     # blocks; its save against a save of the same state held whole
     cfg, state = state_of(el["model"], False)
-    ts.shard_state_(state, mesh)
+    ts.shard_state_(state, mesh, "fsdp")
     rec = out["elastic_fsdp"] = {"loss": [], "crc": []}
     state = run(state, cfg, adam, mesh, el["batches"][:2], rec)
     tree = convert.to_reference(state, mesh)
@@ -1450,8 +1449,8 @@ def scenario_train_mesh(rank, d, params):
             open(os.path.join(ck_dir, "step_2", f), "rb").read()
             == open(os.path.join(whole_dir, "step_2", f), "rb").read()
             for f in files)
-    tree = ck.restore(ck_dir, 2, ts.held_like(cfg, mesh_b), mesh=mesh_b,
-                      specs=ts.held_specs(cfg, shape_b))
+    tree = ck.restore(ck_dir, 2, ts.held_like(cfg, mesh_b, layout="fsdp"),
+                      mesh=mesh_b, specs=ts.held_specs(cfg, shape_b))
     for key, t in (("params", tree[0]), ("m", tree[1]["m"]),
                    ("v", tree[1]["v"])):
         for k, a in _flat_tree(t).items():
@@ -1474,13 +1473,14 @@ def scenario_train_mesh(rank, d, params):
     ck.save(ck_dir, 1, whole, mesh=mesh)
     save_rank0("own_ckpt", whole)
     with torch.device("meta"):
-        like = ts.shard_params_(Transformer(cfg), mesh_b, ("model",))
+        like = ts.shard_params_(Transformer(cfg), mesh_b, "experts")
     tree = ck.restore(ck_dir, 1, convert.reference_like(like), mesh=mesh_b,
                       specs=ts.state_specs(cfg, shape_b))
     restored = convert.from_reference(tree, cfg)
+    rows = ts.model_blocks(restored.params, mesh_b)
     out["own_ckpt"]["rows"] = {
         n: list(p.shape) for n, p in restored.params.named_parameters()
-        if ts.expert_block(n, p, cfg)}
+        if n in rows}
     for key, t in (("params", tree[0]), ("m", tree[1]["m"]),
                    ("v", tree[1]["v"])):
         for k, a in _flat_tree(t).items():
@@ -1489,6 +1489,106 @@ def scenario_train_mesh(rank, d, params):
     np.savez(os.path.join(d, f"rank{rank}.npz"), **arrays)
     out["mesh_b"] = [mesh_b.get_local_rank("data"),
                      mesh_b.get_local_rank("model")]
+    return out
+
+
+def scenario_train_tp(rank, d, params):
+    """Eight ranks: the mesh train step from a state cut by
+    ``shard_state_`` (tensor parallelism over "model", FSDP over "data")
+    for each case of ``params["cases"]`` on its mesh (int8-compressed
+    where its ``"compress"``), each rank on its
+    data shard of the global batches: per step the loss and a CRC of the
+    parameters but the blocks over "model"; the held shapes, the first
+    step's gradients (``<d>/rank<r>.npz``) and a CRC of the gathered
+    state (rank 0's to ``<d>/rank0_<case>.npz``); the state of
+    ``params["ckpt"]``'s case saved and restored onto (4, 2) as the
+    rank's blocks (``held_like``, ``held_specs``); and the errors of
+    ``prefill`` and ``decode_step`` on that tensor-parallel model."""
+    import zlib
+
+    import torch
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    meshes = {tuple(m): _mesh(m, ("data", "model"))
+              for m in ((2, 4), (4, 2))}
+    arrays, out = {}, {}
+
+    def batch(name):
+        f = np.load(os.path.join(d, name + ".npz"))
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+    def gathered(state, mesh):
+        tree = convert.to_reference(state, mesh)
+        flat = _flat_tree({"params": tree[0], "m": tree[1]["m"],
+                           "v": tree[1]["v"]})
+        return tree, flat, zlib.crc32(b"".join(a.tobytes()
+                                               for a in flat.values()))
+
+    for case, spec in params["cases"].items():
+        mesh = meshes[tuple(spec["mesh"])]
+        cfg, model = _lm_model(d, spec["model"],
+                               params["models"][spec["model"]])
+        named = dict(model.named_parameters())
+        state = ts.shard_state_(ts.TrainState(
+            model, opt.init_opt_state(named),
+            opt.init_error_feedback(named) if spec["compress"] else None),
+            mesh)
+        adam = opt.AdamWConfig(grad_compress="int8" if spec["compress"]
+                               else "none")
+        rec = out[case] = {
+            "loss": [], "crc": [], "data": mesh.get_local_rank("data"),
+            "model": mesh.get_local_rank("model"),
+            "held": {key: {n: list(t.shape) for n, t in tree.items()}
+                     for key, tree in (
+                         ("params", dict(state.params.named_parameters())),
+                         ("m", state.opt_state["m"]),
+                         ("v", state.opt_state["v"]))}}
+
+        def keep(grads, case=case):
+            for n, g in grads.items():
+                arrays[f"{case}/{n}"] = g.numpy().copy()
+        for i, name in enumerate(spec["batches"]):
+            step = ts.train_step_fn(cfg, adam, mesh=mesh,
+                                    on_grads=keep if i == 0 else None)
+            state, met = step(state, ts.data_shard(batch(name), mesh))
+            rec["loss"].append(float(met["loss"]))
+            rec["crc"].append(_params_crc(
+                state.params, ts.model_blocks(state.params, mesh)))
+        tree, flat, rec["whole_crc"] = gathered(state, mesh)
+        if rank == 0:
+            np.savez(os.path.join(d, f"rank0_{case}.npz"), **flat)
+        if case != params["ckpt"]:
+            continue
+        # saved on the case's mesh, restored onto (4, 2) as the blocks
+        to, shape_to = meshes[(4, 2)], {"data": 4, "model": 2}
+        ck.save(os.path.join(d, "tp_ck"), 3, tree, mesh=mesh)
+        back = ck.restore(os.path.join(d, "tp_ck"), 3,
+                          ts.held_like(cfg, to), mesh=to,
+                          specs=ts.held_specs(cfg, shape_to))
+        for key, t in (("params", back[0]), ("m", back[1]["m"]),
+                       ("v", back[1]["v"])):
+            for k, a in _flat_tree(t).items():
+                arrays[f"ckpt/{key}/{k}"] = a
+        out["ckpt"] = {"mesh_b": [to.get_local_rank("data"),
+                                  to.get_local_rank("model")]}
+        toks = ts.data_shard(batch(spec["batches"][0]), mesh)["inputs"]
+        for fn, call in (
+                ("prefill", lambda: tf.prefill(state.params, toks,
+                                               mesh=mesh)),
+                ("decode_step", lambda: tf.decode_step(
+                    state.params, toks[:, :1], tf.init_caches(
+                        cfg, toks.shape[0], 8, device="cpu"), 0,
+                    mesh=mesh))):
+            try:
+                call()
+                out["ckpt"][fn] = "ran"
+            except ValueError as e:
+                out["ckpt"][fn] = str(e)
+    np.savez(os.path.join(d, f"rank{rank}.npz"), **arrays)
     return out
 
 
@@ -1545,7 +1645,7 @@ def scenario_serve_sharded(rank, d, params):
             arrays[f"{key}/logits{j}"] = lg.numpy()
             crc = zlib.crc32(lg.numpy().tobytes(), crc)
         out[key] = {"data": mesh_coord(mesh, DATA_AXES)[0], "crc": crc,
-                    "blocks": len(tf.held_axes(model)),
+                    "blocks": len(tf.held_axes(model, mesh)),
                     "held": {name: list(p.shape)
                              for name, p in model.named_parameters()}}
 

@@ -183,8 +183,8 @@ Phases (each raises on failure; nothing is caught):
      the models' products are cuBLAS calls through torch.einsum/bmm):
      qwen3-0.6b at its full config (28 layers, d_model 1024, vocab
      151936, bfloat16 compute, float32 master weights), batch 4 x seq
-     2048, 12 steps uninterrupted, then 6 steps with one checkpoint and
-     --fail-at 6 and a relaunch that resumes from it: every loss finite,
+     2048, 8 steps uninterrupted, then 4 steps with one checkpoint and
+     --fail-at 4 and a relaunch that resumes from it: every loss finite,
      step 0 within 2 nats of ln(vocab), the first run's losses and the
      resumed run's last loss within 1e-3 relative of the uninterrupted
      run's (deterministic algorithms off); the median ms/step, tokens/s,
@@ -205,7 +205,7 @@ Phases (each raises on failure; nothing is caught):
   8f. LM serving (repro_torch.models.transformer prefill and decode_step;
      no kernel of this script): qwen3-0.6b at its full config, eight
      requests of 2048 prompt tokens prefilled into caches of 2176 slots,
-     then 128 greedy decode steps: the prefill logits against forward on
+     then 32 greedy decode steps: the prefill logits against forward on
      the prompt (one code path: a smoke check), each layer's cached
      keys and values against attention(return_kv=True) on the layer's
      input (1e-4) with the slots past the prompt zero, and every decode
@@ -234,20 +234,30 @@ Phases (each raises on failure; nothing is caught):
      experts a rank) against _moe_local on each rank's tokens, float32,
      1e-4, its drop the blocks' mean, and the same from a module holding
      only the rank's 16 experts (1e-4 of the first); then the same four
-     ranks serve from sharded states (train_step.shard_params_: each
-     rank's block of every parameter over "data", its own experts over
-     "model"; prefill and decode_step on the mesh, each block gathered
-     whole for its step, one all-gather a block): qwen3-0.6b at full
+     ranks serve from sharded states (train_step.shard_params_ by the
+     training layout rule: each rank's block of every parameter over
+     "data", and over "model" its own experts and its blocks of the
+     attention heads, the MLP's d_ff and the vocabulary; prefill and
+     decode_step on the mesh, each block's "data" blocks gathered whole
+     for its step, one all-gather a block, the "model" blocks run
+     tensor-parallel, one all-reduce a region, each rank's caches its
+     rows and kv heads, the logits gathered whole): qwen3-0.6b at full
      width cut to 4 layers, float32, 4 x 512 prompts and 4 greedy decode
-     steps on mesh (2, 2) and on (4, 1), and moonshot-v1-16b-a3b at
-     full width cut to 1 layer, 32 own experts a rank, capacity factor
-     E / k, 4 x 256 prompts and 2 decode steps on (2, 2), each rank's
-     rows of every call's logits and of the last caches within 1e-4 of
-     the same model served whole on one process on the card (run first
-     and fed the same tokens), the ranks on one "data" coordinate
-     bit-equal; printed: the parameter bytes a rank against whole, the
-     prefill ms and decode ms a step, and the FSDP all-gathers' share
-     of each (timed with the card synchronised around each);
+     steps on mesh (2, 2), on (4, 1) (FSDP alone) and on (1, 4) (tensor
+     parallelism alone), and moonshot-v1-16b-a3b at full width cut to 1
+     layer, 32 own experts a rank, capacity factor E / k, 4 x 256
+     prompts and 2 decode steps on (2, 2), each rank's rows of every
+     call's logits, and its rows and kv heads of the last caches, within
+     1e-4 of the same model served whole on one process on the card (run
+     first and fed the same tokens), the ranks on one "data" coordinate
+     bit-equal in the logits, the parameter bytes a rank within 0.0005
+     GiB of the prediction from the reference's layout
+     (LM_SHARD_PREDICTED_GIB) and the cache bytes a rank exactly its
+     share of the one process's; printed: those bytes against whole, the
+     prefill ms and decode ms a step, and the shares of each taken by
+     the all-gathers over "data" (fsdp_timing), the all-reduces and the
+     all-gathers over "model" (tp_timing), timed with the card
+     synchronised around each;
   8g. LM training on a mesh (repro_torch.training.train_step_fn(mesh=);
      no kernel of this script), four gloo ranks spawned on the card,
      float32 compute, TF32 off, after a memory reckoning per rank and
@@ -260,23 +270,23 @@ Phases (each raises on failure; nothing is caught):
      blocks run Megatron-style, one all-reduce a region each way, the
      ring's attention blocks gathered whole over "model"): qwen3-0.6b
      at full width cut to 4 layers with attn_ring, global batch 4 x
-     2048, two steps on mesh (2, 2), a checkpoint saved whole from rank
+     2048, a step on mesh (2, 2), a checkpoint saved whole from rank
      0, a restore onto mesh (4, 1) as each rank's blocks and a third
-     step, another checkpoint, a restore onto (1, 4) and a fourth step,
-     against four one-process steps on the same batches; the same model
-     without attn_ring, a fresh state cut on (1, 4) and on (2, 2), two
-     steps each on the first two batches (the tensor-parallel leg, its
-     all-reduces timed), against the same one-process steps;
+     step, another checkpoint, a restore onto (1, 4) and a third step,
+     against three one-process steps on the same batches; the same model
+     without attn_ring, a fresh state cut on (1, 4) and on (2, 2), a
+     step each on the first batch (the tensor-parallel leg, its
+     all-reduces timed), against the same one-process step;
      moonshot-v1-16b-a3b at full width cut to 1 layer, each rank
      holding its own 32 of the 64 experts and its blocks of the
      attention heads and the vocabulary, d_model split over "data",
-     capacity factor E / k, global batch 2 x 1024, two steps on mesh
+     capacity factor E / k, global batch 2 x 1024, a step on mesh
      (2, 2), against one process holding all 64 (run first and freed
      before the ranks spawn).  Each batch's second half masks its last
      256 positions.  Held: losses within 1e-5 relative, the first
      step's reduced gradients (a rank's blocks against the matching
      slices) within 1e-4 of each leaf's largest, the dense model's last
-     parameters (and the tensor-parallel leg's after its two steps)
+     parameters (and the tensor-parallel leg's after its step)
      within 2e-5 |p| + 2e-6, the tensor-parallel leg's state bytes a
      rank within 0.0005 GiB of the prediction from the reference's
      layout (LM_TM_TP_PREDICTED_GIB), the ranks on one "data"
@@ -285,10 +295,12 @@ Phases (each raises on failure; nothing is caught):
      rank against whole, ms a step on the mesh and on one process, the
      seconds of the FSDP all-gathers and reduce-scatters over "data"
      and of the tensor-parallel collectives over "model" (the regions'
-     all-reduces, the ring's gathers of the attention's blocks and
-     reduce-scatters of their gradients), each with its share of the
-     step, the gloo gradient reduction's share, each rank's peak
-     memory_allocated, the checkpoints' save and restore seconds;
+     all-reduces, the all-gathers: the ring's of the attention's blocks,
+     the ring's and the MoE's outputs' and their gradients', and the
+     reduce-scatters of the ring's blocks' gradients), each with its
+     share of the step, the gloo gradient reduction's share, each
+     rank's peak memory_allocated, the checkpoints' save and restore
+     seconds;
   8h. the dry run (repro_torch.launch.dryrun, cells, flops_probe,
      hlo_stats, mesh; DistributedPoissonSolver.lower): the CLI in
      subprocesses on fake ranks (a "fake" process group, fake tensors
@@ -627,7 +639,7 @@ GROUP_TIMEOUT_S = 300
 DIST_STRATEGIES = ("a2a:1", "pipelined:2", "fused:1", "overlap:2")
 PLAN_N = 128
 PLAN_K = 48
-PLAN_REPS = 3
+PLAN_REPS = 2
 
 
 def _dist4_rank(rank, world, d):
@@ -944,7 +956,7 @@ def _dist4_abft(rank, dev, f, n):
 SERVE_N = {"UUU": N, "PPP": N, "SEMI": N // 2, "SYM": 192}
 SERVE_PATTERN = {"UUU": "UUU", "PPP": "PPP", "SEMI": "SEMI_E",
                  "SYM": "SYM384"}
-SERVE_ROUNDS = {N: (4, 6), N // 2: (16, 6)}
+SERVE_ROUNDS = {N: (4, 3), N // 2: (16, 3)}
 SERVE_LAUNCHER_N = N // 2
 SERVE_BATCHES = {1: 1, 2: 2, 3: 4, 8: 8}
 
@@ -1587,7 +1599,7 @@ SERVE_MESH_N = N // 2
 SERVE_MESH_NODE_N = 64
 SERVE_MESH_RANKS = {"UUU": (1, 2, 4, 8), "PPP": (1, 2, 4, 8),
                     "NODE": (1, 4)}
-SERVE_MESH_GATE = {"n": 64, "tenants": 8, "requests": 12, "rounds": 4}
+SERVE_MESH_GATE = {"n": 64, "tenants": 8, "requests": 12, "rounds": 2}
 SERVE_MESH_SOAK_N = 16
 
 
@@ -1978,7 +1990,7 @@ def _serve_mesh_phase(dev, smi, calls):
 # train launcher, the other families at full width and a cut depth, and
 # the card against the host CPU on the ten smoke configs
 LM_ARCH = "qwen3-0.6b"
-LM_BATCH, LM_SEQ, LM_STEPS, LM_FAIL = 4, 2048, 12, 6
+LM_BATCH, LM_SEQ, LM_STEPS, LM_FAIL = 4, 2048, 8, 4
 # (arch, config overrides, batch, seq, the cut as printed)
 LM_FAMILIES = (
     ("moonshot-v1-16b-a3b", {"n_layers": 2}, 2, 2048, "48 -> 2 layers"),
@@ -2293,7 +2305,7 @@ def _lm_phase(dev, smi):
 # and greedy decode_step, the other nine configs at full width and a cut
 # depth, the ten smoke configs on the card against the host CPU, and ring
 # attention and the expert-parallel MoE on four gloo ranks
-LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS = 8, 2048, 128
+LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS = 8, 2048, 32
 LM_SERVE_TOL = 2e-2
 # (arch, config overrides, batch, prompt tokens, the cut as printed);
 # mamba2's prompt and forward stay within one 256-token chunk,
@@ -2338,14 +2350,27 @@ LM_MESH_MOE = (2, 2048)
 # printed, the meshes); float32 compute, the MoE at a capacity factor of
 # E / k (a rank routes its data shard's tokens, one process all of
 # them).  Each leg's seed makes its weights on every rank and on the
-# one process that serves the model whole
+# one process that serves the model whole.  The parameters are cut by
+# the training layout rule (train_step.shard_params_ by "train": FSDP
+# over "data", the attention heads, the MLP's d_ff, the vocabulary and
+# the own experts over "model"), so (1, 4) is tensor parallelism alone,
+# (4, 1) FSDP alone and (2, 2) both
 LM_SHARD_LEGS = (
     ("qwen3-0.6b", {"n_layers": 4}, 4, 512, 4, "28 -> 4 layers",
-     ((2, 2), (4, 1))),
+     ((2, 2), (4, 1), (1, 4))),
     ("moonshot-v1-16b-a3b", {"n_layers": 1}, 4, 256, 2, "48 -> 1 layer",
      ((2, 2),)),
 )
 LM_SHARD_SEEDS = (84, 85)
+# the parameters a rank holds, GiB (float32), predicted from the
+# reference's layout (param_specs' local shapes) before the first run,
+# held to LM_SHARD_GIB_TOL; and the share of the one process's caches a
+# rank holds (its rows of the batch, its kv heads), exactly
+LM_SHARD_PREDICTED_GIB = {(0, (2, 2)): 0.2035, (0, (4, 1)): 0.204,
+                          (0, (1, 4)): 0.2035, (1, (2, 2)): 1.157}
+LM_SHARD_CACHE_SHARE = {(0, (2, 2)): 1 / 4, (0, (4, 1)): 1 / 4,
+                        (0, (1, 4)): 1 / 4, (1, (2, 2)): 1 / 4}
+LM_SHARD_GIB_TOL = 5e-4
 
 
 def _rel(got, want) -> float:
@@ -2405,55 +2430,81 @@ def _lm_shard_whole(leg, dev):
 
 def _lm_shard_leg(leg, mesh, ref, dev, sync):
     """Leg ``leg`` served on ``mesh`` from this rank's blocks
-    (``shard_params_``), fed the one process's tokens (``ref``), with the
-    FSDP collectives timed.  Returns the leg's record: its errors
-    against ``ref`` on the rank's rows, the logits' checksum, the held
-    and whole parameter bytes, ms and gather ms of prefill and of the
-    decode steps, and how many greedy tokens agree with ``ref``'s."""
+    (``shard_params_`` by ``"train"``), fed the one process's tokens
+    (``ref``), with the collectives over "data" (``fsdp_timing``) and
+    over "model" (``tp_timing``) timed.  Returns the leg's record: its
+    errors against ``ref`` on the rank's rows (and kv heads of the
+    caches), the logits' checksum, the held and whole parameter and cache
+    bytes, ms of prefill and of the decode steps with the ms of their
+    "data" gathers, "model" all-reduces and "model" gathers, and how many
+    greedy tokens agree with ``ref``'s."""
     import torch
     from repro_torch.models import convert
     from repro_torch.models import transformer as tf
-    from repro_torch.models.common import DATA_AXES, mesh_coord
+    from repro_torch.models.common import DATA_AXES, mesh_coord, mesh_sizes
     from repro_torch.training import train_step as ts
     cfg = _lm_shard_cfg(leg)
     b, p, n = LM_SHARD_LEGS[leg][2:5]
     model = ts.shard_params_(tf.init_params(torch.Generator(dev).manual_seed(
-        LM_SHARD_SEEDS[leg]), cfg), mesh)
+        LM_SHARD_SEEDS[leg]), cfg), mesh, "train")
     idx, count = mesh_coord(mesh, DATA_AXES)
     rows = slice(idx * (b // count), (idx + 1) * (b // count))
+    tp, mr = mesh_sizes(mesh)["model"], mesh.get_local_rank("model")
+    kv = cfg.n_kv // tp if cfg.n_kv % tp == 0 else cfg.n_kv
+
+    def block(name, t):
+        """The rank's block of the one process's cache leaf ``name``: its
+        rows, and its kv heads where they divide over "model"."""
+        t = t[rows]
+        if name.rsplit(".", 1)[-1] in ("k", "v", "xk", "xv"):
+            t = t[:, :, mr * kv:(mr + 1) * kv] if kv < cfg.n_kv else t
+        return t
+
+    held = tf.held_axes(model, mesh)
     rec = {"data": idx, "held_bytes": sum(
         q.numel() * q.element_size() for q in model.parameters()),
         "whole_bytes": 4 * sum(math.prod(s) for s in
                                convert.logical_shapes(cfg).values()),
-        "blocks": len(tf.held_axes(
-            model, mesh)), "decode_ms": [], "decode_gather_ms": []}
+        "blocks": len(held),
+        "tp_blocks": sum("model" in a and not convert.expert_weight(k)
+                         for k, a in held.items()),
+        "data_blocks": sum("data" in a for a in held.values())}
+    for key in ("ms", "data_ms", "reduce_ms", "gather_ms"):
+        rec["decode_" + key] = []
     got = []
-    with tf.fsdp_timing() as secs:
-        sync()
-        t = time.perf_counter()
-        logits, caches = tf.prefill(model, ref["prompt"][rows], mesh=mesh,
-                                    max_len=p + n)
-        sync()
-        rec["prefill_ms"] = (time.perf_counter() - t) * 1e3
-        rec["prefill_gather_ms"] = secs["gather"] * 1e3
-        got.append(logits)
-        for j in range(n):
-            g0 = secs["gather"]
+    with tf.fsdp_timing() as fs, tf.tp_timing() as tps:
+        def call(fn):
+            was = fs["gather"], tps["all_reduce"], tps["gather"]
             sync()
             t = time.perf_counter()
-            lg, caches = tf.decode_step(model, ref["tokens"][j][rows],
-                                        caches, p + j, mesh=mesh)
+            out = fn()
             sync()
-            rec["decode_ms"].append((time.perf_counter() - t) * 1e3)
-            rec["decode_gather_ms"].append((secs["gather"] - g0) * 1e3)
+            now = fs["gather"], tps["all_reduce"], tps["gather"]
+            return out, [(time.perf_counter() - t) * 1e3] + [
+                (b - a) * 1e3 for a, b in zip(was, now)]
+        (logits, caches), times = call(lambda: tf.prefill(
+            model, ref["prompt"][rows], mesh=mesh, max_len=p + n))
+        for key, v in zip(("ms", "data_ms", "reduce_ms", "gather_ms"), times):
+            rec["prefill_" + key] = v
+        got.append(logits)
+        for j in range(n):
+            (lg, caches), times = call(lambda: tf.decode_step(
+                model, ref["tokens"][j][rows], caches, p + j, mesh=mesh))
+            for key, v in zip(("ms", "data_ms", "reduce_ms", "gather_ms"),
+                              times):
+                rec["decode_" + key].append(v)
             got.append(lg)
     rec["logit_err"] = max(_rel(g, w[rows]) for g, w in
                            zip(got, ref["logits"], strict=True))
     rec["finite"] = all(bool(torch.isfinite(g).all()) for g in got)
     mine = convert._dotted(caches)
-    rec["cache_err"] = max(_rel(mine[k], w[rows])
-                           for k, w in ref["caches"].items())
     rec["same_keys"] = set(mine) == set(ref["caches"])
+    rec["cache_err"] = max(_rel(mine[k], block(k, w))
+                           for k, w in ref["caches"].items())
+    rec["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in mine.values())
+    rec["whole_cache_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in ref["caches"].values())
     rec["argmax_agree"] = sum(
         int((g[:, -1:].argmax(dim=-1) == t[rows]).sum())
         for g, t in zip(got, ref["tokens"]))
@@ -2565,6 +2616,82 @@ def _lm_mesh_rank(rank, world, d, refs):
     gc.collect()
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _lm_shard_report(ranks, whole, smi):
+    """Holds and prints the sharded serving legs of phase 8f: ``ranks``
+    the four ranks' records (``_lm_mesh_rank``), ``whole`` each leg's
+    one-process run (``_lm_shard_whole``).  Raises on the first failed
+    check."""
+    for leg, spec in enumerate(LM_SHARD_LEGS):
+        arch, _, b, p, n, cut, shapes = spec
+        w = whole[leg]
+        for shape in shapes:
+            res = [r["shard"][f"{leg}/{shape}"] for r in ranks]
+            want_gib = LM_SHARD_PREDICTED_GIB[leg, shape]
+            share = LM_SHARD_CACHE_SHARE[leg, shape]
+            for r, rec in enumerate(res):
+                peer = next(q for q in res if q["data"] == rec["data"])
+                if not (rec["finite"] and rec["same_keys"]
+                        and rec["blocks"] > 0
+                        and (rec["tp_blocks"] > 0) == (shape[1] > 1)
+                        and (rec["data_blocks"] > 0) == (shape[0] > 1)) \
+                        or rec["logit_err"] > LM_CARD_TOL \
+                        or rec["cache_err"] > LM_CARD_TOL \
+                        or rec["sum"] != peer["sum"] \
+                        or abs(rec["held_bytes"] / 2 ** 30 - want_gib) > \
+                        LM_SHARD_GIB_TOL \
+                        or rec["cache_bytes"] != \
+                        rec["whole_cache_bytes"] * share:
+                    raise AssertionError(f"LM_SERVE_SHARDED {arch} {shape} "
+                                         f"rank {r}: {rec}")
+            top = lambda k: max(rec[k] for rec in res)
+            # each call's times from its slowest rank, so that the
+            # collectives' shares are of one rank's call
+            slow = [max(res, key=lambda rec: rec["decode_ms"][j])
+                    for j in range(n)]
+            col = lambda k: [rec[k][j] for j, rec in enumerate(slow)]
+            dec, dgat = col("decode_ms"), col("decode_data_ms")
+            dred, dmod = col("decode_reduce_ms"), col("decode_gather_ms")
+            first = max(res, key=lambda rec: rec["prefill_ms"])
+            pre = first["prefill_ms"]
+            pct = lambda x, t: f"{x / t:.1%}"
+            rnd = lambda xs: [round(x, 1) for x in xs]
+            print(f"LM_SERVE_SHARDED {arch} ({cut}, full width, float32"
+                  + (", capacity factor E / k" if "moonshot" in arch else "")
+                  + f"), {b} x {p} prompts and {n} greedy decode steps on "
+                  f"mesh {shape} (\"data\", \"model\"), four gloo ranks, "
+                  f"each holding its blocks by the training layout rule "
+                  f"({res[0]['tp_blocks']} tensor-parallel leaves over "
+                  f"\"model\", {res[0]['data_blocks']} over \"data\"): "
+                  f"parameters {top('held_bytes') / 2 ** 30:.4f} GiB a rank "
+                  f"(the largest; predicted {want_gib} GiB) against "
+                  f"{res[0]['whole_bytes'] / 2 ** 30:.3f} GiB whole; caches "
+                  f"{top('cache_bytes') / 1e6:.2f} MB a rank against "
+                  f"{res[0]['whole_cache_bytes'] / 1e6:.2f} MB whole "
+                  f"(predicted {share:g} of it); every call's logits within "
+                  f"{top('logit_err'):.2e} and the rank's rows and kv heads "
+                  f"of the last caches within {top('cache_err'):.2e} of the "
+                  f"model served whole on one process (tolerance "
+                  f"{LM_CARD_TOL:.0e}), greedy tokens agreeing "
+                  f"{min(rec['argmax_agree'] for rec in res)} of "
+                  f"{n * b // shape[0]} a rank, ranks on one \"data\" "
+                  f"coordinate bit-equal in the logits; prefill {pre:.1f} ms "
+                  f"(\"data\" all-gathers {first['prefill_data_ms']:.1f} ms, "
+                  f"{pct(first['prefill_data_ms'], pre)}; \"model\" "
+                  f"all-reduces {first['prefill_reduce_ms']:.1f} ms, "
+                  f"{pct(first['prefill_reduce_ms'], pre)}; \"model\" "
+                  f"all-gathers {first['prefill_gather_ms']:.1f} ms, "
+                  f"{pct(first['prefill_gather_ms'], pre)}) against "
+                  f"{w['prefill_ms']:.1f} ms whole; decode ms a step "
+                  f"{rnd(dec)} (\"data\" all-gathers {rnd(dgat)} ms, "
+                  f"{pct(sum(dgat), sum(dec))}; \"model\" all-reduces "
+                  f"{rnd(dred)} ms, {pct(sum(dred), sum(dec))}; \"model\" "
+                  f"all-gathers {rnd(dmod)} ms, {pct(sum(dmod), sum(dec))}) "
+                  f"against {w['decode_ms']:.2f} ms whole (each call's "
+                  f"slowest rank; gloo through the host, timed with the "
+                  f"card synchronised around each collective); card: "
+                  f"{smi}")
 
 
 def _lm_serve_phase(dev, smi):
@@ -2954,48 +3081,7 @@ def _lm_serve_phase(dev, smi):
           f"{top('single_ms'):.1f}, expert-parallel {top('ep_ms'):.1f} "
           f"/ local {top('local_ms'):.1f} (gloo stages through the host: "
           f"no communication figure); ranks {t_ranks:.1f} s; card: {smi}")
-    for leg, spec in enumerate(LM_SHARD_LEGS):
-        arch, _, b, p, n, cut, shapes = spec
-        w = whole[leg]
-        for shape in shapes:
-            res = [r["shard"][f"{leg}/{shape}"] for r in ranks]
-            for r, rec in enumerate(res):
-                peer = next(q for q in res if q["data"] == rec["data"])
-                if not (rec["finite"] and rec["same_keys"]
-                        and rec["blocks"] > 0) \
-                        or rec["logit_err"] > LM_CARD_TOL \
-                        or rec["cache_err"] > LM_CARD_TOL \
-                        or rec["sum"] != peer["sum"]:
-                    raise AssertionError(f"LM_SERVE_SHARDED {arch} {shape} "
-                                         f"rank {r}: {rec}")
-            top = lambda k: max(rec[k] for rec in res)
-            dec = [max(rec["decode_ms"][j] for rec in res) for j in range(n)]
-            gat = [max(rec["decode_gather_ms"][j] for rec in res)
-                   for j in range(n)]
-            print(f"LM_SERVE_SHARDED {arch} ({cut}, full width, float32"
-                  + (", capacity factor E / k" if "moonshot" in arch else "")
-                  + f"), {b} x {p} prompts and {n} greedy decode steps on "
-                  f"mesh {shape}, four gloo ranks, each holding its blocks "
-                  f"by the layout rule: parameters "
-                  f"{top('held_bytes') / 2 ** 30:.3f} GiB a rank (the "
-                  f"largest) against "
-                  f"{res[0]['whole_bytes'] / 2 ** 30:.3f} GiB whole; every "
-                  f"call's logits within {top('logit_err'):.2e} and the "
-                  f"last caches within {top('cache_err'):.2e} of the model "
-                  f"served whole on one process (tolerance "
-                  f"{LM_CARD_TOL:.0e}), greedy tokens agreeing "
-                  f"{min(rec['argmax_agree'] for rec in res)} of "
-                  f"{n * b // shape[0]} a rank, ranks on one \"data\" "
-                  f"coordinate bit-equal; prefill {top('prefill_ms'):.1f} ms "
-                  f"(FSDP all-gathers {top('prefill_gather_ms'):.1f} ms, "
-                  f"{top('prefill_gather_ms') / top('prefill_ms'):.1%}) "
-                  f"against {w['prefill_ms']:.1f} ms whole; decode ms a step "
-                  f"{[round(x, 1) for x in dec]} (all-gathers "
-                  f"{[round(x, 1) for x in gat]} ms, "
-                  f"{sum(gat) / sum(dec):.1%}) against "
-                  f"{w['decode_ms']:.2f} ms whole (the slowest rank; gloo "
-                  f"through the host, timed with the card synchronised "
-                  f"around each gather); card: {smi}")
+    _lm_shard_report(ranks, whole, smi)
     del whole
     print(f"LM serve phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
 
@@ -3005,8 +3091,8 @@ def _lm_serve_phase(dev, smi):
 # rule (train_step.shard_state_: FSDP over "data"; the MoE's own experts
 # and the tensor-parallel blocks over "model").  (arch, config
 # overrides, global batch, seq, the cut as printed); the dense model
-# takes two steps on the first mesh, a checkpoint, a step on the second,
-# a checkpoint and a step on the third; the MoE model, at a capacity factor
+# takes LM_TM_DENSE_STEPS steps on each mesh, a checkpoint between two
+# meshes; the MoE model, at a capacity factor
 # of E / k, takes LM_TM_MOE_STEPS steps on its mesh.  The second half of
 # each batch drops its last LM_TM_MASKED positions from the mask, so that
 # the shards' masks differ (the loss is over the global mask sum)
@@ -3014,18 +3100,18 @@ LM_TM_DENSE = ("qwen3-0.6b", {"n_layers": 4, "attn_ring": True}, 4, 2048,
                "28 -> 4 layers")
 LM_TM_DENSE_MESHES = ((2, 2), (4, 1), (1, 4))
 # the dense steps on each mesh, in order
-LM_TM_DENSE_STEPS = (2, 1, 1)
+LM_TM_DENSE_STEPS = (1, 1, 1)
 LM_TM_MOE = ("moonshot-v1-16b-a3b", {"n_layers": 1}, 2, 1024,
              "48 -> 1 layer")
 LM_TM_MOE_MESH = (2, 2)
-LM_TM_MOE_STEPS = 2
+LM_TM_MOE_STEPS = 1
 # the tensor-parallel leg: the dense model without attn_ring, a fresh
 # state cut by the layout rule on each mesh, LM_TM_TP_STEPS steps on the
 # dense leg's first batches (the one process's run of the dense model
 # serves both legs: the ring changes none of its numbers), with its
 # tensor-parallel all-reduces timed (transformer.tp_timing)
 LM_TM_TP_MESHES = ((1, 4), (2, 2))
-LM_TM_TP_STEPS = 2
+LM_TM_TP_STEPS = 1
 # the state a rank of the tensor-parallel leg holds (parameters and two
 # moments, float32), predicted from the reference's layout (its
 # state_specs' local shapes) before the first run: GiB a mesh, held to
@@ -3209,8 +3295,8 @@ def _lm_train_mesh_rank(rank, world, d, refs):
         """Steps on ``batches`` from ``state`` on ``mesh``; records each
         step's loss, ms, reduction ms, the ms of its FSDP collectives over
         "data" and of its tensor-parallel ones over "model" (the regions'
-        all-reduces, the ring's gathers of the attention's blocks and
-        reduce-scatters of their gradients), checksum of the held
+        all-reduces, the all-gathers, the reduce-scatters), checksum of
+        the held
         parameters (but the blocks over "model", which differ over the
         axis) and "data" coordinate, then the held state's bytes, the
         peak memory_allocated of the steps and the gathered parameters'
@@ -3585,9 +3671,10 @@ def _lm_train_mesh_phase(dev, smi):
               f"{[f'{a / b:.1%}' for a, b in zip(fsdp, ms)]} of the step; "
               f"the tensor-parallel collectives over \"model\": "
               f"all-reduces {[round(x, 1) for x in col('tp_all_reduce_ms')]}"
-              f" ms, the ring's gathers of the attention's blocks "
+              f" ms, all-gathers (the ring's attention blocks, the ring's "
+              f"and the MoE's outputs and their gradients) "
               f"{[round(x, 1) for x in col('tp_gather_ms')]} ms and "
-              f"reduce-scatters of their gradients "
+              f"reduce-scatters of the ring's blocks' gradients "
               f"{[round(x, 1) for x in col('tp_reduce_scatter_ms')]} ms "
               f"(timed alike), together "
               f"{[f'{a / b:.1%}' for a, b in zip(tp, ms)]} of the step; "
@@ -3914,6 +4001,15 @@ def _rate(table, name, default):
 
 def main() -> int:
     t_start = time.perf_counter()
+    clock = [t_start, None]
+
+    def phase(name):
+        """Prints the seconds of the phase before, on a line of its own,
+        and starts phase ``name``'s (None: the last has ended)."""
+        now = time.perf_counter()
+        if clock[1] is not None:
+            print(f"phase {clock[1]}: {now - clock[0]:.1f} s")
+        clock[:] = [now, name]
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -3949,6 +4045,7 @@ def main() -> int:
     sync = torch.cuda.synchronize
 
     # -- 1. the card ------------------------------------------------------
+    phase("1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3964,6 +4061,7 @@ def main() -> int:
           f"fp64 {peak[torch.float64] / 1e12} TFLOP/s")
 
     # -- 2. build -----------------------------------------------------------
+    phase("2")
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
@@ -4024,6 +4122,7 @@ def main() -> int:
         return 2e-6, 1e-6
 
     # -- 3. kernels against their plain versions -------------------------
+    phase("3")
     t0 = time.perf_counter()
     checks = 0
     for rdt, cdt in ((torch.float32, torch.complex64),
@@ -4276,6 +4375,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
     # -- 4. main path ---------------------------------------------------------
+    phase("4")
     U = (BCType.UNB, BCType.UNB)
     P = (BCType.PER, BCType.PER)
     E, O = BCType.EVEN, BCType.ODD
@@ -4401,6 +4501,7 @@ def main() -> int:
         solvers[tag] = (sc, st, f)
 
     # -- 5. analytic checks (NODE, HEJ4, float64) -----------------------------
+    phase("5")
     from scipy.special import erf
     na, L = 64, 1.0
     xs = np.meshgrid(*([np.arange(na + 1) * (L / na)] * 3), indexing="ij")
@@ -4442,6 +4543,7 @@ def main() -> int:
              (((2.0 * L - 0.5, 0.5, 0.5), 1.0),), 1.5 * SEMI_E_REF_EINF)
 
     # -- 6. Biot-Savart -------------------------------------------------------
+    phase("6")
     from scipy.special import expn
     from repro_torch.core.biot_savart import BiotSavartSolver
     # vorticity BCs bcs[c][d]: the paper's vortex tube (x, y unbounded; z
@@ -4510,6 +4612,7 @@ def main() -> int:
     del sq, uq
 
     # -- 7. the runtime: plan cache, health guard, degradation ladder --------
+    phase("7")
     from repro_torch.core.solver import (clear_solver_cache, get_solver,
                                          solver_cache_info)
     from repro_torch.runtime import faults
@@ -4707,6 +4810,7 @@ def main() -> int:
         return agg
 
     # -- 7b. ABFT: checked stages and the Freivalds sandwich ---------------
+    phase("7b")
     t0 = time.perf_counter()
     sp_uuu, _, f_uuu = solvers[f"UUU n={N}"]
     s_eop = PoissonSolver((N,) * 3, 1.0, ((E, E), (O, E), P),
@@ -4841,6 +4945,7 @@ def main() -> int:
     print(f"ABFT phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 7c. whole solves: times, memory and profiles ------------------------
+    phase("7c")
     # here, before the distributed, serve and launcher phases: profiles
     # taken after them lose most device events
     for tag, (sc, st, f) in solvers.items():
@@ -4871,6 +4976,7 @@ def main() -> int:
         where_the_time_goes(f"{tag} torch engine", lambda: st.solve(f), t_t)
 
     # -- 8. the distributed solve --------------------------------------------
+    phase("8")
     # DIST1: a one-rank NCCL mesh, the whole distributed pipeline (pack,
     # collective, unpack, the kernels on every pencil) at full size
     import tempfile
@@ -5197,12 +5303,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     # -- 8b. the solve server -------------------------------------------------
+    phase("8b")
     serve_launches = _serve_phase(dev, smi, run_counted)
 
     # -- 8c. the solve launcher and checkpoints -------------------------------
+    phase("8c")
     launch_launches = _launch_phase(dev, smi, run_counted, calls)
 
     # -- 8d. serving on a mesh of four ranks ----------------------------------
+    phase("8d")
     serve_launches.update(_serve_mesh_phase(dev, smi, calls))
 
     # the LM phases need the card: the solve phases' solvers, Green planes
@@ -5213,18 +5322,23 @@ def main() -> int:
     clear_solver_cache()
 
     # -- 8e. LM training ------------------------------------------------------
+    phase("8e")
     lm_ms = _lm_phase(dev, smi)
 
     # -- 8f. LM serving -------------------------------------------------------
+    phase("8f")
     _lm_serve_phase(dev, smi)
 
     # -- 8g. LM training on a mesh of four ranks ------------------------------
+    phase("8g")
     _lm_train_mesh_phase(dev, smi)
 
     # -- 8h. the dry run ------------------------------------------------------
+    phase("8h")
     _dryrun_phase(dev, smi, run_counted, lm_ms)
 
     # -- 9. replays and times -------------------------------------------------
+    phase("9")
     def nbytes(t):
         return t.numel() * t.element_size()
 
@@ -5364,6 +5478,7 @@ def main() -> int:
             "launch_launches": {r: c[kname]
                                 for r, c in launch_launches.items()
                                 if kname in c}})
+    phase(None)
     print(f"chip_smoke.py: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")

@@ -39,9 +39,10 @@ first (``models.common.block_of``); every other leaf comes back whole.
 ``train_step.held_like(cfg, mesh)`` is the like-tree of the layout the
 port holds on a mesh, ``train_step.held_params_like(cfg, mesh)`` that
 of the parameters alone, which a rank serves from: it restores the
-parameters of a training state's checkpoint, saved by the FSDP trainer
-or whole.  A rank of ``DistributedPoissonSolver`` holds the
-global field, so a solver's checkpoint restores onto any mesh as it is.
+parameters of a training state's checkpoint, saved by the mesh trainer
+(its FSDP and tensor-parallel blocks) or whole.  A rank of
+``DistributedPoissonSolver`` holds the global field, so a solver's
+checkpoint restores onto any mesh as it is.
 """
 from __future__ import annotations
 

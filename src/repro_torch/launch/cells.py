@@ -9,21 +9,21 @@ materialised; ``launch.flops_probe.measure`` runs the step under the
 counters.  The mesh's process group is the ``"fake"`` one of
 ``launch.mesh`` (or any other: every rank would run the same step).
 
-The rank holds what the port's step holds: its data shard of the batch
-(and of a decode cell's caches), and its block of the state by the
-layout rule: on a train cell ``training.train_step.shard_state_``
-(parameters, both moments and the error feedback over ``"data"`` where
-``state_specs`` names it; over ``"model"`` the MoE's own ``E / n``
-experts and the tensor-parallel blocks of the attention heads, the
-MLP's ``d_ff`` and the vocabulary, the SSM's and the RG-LRU's entries
-whole, ROADMAP item 6d), on a prefill or decode cell ``shard_params_``
-by the ``"fsdp"`` layout, the parameters alone with the tensor-parallel
-entries and the caches' kv heads whole over ``"model"`` (ROADMAP item
-6c).
+The rank holds what the port's step holds: its data shard of the batch,
+and its block of the state by the training layout rule: on a train cell
+``training.train_step.shard_state_`` (parameters, both moments and the
+error feedback over ``"data"`` where ``state_specs`` names it; over
+``"model"`` the MoE's own ``E / n`` experts and the tensor-parallel
+blocks of the attention heads, the MLP's ``d_ff`` and the vocabulary,
+the SSM's and the RG-LRU's entries whole, ROADMAP item 6d), on a
+prefill or decode cell ``shard_params_``, the parameters alone by the
+same rule, and a decode cell's caches by ``init_caches(mesh=)``
+(``cache_specs``' local shapes, the SSM state whole over ``"model"``).
 ``Cell.spec_bytes`` gives the bytes of the reference's layout (the spec
 trees' local shapes, what its
 ``memory_analysis().argument_size_in_bytes`` measures), beside the
-port's ``launch.flops_probe.held_bytes(*cell.args)``.
+port's ``launch.flops_probe.held_bytes(*cell.args)``; a decode cell's
+arguments hold the position as the reference's do, a 0-d int32.
 """
 from __future__ import annotations
 
@@ -208,15 +208,16 @@ def build_cell(arch: str, shape_name: str, mesh,
             # decode: one new token with caches of length S
             if mesh is not None:
                 shard_params_(model, mesh)
-            caches = tf.init_caches(cfg, b, S, device=device)
+            caches = tf.init_caches(cfg, B, S, device=device, mesh=mesh)
             whole = tf.init_caches(cfg, B, S, device="meta")   # global
             cspecs = tf.cache_specs(cfg, ms, whole, dp=dp)
             leaves += _named_leaves(convert._dotted(whole), cspecs, ms)
             leaves += [((B, 1), torch.int32, dspec), ((), torch.int32, None)]
-            args = (model, tok(1), caches, S - 1)
+            # the position: held as the reference's argument, read as an int
+            args = (model, tok(1), caches, torch.zeros((), dtype=torch.int32))
 
             def fn(m, t, c, pos):
-                return tf.decode_step(m, t, c, pos, comm, mesh)
+                return tf.decode_step(m, t, c, S - 1, comm, mesh)
     return Cell(arch, shape_name, fn, args, meta, mode,
                 spec_bytes(leaves, ms))
 

@@ -12,7 +12,8 @@ round the ring the other way (the transpose JAX derives for the
 reference's ``ppermute``).  Under tensor parallelism ``attention`` and
 ``attention_cross`` run on a module holding the rank's block of the
 heads and return its share of the output (``models.transformer`` sums
-it over ``"model"``); the ring takes the weights whole.
+it over ``"model"``), and so does ``attention_decode`` against a cache
+of the kv heads the rank computes; the ring takes the weights whole.
 """
 from __future__ import annotations
 
@@ -325,15 +326,19 @@ def encode_kv(p, cfg: ModelConfig, x_enc):
 
 # -- decode path -------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch, max_len, dtype, device):
-    """KV cache for one attention layer: (B, S_max, Hkv, dh) pair."""
-    shape = (batch, max_len, cfg.n_kv, cfg.d_head)
+def init_cache(cfg: ModelConfig, batch, max_len, dtype, device, n_kv=None):
+    """KV cache for one attention layer: (B, S_max, Hkv, dh) pair, of
+    ``n_kv`` kv heads (a rank's block of them; all by default)."""
+    shape = (batch, max_len, n_kv or cfg.n_kv, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, rope=True):
-    """One-token decode.  x: (B, 1, D); pos: the token's 0-based index.
+def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, rope=True,
+                     q0=0):
+    """One-token decode.  x: (B, 1, D); pos: the token's 0-based index;
+    ``q0`` as in ``attention`` (the cache then holds the kv heads ``p``
+    computes).
 
     Writes the token's k and v into ``cache`` in place and returns
     ``(out, cache)``.  For sliding-window configs whose cache has
@@ -360,5 +365,6 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, rope=True):
         valid = idx <= pos
     mask = torch.zeros(s_max, dtype=torch.float32, device=x.device)
     mask = mask.masked_fill(~valid, NEG_INF).expand(b, 1, s_max)
-    o = _sdpa(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
+    o = _sdpa(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
+              q0)
     return torch.einsum("bshk,hkd->bsd", o, p.wo.to(cfg.cdtype())), cache

@@ -61,7 +61,7 @@ experts decodes them and sums over ``"model"`` (``moe.moe_decode``).
 Every rank issues the gathers in the same order, forward, decode and
 recomputation alike.  ``fsdp_timing`` times the gathers and
 reduce-scatters where asked.  A rank's caches are those of its data
-shard of the batch, every kv head whole.
+shard of the batch.
 
 Over ``"model"`` (tensor parallelism, the training layout) a rank holds
 its block of the attention heads (``wq``, ``wo``, and ``wk``/``wv`` where
@@ -81,10 +81,15 @@ training loss reads in place (``forward_local``; ``training.train_step``'s
 vocab-parallel NLL) and ``forward`` gathers whole.  On the ring the
 attention's blocks are gathered whole over ``"model"`` first (the
 reference's ring takes the weights whole) and their gradients
-reduce-scattered back.  ``tp_timing`` times these collectives over
-``"model"``, ``fsdp_timing`` those over ``"data"``.
-``prefill`` and ``decode_step`` raise on a model holding tensor-parallel
-blocks (ROADMAP item 6c).
+reduce-scattered back.  ``prefill`` and ``decode_step`` run the same
+regions: a rank's caches hold the kv heads its ``wk``/``wv`` compute
+(its block of them where they divide over the axis, as ``cache_specs``
+splits them; all of them where they do not), its query heads decode
+against them, and the step's logits are gathered whole over the axis.
+The SSM's and the RG-LRU's layers and caches stay whole over
+``"model"`` and run replicated (ROADMAP item 6d).  ``tp_timing`` times
+these collectives over ``"model"``, ``fsdp_timing`` those over
+``"data"``.
 
 ``param_specs`` and ``cache_specs`` give the reference's partition-spec
 trees (``common.P``; stacked stacks with a leading ``None``);
@@ -158,8 +163,7 @@ def _ffn(p, cfg, x, mesh):
 
 # ---------------------------------------------------------------------------
 # blocks: forward(x, positions, causal, prefix_len, x_enc, rope, comm, mesh,
-# collect) -> (x, aux, cache or None); decode(x, cache, pos) -> x (the MoE
-# block's also takes the mesh)
+# collect) -> (x, aux, cache or None); decode(x, cache, pos, mesh) -> x
 # ---------------------------------------------------------------------------
 
 def _zero(x):
@@ -258,7 +262,8 @@ class _Gather(torch.autograd.Function):
 
 def _all_gather(y, group, dim):
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, y.contiguous(), group=group)
+    _timed("model", "gather", y, dist.all_gather, parts, y.contiguous(),
+           group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -295,10 +300,17 @@ def _whole_heads(p, group):
         **(dict(p.named_parameters(recurse=False)) | dict(zip(dims, whole))))
 
 
+def _q0(p, group) -> int:
+    """The global index of the first query head of the attention ``p``'s
+    block of the heads on this rank of ``group``."""
+    return dist.get_rank(group) * p.wq.shape[1]
+
+
 def _attend(blk, x, positions, causal, prefix_len, rope, mesh, collect):
     """x + self-attention; with ``collect`` also the layer's
-    ``{"sa": {"k", "v"}}`` cache (ring attention only without it, and
-    where the block may run on the ring, ``blk.ring``)."""
+    ``{"sa": {"k", "v"}}`` cache, under tensor parallelism the kv heads
+    the rank computes (ring attention only without it, and where the
+    block may run on the ring, ``blk.ring``)."""
     cfg = blk.cfg
     h = blk.ln1(x)
     if blk.ring and not collect and on_ring(cfg, mesh, x.shape[1]):
@@ -309,11 +321,15 @@ def _attend(blk, x, positions, causal, prefix_len, rope, mesh, collect):
         return x + _Gather.apply(a, group, 1), None
     group = _tp_group(blk.attn, "wq", mesh)
     if group is not None:
-        q0 = dist.get_rank(group) * blk.attn.wq.shape[1]
         a = attn.attention(blk.attn, cfg, _CopyToModel.apply(h, group),
                            positions, causal=causal, rope=rope,
-                           prefix_len=prefix_len, q0=q0)
-        return x + _SumOverModel.apply(a, group), None
+                           prefix_len=prefix_len, return_kv=collect,
+                           q0=_q0(blk.attn, group))
+        cache = None
+        if collect:
+            a, (k, v) = a
+            cache = {"sa": {"k": k, "v": v}}
+        return x + _SumOverModel.apply(a, group), cache
     if collect:
         a, (k, v) = attn.attention(blk.attn, cfg, h, positions,
                                    causal=causal, rope=rope,
@@ -323,10 +339,19 @@ def _attend(blk, x, positions, causal, prefix_len, rope, mesh, collect):
                               rope=rope, prefix_len=prefix_len), None
 
 
-def _attend_decode(blk, x, cache, pos, rope=True):
-    a, _ = attn.attention_decode(blk.attn, blk.cfg, blk.ln1(x), cache["sa"],
-                                 pos, rope=rope)
-    return x + a
+def _attend_decode(blk, x, cache, pos, mesh, rope=True):
+    """x + self-attention of one token against the layer's cache; under
+    tensor parallelism the rank's query heads against the kv heads it
+    caches, summed over ``"model"``."""
+    h = blk.ln1(x)
+    group = _tp_group(blk.attn, "wq", mesh)
+    if group is None:
+        a, _ = attn.attention_decode(blk.attn, blk.cfg, h, cache["sa"], pos,
+                                     rope=rope)
+        return x + a
+    a, _ = attn.attention_decode(blk.attn, blk.cfg, h, cache["sa"], pos,
+                                 rope=rope, q0=_q0(blk.attn, group))
+    return x + _SumOverModel.apply(a, group)
 
 
 class DenseBlock(nn.Module):
@@ -351,9 +376,9 @@ class DenseBlock(nn.Module):
         return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh), _zero(x), \
             cache
 
-    def decode(self, x, cache, pos):
-        x = _attend_decode(self, x, cache, pos)
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x))
+    def decode(self, x, cache, pos, mesh=None):
+        x = _attend_decode(self, x, cache, pos, mesh)
+        return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh)
 
 
 class MoEBlock(nn.Module):
@@ -382,7 +407,7 @@ class MoEBlock(nn.Module):
         return x + out, aux.float(), cache
 
     def decode(self, x, cache, pos, mesh=None):
-        x = _attend_decode(self, x, cache, pos)
+        x = _attend_decode(self, x, cache, pos, mesh)
         return x + moe_decode(self.moe, self.cfg, self.ln2(x), mesh)
 
 
@@ -417,19 +442,25 @@ class CrossBlock(nn.Module):
                                   _CopyToModel.apply(x_enc, group))
             a = attn.attention_cross(
                 self.xattn, cfg, _CopyToModel.apply(h, group), kv_x,
-                q0=dist.get_rank(group) * self.xattn.wq.shape[1])
+                q0=_q0(self.xattn, group))
             x = x + _SumOverModel.apply(a, group)
         if collect:
             cache["xk"], cache["xv"] = kv_x
         return x + _ffn(self.mlp, cfg, self.ln2(x), mesh), _zero(x), cache
 
-    def decode(self, x, cache, pos):
+    def decode(self, x, cache, pos, mesh=None):
         # no RoPE: the decoder's forward has none (whisper's positions are
         # the sinusoidal table added to the embedding)
-        x = _attend_decode(self, x, cache, pos, rope=False)
-        x = x + attn.attention_cross(self.xattn, self.cfg, self.lnx(x),
-                                     (cache["xk"], cache["xv"]))
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x))
+        x = _attend_decode(self, x, cache, pos, mesh, rope=False)
+        kv_x, h = (cache["xk"], cache["xv"]), self.lnx(x)
+        group = _tp_group(self.xattn, "wq", mesh)
+        if group is None:
+            x = x + attn.attention_cross(self.xattn, self.cfg, h, kv_x)
+        else:
+            x = x + _SumOverModel.apply(attn.attention_cross(
+                self.xattn, self.cfg, h, kv_x, q0=_q0(self.xattn, group)),
+                group)
+        return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh)
 
 
 class SSMBlock(nn.Module):
@@ -446,7 +477,7 @@ class SSMBlock(nn.Module):
         cache = {"state": state, "conv": tail} if collect else None
         return x + h, _zero(x), cache
 
-    def decode(self, x, cache, pos):
+    def decode(self, x, cache, pos, mesh=None):
         h, new = ssm_decode(self.ssm, self.cfg, self.ln1(x), cache)
         cache.update(new)
         return x + h
@@ -470,11 +501,11 @@ class RecBlock(nn.Module):
         return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh), _zero(x), \
             cache
 
-    def decode(self, x, cache, pos):
+    def decode(self, x, cache, pos, mesh=None):
         h, new = rglru_decode(self.rec, self.cfg, self.ln1(x), cache)
         cache.update(new)
         x = x + h
-        return x + _mlp(self.mlp, self.cfg, self.ln2(x))
+        return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh)
 
 
 _BLOCKS = {"dense": DenseBlock, "attn": DenseBlock, "moe": MoEBlock,
@@ -556,8 +587,11 @@ def tp_timing():
     own; yields ``{"all_reduce": s, "gather": s, "reduce_scatter": s}``:
     the regions' all-reduces (``_SumOverModel`` forward and
     recomputation, ``_CopyToModel`` backward, the vocab-parallel loss's),
-    and the ring's gathers of the attention's blocks (forward and
-    recomputation) and reduce-scatters of their gradients."""
+    the all-gathers (the ring's of the attention's blocks, forward and
+    recomputation; the blocks' outputs', ``_Gather``: the ring's and the
+    MoE's sequence blocks, the logits' vocabulary blocks; the sequence
+    blocks' gradients') and the reduce-scatters of the ring's blocks'
+    gradients."""
     return _timing("model", ("all_reduce", "gather", "reduce_scatter"))
 
 
@@ -685,18 +719,6 @@ def held_axes(model, mesh) -> dict:
                 _model_dims(model.get_submodule(prefix))[leaf] = axes["model"]
         kept = model.__dict__["_held_axes"] = (sizes, held)
     return kept[1]
-
-
-def _check_serving(model, mesh, fn):
-    """Raises where ``model`` holds tensor-parallel blocks on ``mesh``:
-    serving from them is not ported (ROADMAP item 6c)."""
-    tp = [n for n, axes in held_axes(model, mesh).items()
-          if "model" in axes and not convert.expert_weight(n)]
-    if tp:
-        raise ValueError(f"{fn}: the model holds tensor-parallel blocks over "
-                         f"\"model\" ({tp[0]}, ...); serving from them is "
-                         "ROADMAP item 6c, not ported: cut the parameters "
-                         "to serve with training.train_step.shard_params_")
 
 
 class _DataBlocks:
@@ -951,11 +973,13 @@ def prefill(model: Transformer, tokens, frontend=None, comm=None, mesh=None,
     prompt's length by default), laid out as ``init_caches`` lays them
     out, on the model's device.  On a mesh, ``tokens`` (and
     ``frontend``) are the rank's data shard and the caches are that
-    shard's rows, as ``decode_step`` on the mesh takes them.  Raises on a
-    model holding tensor-parallel blocks (ROADMAP item 6c)."""
-    _check_serving(model, mesh, "prefill")
-    logits, _, caches, _ = _forward_impl(model, tokens, frontend, comm, mesh,
-                                         collect=True)
+    shard's rows, under tensor parallelism the kv heads the rank holds,
+    as ``decode_step`` on the mesh takes them (``init_caches(mesh=)``
+    lays them out); the logits are whole, as ``forward``'s."""
+    logits, _, caches, vocab = _forward_impl(model, tokens, frontend, comm,
+                                             mesh, collect=True)
+    if vocab is not None:
+        logits = _Gather.apply(logits, vocab, logits.ndim - 1)
     s = logits.shape[1]
     return logits, _finalize_caches(model.cfg, caches, s, max_len or s)
 
@@ -1006,16 +1030,29 @@ def _finalize_caches(cfg, caches, s, max_len):
 # serving: decode
 # ---------------------------------------------------------------------------
 
-def init_caches(cfg: ModelConfig, batch, max_len, device=None):
+def init_caches(cfg: ModelConfig, batch, max_len, device=None, mesh=None):
     """Zero decode caches, one dict per layer (the reference stacks
     them), on the card unless ``device`` says otherwise (``"meta"`` gives
-    the shapes only)."""
+    the shapes only).  On ``mesh``, the caches this rank holds of a
+    global ``batch``, as a model cut by ``train_step.shard_params_``'s
+    ``"train"`` layout decodes them: ``cache_specs``' local shapes, the
+    rows of its data shard (all rows where the data axes do not divide
+    the batch) and the keys' and values' kv heads over ``"model"`` where
+    they divide, but the SSM state whole over ``"model"`` (its layer
+    runs replicated, ROADMAP item 6d)."""
     device = torch.device("cuda" if device is None else device)
     cd = cfg.cdtype()
     win = min(cfg.window, max_len) if cfg.window else max_len
+    n_kv = cfg.n_kv
+    if mesh is not None:
+        sizes = mesh_sizes(mesh)
+        rows = math.prod(sizes.get(a, 1) for a in DATA_AXES)
+        batch = batch // rows if batch % rows == 0 else batch
+        tp = sizes.get("model", 1)
+        n_kv = n_kv // tp if n_kv % tp == 0 else n_kv
 
     def attn_cache():
-        return {"sa": attn.init_cache(cfg, batch, win, cd, device)}
+        return {"sa": attn.init_cache(cfg, batch, win, cd, device, n_kv)}
 
     def layer_cache(kind):
         if kind == "ssm":
@@ -1024,7 +1061,7 @@ def init_caches(cfg: ModelConfig, batch, max_len, device=None):
             return init_rglru_cache(cfg, batch, cd, device)
         c = attn_cache()
         if kind == "cross":
-            shape = (batch, cfg.n_frontend_tokens, cfg.n_kv, cfg.d_head)
+            shape = (batch, cfg.n_frontend_tokens, n_kv, cfg.d_head)
             c["xk"] = torch.zeros(shape, dtype=cd, device=device)
             c["xv"] = torch.zeros(shape, dtype=cd, device=device)
         return c
@@ -1053,41 +1090,49 @@ def decode_step(model: Transformer, token, caches, pos: int, comm=None,
     unused: decode runs the local paths.
 
     On a mesh every rank passes its data shard of the tokens and its
-    caches for those rows (``prefill(mesh=)`` gives them).  Where the
+    caches for those rows (``prefill(mesh=)`` or ``init_caches(mesh=)``
+    gives them), and every block's ``decode`` takes the mesh.  Where the
     model holds ``"data"`` blocks of its weights (FSDP), each block runs
     on its weights gathered whole, one all-gather a block a step, every
     rank in the same order, and the embedding and ``lm_head`` are
-    gathered where they are used, as in ``forward``; an MoE holding its
-    own ``E / n`` experts over ``"model"`` runs them on every token of
-    the rank and sums the experts' outputs over the axis
-    (``moe.moe_decode``).  Raises on a model holding tensor-parallel
-    blocks (ROADMAP item 6c)."""
-    _check_serving(model, mesh, "decode_step")
+    gathered where they are used, as in ``forward``.  Where it holds
+    blocks over ``"model"``, the step runs ``forward``'s tensor-parallel
+    regions: the rank's query heads against the kv heads it caches, its
+    columns of the MLP's ``d_ff``, each region summed over the axis, the
+    embedding's rows of its vocabulary summed over the axis and its block
+    of the logits, gathered whole; an MoE holding its own ``E / n``
+    experts runs them on every token of the rank and sums the experts'
+    outputs over the axis (``moe.moe_decode``)."""
     cfg = model.cfg
     fsdp = _DataBlocks(model, mesh)
-    x = _embed(fsdp.weight(model, "embed"), cfg, token)
+    x = _embed(fsdp.weight(model, "embed"), cfg, token,
+               _tp_group(model, "embed", mesh))
     if cfg.family == "encdec":
         if not 0 <= pos < _SINUSOID_ROWS:
             raise IndexError(f"decode_step: position {pos} is past the "
                              f"{_SINUSOID_ROWS}-row sinusoidal table")
         x = x + sinusoidal_positions(1, cfg.d_model, x.device,
                                      start=pos).to(cfg.cdtype())[None]
-    kw = {"mesh": mesh} if cfg.family == "moe" else {}
     if cfg.family == "hybrid":
         n_groups, rem = _hybrid_layout(cfg)
         for g in range(n_groups):
             for i, kind in enumerate(cfg.hybrid.pattern):
                 key = kind + str(i)
                 x = fsdp.decode(model.groups[key][g], x,
-                                caches["groups"][key][g], pos)
+                                caches["groups"][key][g], pos, mesh=mesh)
         for i, kind in enumerate(rem):
             key = kind + str(i)
-            x = fsdp.decode(model.rem[key], x, caches["rem"][key], pos)
+            x = fsdp.decode(model.rem[key], x, caches["rem"][key], pos,
+                            mesh=mesh)
     else:
         for block, cache in zip(model.layers, caches["layers"], strict=True):
-            x = fsdp.decode(block, x, cache, pos, **kw)
+            x = fsdp.decode(block, x, cache, pos, mesh=mesh)
     head = fsdp.weight(model, _head(cfg))
-    return _logits(model, cfg, x, head), caches
+    vocab = _tp_group(model, _head(cfg), mesh)
+    logits = _logits(model, cfg, x, head, vocab)
+    if vocab is not None:
+        logits = _Gather.apply(logits, vocab, logits.ndim - 1)
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------

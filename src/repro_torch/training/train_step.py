@@ -316,10 +316,10 @@ def _seq_len(cfg: ModelConfig, batch) -> int:
 # blocks.  "train": every entry but the SSM's and the RG-LRU's over
 # "model" (ROADMAP item 6d): FSDP over "data", over "model" the MoE
 # experts (expert parallelism) and the attention heads, the MLP's d_ff
-# and the vocabulary (tensor parallelism).  "fsdp": every "data" entry
-# and the experts' "model" entry, no tensor parallelism (the serving
-# layout until serving from tensor-parallel blocks is ported, ROADMAP
-# item 6c).  "experts": the experts' "model" entry alone
+# and the vocabulary (tensor parallelism); the layout a rank trains and
+# serves from.  "fsdp": every "data" entry and the experts' "model"
+# entry, no tensor parallelism.  "experts": the experts' "model" entry
+# alone
 LAYOUTS = ("train", "fsdp", "experts")
 
 
@@ -381,15 +381,15 @@ def _cut_(model, trees, mesh, layout):
             tree[name] = cut(tree[name])
 
 
-def shard_params_(model, mesh, layout="fsdp"):
+def shard_params_(model, mesh, layout="train"):
     """The cut of ``shard_state_`` (by the rule ``layout``, ``LAYOUTS``:
-    ``"fsdp"``, ``"train"``, or ``"experts"`` for ``own_experts_``) of
+    ``"train"``, ``"fsdp"``, or ``"experts"`` for ``own_experts_``) of
     the parameters alone, with no ``TrainState`` and no moments: a model
     to serve from its blocks (``models.transformer.prefill`` and
-    ``decode_step`` on ``mesh``, by ``"fsdp"``, which keeps the
-    tensor-parallel entries whole, ROADMAP item 6c), a model whose
-    optimizer state is made after the cut, or a restore target on the
-    ``meta`` device.  Returns ``model``."""
+    ``decode_step`` on ``mesh``: by ``"train"`` tensor-parallel, by
+    ``"fsdp"`` with the dense weights whole over ``"model"``), a model
+    whose optimizer state is made after the cut, or a restore target on
+    the ``meta`` device.  Returns ``model``."""
     _cut_(model, [], mesh, layout)
     return model
 
@@ -440,16 +440,16 @@ def held_specs(cfg: ModelConfig, mesh_shape: dict):
                                err_fb=tf.param_specs(cfg, mesh_shape))
 
 
-def held_params_like(cfg: ModelConfig, mesh):
+def held_params_like(cfg: ModelConfig, mesh, layout: str = "train"):
     """The parameters a rank serves from (``shard_params_`` by
-    ``"fsdp"``), as ``convert.reference_like`` gives them: a
+    ``layout``), as ``convert.reference_like`` gives them: a
     ``checkpoint.restore`` target for those blocks, with
     ``specs=models.transformer.param_specs(cfg, mesh_shape)`` (the
     parameters' entry of ``held_specs``), restored from a checkpoint of a
     training state (the trainer's, or one saved whole) or of the
     parameters alone."""
     with torch.device("meta"):
-        model = shard_params_(tf.Transformer(cfg), mesh)
+        model = shard_params_(tf.Transformer(cfg), mesh, layout)
     return convert.reference_like(model)[0]
 
 

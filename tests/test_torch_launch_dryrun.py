@@ -130,13 +130,13 @@ for name, c in SPEC["census"].items():
 for name in SPEC["fft"]:
     ds = solver(16, (2, 4), solver_kw(*SPEC["census"][name]))
     out["fft"][name] = hlo_stats.fft_flops(ds.lower().compile().as_text())
-def rule_bytes(path, a, train=False):
-    # the port's layout rules: the spec's axes, but "model" only on an
-    # MoE expert weight (serving) or on every leaf but the SSM's and the
-    # RG-LRU's (training); a dimension the axes do not divide whole
+def rule_bytes(path, a):
+    # the port's training layout rule, by which it trains and serves: the
+    # spec's axes, but "model" on no leaf of the SSM's or the RG-LRU's
+    # parameters and not on the SSM's cache state; a dimension the axes
+    # do not divide whole
     keys = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
-    expert = "moe" in keys and keys[-1] in ("w_in", "w_gate", "w_out")
-    held = expert or (train and not {"ssm", "rec"} & set(keys))
+    held = not {"ssm", "rec"} & set(keys) and keys[-1] != "state"
     spec = () if a.sharding is None else tuple(a.sharding.spec)
     sizes = {} if a.sharding is None else dict(a.sharding.mesh.shape)
     n = 1
@@ -156,17 +156,10 @@ for arch in LM_ARCHS:
             int(np.prod(a.shape if a.sharding is None
                         else a.sharding.shard_shape(a.shape)))
             * np.dtype(a.dtype).itemsize for a in jax.tree.leaves(cell.args))
-        if sh.kind == "train":
-            out["rule"][f"{arch}/{sh.name}"] = sum(
-                rule_bytes(path, a, train=True) for path, a in
-                jax.tree_util.tree_flatten_with_path(cell.args)[0])
-        else:
-            # a serving cell's parameters, tokens (frontend) and caches;
-            # the decode position is a Python int in the port's cell
-            args = cell.args[:3] if sh.kind == "decode" else cell.args
-            out["serve_rule"][f"{arch}/{sh.name}"] = sum(
-                rule_bytes(path, a) for path, a in
-                jax.tree_util.tree_flatten_with_path(args)[0])
+        rule = out["rule" if sh.kind == "train" else "serve_rule"]
+        rule[f"{arch}/{sh.name}"] = sum(
+            rule_bytes(path, a) for path, a in
+            jax.tree_util.tree_flatten_with_path(cell.args)[0])
 # the dense smoke config at 1, 2 and 3 layers on (2, 4): the matmul
 # parameters of a rank's "model" blocks by param_specs (its "data" blocks
 # gathered whole), the tied embedding once, and its query heads
@@ -433,11 +426,9 @@ def test_cell_argument_bytes_match_reference(runs):
     trees' local shapes give the reference's argument bytes exactly (its
     arguments' shard shapes: what ``memory_analysis`` reports; its smoke
     cells do not compile on 8 host devices, a ``DuplicateSpecError`` in
-    its lowering).  The port's rank holds as much or more: a train cell
-    the SSM's and the RG-LRU's "model" entries whole (ROADMAP item 6d),
-    a serving cell the dense weights whole over "model" (ROADMAP item
-    6c), and a decode cell's caches' kv heads whole over "model"
-    (README, deliberate differences)."""
+    its lowering).  The port's rank holds as much or more: the SSM's and
+    the RG-LRU's "model" entries whole, and a decode cell's SSM state
+    whole over "model" (ROADMAP item 6d)."""
     ref, port = runs["ref"]["args"], runs["port"]["args"]
     assert set(port) == set(ref) and len(ref) == 32
     for key in ref:
@@ -461,18 +452,33 @@ def test_train_cell_state_bytes_match_the_layout_rule(runs):
 
 def test_serving_cell_bytes_match_the_layout_rule(runs):
     """Every prefill and decode cell on the fake (2, 4) mesh holds exactly
-    the layout rule's bytes (``train_step.shard_params_``): the
-    reference's parameter shard shapes with ``param_specs``'
-    tensor-parallel "model" entries taken whole, the MoE experts split
-    over "model", every "data" entry kept; the tokens (and frontend) its
-    data shard; a decode cell's caches its data shard of the batch, the
-    kv heads whole over "model"."""
+    the training layout rule's bytes (``train_step.shard_params_``): the
+    reference's parameter shard shapes, the SSM's and the RG-LRU's
+    "model" entries taken whole; the tokens (and frontend) its data
+    shard; a decode cell's caches by ``cache_specs`` (its data shard of
+    the batch, the kv heads over "model" where they divide), the SSM
+    state whole over "model", and the position."""
     rule, held = runs["ref"]["serve_rule"], runs["port"]["held"]
     assert rule and set(rule) == {k for k in held
                                   if not k.endswith("train_4k")}
     for key in rule:
         assert held[key] == rule[key], (key, held[key], rule[key])
         assert held[key] >= runs["ref"]["args"][key], key
+
+
+def test_serving_cells_without_recurrent_layers_hold_the_reference_bytes(
+        runs):
+    """Every prefill and decode cell of a family with neither SSM nor
+    RG-LRU layers holds on the fake (2, 4) mesh exactly the reference's
+    argument bytes (its arguments' shard shapes), with no layout rule in
+    between."""
+    from repro_torch.configs import get_smoke
+    ref, held = runs["ref"]["args"], runs["port"]["held"]
+    keys = [k for k in held if not k.endswith("train_4k")
+            and get_smoke(k.split("/")[0]).family not in ("ssm", "hybrid")]
+    assert len(keys) == 16, keys
+    for key in keys:
+        assert held[key] == ref[key], (key, held[key], ref[key])
 
 
 # -- (8) the CLI ------------------------------------------------------------
@@ -487,7 +493,8 @@ def test_dryrun_cli_one_cell_on_256_fake_ranks(runs):
     assert rec["cost"]["flops"] > 0
     assert rec["t_compile_s"] is None
     mem = rec["memory"]
-    assert mem["argument_size_in_bytes"] > mem["spec_argument_size_in_bytes"]
+    assert mem["argument_size_in_bytes"] == \
+        mem["spec_argument_size_in_bytes"]
     assert rec["op_census"]["aten.bmm"] > 0
 
 

@@ -1502,14 +1502,12 @@ def scenario_train_tp(rank, d, params):
     step's gradients (``<d>/rank<r>.npz``) and a CRC of the gathered
     state (rank 0's to ``<d>/rank0_<case>.npz``); the state of
     ``params["ckpt"]``'s case saved and restored onto (4, 2) as the
-    rank's blocks (``held_like``, ``held_specs``); and the errors of
-    ``prefill`` and ``decode_step`` on that tensor-parallel model."""
+    rank's blocks (``held_like``, ``held_specs``)."""
     import zlib
 
     import torch
     from repro_torch.ckpt import checkpoint as ck
     from repro_torch.models import convert
-    from repro_torch.models import transformer as tf
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train_step as ts
 
@@ -1575,37 +1573,25 @@ def scenario_train_tp(rank, d, params):
                 arrays[f"ckpt/{key}/{k}"] = a
         out["ckpt"] = {"mesh_b": [to.get_local_rank("data"),
                                   to.get_local_rank("model")]}
-        toks = ts.data_shard(batch(spec["batches"][0]), mesh)["inputs"]
-        for fn, call in (
-                ("prefill", lambda: tf.prefill(state.params, toks,
-                                               mesh=mesh)),
-                ("decode_step", lambda: tf.decode_step(
-                    state.params, toks[:, :1], tf.init_caches(
-                        cfg, toks.shape[0], 8, device="cpu"), 0,
-                    mesh=mesh))):
-            try:
-                call()
-                out["ckpt"][fn] = "ran"
-            except ValueError as e:
-                out["ckpt"][fn] = str(e)
     np.savez(os.path.join(d, f"rank{rank}.npz"), **arrays)
     return out
 
 
-def scenario_serve_sharded(rank, d, params):
-    """Eight ranks: each model of ``params["models"]`` served from its
-    blocks by the layout rule (``shard_params_``) on each mesh of
+def _serve_from_blocks(rank, d, params, layout):
+    """Each model of ``params["models"]`` served from its blocks by the
+    layout rule ``layout`` (``shard_params_``) on each mesh of
     ``params["meshes"]``: ``prefill`` of the rank's data shard of the
     prompt (and frontend) on the mesh, then ``decode_step`` on each of
     the step tokens' shards; the logits of each call, the caches after
     prefill and after the last step (the reference's layout), the number
-    of parameters held as blocks and a CRC of the logits go to
-    ``<d>/rank<r>.npz`` and the JSON.  Then the serving restore: an FSDP
-    train state of ``params["restore"]["model"]`` takes one step on
-    (2, 4) and is saved, and its parameters are saved alone; each
-    checkpoint is restored onto (4, 2) as serving blocks
-    (``held_params_like``, ``param_specs``) and served as above,
-    beside the same trained parameters cut there by ``shard_params_``."""
+    of parameters held as blocks (and over "model" but an expert weight)
+    and a CRC of the logits go to ``<d>/rank<r>.npz`` and the JSON.  Then
+    the serving restore: a train state of ``params["restore"]["model"]``
+    cut by ``shard_state_`` takes one step on (2, 4) and is saved, and
+    its parameters are saved alone; each checkpoint is restored onto
+    (4, 2) as serving blocks (``held_params_like`` by ``layout``,
+    ``param_specs``) and served as above, beside the same trained
+    parameters cut there by ``shard_params_``."""
     import zlib
 
     import torch
@@ -1644,8 +1630,13 @@ def scenario_serve_sharded(rank, d, params):
         for j, lg in enumerate(got):
             arrays[f"{key}/logits{j}"] = lg.numpy()
             crc = zlib.crc32(lg.numpy().tobytes(), crc)
-        out[key] = {"data": mesh_coord(mesh, DATA_AXES)[0], "crc": crc,
-                    "blocks": len(tf.held_axes(model, mesh)),
+        held = tf.held_axes(model, mesh)
+        out[key] = {"data": mesh_coord(mesh, DATA_AXES)[0],
+                    "model": mesh.get_local_rank("model"), "crc": crc,
+                    "blocks": len(held),
+                    "tp_blocks": sum("model" in axes
+                                     and not convert.expert_weight(n)
+                                     for n, axes in held.items()),
                     "held": {name: list(p.shape)
                              for name, p in model.named_parameters()}}
 
@@ -1653,11 +1644,11 @@ def scenario_serve_sharded(rank, d, params):
         for tag, spec in params["models"].items():
             for shape, mesh in meshes.items():
                 cfg, model = _lm_model(d, tag, spec)
-                ts.shard_params_(model, mesh)
+                ts.shard_params_(model, mesh, layout)
                 serve(model, params["cases"][tag], mesh,
                       f"{tag}-{'x'.join(map(str, shape))}")
 
-    # the serving restore: (2, 4) FSDP training -> checkpoint -> (4, 2)
+    # the serving restore: (2, 4) training -> checkpoint -> (4, 2)
     rs = params["restore"]
     tag, on, to = rs["model"], meshes[(2, 4)], meshes[(4, 2)]
     cfg, model = _lm_model(d, tag, params["models"][tag])
@@ -1673,14 +1664,27 @@ def scenario_serve_sharded(rank, d, params):
     with torch.no_grad():
         for name in ("state_ck", "params_ck"):
             tree = ck.restore(os.path.join(d, name), 1,
-                              ts.held_params_like(cfg, to), mesh=to,
+                              ts.held_params_like(cfg, to, layout), mesh=to,
                               specs=tf.param_specs(cfg, shape_to))
             serve(convert.from_reference(tree, cfg), params["cases"][tag],
                   to, f"restore-{name}")
-        serve(ts.shard_params_(convert.from_reference(whole[0], cfg), to),
+        serve(ts.shard_params_(convert.from_reference(whole[0], cfg), to,
+                               layout),
               params["cases"][tag], to, "restore-cut")
     np.savez(os.path.join(d, f"rank{rank}.npz"), **arrays)
     return out
+
+
+def scenario_serve_sharded(rank, d, params):
+    """Eight ranks: ``_serve_from_blocks`` by the ``"fsdp"`` layout (the
+    dense weights whole over "model")."""
+    return _serve_from_blocks(rank, d, params, "fsdp")
+
+
+def scenario_serve_tp(rank, d, params):
+    """Eight ranks: ``_serve_from_blocks`` by the ``"train"`` layout
+    (tensor parallelism over "model", FSDP over "data")."""
+    return _serve_from_blocks(rank, d, params, "train")
 
 
 def _run_rank(rank, scenario, d, world):

@@ -34,9 +34,8 @@ the MLP's d_ff and of the vocabulary, and its own experts.
   computation, so one at a tie of its int8 code can round a quantum off
   the reference's;
 - qwen3's state on (2, 4) saved and restored onto (4, 2): each rank's
-  blocks bit-equal to the saved leaves' slices;
-- ``prefill`` and ``decode_step`` on a tensor-parallel model raise
-  ``ValueError`` naming ROADMAP item 6c;
+  blocks bit-equal to the saved leaves' slices (serving from such a
+  state: ``tests/test_torch_serve_tp.py``);
 - with no spawn: ``held_shapes`` against the reference's ``state_specs``
   for the ten smoke configs on (2, 4), (4, 2) and (2, 2, 2), every leaf
   the reference's local shape but the SSM's and the RG-LRU's, whole
@@ -230,13 +229,6 @@ def test_tp_checkpoint_restores_as_blocks(tp_run):
                                           err_msg=(r, k))
             over_model += any(a == "model" for _, a in held)
     assert over_model
-
-
-def test_serving_a_tensor_parallel_state_raises(tp_run):
-    for r, run in enumerate(tp_run["runs"]):
-        for fn in ("prefill", "decode_step"):
-            msg = run["ckpt"][fn]
-            assert msg.startswith(fn) and "ROADMAP item 6c" in msg, (r, msg)
 
 
 def _local(spec, shape, sizes, axes=("data", "model")):

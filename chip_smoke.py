@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases (each raises on failure; nothing is caught):
+Phases (each raises on failure; nothing is caught; each prints its
+seconds and its host Green's function assemblies, which the whole run
+shares by plan, ``_GreenMemo``):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc
      (one process per source, all started together);
@@ -237,16 +239,21 @@ Phases (each raises on failure; nothing is caught):
      ranks serve from sharded states (train_step.shard_params_ by the
      training layout rule: each rank's block of every parameter over
      "data", and over "model" its own experts and its blocks of the
-     attention heads, the MLP's d_ff and the vocabulary; prefill and
-     decode_step on the mesh, each block's "data" blocks gathered whole
-     for its step, one all-gather a block, the "model" blocks run
-     tensor-parallel, one all-reduce a region, each rank's caches its
-     rows and kv heads, the logits gathered whole): qwen3-0.6b at full
+     attention heads, the MLP's d_ff, the vocabulary, the SSM's d_model
+     and the RG-LRU's d_rnn; prefill and decode_step on the mesh, each
+     block's "data" blocks gathered whole for its step, one all-gather
+     a block, the "model" blocks run tensor-parallel, one all-reduce a
+     region (the RG-LRU's gates one reduce-scatter, the SSM's output one
+     all-gather), each rank's caches its rows and kv heads, the logits
+     gathered whole): qwen3-0.6b at full
      width cut to 4 layers, float32, 4 x 512 prompts and 4 greedy decode
      steps on mesh (2, 2), on (4, 1) (FSDP alone) and on (1, 4) (tensor
      parallelism alone), and moonshot-v1-16b-a3b at full width cut to 1
      layer, 32 own experts a rank, capacity factor E / k, 4 x 256
-     prompts and 2 decode steps on (2, 2), each rank's rows of every
+     prompts and 2 decode steps on (2, 2), mamba2-2.7b at full width
+     cut to 2 layers, 4 x 256 and 2 steps on (1, 4) and (2, 2), and
+     recurrentgemma-9b cut to 3 layers (one (rec, rec, attn) group),
+     2 x 256 and 2 steps on (1, 4), each rank's rows of every
      call's logits, and its rows and kv heads of the last caches, within
      1e-4 of the same model served whole on one process on the card (run
      first and fed the same tokens), the ranks on one "data" coordinate
@@ -255,9 +262,9 @@ Phases (each raises on failure; nothing is caught):
      (LM_SHARD_PREDICTED_GIB) and the cache bytes a rank exactly its
      share of the one process's; printed: those bytes against whole, the
      prefill ms and decode ms a step, and the shares of each taken by
-     the all-gathers over "data" (fsdp_timing), the all-reduces and the
-     all-gathers over "model" (tp_timing), timed with the card
-     synchronised around each;
+     the all-gathers over "data" (fsdp_timing), the all-reduces, the
+     all-gathers and the reduce-scatters over "model" (tp_timing),
+     timed with the card synchronised around each;
   8g. LM training on a mesh (repro_torch.training.train_step_fn(mesh=);
      no kernel of this script), four gloo ranks spawned on the card,
      float32 compute, TF32 off, after a memory reckoning per rank and
@@ -277,6 +284,14 @@ Phases (each raises on failure; nothing is caught):
      without attn_ring, a fresh state cut on (1, 4) and on (2, 2), a
      step each on the first batch (the tensor-parallel leg, its
      all-reduces timed), against the same one-process step;
+     mamba2-2.7b cut to 2 layers (float64 compute: its decay's
+     gradient is at float32's noise floor, LM_TM_REC) and
+     recurrentgemma-9b cut to 3, full width, global batch 2 x 512, a
+     fresh state cut on (1, 4) (the
+     SSM's d_model, the RG-LRU's d_rnn over "model") and a step each,
+     against one process's step (its state freed before the ranks
+     spawn), the state a rank within 0.0005 GiB of
+     LM_TM_REC_PREDICTED_GIB;
      moonshot-v1-16b-a3b at full width cut to 1 layer, each rank
      holding its own 32 of the 64 experts and its blocks of the
      attention heads and the vocabulary, d_model split over "data",
@@ -305,10 +320,12 @@ Phases (each raises on failure; nothing is caught):
      hlo_stats, mesh; DistributedPoissonSolver.lower): the CLI in
      subprocesses on fake ranks (a "fake" process group, fake tensors
      on the card's device type, nothing allocated or launched) for
-     qwen3-0.6b decode_32k on the 256-rank mesh, flups-poisson on the
-     256- and 512-rank meshes and moonshot-v1-16b-a3b train_4k on 256,
-     each record's status, FLOPs, collective bytes, argument and temp
-     GB and dominant roofline term printed, every one "ok"; the
+     qwen3-0.6b, mamba2-2.7b and recurrentgemma-9b decode_32k on the
+     256-rank mesh, flups-poisson on the 256- and 512-rank meshes and
+     moonshot-v1-16b-a3b train_4k on 256, each record's status, FLOPs,
+     collective bytes, argument and temp GB and dominant roofline term
+     printed, every one "ok", the decode cells' argument bytes a rank
+     exactly the reference layout's; the
      flups-poisson cell's solver at n=256 (NODE (U,U,U) CHAT2, an
      in-block batch of 2, float32) on a one-rank NCCL mesh, engine
      "cuda" within 1e-5 relative of engine "torch" with exact launches
@@ -1351,10 +1368,10 @@ def _launch_phase(dev, smi, run_counted, calls):
     each kernel call recorded for phase 9; the kernel calls of the
     launcher's spawned ranks are recorded there (``_launch_rank``) and
     merged into ``calls``.  The one-rank runs of one plan share its host
-    Green assembly: the NODE (U,U,U) 256^3 runs differ only in engine and
-    comm, on which the Green's function does not depend.  Raises on the
-    first failed check; returns each run's launches (summed over its
-    ranks)."""
+    Green assembly where the run shares them (``_GreenMemo``): the NODE
+    (U,U,U) 256^3 runs differ only in engine and comm, on which the
+    Green's function does not depend.  Raises on the first failed check;
+    returns each run's launches (summed over its ranks)."""
     import os
     import tempfile
     import torch
@@ -1372,12 +1389,6 @@ def _launch_phase(dev, smi, run_counted, calls):
     records = []
     launched = {}
     hook, launcher.report = launcher.report, records.append
-    build_green, greens = pencil.build_green, {}
-
-    def shared_green(plan):
-        if plan not in greens:
-            greens[plan] = build_green(plan)
-        return greens[plan]
 
     def merge_rank_calls(td, run, got):
         """Merge the calls the spawned ranks wrote to ``td`` into
@@ -1421,7 +1432,6 @@ def _launch_phase(dev, smi, run_counted, calls):
 
     try:
         # -- 1. one rank at full width -----------------------------------
-        pencil.build_green = shared_green
         n = str(LAUNCH_N)
         rec = {}
         for run, argv in (
@@ -1457,10 +1467,6 @@ def _launch_phase(dev, smi, run_counted, calls):
               f"{rec['LAUNCH_AUTO']['comm']}")
         small = launch("LAUNCH_UNB_SMALL", ["--n", str(LAUNCH_SMALL_N),
                                             "--bcs", "unb"] + LAUNCH_REPS)
-        pencil.build_green = build_green
-        print(f"  LAUNCH: {len(greens)} host Green assemblies for the "
-              f"{len(launched)} one-rank runs")
-        greens.clear()
         for run in ("LAUNCH_PER", "LAUNCH_MIX"):
             if rec[run]["err"] >= 1e-10:
                 raise AssertionError(f"{run}: E_inf {rec[run]['err']}")
@@ -1586,7 +1592,6 @@ def _launch_phase(dev, smi, run_counted, calls):
               "ckpt.leaf.0 raised CheckpointError(leaf=0)")
     finally:
         launcher.report = hook
-        pencil.build_green = build_green
     print(f"launch phase: {time.perf_counter() - t0:.1f} s")
     return launched
 
@@ -2352,24 +2357,33 @@ LM_MESH_MOE = (2, 2048)
 # them).  Each leg's seed makes its weights on every rank and on the
 # one process that serves the model whole.  The parameters are cut by
 # the training layout rule (train_step.shard_params_ by "train": FSDP
-# over "data", the attention heads, the MLP's d_ff, the vocabulary and
-# the own experts over "model"), so (1, 4) is tensor parallelism alone,
-# (4, 1) FSDP alone and (2, 2) both
+# over "data", the attention heads, the MLP's d_ff, the vocabulary, the
+# own experts, the SSM's d_model and the RG-LRU's d_rnn over "model"), so
+# (1, 4) is tensor parallelism alone, (4, 1) FSDP alone and (2, 2) both
 LM_SHARD_LEGS = (
     ("qwen3-0.6b", {"n_layers": 4}, 4, 512, 4, "28 -> 4 layers",
      ((2, 2), (4, 1), (1, 4))),
     ("moonshot-v1-16b-a3b", {"n_layers": 1}, 4, 256, 2, "48 -> 1 layer",
      ((2, 2),)),
+    ("mamba2-2.7b", {"n_layers": 2}, 4, 256, 2, "64 -> 2 layers",
+     ((1, 4), (2, 2))),
+    ("recurrentgemma-9b", {"n_layers": 3}, 2, 256, 2,
+     "38 -> 3 layers, one (rec, rec, attn) group", ((1, 4),)),
 )
-LM_SHARD_SEEDS = (84, 85)
+LM_SHARD_SEEDS = (84, 85, 86, 87)
 # the parameters a rank holds, GiB (float32), predicted from the
 # reference's layout (param_specs' local shapes) before the first run,
 # held to LM_SHARD_GIB_TOL; and the share of the one process's caches a
 # rank holds (its rows of the batch, its kv heads), exactly
 LM_SHARD_PREDICTED_GIB = {(0, (2, 2)): 0.2035, (0, (4, 1)): 0.204,
-                          (0, (1, 4)): 0.2035, (1, (2, 2)): 1.157}
+                          (0, (1, 4)): 0.2035, (1, (2, 2)): 1.157,
+                          (2, (1, 4)): 0.1950, (2, (2, 2)): 0.2194,
+                          (3, (1, 4)): 1.5939}
+# (the SSM's and the RG-LRU's caches, and recurrentgemma's single kv
+# head's, are whole over "model")
 LM_SHARD_CACHE_SHARE = {(0, (2, 2)): 1 / 4, (0, (4, 1)): 1 / 4,
-                        (0, (1, 4)): 1 / 4, (1, (2, 2)): 1 / 4}
+                        (0, (1, 4)): 1 / 4, (1, (2, 2)): 1 / 4,
+                        (2, (1, 4)): 1, (2, (2, 2)): 1 / 2, (3, (1, 4)): 1}
 LM_SHARD_GIB_TOL = 5e-4
 
 
@@ -2468,30 +2482,35 @@ def _lm_shard_leg(leg, mesh, ref, dev, sync):
         "blocks": len(held),
         "tp_blocks": sum("model" in a and not convert.expert_weight(k)
                          for k, a in held.items()),
+        "recurrent_blocks": sum(
+            "model" in a and bool({"ssm", "rec"} & set(convert.ref_path(k)[0]))
+            for k, a in held.items()),
         "data_blocks": sum("data" in a for a in held.values())}
-    for key in ("ms", "data_ms", "reduce_ms", "gather_ms"):
+    keys = ("ms", "data_ms", "reduce_ms", "gather_ms", "scatter_ms")
+    for key in keys:
         rec["decode_" + key] = []
     got = []
     with tf.fsdp_timing() as fs, tf.tp_timing() as tps:
         def call(fn):
-            was = fs["gather"], tps["all_reduce"], tps["gather"]
+            was = (fs["gather"], tps["all_reduce"], tps["gather"],
+                   tps["reduce_scatter"])
             sync()
             t = time.perf_counter()
             out = fn()
             sync()
-            now = fs["gather"], tps["all_reduce"], tps["gather"]
+            now = (fs["gather"], tps["all_reduce"], tps["gather"],
+                   tps["reduce_scatter"])
             return out, [(time.perf_counter() - t) * 1e3] + [
                 (b - a) * 1e3 for a, b in zip(was, now)]
         (logits, caches), times = call(lambda: tf.prefill(
             model, ref["prompt"][rows], mesh=mesh, max_len=p + n))
-        for key, v in zip(("ms", "data_ms", "reduce_ms", "gather_ms"), times):
+        for key, v in zip(keys, times):
             rec["prefill_" + key] = v
         got.append(logits)
         for j in range(n):
             (lg, caches), times = call(lambda: tf.decode_step(
                 model, ref["tokens"][j][rows], caches, p + j, mesh=mesh))
-            for key, v in zip(("ms", "data_ms", "reduce_ms", "gather_ms"),
-                              times):
+            for key, v in zip(keys, times):
                 rec["decode_" + key].append(v)
             got.append(lg)
     rec["logit_err"] = max(_rel(g, w[rows]) for g, w in
@@ -2635,6 +2654,9 @@ def _lm_shard_report(ranks, whole, smi):
                 if not (rec["finite"] and rec["same_keys"]
                         and rec["blocks"] > 0
                         and (rec["tp_blocks"] > 0) == (shape[1] > 1)
+                        and (rec["recurrent_blocks"] > 0) == (
+                            shape[1] > 1 and arch.startswith(
+                                ("mamba2", "recurrentgemma")))
                         and (rec["data_blocks"] > 0) == (shape[0] > 1)) \
                         or rec["logit_err"] > LM_CARD_TOL \
                         or rec["cache_err"] > LM_CARD_TOL \
@@ -2653,6 +2675,7 @@ def _lm_shard_report(ranks, whole, smi):
             col = lambda k: [rec[k][j] for j, rec in enumerate(slow)]
             dec, dgat = col("decode_ms"), col("decode_data_ms")
             dred, dmod = col("decode_reduce_ms"), col("decode_gather_ms")
+            dsc = col("decode_scatter_ms")
             first = max(res, key=lambda rec: rec["prefill_ms"])
             pre = first["prefill_ms"]
             pct = lambda x, t: f"{x / t:.1%}"
@@ -2663,7 +2686,9 @@ def _lm_shard_report(ranks, whole, smi):
                   f"mesh {shape} (\"data\", \"model\"), four gloo ranks, "
                   f"each holding its blocks by the training layout rule "
                   f"({res[0]['tp_blocks']} tensor-parallel leaves over "
-                  f"\"model\", {res[0]['data_blocks']} over \"data\"): "
+                  f"\"model\", {res[0]['recurrent_blocks']} of them in the "
+                  f"SSM or RG-LRU layers, {res[0]['data_blocks']} over "
+                  f"\"data\"): "
                   f"parameters {top('held_bytes') / 2 ** 30:.4f} GiB a rank "
                   f"(the largest; predicted {want_gib} GiB) against "
                   f"{res[0]['whole_bytes'] / 2 ** 30:.3f} GiB whole; caches "
@@ -2682,12 +2707,16 @@ def _lm_shard_report(ranks, whole, smi):
                   f"all-reduces {first['prefill_reduce_ms']:.1f} ms, "
                   f"{pct(first['prefill_reduce_ms'], pre)}; \"model\" "
                   f"all-gathers {first['prefill_gather_ms']:.1f} ms, "
-                  f"{pct(first['prefill_gather_ms'], pre)}) against "
+                  f"{pct(first['prefill_gather_ms'], pre)}; \"model\" "
+                  f"reduce-scatters {first['prefill_scatter_ms']:.1f} ms, "
+                  f"{pct(first['prefill_scatter_ms'], pre)}) against "
                   f"{w['prefill_ms']:.1f} ms whole; decode ms a step "
                   f"{rnd(dec)} (\"data\" all-gathers {rnd(dgat)} ms, "
                   f"{pct(sum(dgat), sum(dec))}; \"model\" all-reduces "
                   f"{rnd(dred)} ms, {pct(sum(dred), sum(dec))}; \"model\" "
-                  f"all-gathers {rnd(dmod)} ms, {pct(sum(dmod), sum(dec))}) "
+                  f"all-gathers {rnd(dmod)} ms, {pct(sum(dmod), sum(dec))}; "
+                  f"\"model\" reduce-scatters {rnd(dsc)} ms, "
+                  f"{pct(sum(dsc), sum(dec))}) "
                   f"against {w['decode_ms']:.2f} ms whole (each call's "
                   f"slowest rank; gloo through the host, timed with the "
                   f"card synchronised around each collective); card: "
@@ -3119,8 +3148,28 @@ LM_TM_TP_STEPS = 1
 # in tests/test_torch_train_tp.py holds the port's rule against
 # state_specs leaf by leaf; this figure does not come from the port.)
 LM_TM_TP_PREDICTED_GIB = {(1, 4): 0.611, (2, 2): 0.611}
+# the recurrent tensor-parallel legs: (arch, config overrides, global
+# batch, seq, the cut as printed), a fresh state each, cut by the layout
+# rule on LM_TM_REC_MESH (the SSM's d_model, the RG-LRU's d_rnn, the
+# MLP's d_ff, the heads and the vocabulary over "model"), a step on its
+# first batch against the one process's; the state a rank predicted as
+# LM_TM_TP_PREDICTED_GIB is.  mamba2 computes in float64 (its parameters
+# and its SSD scan float32; its logits and loss float64): its decay's
+# gradient (a_log, 80 leaves a layer summed over every position) is at
+# float32's noise floor at full width, the one process's float32
+# gradient 1.1e-4 of its largest off float64's and any other order of a
+# sum (the row-parallel projection, the vocab-parallel head and loss) as
+# far off again, where float64 holds the reorderings to 1e-9
+# (tools/probe_ssm_grad_conditioning.py)
+LM_TM_REC = (("mamba2-2.7b", {"n_layers": 2, "compute_dtype": "float64"},
+              2, 512, "64 -> 2 layers"),
+             ("recurrentgemma-9b", {"n_layers": 3}, 2, 512,
+              "38 -> 3 layers"))
+LM_TM_REC_MESH = (1, 4)
+LM_TM_REC_PREDICTED_GIB = {"mamba2-2.7b": 0.585, "recurrentgemma-9b": 4.782}
 LM_TM_MASKED = 256
-LM_TM_SEEDS = {"dense": 91, "moe": 92, "batch": 93}
+LM_TM_SEEDS = {"dense": 91, "moe": 92, "batch": 93, "mamba2-2.7b": 94,
+               "recurrentgemma-9b": 95}
 # held: each loss within LM_TM_LOSS_TOL relative of the one process's;
 # each leaf of the first step's reduced gradient (a rank's block against
 # the matching slice) within LM_TM_GRAD_TOL of the leaf's largest value;
@@ -3139,6 +3188,16 @@ LM_TM_RTOL, LM_TM_ATOL = 2e-5, 2e-6
 # (train_step._MaskedNLL writes the gradient into one buffer, chunk by
 # chunk)
 LM_TM_LOGIT_COPIES = 2
+
+
+def _lm_tm_rec_cfgs():
+    """The recurrent tensor-parallel legs' configs (``LM_TM_REC``),
+    float32 compute unless the leg says otherwise."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return [dataclasses.replace(get_config(arch),
+                                **{"compute_dtype": "float32", **over})
+            for arch, over, *_ in LM_TM_REC]
 
 
 def _lm_tm_cfgs():
@@ -3184,14 +3243,43 @@ def _lm_tm_checksum(named, skip=()) -> int:
     return total
 
 
+# elements of a leaf ``_lm_tm_whole_checksum`` makes whole at once
+LM_TM_WHOLE_SLICE = 1 << 26
+
+
 def _lm_tm_whole_checksum(model, cfg, mesh) -> int:
     """``_lm_tm_checksum`` of the model's parameters gathered whole
-    (``convert._whole``, a leaf at a time; every rank calls it)."""
+    (``convert._whole``), a leaf at a time; a leaf of more than
+    ``LM_TM_WHOLE_SLICE`` elements whole, a slice at a time along a
+    dimension no axis splits (four ranks' whole copies of
+    recurrentgemma-9b's 3.9 GiB embedding, with gloo's staging of each,
+    would not fit beside their states), each slice's checksum at its own
+    positions.  Every rank calls it."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    held = tf.held_axes(model, mesh)
     total = 0
     for name, p in model.named_parameters():
-        total += _lm_tm_checksum(convert._whole({name: p.detach()}, cfg,
-                                                mesh))
+        t, axes = p.detach(), held.get(name, {})
+        free = [j for j in range(t.ndim) if j not in axes.values()]
+        whole = t.numel() * math.prod(
+            dist.get_world_size(mesh.get_group(a)) for a in axes)
+        if whole <= LM_TM_WHOLE_SLICE or not free:
+            total += _lm_tm_checksum(convert._whole({name: t}, cfg, mesh))
+            continue
+        j = max(free, key=lambda d: t.shape[d])
+        rows = max(1, t.shape[j] * LM_TM_WHOLE_SLICE // whole)
+        for i in range(0, t.shape[j], rows):
+            part = t.narrow(j, i, min(rows, t.shape[j] - i)).contiguous()
+            for axis, k in axes.items():
+                group = mesh.get_group(axis)
+                parts = [torch.empty_like(part)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, part, group=group)
+                part = torch.cat(parts, dim=k)
+            total += _lm_tm_checksum({name: part})
     return total
 
 
@@ -3242,7 +3330,8 @@ def _lm_tm_grad_check(model, mesh, want, out):
                 size = g.shape[k]
                 w = w.narrow(k, mesh.get_local_rank(axis) * size, size)
             diff, _ = _lm_tm_leaf_diff(g, w)
-            top = float(want[n].abs().max())
+            # no temporary of the leaf's size (four ranks check at once)
+            top = max(float(want[n].max()), -float(want[n].min()))
             worst = max(worst, (diff / max(top, 1e-30), n))
         out.extend(worst + ((time.perf_counter() - t) * 1e3,))
     return check
@@ -3415,6 +3504,32 @@ def _lm_train_mesh_rank(rank, world, d, refs):
             torch.cuda.empty_cache()
     del batches
 
+    # -- the recurrent tensor-parallel legs --------------------------------
+    # cut before the moments are made: four whole states would not fit
+    for i, cfg in enumerate(_lm_tm_rec_cfgs()):
+        arch, _, gb, seq, _ = LM_TM_REC[i]
+        mesh = init_device_mesh(dev.type, LM_TM_REC_MESH,
+                                mesh_dim_names=names)
+        model = ts.shard_params_(tf.init_params(torch.Generator(
+            dev).manual_seed(LM_TM_SEEDS[arch]), cfg), mesh, "train")
+        state = ts.TrainState(
+            model, opt.init_opt_state(dict(model.named_parameters())), None)
+        rec = out["tp"][arch] = record()
+        rec["grad"] = []
+        rec["blocks"] = len(ts.model_blocks(model, mesh))
+        rec["recurrent_blocks"] = sum(
+            bool({"ssm", "rec"} & set(convert.ref_path(n)[0]))
+            for n in ts.model_blocks(model, mesh))
+        state = leg(state, cfg, mesh, _lm_tm_batches(cfg, 1, gb, seq, dev),
+                    rec, _lm_tm_grad_check(model, mesh, refs[arch + "/grads"],
+                                           rec["grad"]))
+        rec["param_diff"], rec["param_excess"] = param_diff(
+            state, mesh, refs[arch + "/params"])
+        del state, model
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
     # -- the MoE model, each rank holding its blocks ------------------------
     gb, seq = LM_TM_MOE[2:4]
     batches = _lm_tm_batches(moe_cfg, LM_TM_MOE_STEPS, gb, seq, dev)
@@ -3519,12 +3634,13 @@ def _lm_train_mesh_phase(dev, smi):
     resident = torch.cuda.memory_allocated()
     card = torch.cuda.get_device_properties(dev).total_memory
     dense, moe_cfg = _lm_tm_cfgs()
+    rec_cfgs = _lm_tm_rec_cfgs()
 
     # the memory reckoning, before anything is spawned: a rank's blocks x
     # 16 B (weights, gradients, two moments), the largest whole weight
     # group and its gradient x 8 B, its float32 logits; at least the
     # state made whole before it is cut (the dense model's 12 B a
-    # parameter, the MoE's weights 4 B)
+    # parameter, the MoE's and the recurrent legs' weights 4 B)
     n_dense = dense.n_params()
     n_moe = moe_cfg.n_params()
     gb, seq = LM_TM_DENSE[2:4]
@@ -3533,22 +3649,26 @@ def _lm_train_mesh_phase(dev, smi):
     for part, cfg, shape, batch, s in (
             [("dense", dense, m, gb, seq) for m in LM_TM_DENSE_MESHES]
             + [("tp", dense, m, gb, seq) for m in LM_TM_TP_MESHES]
+            + [("rec", c, LM_TM_REC_MESH, leg[2], leg[3])
+               for c, leg in zip(rec_cfgs, LM_TM_REC)]
             + [("moe", moe_cfg, LM_TM_MOE_MESH, gb_m, seq_m)]):
         held, group = _lm_tm_held(cfg, shape)
         vocab = (cfg.vocab // shape[1] if cfg.vocab % shape[1] == 0
                  else cfg.vocab)
         act = LM_TM_LOGIT_COPIES * batch // shape[0] * s * vocab * 4
         per = max(16 * held + 8 * group + act,
-                  (4 if part == "moe" else 12) * cfg.n_params())
+                  (4 if part in ("moe", "rec") else 12) * cfg.n_params())
         worst = max(worst, per)
         lines.append(f"{part} {shape}: {held} parameters held x 16 B "
                      f"{gib(16 * held):.2f} GiB + a gathered group of "
                      f"{group} x 8 B {gib(8 * group):.2f} GiB + logits "
                      f"{gib(act):.2f} GiB = {gib(per):.2f} GiB")
-    # kept here for the ranks: the one process's first gradients of both
-    # models and the dense model's parameters after the tensor-parallel
-    # leg's steps and after the last, float32
-    kept = 4 * (3 * n_dense + n_moe)
+    # kept here for the ranks: the one process's first gradients of every
+    # model, the dense model's parameters after the tensor-parallel leg's
+    # steps and after the last, and each recurrent leg's after its step,
+    # float32
+    kept = 4 * (3 * n_dense + n_moe
+                + sum(2 * c.n_params() for c in rec_cfgs))
     print(f"LM_TRAIN_MESH reckoning a rank (sharded states): dense "
           f"{LM_TM_DENSE[0]} ({LM_TM_DENSE[4]}, {n_dense} parameters), "
           f"MoE {LM_TM_MOE[0]} ({LM_TM_MOE[4]}, {n_moe} parameters): "
@@ -3577,6 +3697,12 @@ def _lm_train_mesh_phase(dev, smi):
                 "dense_params": ref["dense"][4][sum(LM_TM_DENSE_STEPS)],
                 "tp_params": ref["dense"][4][LM_TM_TP_STEPS],
                 "moe_grads": ref["moe"][3]}
+        for cfg, (arch, _, b, s, _) in zip(rec_cfgs, LM_TM_REC):
+            ref[arch] = _lm_tm_reference(
+                cfg, _lm_tm_batches(cfg, 1, b, s, dev),
+                torch.Generator(dev).manual_seed(LM_TM_SEEDS[arch]), (1,))
+            refs[arch + "/grads"], refs[arch + "/params"] = \
+                ref[arch][3], ref[arch][4][1]
         with open(d / "params.json", "w") as fh:
             json.dump({"device": str(dev)}, fh)
         t1 = time.perf_counter()
@@ -3696,21 +3822,34 @@ def _lm_train_mesh_phase(dev, smi):
           f"bound {LM_TM_RTOL:.0e} |p| + {LM_TM_ATOL:.0e}); the MoE ranks "
           f"hold {ranks[0]['moe_rows'][0]} experts each; ranks "
           f"{t_ranks:.1f} s")
-    _lm_tm_tp_report(ranks, ref["dense"], dense, smi)
+    _lm_tm_tp_report(ranks, ref, dense, rec_cfgs, smi)
     print(f"LM train mesh phase: {time.perf_counter() - t0:.1f} s; card: "
           f"{smi}")
 
 
-def _lm_tm_tp_report(ranks, ref, cfg, smi):
-    """Phase 8g's tensor-parallel leg: its checks against the one process
-    (``ref``, ``_lm_tm_reference``'s of the dense model) and its line a
-    mesh.  Raises on the first failed check."""
+def _lm_tm_tp_report(ranks, ref, cfg, rec_cfgs, smi):
+    """Phase 8g's tensor-parallel legs: the dense model's on each of
+    LM_TM_TP_MESHES and each recurrent leg's (LM_TM_REC), their checks
+    against the one process (``ref``, ``_lm_tm_reference``'s of each
+    model by part) and a line each.  Raises on the first failed
+    check."""
     gib = lambda b: b / 2 ** 30
-    losses, ref_ms, ref_peak = ref[0][:LM_TM_TP_STEPS], ref[1], ref[2]
-    for shape in LM_TM_TP_MESHES:
-        key = "x".join(map(str, shape))
+    legs = [(LM_TM_DENSE[0], f"{LM_TM_DENSE[4]}, full width, attn_ring "
+             f"off, float32", LM_TM_DENSE[2:4], shape,
+             "x".join(map(str, shape)),
+             LM_TM_TP_PREDICTED_GIB[shape], ref["dense"], LM_TM_TP_STEPS,
+             cfg, "heads, d_ff, vocabulary")
+            for shape in LM_TM_TP_MESHES]
+    legs += [(arch, f"{cut}, full width, {c.compute_dtype} compute",
+              (b, s), LM_TM_REC_MESH, arch,
+              LM_TM_REC_PREDICTED_GIB[arch], ref[arch], 1, c,
+              "SSM d_model" if c.family == "ssm"
+              else "RG-LRU d_rnn, heads, d_ff, vocabulary")
+             for c, (arch, _, b, s, cut) in zip(rec_cfgs, LM_TM_REC)]
+    for arch, cut, (b, s), shape, key, predicted, one, steps, c, what \
+            in legs:
+        losses, ref_ms, ref_peak = one[0][:steps], one[1], one[2]
         res = [r["tp"][key] for r in ranks]
-        predicted = LM_TM_TP_PREDICTED_GIB[shape]
         for r, rec in enumerate(res):
             errs = [abs(g - w) / abs(w) for g, w in zip(rec["loss"], losses)]
             if len(rec["loss"]) != len(losses) or \
@@ -3729,13 +3868,15 @@ def _lm_tm_tp_report(ranks, ref, cfg, smi):
                                      f"bound")
             if len(rec["held_bytes"]) != 1 or \
                     abs(gib(rec["held_bytes"][0]) - predicted) > 5e-4 or \
-                    not rec["blocks"]:
+                    not rec["blocks"] or \
+                    rec.get("recurrent_blocks", 1) == 0:
                 raise AssertionError(f"LM_TRAIN_TP {key} rank {r}: state "
                                      f"{rec['held_bytes']} B, predicted "
                                      f"{predicted} GiB; {rec['blocks']} "
-                                     f"blocks")
-            for i, (c, peer) in enumerate(zip(rec["data"], rec["sum"])):
-                first = next(p for p in res if p["data"][i] == c)
+                                     f"blocks, {rec.get('recurrent_blocks')}"
+                                     f" of them recurrent")
+            for i, (crd, peer) in enumerate(zip(rec["data"], rec["sum"])):
+                first = next(p for p in res if p["data"][i] == crd)
                 if peer != first["sum"][i]:
                     raise AssertionError(f"LM_TRAIN_TP {key} rank {r} step "
                                          f"{i}: its whole leaves differ "
@@ -3745,37 +3886,43 @@ def _lm_tm_tp_report(ranks, ref, cfg, smi):
                                      f"gathered parameters differ")
         col = lambda k: [max(rec[k][i] for rec in res)
                          for i in range(len(res[0][k]))]
-        ms, tp_ms = col("ms"), col("tp_all_reduce_ms")
-        print(f"LM_TRAIN_TP {LM_TM_DENSE[0]} "
-              f"({LM_TM_DENSE[4]}, full width, attn_ring off), float32, "
-              f"global batch {LM_TM_DENSE[2]} x seq {LM_TM_DENSE[3]}, mesh "
-              f"{shape} (\"data\", \"model\"), {res[0]['blocks']} leaves "
-              f"held as blocks over \"model\" (heads, d_ff, vocabulary): "
-              f"state a rank (parameters, two moments) "
-              f"{gib(res[0]['held_bytes'][0]):.6f} GiB against the "
+        ms, ar = col("ms"), col("tp_all_reduce_ms")
+        tp = [a + g + rs for a, g, rs in zip(ar, col("tp_gather_ms"),
+                                             col("tp_reduce_scatter_ms"))]
+        recurrent = ("" if "recurrent_blocks" not in res[0] else
+                     f", {res[0]['recurrent_blocks']} of them in the "
+                     f"SSM or RG-LRU layers")
+        print(f"LM_TRAIN_TP {arch} ({cut}), global batch {b} x "
+              f"seq {s}, mesh {shape} (\"data\", \"model\"), "
+              f"{res[0]['blocks']} leaves held as blocks over \"model\" "
+              f"({what}{recurrent}): state a rank (parameters, two moments)"
+              f" {gib(res[0]['held_bytes'][0]):.6f} GiB against the "
               f"prediction {predicted:.3f} GiB (the reference layout's), "
-              f"whole "
-              f"{gib(12 * cfg.n_params()):.3f} GiB; losses "
+              f"whole {gib(12 * c.n_params()):.3f} GiB; losses "
               f"{[round(x, 6) for x in res[0]['loss']]} within "
               f"{max(abs(g - w) / abs(w) for g, w in zip(res[0]['loss'], losses)):.2e}"
               f" of the one process's (tolerance {LM_TM_LOSS_TOL:.0e}); "
               f"the first step's gradient blocks within "
               f"{max(rec['grad'][0] for rec in res):.2e} (worst leaf "
               f"{max(rec['grad'] for rec in res)[1]}, tolerance "
-              f"{LM_TM_GRAD_TOL:.0e}); the parameters after "
-              f"{LM_TM_TP_STEPS} steps within "
+              f"{LM_TM_GRAD_TOL:.0e}); the parameters after {steps} "
+              f"step{'s' if steps > 1 else ''} within "
               f"{max(rec['param_diff'] for rec in res):.2e} "
               f"({max(rec['param_excess'] for rec in res):.3f} x the bound "
               f"{LM_TM_RTOL:.0e} |p| + {LM_TM_ATOL:.0e}); ms a step "
               f"{[round(x, 1) for x in ms]} (the slowest rank; the first "
               f"with its gradient check, {max(rec['grad'][2] for rec in res):.1f}"
               f" ms) against one process "
-              f"{[round(x, 1) for x in ref_ms[:LM_TM_TP_STEPS]]}; the "
-              f"tensor-parallel all-reduces {[round(x, 1) for x in tp_ms]} "
-              f"ms (gloo, host-staged, the card synchronised around each), "
-              f"{[f'{a / b:.1%}' for a, b in zip(tp_ms, ms)]} of the step; "
+              f"{[round(x, 1) for x in ref_ms[:steps]]}; the "
+              f"tensor-parallel collectives over \"model\" (all-reduces "
+              f"{[round(x, 1) for x in ar]} ms, all-gathers "
+              f"{[round(x, 1) for x in col('tp_gather_ms')]} ms, "
+              f"reduce-scatters "
+              f"{[round(x, 1) for x in col('tp_reduce_scatter_ms')]} ms; "
+              f"gloo, host-staged, the card synchronised around each) "
+              f"{[f'{a / t:.1%}' for a, t in zip(tp, ms)]} of the step; "
               f"the FSDP gathers and reduce-scatters "
-              f"{[round(a + b, 1) for a, b in zip(col('gather_ms'), col('reduce_scatter_ms'))]}"
+              f"{[round(a + g, 1) for a, g in zip(col('gather_ms'), col('reduce_scatter_ms'))]}"
               f" ms; the gradient reduction "
               f"{[round(x, 1) for x in col('grad_reduce_ms')]} ms; peak "
               f"memory_allocated {max(col('peak_gib')):.3f} GiB (the "
@@ -3790,7 +3937,15 @@ DRY_CELLS = (
     ("poisson", ["--arch", "flups-poisson", "--mesh", "both"]),
     ("moe", ["--arch", "moonshot-v1-16b-a3b", "--shape", "train_4k",
              "--mesh", "single"]),
+    ("ssm", ["--arch", "mamba2-2.7b", "--shape", "decode_32k",
+             "--mesh", "single"]),
+    ("hybrid", ["--arch", "recurrentgemma-9b", "--shape", "decode_32k",
+                "--mesh", "single"]),
 )
+# the cells whose arguments a rank holds must be exactly the reference
+# layout's bytes: the decode cells (parameters by the training layout
+# rule, the caches by cache_specs)
+DRY_EXACT = ("decode", "ssm", "hybrid")
 DRY_N = 256
 DRY_TIMEOUT_S = 240
 # the measured rates: a bf16 matmul of this size cubed, a copy this long
@@ -3936,17 +4091,23 @@ def _dryrun_phase(dev, smi, run_counted, lm_ms):
             one = json.loads(stdout.split("RESULT ", 1)[1])
             continue
         with open(os.path.join(out_dir.name, tag + ".jsonl")) as fh:
-            recs += [json.loads(line) for line in fh if line.strip()]
+            recs += [(tag, json.loads(line)) for line in fh if line.strip()]
     out_dir.cleanup()
-    if len(recs) != 4:
-        raise AssertionError(f"DRY: {len(recs)} records, expected 4")
-    for r in recs:
+    if len(recs) != 6:
+        raise AssertionError(f"DRY: {len(recs)} records, expected 6")
+    for tag, r in recs:
         where = dict(r.get("mesh", []))
         label = f"{r['arch']}/{r['shape']} on {tuple(where.values())}"
         if r["status"] != "ok":
             raise AssertionError(f"DRY {label}: {r.get('error')}\n"
                                  f"{r.get('trace', '')}")
         mem, cost, rf = r["memory"], r["cost"], r["roofline"]
+        if tag in DRY_EXACT and mem["argument_size_in_bytes"] != \
+                mem["spec_argument_size_in_bytes"]:
+            raise AssertionError(f"DRY {label}: a rank holds "
+                                 f"{mem['argument_size_in_bytes']} B of "
+                                 f"arguments, the reference's layout "
+                                 f"{mem['spec_argument_size_in_bytes']} B")
         print(f"DRY {label}: ok, n_chips {r['n_chips']}, "
               f"{cost['flops']:.4e} FLOP/rank, collectives "
               f"{cost['coll_bytes'] / 1e9:.4f} GB/rank in "
@@ -3992,6 +4153,64 @@ def _dryrun_phase(dev, smi, run_counted, lm_ms):
     print(f"dry-run phase: {time.perf_counter() - t0:.1f} s; card: {smi}")
 
 
+# the bytes of host Green's functions the run keeps for sharing
+GREEN_KEEP_BYTES = 16 * 2 ** 30
+
+
+class _GreenMemo:
+    """The run's host Green's function assemblies, shared by plan: once
+    installed, ``solver.build_green`` and the names ``pencil`` and
+    ``biot_savart`` import it under are this memo, so that a phase that
+    builds a plan an earlier phase built takes its array (phase 6's
+    BS_UUU phase 4's (U,U,U) 256^3 plan, the dry run's flups-poisson cell
+    the launcher's NODE (U,U,U) 256^3 one).  The array depends on the
+    plan alone; no consumer writes into it.  At most
+    ``GREEN_KEEP_BYTES`` are kept, the least recently used dropped
+    first.  Spawned ranks build their own."""
+
+    def __init__(self):
+        self.kept = collections.OrderedDict()
+        self.made = self.shared = 0
+        self.seconds = 0.0
+        self._mark = (0, 0, 0.0)
+        self.build = None
+
+    def install(self):
+        from repro_torch.core import biot_savart, solver
+        from repro_torch.distributed import pencil
+        self.build = solver.build_green
+        for mod in (solver, pencil, biot_savart):
+            mod.build_green = self
+
+    def __call__(self, plan):
+        g = self.kept.get(plan)
+        if g is not None:
+            self.kept.move_to_end(plan)
+            self.shared += 1
+            return g
+        t = time.perf_counter()
+        g = self.build(plan)
+        self.seconds += time.perf_counter() - t
+        self.made += 1
+        self.kept[plan] = g
+        while len(self.kept) > 1 and sum(
+                a.nbytes for a in self.kept.values()) > GREEN_KEEP_BYTES:
+            self.kept.popitem(last=False)
+        return g
+
+    def report(self) -> str:
+        """The assemblies made and shared since the last report, as a
+        phase line's tail ("" where there were none)."""
+        made, shared, secs = (self.made - self._mark[0],
+                              self.shared - self._mark[1],
+                              self.seconds - self._mark[2])
+        self._mark = (self.made, self.shared, self.seconds)
+        if not made and not shared:
+            return ""
+        return (f" (host Green assemblies: {made} made in {secs:.1f} s, "
+                f"{shared} shared)")
+
+
 def _rate(table, name, default):
     for key, v in table.items():
         if key in name:
@@ -4002,13 +4221,16 @@ def _rate(table, name, default):
 def main() -> int:
     t_start = time.perf_counter()
     clock = [t_start, None]
+    greens = _GreenMemo()
 
     def phase(name):
-        """Prints the seconds of the phase before, on a line of its own,
-        and starts phase ``name``'s (None: the last has ended)."""
+        """Prints the seconds of the phase before, with its host Green
+        assemblies, on a line of its own, and starts phase ``name``'s
+        (None: the last has ended)."""
         now = time.perf_counter()
         if clock[1] is not None:
-            print(f"phase {clock[1]}: {now - clock[0]:.1f} s")
+            print(f"phase {clock[1]}: {now - clock[0]:.1f} s"
+                  f"{greens.report()}")
         clock[:] = [now, name]
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -4035,6 +4257,7 @@ def main() -> int:
                                                   fft_stockham_twiddle, path)
     from repro_torch.kernels.spectral_scale import spectral_scale
     from repro_torch.kernels.twiddle_pack import twiddle_pack
+    greens.install()
     wrappers = {"fft_stockham": fft_stockham,
                 "fft_stockham_scale": fft_stockham_scale,
                 "spectral_scale": spectral_scale,
@@ -4566,7 +4789,7 @@ def main() -> int:
         tag = f"{case} n={N}"
         print(f"biot-savart {tag} ({'batched' if batched else 'sequential'}"
               f"): plan+green {t_plan:.2f} s ({n_green} Green's function"
-              f"{'s' if n_green > 1 else ''} assembled), launches "
+              f"{'s' if n_green > 1 else ''} in use), launches "
               f"{ {k: v for k, v in counts.items() if v} }, cuda vs torch "
               f"engine relative max |diff| {rel:.3e}")
         solvers[tag] = (bc, bt, f)
@@ -5479,6 +5702,8 @@ def main() -> int:
                                 for r, c in launch_launches.items()
                                 if kname in c}})
     phase(None)
+    print(f"host Green assemblies of the run: {greens.made} made in "
+          f"{greens.seconds:.1f} s, {greens.shared} shared by plan")
     print(f"chip_smoke.py: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")

@@ -14,11 +14,11 @@ and its block of the state by the training layout rule: on a train cell
 ``training.train_step.shard_state_`` (parameters, both moments and the
 error feedback over ``"data"`` where ``state_specs`` names it; over
 ``"model"`` the MoE's own ``E / n`` experts and the tensor-parallel
-blocks of the attention heads, the MLP's ``d_ff`` and the vocabulary,
-the SSM's and the RG-LRU's entries whole, ROADMAP item 6d), on a
-prefill or decode cell ``shard_params_``, the parameters alone by the
-same rule, and a decode cell's caches by ``init_caches(mesh=)``
-(``cache_specs``' local shapes, the SSM state whole over ``"model"``).
+blocks of the attention heads, the MLP's ``d_ff``, the vocabulary, the
+SSM's ``d_model`` and the RG-LRU's ``d_rnn``), on a prefill or decode
+cell ``shard_params_``, the parameters alone by the same rule, and a
+decode cell's caches by ``init_caches(mesh=)`` (``cache_specs``' local
+shapes).
 ``Cell.spec_bytes`` gives the bytes of the reference's layout (the spec
 trees' local shapes, what its
 ``memory_analysis().argument_size_in_bytes`` measures), beside the

@@ -37,9 +37,8 @@ from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16, link_bandwidth,
 MEMORY_NOTE = ("eager torch, no generated code; argument: the bytes this "
                "rank holds (a train cell's state, a serving cell's "
                "parameters, by the training layout rule: FSDP over data, "
-               "tensor and expert parallelism over model, the SSM's and "
-               "RG-LRU's model entries whole; a decode cell's caches by "
-               "cache_specs, the SSM state whole over model), "
+               "tensor and expert parallelism over model; a decode "
+               "cell's caches by cache_specs), "
                "spec_argument: the reference's sharded layout; temp: the "
                "peak of the live bytes the step allocates, less its "
                "outputs")

@@ -10,11 +10,22 @@ computed chunk-parallel: a quadratic attention-like term inside chunks of
 length ``chunk`` and a sequential state pass between chunks (a Python
 loop over chunks, in float32).  Decode carries the conv history and the
 float32 SSM state and costs O(1) per token.
+
+Tensor-parallel (``group``, the ``"model"`` axis, where the rank holds
+``param_specs``' blocks: ``w_in``'s rows and ``w_out``'s columns of
+``d_model``): the in-projection is row-parallel, the rank's block of
+``d_model`` of the input against its rows of ``w_in``, the partial
+projections summed over the axis; the conv, the scan, the skip and the
+gated norm then run replicated on the whole projection (every rank holds
+the same sum), so the state and the conv history come out whole, as
+``cache_specs`` lays them out; the out-projection is column-parallel,
+the rank's columns of ``d_model`` gathered whole.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -116,18 +127,54 @@ def ssd_chunked(xh, dt, a, B, C, chunk):
     return torch.cat(ys, dim=1), state
 
 
-def ssm_block(p, cfg: ModelConfig, x, return_tail=False):
+def _tf():
+    """``models.transformer``, whose tensor-parallel autograd Functions
+    the blocks use (imported where used: it imports this module)."""
+    from . import transformer
+    return transformer
+
+
+def _in_proj(p, x, cd, group):
+    """``x @ w_in``; with ``group``, row-parallel: the rank's block of
+    ``d_model`` of ``x`` against its rows of ``w_in``, summed over the
+    axis (the input's gradient summed back over it)."""
+    if group is None:
+        return torch.einsum("bsd,de->bse", x, p.w_in.to(cd))
+    tf = _tf()
+    rows = p.w_in.shape[0]
+    r = dist.get_rank(group)
+    xb = tf._CopyToModel.apply(x, group)[..., r * rows:(r + 1) * rows]
+    return tf._SumOverModel.apply(
+        torch.einsum("bsd,de->bse", xb, p.w_in.to(cd)), group)
+
+
+def _out_proj(p, y, cd, group):
+    """``y @ w_out``; with ``group``, column-parallel: the rank's columns
+    of ``d_model`` gathered whole over the axis (``y``'s gradient, each
+    rank's columns' share, summed over it)."""
+    if group is None:
+        return torch.einsum("bse,ed->bsd", y, p.w_out.to(cd))
+    tf = _tf()
+    out = torch.einsum("bse,ed->bsd", tf._CopyToModel.apply(y, group),
+                       p.w_out.to(cd))
+    return tf._Gather.apply(out, group, out.ndim - 1)
+
+
+def ssm_block(p, cfg: ModelConfig, x, return_tail=False, group=None):
     """Training / prefill forward. x: (B, S, D).
 
     Returns (out, final_state, conv_tail); conv_tail is the raw xbc history
-    needed to continue decoding (None unless ``return_tail``)."""
+    needed to continue decoding (None unless ``return_tail``).  With
+    ``group`` the projections run tensor-parallel over it (module
+    docstring); the results are whole."""
     s = cfg.ssm
     cd = cfg.cdtype()
     din = s.d_inner(cfg.d_model)
     nh = s.n_heads(cfg.d_model)
-    proj = torch.einsum("bsd,de->bse", x, p.w_in.to(cd))
+    proj = _in_proj(p, x, cd, group)
     z, xbc, dt = _split_proj(cfg, proj)
-    conv_tail = xbc[:, -(s.d_conv - 1):, :] if return_tail else None
+    # the tail in storage of its own, not a view holding the projection
+    conv_tail = xbc[:, -(s.d_conv - 1):, :].clone() if return_tail else None
     xbc = _conv1d(xbc, p.conv_w.to(cd), p.conv_b.to(cd), s.d_conv)
     xs, B, C = torch.split(xbc, [din, s.d_state, s.d_state], dim=-1)
     bsz, slen = x.shape[:2]
@@ -139,8 +186,7 @@ def ssm_block(p, cfg: ModelConfig, x, return_tail=False):
     y = y + xh.float() * p.d_skip.float()[None, None, :, None]
     y = y.reshape(bsz, slen, din).to(cd)
     y = rms_norm(y * F.silu(z), p.out_norm.scale, cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p.w_out.to(cd))
-    return out, state, conv_tail
+    return _out_proj(p, y, cd, group), state, conv_tail
 
 
 # -- decode -------------------------------------------------------------------
@@ -158,15 +204,15 @@ def init_ssm_cache(cfg: ModelConfig, batch, dtype, device):
     }
 
 
-def ssm_decode(p, cfg: ModelConfig, x, cache):
+def ssm_decode(p, cfg: ModelConfig, x, cache, group=None):
     """One token. x: (B, 1, D) -> (out, new cache).  The conv sums its
     taps in the reference's order in the compute dtype; the state stays
-    float32."""
+    float32.  With ``group`` as ``ssm_block``: the cache whole."""
     s = cfg.ssm
     cd = cfg.cdtype()
     din = s.d_inner(cfg.d_model)
     nh = s.n_heads(cfg.d_model)
-    proj = torch.einsum("bsd,de->bse", x, p.w_in.to(cd))
+    proj = _in_proj(p, x, cd, group)
     z, xbc, dt = _split_proj(cfg, proj)
     hist = torch.cat([cache["conv"], xbc], dim=1)        # (B, d_conv, C)
     w = p.conv_w.to(cd)
@@ -185,5 +231,5 @@ def ssm_decode(p, cfg: ModelConfig, x, cache):
     y = y + xh * p.d_skip.float()[None, :, None]
     y = y.reshape(-1, 1, din).to(cd)
     y = rms_norm(y * F.silu(z), p.out_norm.scale, cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p.w_out.to(cd))
-    return out, {"conv": hist[:, 1:, :], "state": st}
+    return _out_proj(p, y, cd, group), {"conv": hist[:, 1:, :].clone(),
+                                         "state": st}

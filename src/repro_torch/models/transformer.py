@@ -86,8 +86,14 @@ regions: a rank's caches hold the kv heads its ``wk``/``wv`` compute
 (its block of them where they divide over the axis, as ``cache_specs``
 splits them; all of them where they do not), its query heads decode
 against them, and the step's logits are gathered whole over the axis.
-The SSM's and the RG-LRU's layers and caches stay whole over
-``"model"`` and run replicated (ROADMAP item 6d).  ``tp_timing`` times
+The SSM holds its rows of ``w_in`` and columns of ``w_out`` of
+``d_model``: its in-projection is row-parallel (summed over the axis),
+its core runs replicated on the whole projection and its out-projection
+is column-parallel (gathered whole); the RG-LRU holds its block of
+``d_rnn`` and runs on the rank's channels, the gates' inputs
+reduce-scattered to them (``_ReduceScatter``), its output summed over
+the axis (``models.ssm``, ``models.rglru``).  Their caches stay whole
+over ``"model"``, as ``cache_specs`` lays them out.  ``tp_timing`` times
 these collectives over ``"model"``, ``fsdp_timing`` those over
 ``"data"``.
 
@@ -258,6 +264,33 @@ class _Gather(torch.autograd.Function):
         n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
         s = g.shape[ctx.dim] // n
         return g.narrow(ctx.dim, r * s, s), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The ranks' partial ``y`` summed over the ``"model"`` axis, and of
+    the sum this rank's block on dimension ``dim`` (the blocks in rank
+    order): one reduce-scatter; backward: the blocks' gradients
+    all-gathered, so that each rank's partial takes the whole gradient of
+    the sum."""
+
+    @staticmethod
+    def forward(ctx, y, group, dim):
+        n = dist.get_world_size(group)
+        ctx.group, ctx.dim = group, dim
+        k = dim % y.ndim
+        shape = list(y.shape)
+        shape[k] //= n
+        parts = y.reshape(*shape[:k], n, *shape[k:]).movedim(k, 0) \
+            .contiguous()
+        out = y.new_empty(shape)
+        _timed("model", "reduce_scatter", parts,
+               dist.reduce_scatter_tensor, out.view(-1), parts.view(-1),
+               group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
 
 
 def _all_gather(y, group, dim):
@@ -473,12 +506,14 @@ class SSMBlock(nn.Module):
     def forward(self, x, positions, causal=True, prefix_len=0, x_enc=None,
                 rope=True, comm=None, mesh=None, collect=False):
         h, state, tail = ssm_block(self.ssm, self.cfg, self.ln1(x),
-                                   return_tail=collect)
+                                   return_tail=collect,
+                                   group=_tp_group(self.ssm, "w_in", mesh))
         cache = {"state": state, "conv": tail} if collect else None
         return x + h, _zero(x), cache
 
     def decode(self, x, cache, pos, mesh=None):
-        h, new = ssm_decode(self.ssm, self.cfg, self.ln1(x), cache)
+        h, new = ssm_decode(self.ssm, self.cfg, self.ln1(x), cache,
+                            group=_tp_group(self.ssm, "w_in", mesh))
         cache.update(new)
         return x + h
 
@@ -495,14 +530,16 @@ class RecBlock(nn.Module):
     def forward(self, x, positions, causal=True, prefix_len=0, x_enc=None,
                 rope=True, comm=None, mesh=None, collect=False):
         h, state, tail = rglru_block(self.rec, self.cfg, self.ln1(x),
-                                     return_tail=collect)
+                                     return_tail=collect,
+                                     group=_tp_group(self.rec, "w_x", mesh))
         cache = {"state": state, "conv": tail} if collect else None
         x = x + h
         return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh), _zero(x), \
             cache
 
     def decode(self, x, cache, pos, mesh=None):
-        h, new = rglru_decode(self.rec, self.cfg, self.ln1(x), cache)
+        h, new = rglru_decode(self.rec, self.cfg, self.ln1(x), cache,
+                              group=_tp_group(self.rec, "w_x", mesh))
         cache.update(new)
         x = x + h
         return x + _ffn(self.mlp, self.cfg, self.ln2(x), mesh)
@@ -589,9 +626,10 @@ def tp_timing():
     recomputation, ``_CopyToModel`` backward, the vocab-parallel loss's),
     the all-gathers (the ring's of the attention's blocks, forward and
     recomputation; the blocks' outputs', ``_Gather``: the ring's and the
-    MoE's sequence blocks, the logits' vocabulary blocks; the sequence
-    blocks' gradients') and the reduce-scatters of the ring's blocks'
-    gradients."""
+    MoE's sequence blocks, the logits' vocabulary blocks, the SSM's
+    output columns, the RG-LRU's caches; the sequence blocks' and the
+    RG-LRU's gates' gradients') and the reduce-scatters (the ring's
+    blocks' gradients, the RG-LRU's gates' inputs, ``_ReduceScatter``)."""
     return _timing("model", ("all_reduce", "gather", "reduce_scatter"))
 
 
@@ -820,7 +858,8 @@ class Transformer(nn.Module):
             dense_init_(self.lm_head, gen, fan_in=self.cfg.d_model)
 
     def forward(self, tokens, frontend=None, comm=None, mesh=None):
-        """tokens: (B, S) int.  Returns (logits (B, S_total, V) float32,
+        """tokens: (B, S) int.  Returns (logits (B, S_total, V) float32
+        (float64 under a float64 compute),
         {"moe_drop": the MoE layers' mean drop fraction (0 elsewhere)})."""
         logits, aux, _, vocab = _forward_impl(self, tokens, frontend, comm,
                                               mesh, collect=False)
@@ -874,7 +913,9 @@ def _logits(p, cfg, x, head, group=None):
     """Logits of the final norm of ``x`` against ``head`` (the leaf
     ``_head`` names, gathered where the rank holds a ``"data"`` block of
     it); with ``group`` (where the rank holds a block of the vocabulary),
-    the rank's block of the logits (column-parallel)."""
+    the rank's block of the logits (column-parallel).  Float32, as the
+    reference's, but float64 under a float64 compute, whose loss then
+    sums in float64 too."""
     x = p.ln_f(x)
     if group is not None:
         x = _CopyToModel.apply(x, group)
@@ -882,7 +923,7 @@ def _logits(p, cfg, x, head, group=None):
         out = torch.einsum("bsd,vd->bsv", x, head.to(cfg.cdtype()))
     else:
         out = torch.einsum("bsd,dv->bsv", x, head.to(cfg.cdtype()))
-    return out.float()
+    return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
 def _encode(p, cfg, frontend, fsdp, mesh):
@@ -1038,8 +1079,9 @@ def init_caches(cfg: ModelConfig, batch, max_len, device=None, mesh=None):
     ``"train"`` layout decodes them: ``cache_specs``' local shapes, the
     rows of its data shard (all rows where the data axes do not divide
     the batch) and the keys' and values' kv heads over ``"model"`` where
-    they divide, but the SSM state whole over ``"model"`` (its layer
-    runs replicated, ROADMAP item 6d)."""
+    they divide; the SSM's and the RG-LRU's caches whole over ``"model"``
+    (``cache_specs`` splits the SSM state's heads as the kv heads, which
+    no SSM config's single kv head lets divide)."""
     device = torch.device("cuda" if device is None else device)
     cd = cfg.cdtype()
     win = min(cfg.window, max_len) if cfg.window else max_len

@@ -18,9 +18,9 @@ error feedback by ``state_specs`` (the training layout rule,
 ``held_shapes``): over ``"data"`` wherever the spec names it (FSDP),
 and over ``"model"`` on an MoE expert weight's experts (expert
 parallelism; ``own_experts_`` cuts those alone) and on the attention
-heads, the MLP's ``d_ff`` and the vocabulary (tensor parallelism); the
-SSM's and the RG-LRU's ``"model"`` entries stay whole (ROADMAP item
-6d).  The forward gathers each ``"data"`` block's weights where they
+heads, the MLP's ``d_ff``, the vocabulary, the SSM's ``d_model``
+(``w_in``'s rows, ``w_out``'s columns) and the RG-LRU's ``d_rnn``
+(tensor parallelism).  The forward gathers each ``"data"`` block's weights where they
 are used and the backward reduce-scatters their gradients over
 ``"data"``; the tensor-parallel blocks run the Megatron pattern
 (``models.transformer``).  The loss is each rank's summed NLL over the
@@ -226,13 +226,15 @@ def grad_reduction(name, cfg: ModelConfig, held: dict, ring: bool) -> str:
     a whole leaf of a module that holds blocks over ``"model"`` (the
     router beside the own experts; in a tensor-parallel attention the kv
     heads that do not divide and the qk norms, each rank's query heads
-    reading them); the self-attention weights on the ring (``ring``,
+    reading them; the RG-LRU's ``lam``, each rank reading its channels);
+    the self-attention weights on the ring (``ring``,
     ``transformer.on_ring``).  The parameters used only in replicated
-    compute (the norms outside those regions, the SSM and RG-LRU layers,
-    and every weight of a model held whole but the above) have the whole
-    gradient on every rank: the axis's first rank's is taken, so that
-    the ranks stay bit-equal where a kernel's float atomics order a sum
-    differently."""
+    compute (the norms outside those regions, the whole leaves of a
+    tensor-parallel SSM, whose core runs replicated between its
+    projections, and every weight of a model held whole but the above)
+    have the whole gradient on every rank: the axis's first rank's is
+    taken, so that the ranks stay bit-equal where a kernel's float
+    atomics order a sum differently."""
     if "model" in held.get(name, {}):
         return "own"
     path = ref_path(name)[0]
@@ -242,7 +244,7 @@ def grad_reduction(name, cfg: ModelConfig, held: dict, ring: bool) -> str:
     # whole leaf inside one is read by every rank's share of its region
     regions = {n.rpartition(".")[0] for n, axes in held.items()
                if "model" in axes} - {""}
-    if any(name.startswith(r + ".") for r in regions):
+    if any(name.startswith(r + ".") for r in regions) and "ssm" not in path:
         return "sum"
     if ring and path[0] != "enc" and "attn" in path:
         return "sum"
@@ -313,10 +315,10 @@ def _seq_len(cfg: ModelConfig, batch) -> int:
 
 
 # the layout rules: which of ``param_specs``' entries a rank holds as
-# blocks.  "train": every entry but the SSM's and the RG-LRU's over
-# "model" (ROADMAP item 6d): FSDP over "data", over "model" the MoE
-# experts (expert parallelism) and the attention heads, the MLP's d_ff
-# and the vocabulary (tensor parallelism); the layout a rank trains and
+# blocks.  "train": every entry, the reference's layout: FSDP over
+# "data", over "model" the MoE experts (expert parallelism) and the
+# attention heads, the MLP's d_ff, the vocabulary, the SSM's d_model and
+# the RG-LRU's d_rnn (tensor parallelism); the layout a rank trains and
 # serves from.  "fsdp": every "data" entry and the experts' "model"
 # entry, no tensor parallelism.  "experts": the experts' "model" entry
 # alone
@@ -332,9 +334,7 @@ def _held_over(name, axis, layout) -> bool:
         return layout != "experts"
     if axis != "model":
         return False
-    if layout == "train":
-        return not {"ssm", "rec"} & set(ref_path(name)[0])
-    return expert_weight(name)
+    return layout == "train" or expert_weight(name)
 
 
 def held_shapes(cfg: ModelConfig, mesh_shape: dict,
@@ -397,9 +397,8 @@ def shard_params_(model, mesh, layout="train"):
 def shard_state_(state: TrainState, mesh, layout="train") -> TrainState:
     """Makes each rank of ``mesh`` hold only its block of the state by the
     layout rule ``layout`` (``held_shapes``; by ``"train"``, as the
-    reference lays its state out by ``state_specs``, but the SSM's and
-    the RG-LRU's ``"model"`` entries, held whole; ``"fsdp"`` keeps every
-    tensor-parallel entry whole): the parameters, both moments and the
+    reference lays its state out by ``state_specs``; ``"fsdp"`` keeps
+    every tensor-parallel entry whole): the parameters, both moments and the
     error feedback, in place.  A mesh step gathers the ``"data"`` blocks
     where they are used and runs the ``"model"`` blocks tensor- and
     expert-parallel.  Returns ``state``."""

@@ -130,20 +130,16 @@ for name, c in SPEC["census"].items():
 for name in SPEC["fft"]:
     ds = solver(16, (2, 4), solver_kw(*SPEC["census"][name]))
     out["fft"][name] = hlo_stats.fft_flops(ds.lower().compile().as_text())
-def rule_bytes(path, a):
+def rule_bytes(a):
     # the port's training layout rule, by which it trains and serves: the
-    # spec's axes, but "model" on no leaf of the SSM's or the RG-LRU's
-    # parameters and not on the SSM's cache state; a dimension the axes
-    # do not divide whole
-    keys = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
-    held = not {"ssm", "rec"} & set(keys) and keys[-1] != "state"
+    # spec's axes; a dimension the axes do not divide whole
     spec = () if a.sharding is None else tuple(a.sharding.spec)
     sizes = {} if a.sharding is None else dict(a.sharding.mesh.shape)
     n = 1
     for k, d in enumerate(a.shape):
         e = spec[k] if k < len(spec) else None
         axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
-        c = int(np.prod([sizes[x] for x in axes if x != "model" or held]))
+        c = int(np.prod([sizes[x] for x in axes]))
         n *= d // c if d % c == 0 else d
     return n * np.dtype(a.dtype).itemsize
 
@@ -158,8 +154,7 @@ for arch in LM_ARCHS:
             * np.dtype(a.dtype).itemsize for a in jax.tree.leaves(cell.args))
         rule = out["rule" if sh.kind == "train" else "serve_rule"]
         rule[f"{arch}/{sh.name}"] = sum(
-            rule_bytes(path, a) for path, a in
-            jax.tree_util.tree_flatten_with_path(cell.args)[0])
+            rule_bytes(a) for a in jax.tree.leaves(cell.args))
 # the dense smoke config at 1, 2 and 3 layers on (2, 4): the matmul
 # parameters of a rank's "model" blocks by param_specs (its "data" blocks
 # gathered whole), the tied embedding once, and its query heads
@@ -426,23 +421,20 @@ def test_cell_argument_bytes_match_reference(runs):
     trees' local shapes give the reference's argument bytes exactly (its
     arguments' shard shapes: what ``memory_analysis`` reports; its smoke
     cells do not compile on 8 host devices, a ``DuplicateSpecError`` in
-    its lowering).  The port's rank holds as much or more: the SSM's and
-    the RG-LRU's "model" entries whole, and a decode cell's SSM state
-    whole over "model" (ROADMAP item 6d)."""
+    its lowering).  The port's rank holds exactly as much."""
     ref, port = runs["ref"]["args"], runs["port"]["args"]
     assert set(port) == set(ref) and len(ref) == 32
     for key in ref:
         assert port[key] == ref[key], key
-        assert runs["port"]["held"][key] >= ref[key], key
+        assert runs["port"]["held"][key] == ref[key], key
 
 
 def test_train_cell_state_bytes_match_the_layout_rule(runs):
     """Every train cell on the fake (2, 4) mesh holds exactly the training
     layout rule's bytes (``train_step.shard_state_``): the reference's
-    argument shard shapes, every "data" entry kept and the "model"
-    entries of the MoE experts, the attention heads, the MLP's d_ff and
-    the vocabulary, the SSM's and the RG-LRU's "model" entries taken
-    whole; the batch its data shard."""
+    argument shard shapes, every "data" and "model" entry kept (the MoE
+    experts, the attention heads, the MLP's d_ff, the vocabulary, the
+    SSM's d_model and the RG-LRU's d_rnn); the batch its data shard."""
     rule, held = runs["ref"]["rule"], runs["port"]["held"]
     assert rule and len(rule) == sum(k.endswith("train_4k") for k in held)
     for key in rule:
@@ -453,11 +445,10 @@ def test_train_cell_state_bytes_match_the_layout_rule(runs):
 def test_serving_cell_bytes_match_the_layout_rule(runs):
     """Every prefill and decode cell on the fake (2, 4) mesh holds exactly
     the training layout rule's bytes (``train_step.shard_params_``): the
-    reference's parameter shard shapes, the SSM's and the RG-LRU's
-    "model" entries taken whole; the tokens (and frontend) its data
-    shard; a decode cell's caches by ``cache_specs`` (its data shard of
-    the batch, the kv heads over "model" where they divide), the SSM
-    state whole over "model", and the position."""
+    reference's parameter shard shapes; the tokens (and frontend) its
+    data shard; a decode cell's caches by ``cache_specs`` (its data
+    shard of the batch, the kv heads over "model" where they divide),
+    and the position."""
     rule, held = runs["ref"]["serve_rule"], runs["port"]["held"]
     assert rule and set(rule) == {k for k in held
                                   if not k.endswith("train_4k")}
@@ -468,15 +459,13 @@ def test_serving_cell_bytes_match_the_layout_rule(runs):
 
 def test_serving_cells_without_recurrent_layers_hold_the_reference_bytes(
         runs):
-    """Every prefill and decode cell of a family with neither SSM nor
-    RG-LRU layers holds on the fake (2, 4) mesh exactly the reference's
-    argument bytes (its arguments' shard shapes), with no layout rule in
-    between."""
-    from repro_torch.configs import get_smoke
+    """Every prefill and decode cell, of every family, the SSM's and the
+    hybrid's included, holds on the fake (2, 4) mesh exactly the
+    reference's argument bytes (its arguments' shard shapes), with no
+    layout rule in between."""
     ref, held = runs["ref"]["args"], runs["port"]["held"]
-    keys = [k for k in held if not k.endswith("train_4k")
-            and get_smoke(k.split("/")[0]).family not in ("ssm", "hybrid")]
-    assert len(keys) == 16, keys
+    keys = [k for k in held if not k.endswith("train_4k")]
+    assert len(keys) == 22, keys
     for key in keys:
         assert held[key] == ref[key], (key, held[key], ref[key])
 

@@ -1500,9 +1500,9 @@ def scenario_train_tp(rank, d, params):
     data shard of the global batches: per step the loss and a CRC of the
     parameters but the blocks over "model"; the held shapes, the first
     step's gradients (``<d>/rank<r>.npz``) and a CRC of the gathered
-    state (rank 0's to ``<d>/rank0_<case>.npz``); the state of
-    ``params["ckpt"]``'s case saved and restored onto (4, 2) as the
-    rank's blocks (``held_like``, ``held_specs``)."""
+    state (rank 0's to ``<d>/rank0_<case>.npz``); the state of each case
+    of ``params["ckpt"]`` saved and restored onto (4, 2) as the rank's
+    blocks (``held_like``, ``held_specs``)."""
     import zlib
 
     import torch
@@ -1559,20 +1559,21 @@ def scenario_train_tp(rank, d, params):
         tree, flat, rec["whole_crc"] = gathered(state, mesh)
         if rank == 0:
             np.savez(os.path.join(d, f"rank0_{case}.npz"), **flat)
-        if case != params["ckpt"]:
+        if case not in params["ckpt"]:
             continue
         # saved on the case's mesh, restored onto (4, 2) as the blocks
         to, shape_to = meshes[(4, 2)], {"data": 4, "model": 2}
-        ck.save(os.path.join(d, "tp_ck"), 3, tree, mesh=mesh)
-        back = ck.restore(os.path.join(d, "tp_ck"), 3,
-                          ts.held_like(cfg, to), mesh=to,
+        where = os.path.join(d, f"tp_ck_{case}")
+        ck.save(where, 3, tree, mesh=mesh)
+        back = ck.restore(where, 3, ts.held_like(cfg, to), mesh=to,
                           specs=ts.held_specs(cfg, shape_to))
         for key, t in (("params", back[0]), ("m", back[1]["m"]),
                        ("v", back[1]["v"])):
             for k, a in _flat_tree(t).items():
-                arrays[f"ckpt/{key}/{k}"] = a
-        out["ckpt"] = {"mesh_b": [to.get_local_rank("data"),
-                                  to.get_local_rank("model")]}
+                arrays[f"ckpt/{case}/{key}/{k}"] = a
+        out.setdefault("ckpt", {})[case] = {
+            "mesh_b": [to.get_local_rank("data"),
+                       to.get_local_rank("model")]}
     np.savez(os.path.join(d, f"rank{rank}.npz"), **arrays)
     return out
 
@@ -1637,6 +1638,10 @@ def _serve_from_blocks(rank, d, params, layout):
                     "tp_blocks": sum("model" in axes
                                      and not convert.expert_weight(n)
                                      for n, axes in held.items()),
+                    "recurrent_blocks": sum(
+                        "model" in axes and bool(
+                            {"ssm", "rec"} & set(convert.ref_path(n)[0]))
+                        for n, axes in held.items()),
                     "held": {name: list(p.shape)
                              for name, p in model.named_parameters()}}
 

@@ -6,8 +6,8 @@ scenario ``serve_tp``; the ranks never import JAX).  Each rank loads the
 reference's parameters through ``models.convert``, cuts them to its
 blocks by the training layout rule (``train_step.shard_params_`` by
 ``"train"``: each leaf over "data" where ``param_specs`` names it, over
-"model" the attention heads, the MLP's d_ff, the vocabulary and the
-MoE's own experts, the SSM's and the RG-LRU's "model" entries whole)
+"model" the attention heads, the MLP's d_ff, the vocabulary, the MoE's
+own experts, the SSM's d_model and the RG-LRU's d_rnn)
 and serves its data shard of a global batch of 4 on meshes (2, 4) and
 (4, 2), as ``tests/test_torch_serve_sharded.py`` serves the ``"fsdp"``
 layout: ``prefill`` of 24 prompt tokens into caches for 4 more
@@ -18,7 +18,7 @@ single-process ``prefill`` and ``decode_step`` on the whole parameters
 - the six families on both meshes: each rank's rows of every call's
   logits, and its block of the caches by the reference's
   ``cache_specs`` (its data shard's rows, its kv heads over "model"
-  where they divide; the SSM state whole, ROADMAP item 6d) after
+  where they divide; the SSM's and the RG-LRU's caches whole) after
   prefill and after the last step, within 1e-4 of the reference's
   largest value there.  qwen3 on (2, 4) is the GQA case: 4 query heads
   and 2 kv heads over 4 model ranks, ``wk``/``wv`` and the caches whole,
@@ -26,8 +26,8 @@ single-process ``prefill`` and ``decode_step`` on the whole parameters
   caches hold the rank's kv heads of the encoder output.  Ranks on one
   "data" coordinate hold bit-equal logits and bit-equal cache leaves
   where the leaf is whole over "model"; every rank holds some
-  tensor-parallel block, and its parameters are the training rule's
-  shapes;
+  tensor-parallel block (mamba2 and recurrentgemma some of an SSM or
+  RG-LRU layer), and its parameters are the training rule's shapes;
 - the serving restore: qwen3's tensor-parallel train state after one
   step on (2, 4) (``shard_state_``), saved, and its parameters saved
   alone, each restored onto (4, 2) through ``held_params_like`` by
@@ -36,7 +36,7 @@ single-process ``prefill`` and ``decode_step`` on the whole parameters
   there by ``shard_params_``;
 - with no spawn: ``init_caches(mesh=)`` for the ten smoke configs on
   (2, 4), (4, 2) and (2, 2, 2) against the reference's ``cache_specs``
-  local shapes, the SSM state whole over "model".
+  local shapes.
 """
 import concurrent.futures
 import math
@@ -67,15 +67,11 @@ def _cache_held(key, spec, shape, sizes):
     """Per dimension of the reference cache leaf ``key`` (``shape`` under
     the reference's ``cache_specs`` entry ``spec``), the rank's block as
     the port holds it: ``(extent, axes)``, split over the axes the spec
-    names where they divide the dimension, but the SSM state whole over
-    "model" (ROADMAP item 6d)."""
-    lead = 0 if key.startswith("rem/") else 1
-    ssm_state = key.endswith("/state") and len(shape) - lead == 4
+    names where they divide the dimension."""
     out = []
     for k, d in enumerate(shape):
         e = spec[k] if k < len(spec) else None
         axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
-        axes = tuple(a for a in axes if not (a == "model" and ssm_state))
         count = math.prod(sizes.get(a, 1) for a in axes)
         out.append((d // count, axes) if count > 1 and d % count == 0
                    else (d, ()))
@@ -144,14 +140,16 @@ def tp_serve(tmp_path_factory):
             "params": {tag: _flat(p) for tag, p in params.items()}}
 
 
-def _assert_held(run, specs, params, sizes):
+def _assert_held(run, specs, params, sizes, recurrent=False):
     """Every parameter of the rank shaped by the training layout rule
-    (``test_torch_train_tp._held``); some tensor-parallel block held."""
+    (``test_torch_train_tp._held``); some tensor-parallel block held,
+    where ``recurrent`` some of an SSM or RG-LRU layer."""
     for name, shape in run["held"].items():
         key, i = _port_leaf(name)
         held = _held(key, specs[key], params[key].shape, sizes)
         assert shape == [n for n, _ in held[i is not None:]], (name, shape)
     assert run["tp_blocks"] > 0
+    assert run["recurrent_blocks"] > 0 or not recurrent
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -159,8 +157,9 @@ def test_tp_serving_matches_reference(tp_serve, case):
     """Each rank's rows of every call's logits and its ``cache_specs``
     block of the caches after prefill and after the last decode step,
     against the reference's single-process serving of the whole batch;
-    the rank's parameters shaped by the training layout rule; ranks on
-    one "data" coordinate bit-equal in the logits and in the cache
+    the rank's parameters shaped by the training layout rule (mamba2's
+    and recurrentgemma's with SSM or RG-LRU leaves over "model"); ranks
+    on one "data" coordinate bit-equal in the logits and in the cache
     leaves held whole over "model"."""
     tag, mesh = case.split("-")
     shape = tuple(int(x) for x in mesh.split("x"))
@@ -174,7 +173,8 @@ def test_tp_serving_matches_reference(tp_serve, case):
         idx = rec["data"]
         coords = {"data": idx, "model": rec["model"]}
         _assert_held(rec, tp_serve["specs"][tag, shape],
-                     tp_serve["params"][tag], sizes)
+                     tp_serve["params"][tag], sizes,
+                     _cfg(tag).family in ("ssm", "hybrid"))
         for j, w in enumerate(want["logits"]):
             err = _err(arr[f"{case}/logits{j}"], w[idx * b:(idx + 1) * b])
             assert err <= TOL, (r, f"logits of call {j}", err)
@@ -225,8 +225,8 @@ def test_tp_serving_restore_from_a_training_checkpoint(tp_serve, ckpt):
 def test_rank_caches_match_cache_specs(arch, shape):
     """``init_caches(mesh=)``: every leaf the reference's ``cache_specs``
     local shape of a global batch of 8 (its data shard's rows, the kv
-    heads over "model" where they divide), but the SSM state, whole over
-    "model" (ROADMAP item 6d)."""
+    heads over "model" where they divide; the SSM state's heads whole:
+    ``cache_specs`` splits them as the kv heads, and mamba2 has one)."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import convert
     from repro_torch.models import transformer as tf
@@ -248,5 +248,4 @@ def test_rank_caches_match_cache_specs(arch, shape):
             (name, tuple(t.shape), held)
         split += any("model" in axes for _, axes in held)
     assert {_port_leaf(n)[0] for n in got} == set(want)
-    assert bool(split) == (rcfg.n_kv % sizes["model"] == 0
-                           and rcfg.family != "ssm"), (arch, split)
+    assert bool(split) == (rcfg.n_kv % sizes["model"] == 0), (arch, split)

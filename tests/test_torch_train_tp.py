@@ -9,15 +9,21 @@ positions).  Each case's state is cut by ``shard_state_``: a rank holds
 its block of every parameter and both moments over "data" where
 ``state_specs`` names it, and over "model" its block of the attention
 heads (``wq``, ``wo``, and ``wk``/``wv`` where the kv heads divide), of
-the MLP's d_ff and of the vocabulary, and its own experts.
+the MLP's d_ff, of the vocabulary, of the SSM's d_model (``w_in``'s
+rows, ``w_out``'s columns) and of the RG-LRU's d_rnn, and its own
+experts.
 
 - three train steps of qwen3 smoke on (2, 4) (4 heads, 2 kv heads over 4
   model ranks: each rank's query head reads a kv head of ``wk``/``wv``
   held whole) and on (4, 2) (both split), qwen3 with ``attn_ring`` on
   (2, 4) (the attention's blocks gathered whole for the ring),
   moonshot smoke on (2, 4) (attention tensor-parallel beside its own
-  experts, capacity factor E / k) and whisper smoke on (4, 2) (the
-  encoder's and the cross-attention's heads), against the reference's
+  experts, capacity factor E / k), whisper smoke on (4, 2) (the
+  encoder's and the cross-attention's heads), mamba2 smoke on (2, 4)
+  and (4, 2) (the SSM's projections row- and column-parallel, its core
+  replicated) and recurrentgemma smoke on (2, 4) and (4, 2) (the RG-LRU
+  on the rank's channels of d_rnn beside the tensor-parallel MLP and
+  local attention), against the reference's
   ``jax.jit(train_step_fn(cfg, adam))`` (the ring changes none of its
   single-process numbers): losses within 1e-6 relative, the gathered
   parameters and moments within rtol 2e-5, atol 2e-6, the first step's
@@ -33,13 +39,12 @@ the MLP's d_ff and of the vocabulary, and its own experts.
   reach a gradient element in another order than the reference's one
   computation, so one at a tie of its int8 code can round a quantum off
   the reference's;
-- qwen3's state on (2, 4) saved and restored onto (4, 2): each rank's
-  blocks bit-equal to the saved leaves' slices (serving from such a
-  state: ``tests/test_torch_serve_tp.py``);
+- qwen3's and mamba2's states on (2, 4) saved and restored onto
+  (4, 2): each rank's blocks bit-equal to the saved leaves' slices
+  (serving from such a state: ``tests/test_torch_serve_tp.py``);
 - with no spawn: ``held_shapes`` against the reference's ``state_specs``
   for the ten smoke configs on (2, 4), (4, 2) and (2, 2, 2), every leaf
-  the reference's local shape but the SSM's and the RG-LRU's, whole
-  over "model" (ROADMAP item 6d).
+  the reference's local shape.
 """
 import concurrent.futures
 import math
@@ -64,14 +69,20 @@ N_STEPS = 3
 CASES = {"qwen3-2x4": ("qwen3", (2, 4)), "qwen3-4x2": ("qwen3", (4, 2)),
          "qwen3_ring-2x4": ("qwen3_ring", (2, 4)),
          "moonshot-2x4": ("moonshot", (2, 4)),
-         "whisper-4x2": ("whisper", (4, 2))}
+         "whisper-4x2": ("whisper", (4, 2)),
+         "mamba2-2x4": ("mamba2", (2, 4)), "mamba2-4x2": ("mamba2", (4, 2)),
+         "recurrentgemma-2x4": ("recurrentgemma", (2, 4)),
+         "recurrentgemma-4x2": ("recurrentgemma", (4, 2))}
 # the int8-compressed cases, the same way
 INT8 = {"qwen3_ring_int8-2x4": ("qwen3_ring", (2, 4)),
         "qwen3_ring_int8-4x2": ("qwen3_ring", (4, 2))}
 # the reference run of a model tag: one process runs no ring
 REF = {"qwen3": "qwen3", "qwen3_ring": "qwen3", "moonshot": "moonshot",
-       "whisper": "whisper"}
+       "whisper": "whisper", "mamba2": "mamba2",
+       "recurrentgemma": "recurrentgemma"}
+# the cases whose states are saved and restored onto (4, 2)
 CKPT = "qwen3-2x4"
+SSM_CKPT = "mamba2-2x4"
 SMOKE_ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
                "recurrentgemma-9b", "whisper-medium", "paligemma-3b",
                "minitron-8b", "starcoder2-7b", "glm4-9b",
@@ -88,15 +99,13 @@ def _held(key, spec, shape, sizes):
     """Per dimension of the reference leaf ``key`` (stacked ``shape``
     under ``spec``), the rank's block as the port holds it by the
     training layout rule: ``(extent, axis or None)``, split over each
-    axis the spec names, but "model" on the SSM's and the RG-LRU's
-    leaves; a dimension the axis does not divide stays whole."""
-    recurrent = "/ssm/" in f"/{key}/" or "/rec/" in f"/{key}/"
+    axis the spec names; a dimension the axis does not divide stays
+    whole."""
     out = []
     for k, d in enumerate(shape):
         e = spec[k] if k < len(spec) else None
         axes = () if e is None else (e,) if isinstance(e, str) else e
-        axes = [a for a in axes if a == "data" or (a == "model"
-                                                   and not recurrent)]
+        axes = [a for a in axes if a in ("data", "model")]
         count = math.prod(sizes.get(a, 1) for a in axes)
         if axes and d % count == 0 and count > 1:
             assert len(axes) == 1, (key, spec)
@@ -133,7 +142,8 @@ def tp_run(tmp_path_factory):
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks_done = pool.submit(ranks.launch, "train_tp", d, 8, {
-            "models": models, "cases": cases, "ckpt": CKPT}, 180)
+            "models": models, "cases": cases, "ckpt": [CKPT, SSM_CKPT]},
+            180)
         with concurrent.futures.ThreadPoolExecutor(4) as refs:
             ref = {tag: refs.submit(_reference_steps, tag,
                                     ropt.AdamWConfig(), batches[tag], True)
@@ -210,25 +220,39 @@ def test_tp_int8_train_step_within_one_quantum(tp_run, case):
     _assert_state_int8(tp_run["states"][case], states)
 
 
-def test_tp_checkpoint_restores_as_blocks(tp_run):
-    """The state of ``CKPT`` after its steps, saved from (2, 4) and
+def _hold_restore(tp_run, case, leaves):
+    """The state of ``case`` after its steps, saved from its mesh and
     restored onto (4, 2) by ``held_like`` and ``held_specs``: each rank's
     blocks of the parameters and both moments bit-equal to the saved
-    leaves' slices by the training layout rule, some over "model"."""
-    saved = tp_run["states"][CKPT]
-    tag = CASES[CKPT][0]
+    leaves' slices by the training layout rule, some of ``leaves`` (a
+    predicate of the leaf's key) over "model"."""
+    saved = tp_run["states"][case]
+    tag = CASES[case][0]
     specs = tp_run["specs"][tag, (4, 2)]
     over_model = 0
     for r, (run, arr) in enumerate(zip(tp_run["runs"], tp_run["arrays"])):
-        coords = dict(zip(("data", "model"), run["ckpt"]["mesh_b"]))
+        coords = dict(zip(("data", "model"), run["ckpt"][case]["mesh_b"]))
         for k, whole in saved.items():
             key = k.split("/", 1)[1]
             held = _held(key, specs[key], whole.shape, _sizes((4, 2)))
-            np.testing.assert_array_equal(arr[f"ckpt/{k}"],
+            np.testing.assert_array_equal(arr[f"ckpt/{case}/{k}"],
                                           whole[_slice(held, coords)],
                                           err_msg=(r, k))
-            over_model += any(a == "model" for _, a in held)
+            over_model += leaves(key) and any(a == "model" for _, a in held)
     assert over_model
+
+
+def test_tp_checkpoint_restores_as_blocks(tp_run):
+    """``CKPT``'s state (qwen3) restored onto (4, 2) as the rank's blocks
+    (``_hold_restore``)."""
+    _hold_restore(tp_run, CKPT, lambda key: True)
+
+
+def test_tp_ssm_checkpoint_restores_as_blocks(tp_run):
+    """``SSM_CKPT``'s state (mamba2 on (2, 4)) restored onto (4, 2) as the
+    rank's blocks, the SSM's ``w_in`` and ``w_out`` among those over
+    "model" (``_hold_restore``)."""
+    _hold_restore(tp_run, SSM_CKPT, lambda key: "/ssm/" in f"/{key}/")
 
 
 def _local(spec, shape, sizes, axes=("data", "model")):
@@ -249,8 +273,7 @@ def _local(spec, shape, sizes, axes=("data", "model")):
 def test_held_shapes_match_state_specs(arch, shape):
     """The training layout rule (``train_step.held_shapes``) against the
     reference's ``state_specs``: every leaf the reference's local shape
-    on the mesh, but the SSM's and the RG-LRU's leaves, cut over "data"
-    alone (their "model" entries whole, ROADMAP item 6d)."""
+    on the mesh."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.convert import logical_shapes
     from repro_torch.training import train_step as ts
@@ -263,9 +286,7 @@ def test_held_shapes_match_state_specs(arch, shape):
     for name, got in held.items():
         key, i = _port_leaf(name)
         spec = specs[key][i is not None:]
-        recurrent = "/ssm/" in f"/{key}/" or "/rec/" in f"/{key}/"
-        want = _local(spec, whole[name], sizes,
-                      ("data",) if recurrent else ("data", "model"))
+        want = _local(spec, whole[name], sizes)
         assert got == want, (name, got, want, spec)
         over_model += got != _local(spec, whole[name], sizes, ("data",))
     assert over_model, "no leaf split over \"model\""
